@@ -1,0 +1,7 @@
+from apex_tpu_torch.models.generation import generate
+from apex_tpu_torch.models.gpt import (GPTConfig, GPTModel,
+                                       ParallelDecoderBlock, gpt2_small_config,
+                                       gpt_tiny_config)
+
+__all__ = ["GPTConfig", "GPTModel", "ParallelDecoderBlock", "generate",
+           "gpt2_small_config", "gpt_tiny_config"]

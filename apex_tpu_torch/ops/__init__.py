@@ -1,0 +1,12 @@
+"""Kernel ops of the port: each holds a hand-written Hopper kernel
+(``apex_tpu_torch/csrc``) and its plain PyTorch twin."""
+
+from apex_tpu_torch.ops.flash_attention import (flash_attention,
+                                                flash_attention_with_lse,
+                                                mha_reference)
+from apex_tpu_torch.ops.layer_norm import layer_norm
+from apex_tpu_torch.ops.paged_attention import (paged_attention,
+                                                paged_attention_reference)
+
+__all__ = ["flash_attention", "flash_attention_with_lse", "layer_norm",
+           "mha_reference", "paged_attention", "paged_attention_reference"]

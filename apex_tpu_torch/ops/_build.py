@@ -1,0 +1,173 @@
+"""Build, load and launch the port's CUDA kernels.
+
+Counterpart of ``apex_tpu/ops/_dispatch.py``. Each source in
+``apex_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first
+use into its own shared library with a plain C interface, loaded with
+``ctypes``. The build lands in ``apex_tpu_torch/_build/`` under a name that
+carries a hash of the sources and flags, so an edited source rebuilds and a
+stale library is never loaded. All sources build at once, one ``nvcc``
+process each, started together.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`launch` raises on a non-zero code. A failed build raises too: a CUDA
+tensor never falls back to a kernel's plain PyTorch twin. Each wrapper that
+launches a kernel adds one to ``launches[name]``, so a run can show which
+kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD = PACKAGE / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: kernel name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "layer_norm_fwd": ("layer_norm_fwd.cu",
+                       "apex_tpu/ops/layer_norm.py:55"),
+    "flash_fwd": ("flash_fwd.cu", "apex_tpu/ops/flash_attention.py:308"),
+    "paged_attention": ("paged_attention.cu",
+                        "apex_tpu/ops/paged_attention.py:65"),
+}
+
+#: launches per kernel since the last :func:`reset_launches`
+launches = {name: 0 for name in KERNELS}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def source_path(name: str) -> Path:
+    return CSRC / KERNELS[name][0]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the port's CUDA kernels build at first use")
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source_path(name)] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD / f"{name}.{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every stale kernel source, all in parallel; returns the wall
+    seconds spent. The ptxas report (registers, shared memory, spills) of
+    each build is kept beside its library as ``<name>.log``."""
+    stale = [n for n in KERNELS if not _library_path(n).exists()]
+    if not stale:
+        return 0.0
+    nvcc = _nvcc()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for name in stale:
+        out = _library_path(name)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        log = open(BUILD / f"{name}.log", "w")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))],
+            stdout=log, stderr=subprocess.STDOUT)
+        procs.append((name, proc, tmp, out, log))
+    failed = []
+    for name, proc, tmp, out, log in procs:
+        proc.wait()
+        log.close()
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        logs = "\n".join((BUILD / f"{n}.log").read_text()[-4000:]
+                         for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    with _lock:
+        if name not in _libs:
+            build_all()
+            _libs[name] = ctypes.CDLL(str(_library_path(name)))
+        return _libs[name]
+
+
+def launch(name: str, symbol: str, argtypes, *args) -> None:
+    """Call C entry point ``symbol`` of kernel ``name`` on ``args`` (the
+    stream last) and raise if it reports a CUDA error. Counts the launch."""
+    key = (name, symbol)
+    fn = _fns.get(key)
+    if fn is None:
+        lib = library(name)
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.apex_error_string.argtypes = [ctypes.c_int]
+        lib.apex_error_string.restype = ctypes.c_char_p
+        _fns[key] = fn
+    rc = fn(*args)
+    if rc != 0:
+        msg = library(name).apex_error_string(rc).decode()
+        raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
+    launches[name] += 1
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {t.dtype}")
+    return code
+
+
+def check_cuda(*tensors: torch.Tensor) -> None:
+    """Kernel-side argument check: every tensor on the same CUDA device and
+    contiguous (the wrappers make them so before the call)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
