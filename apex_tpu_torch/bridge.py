@@ -6,6 +6,12 @@ variables)`` — onto the state dict of ``apex_tpu_torch.models.GPTModel``.
 Both sides keep the reference's ``(out, in)`` weight layout, so every
 tensor maps one to one; only the names change (``layer_i`` ->
 ``layers.i``). Takes numpy, so it imports nothing of JAX.
+
+Any tree shaped like the params maps the same way, so the tests carry the
+reference's gradients (``jax.grad`` of ``gpt_loss``) and its Adam moments
+(``flat_buffer.unflatten`` of ``FusedAdam.state``) across by name too: the
+two optimizers order their flat segments differently (JAX's sorted keys,
+the port's ``named_parameters()``), so parity is held per parameter.
 """
 
 from __future__ import annotations

@@ -2,9 +2,11 @@
 
 Counterpart of ``apex_tpu/models/gpt.py`` (``GPTConfig``,
 ``gpt2_small_config``, ``gpt_tiny_config``, ``ParallelDecoderBlock``,
-``GPTModel``) in its three inference paths:
+``GPTModel``, ``lm_token_loss``, ``gpt_loss``) in its three paths:
 
-- no cache: causal flash attention over the whole sequence;
+- no cache: causal flash attention over the whole sequence; the training
+  path, differentiable end to end (the LayerNorm and flash kernels have
+  their backward kernels);
 - a contiguous cache: the static prefill (length 0, more than one token)
   rides the flash kernel, later chunks the dense ``cached_attention``;
 - a paged cache: each slot's K/V chunk is written into its pages and the
@@ -194,3 +196,18 @@ class GPTModel(nn.Module):
         if cache is None:
             return logits
         return logits, advance_cache(cache, new_layers, s)
+
+
+def lm_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token loss at tensor-parallel size 1 (the reference's
+    unbound branch): logits cast to fp32, ``log_softmax``, mean NLL of
+    ``labels``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None])[..., 0].mean()
+
+
+def gpt_loss(model: GPTModel, input_ids: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token loss of ``model`` on ``input_ids`` (the no-cache
+    forward), as ``apex_tpu.models.gpt.gpt_loss`` at tp=1."""
+    return lm_token_loss(model(input_ids), labels)

@@ -1,7 +1,7 @@
 """``FusedLayerNorm`` module (counterpart of
 ``apex_tpu/normalization/fused_layer_norm.py::FusedLayerNorm``): fp32
-``weight``/``bias`` (ones/zeros), output in the input's dtype, forward
-through the LayerNorm kernel."""
+``weight``/``bias`` (ones/zeros), output in the input's dtype, forward and
+backward through the LayerNorm kernels."""
 
 from __future__ import annotations
 

@@ -3,10 +3,12 @@
 Counterpart of ``apex_tpu/ops/_dispatch.py``. Each source in
 ``apex_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first
 use into its own shared library with a plain C interface, loaded with
-``ctypes``. The build lands in ``apex_tpu_torch/_build/`` under a name that
-carries a hash of the sources and flags, so an edited source rebuilds and a
-stale library is never loaded. All sources build at once, one ``nvcc``
-process each, started together.
+``ctypes``. One source may hold several kernels (``flash_bwd.cu`` holds the
+dq and the dk/dv kernels), each with its own name and launch count. The
+build lands in ``apex_tpu_torch/_build/`` under a name that carries a hash
+of the sources and flags, so an edited source rebuilds and a stale library
+is never loaded. All sources build at once, one ``nvcc`` process each,
+started together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on a non-zero code. A failed build raises too: a CUDA
@@ -42,6 +44,12 @@ KERNELS = {
     "flash_fwd": ("flash_fwd.cu", "apex_tpu/ops/flash_attention.py:308"),
     "paged_attention": ("paged_attention.cu",
                         "apex_tpu/ops/paged_attention.py:65"),
+    "layer_norm_bwd": ("layer_norm_bwd.cu",
+                       "apex_tpu/ops/layer_norm.py:134"),
+    "flash_bwd_dq": ("flash_bwd.cu", "apex_tpu/ops/flash_attention.py:526"),
+    "flash_bwd_dkdv": ("flash_bwd.cu",
+                       "apex_tpu/ops/flash_attention.py:572"),
+    "adam": ("adam.cu", "apex_tpu/ops/optim_kernels.py:164"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`
@@ -76,18 +84,22 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
+    src = source_path(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [source_path(name)] + sorted(CSRC.glob("*.cuh")):
+    for path in [src] + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD / f"{name}.{h.hexdigest()[:16]}.so"
+    return BUILD / f"{src.stem}.{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:
     """Compile every stale kernel source, all in parallel; returns the wall
     seconds spent. The ptxas report (registers, shared memory, spills) of
-    each build is kept beside its library as ``<name>.log``."""
-    stale = [n for n in KERNELS if not _library_path(n).exists()]
+    each build is kept beside its library as ``<source stem>.log``."""
+    by_source = {}                        # one build per source, not per name
+    for name in KERNELS:
+        by_source.setdefault(KERNELS[name][0], name)
+    stale = [n for n in by_source.values() if not _library_path(n).exists()]
     if not stale:
         return 0.0
     nvcc = _nvcc()
@@ -97,33 +109,36 @@ def build_all() -> float:
     for name in stale:
         out = _library_path(name)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        log = open(BUILD / f"{name}.log", "w")
+        log_path = BUILD / f"{source_path(name).stem}.log"
+        log = open(log_path, "w")
         proc = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))],
             stdout=log, stderr=subprocess.STDOUT)
-        procs.append((name, proc, tmp, out, log))
+        procs.append((proc, tmp, out, log, log_path))
     failed = []
-    for name, proc, tmp, out, log in procs:
+    for proc, tmp, out, log, log_path in procs:
         proc.wait()
         log.close()
         if proc.returncode != 0:
-            failed.append(name)
+            failed.append(log_path)
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
     if failed:
-        logs = "\n".join((BUILD / f"{n}.log").read_text()[-4000:]
-                         for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+        logs = "\n".join(p.read_text()[-4000:] for p in failed)
+        raise RuntimeError(f"nvcc failed for {[p.stem for p in failed]}:\n"
+                           f"{logs}")
     return time.perf_counter() - t0
 
 
 def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``'s source (built if stale)."""
+    src = KERNELS[name][0]
     with _lock:
-        if name not in _libs:
+        if src not in _libs:
             build_all()
-            _libs[name] = ctypes.CDLL(str(_library_path(name)))
-        return _libs[name]
+            _libs[src] = ctypes.CDLL(str(_library_path(name)))
+        return _libs[src]
 
 
 def launch(name: str, symbol: str, argtypes, *args) -> None:
@@ -144,6 +159,15 @@ def launch(name: str, symbol: str, argtypes, *args) -> None:
         msg = library(name).apex_error_string(rc).decode()
         raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
     launches[name] += 1
+
+
+def query(name: str, symbol: str, argtypes, restype, *args):
+    """Call C helper ``symbol`` of kernel ``name``'s library, one that
+    launches nothing (a scratch size, say): not counted as a launch."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn(*args)
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -170,4 +194,5 @@ def check_cuda(*tensors: torch.Tensor) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float

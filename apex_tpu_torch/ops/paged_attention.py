@@ -8,7 +8,9 @@ page_size, head_dim)`` and is read through the int32 ``(batch, max_pages)``
 block table; slot ``b``'s query sits at position ``lengths[b] - 1`` and sees
 every position below ``lengths[b]``. Entries past a slot's length must hold
 a valid page id (page 0, the pool's null page) and are never read. A slot
-of length 0 outputs exactly 0.
+of length 0 outputs exactly 0. Decode only: it has no backward, as the
+reference kernel has no VJP, so a call under autograd on an input that
+requires grad raises on either device.
 
 A tensor on the CPU takes the twin; a CUDA tensor always takes the kernel.
 """
@@ -123,6 +125,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     k_scales=None, v_scales=None):
     """Decode GQA attention over a paged KV pool. Returns ``(batch, heads,
     1, head_dim)`` in q's dtype."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pages, v_pages)):
+        raise RuntimeError(
+            "paged_attention has no backward (decode only, as the reference "
+            "kernel): call it under torch.no_grad() or on inputs that do not "
+            "require grad")
     _validate(q, k_pages, v_pages, block_tables, lengths, window, k_scales,
               v_scales)
     if scale is None:

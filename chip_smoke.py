@@ -3,32 +3,49 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s main path — GPT-2-small greedy paged decode
-through ``PagedDecodeEngine`` — at full width and depth with seeded random
-weights, after building every CUDA kernel of that path from
-``apex_tpu_torch/csrc`` (into ``apex_tpu_torch/_build/``). Phases, one JSON
-line each:
+Drives ``apex_tpu_torch``'s two paths at full width and depth with seeded
+random weights, after building every CUDA kernel from
+``apex_tpu_torch/csrc`` (into ``apex_tpu_torch/_build/``): GPT-2-small greedy
+paged decode through ``PagedDecodeEngine``, and GPT-2-small training steps
+(``GPTModel``, ``gpt_loss``, ``loss.backward()``, ``FusedAdam.step()``).
+Phases, one JSON line each:
 
-1. ``device``: the card, its power limit, the kernels' build time. The
+1. ``device``: the card, its power limit, the kernels' build time and
+   registers per thread (from the ptxas reports). The
    card is then kept busy for two seconds, and the phases that time it
    record its clock, power draw and temperature.
 2. ``kernels``: each kernel against its plain PyTorch twin on the card, at
-   the main path's shapes, in fp32 and bf16, with the tolerances below, plus
-   its time, the twin's time, one PyTorch library call's time where one
-   computes the same function, and the card's least time for the work.
+   the shapes of the serving and training paths, in fp32 and bf16 (Adam in
+   fp32 only, as its buffers are), with the tolerances below, plus its time,
+   the twin's time, one PyTorch library call's time where one computes the
+   same function, and the card's least time for the work.
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
    ``generate``, and must have launched every kernel.
 4. ``engine_bf16``: the same workload in bf16, a warm run then two timed
    runs: generated tokens per second.
-5. ``engine_bf16_profile`` and ``kernel_device_ms``: one more bf16 run under
-   ``torch.profiler`` (device busy and idle share, the top device kernels),
-   then each kernel's device time per call at the shapes of phase 2, then
-   the timed bf16 run once more. Last, so that no profiler state can touch
-   the times of phases 2-4.
+5. ``train_fp32``: GPT-2-small, fp32, one batch of 2 x 256 tokens, on the
+   card (kernels) and on the CPU (twins) from the same seeded weights: the
+   losses agree to 1e-4 relative, every parameter has a gradient on the
+   card within atol 1e-4 / rtol 1e-3 of the CPU's, two ``FusedAdam`` steps
+   on each side leave a third forward's losses within 1e-4 relative, and
+   every training kernel launched.
+6. ``train_bf16``: bf16 compute over fp32 parameters, 8 x 1024 tokens,
+   ``FusedAdam(lr=1e-4, weight_decay=0.01)`` with biases and norms
+   excluded: 2 warm steps, then 10 timed steps. Step ms, tokens/s, FLOPs
+   per step and MFU, the launches of each kernel per step, and a falling
+   finite loss.
+7. ``engine_bf16_profile``, ``kernel_device_ms`` and ``train_bf16_profile``:
+   one more bf16 engine run under ``torch.profiler`` (device busy and idle
+   share, the top device kernels), each kernel's device time per call at
+   the shapes of phase 2, the timed bf16 engine run once more, and last one
+   profiled training step. Last, so that no profiler state can touch the
+   times of phases 2-6.
 
-Then the per-kernel summary line and, last, ``{"ok": true, "device": ...}``.
+Then the per-kernel summary line (serving kernels with the launches of the
+timed engine run, training kernels with those of the timed training run)
+and, last, ``{"ok": true, "device": ...}``.
 Any failure raises, so the run exits non-zero without the last line. With
 no CUDA device, or without the ``apex_tpu_torch`` package beside it, it
 exits non-zero at once. Imports nothing of JAX.
@@ -38,6 +55,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -55,13 +73,66 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # same bf16 inputs and round once to bf16, so they differ by at most about
 # one bf16 ulp (2^-7 relative).
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
+# dgamma/dbeta: fp32 sums over all 8192 rows, taken in another order than
+# the twin's; magnitudes reach ~100, so 1e-4 relative and 1e-3 absolute
+SUM_TOL = (1e-3, 1e-4)
+# the Adam row is checked at a step where every term is seen: the update
+# is ~ADAM_LR and the decoupled decay ADAM_LR * ADAM_WD * |p| ~ 1e-4|p|,
+# both far above UPDATE_TOL's atol, which is two fp32 ulps of |p| ~ 4-8
+ADAM_LR, ADAM_WD = 1e-3, 0.1
+UPDATE_TOL = (1e-6, 1e-4)
 
 N_REQUESTS, NUM_SLOTS, PAGE_SIZE, SEED = 24, 8, 16, 1
+DEV = "cuda"       # the card; a CPU rehearsal of the phases may set "cpu"
+
+# the training path: GPT-2's context, a fixed synthetic batch
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARM, TRAIN_TIMED = 8, 1024, 2, 10
+TRAIN_LR, TRAIN_WD = 1e-4, 0.01
+FP32_BATCH, FP32_SEQ = 2, 256
+
+#: the kernels of the serving path and of the training path
+SERVING_KERNELS = ("layer_norm_fwd", "flash_fwd", "paged_attention")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
+                 "layer_norm_fwd", "layer_norm_bwd", "adam")
 
 #: kernel name -> the CUDA symbol the profiler reports its launches under
+#: (for ``layer_norm_bwd`` its dx kernel, one launch per call; the small
+#: dgamma/dbeta reduction that follows it is not counted)
 KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_fwd": "flash_fwd_kernel",
-                  "paged_attention": "paged_decode_kernel"}
+                  "paged_attention": "paged_decode_kernel",
+                  "layer_norm_bwd": "layer_norm_bwd_dx_kernel",
+                  "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkdv": "flash_bwd_dkdv_kernel",
+                  "adam": "adam_kernel"}
+
+
+def ptxas_registers() -> dict:
+    """Registers per thread of each built kernel (``<bf16>`` marks the bf16
+    instantiation), from the ptxas reports the build keeps beside each
+    library."""
+    import re
+
+    from apex_tpu_torch.ops import _build
+
+    names = ("layer_norm_fwd_kernel", "layer_norm_bwd_dx_kernel",
+             "layer_norm_bwd_dw_kernel", "flash_fwd_kernel",
+             "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+             "paged_decode_kernel", "adam_kernel")
+    regs = {}
+    for log in sorted(_build.BUILD.glob("*.log")):
+        entry = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                name = next((n for n in names if n in entry), entry)
+                bf16 = "<bf16>" if "nv_bfloat16" in entry else ""
+                regs[name + bf16] = int(m.group(1))
+                entry = None
+    return regs
 
 
 def emit(phase: str, **fields) -> None:
@@ -85,7 +156,7 @@ def warm_card(seconds: float = 2.0) -> None:
     kernel times of phase 2 are taken at the clocks of a loaded card."""
     import torch
 
-    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    a = torch.randn(8192, 8192, device=DEV, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
         for _ in range(20):
@@ -136,11 +207,15 @@ def device_profile(fn, reps: int = 1):
 
 
 def kernel_device_ms(fn, symbol: str, reps: int = 20):
-    """Device time of one call of the kernel whose name holds ``symbol``,
-    from the profiler (None when the profiler sees no device time)."""
+    """``(device ms per launch, launches seen)`` of the kernels whose names
+    hold ``symbol`` over ``reps`` calls of ``fn``, from the profiler: the
+    time is divided by the launches the profiler reports, not by ``reps``,
+    so launches it drops do not count as time ((None, 0) when it sees
+    none)."""
     _, acts = device_profile(fn, reps)
-    ms = sum(t for k, (t, _) in acts.items() if symbol in k)
-    return ms / reps if ms > 0 else None
+    hits = [(t, c) for k, (t, c) in acts.items() if symbol in k]
+    ms, seen = sum(t for t, _ in hits), sum(c for _, c in hits)
+    return (ms / seen if seen else None), seen
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -150,10 +225,10 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name: str, got, want, dtype: str) -> float:
+def compare(name: str, got, want, dtype: str, tol=None) -> float:
     import torch
 
-    atol, rtol = TOL[dtype]
+    atol, rtol = tol if tol is not None else TOL[dtype]
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
@@ -177,7 +252,7 @@ def check_layer_norm(gen, dev):
 
     out = []
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in (1024, 8):
+        for rows in (TRAIN_BATCH * TRAIN_SEQ, 1024, 8):
             cols = 768
             x = (torch.randn(rows, cols, generator=gen) * 2 + 0.5).to(dev,
                                                                       dtype)
@@ -212,9 +287,9 @@ def check_flash(gen, dev):
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 
     out = []
-    b, h, d = 1, 12, 64
+    h, d = 12, 64
     for dtype in (torch.float32, torch.bfloat16):
-        for s in (16, 128, 1024):
+        for b, s in ((1, 16), (1, 128), (1, 1024), (TRAIN_BATCH, TRAIN_SEQ)):
             q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dev, dtype)
                        for _ in range(3))
             scale = d ** -0.5
@@ -285,6 +360,174 @@ def check_paged(gen, dev):
     return out
 
 
+def check_layer_norm_bwd(gen, dev):
+    import torch
+    import torch.nn.functional as F
+
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+
+    out = []
+    rows, cols = TRAIN_BATCH * TRAIN_SEQ, 768
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(rows, cols, generator=gen) * 2 + 0.5).to(dev, dtype)
+        dy = torch.randn(rows, cols, generator=gen).to(dev, dtype)
+        w = (torch.rand(cols, generator=gen) + 0.5).to(dev)
+        b = torch.randn(cols, generator=gen).to(dev)
+        _, mean, rstd = ln.layer_norm_fwd_reference(x, w, b)
+        dx, dw, db = ln.layer_norm_bwd(dy, x, mean, rstd, w)
+        torch.cuda.synchronize()
+        rdx, rdw, rdb = ln.layer_norm_bwd_reference(dy, x, mean, rstd, w)
+        dn = str(dtype).split(".")[1]
+        err = max(compare("layer_norm_bwd dx", dx, rdx, dn),
+                  compare("layer_norm_bwd dgamma", dw, rdw, dn, SUM_TOL),
+                  compare("layer_norm_bwd dbeta", db, rdb, dn, SUM_TOL))
+        elt = x.element_size()
+        # read dy, x, mean, rstd, w; write dx, dgamma, dbeta
+        nbytes = 3 * rows * cols * elt + 2 * rows * 4 + 3 * cols * 4
+        bms, by = bound_ms(nbytes, 13 * rows * cols, dn)
+        kernel = partial(ln.layer_norm_bwd, dy, x, mean, rstd, w)
+        xl = x.detach().requires_grad_()
+        wl, bl = (t.to(dtype).requires_grad_() for t in (w, b))
+        y = F.layer_norm(xl, (cols,), wl, bl, 1e-5)
+        out.append((dict(
+            name="layer_norm_bwd", dtype=dn, shape=[rows, cols],
+            max_abs_err=err, ms=time_ms(kernel),
+            plain_ms=time_ms(partial(ln.layer_norm_bwd_reference, dy, x,
+                                     mean, rstd, w)),
+            library_ms=time_ms(partial(torch.autograd.grad, y, (xl, wl, bl),
+                                       dy, retain_graph=True)),
+            library="backward of F.layer_norm",
+            bound_ms=bms, bound_by=by), kernel))
+    return out
+
+
+def check_flash_bwd(gen, dev):
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+
+    out = []
+    b, h, s, d = TRAIN_BATCH, 12, TRAIN_SEQ, 64
+    scale = d ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen).to(dev, dtype)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_reference(q, k, v, scale=scale)
+        delta = fa.flash_bwd_delta(o, do)
+        args = (q, k, v, do, lse, delta)
+        dq = fa.flash_bwd_dq(*args, scale=scale)
+        dk, dv = fa.flash_bwd_dkdv(*args, scale=scale)
+        torch.cuda.synchronize()
+        dn = str(dtype).split(".")[1]
+        err_dq = compare("flash_bwd_dq", dq,
+                         fa.flash_bwd_dq_reference(*args, scale=scale), dn)
+        rdk, rdv = fa.flash_bwd_dkdv_reference(*args, scale=scale)
+        err_dkdv = max(compare("flash_bwd_dkdv dk", dk, rdk, dn),
+                       compare("flash_bwd_dkdv dv", dv, rdv, dn))
+        # the size of what was compared: an error of 0 must not come from
+        # outputs that are 0
+        absmax = {"flash_bwd_dq": dq.abs().max().item(),
+                  "flash_bwd_dkdv": max(dk.abs().max().item(),
+                                        dv.abs().max().item())}
+        # the library yardstick computes dq, dk and dv in one backward call
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        library_ms = time_ms(partial(torch.autograd.grad, ol, (ql, kl, vl),
+                                     do, retain_graph=True))
+        elt = q.element_size()
+        pairs = b * h * s * (s + 1) // 2      # visible (query, key) pairs
+        tile = b * h * s * d * elt
+        inputs = 4 * tile + 2 * b * h * s * 4   # q, k, v, do, lse, delta
+        for name, err, fn, plain, n_out, flops in (
+                ("flash_bwd_dq", err_dq, fa.flash_bwd_dq,
+                 fa.flash_bwd_dq_reference, 1, 6 * pairs * d),
+                ("flash_bwd_dkdv", err_dkdv, fa.flash_bwd_dkdv,
+                 fa.flash_bwd_dkdv_reference, 2, 8 * pairs * d)):
+            bms, by = bound_ms(inputs + n_out * tile, flops, dn)
+            kernel = partial(fn, *args, scale=scale)
+            out.append((dict(
+                name=name, dtype=dn, shape=[b, h, s, d], max_abs_err=err,
+                out_absmax=absmax[name], ms=time_ms(kernel),
+                plain_ms=time_ms(partial(plain, *args, scale=scale)),
+                library_ms=library_ms,
+                library="backward of F.scaled_dot_product_attention("
+                        "is_causal=True): dq, dk and dv together",
+                bound_ms=bms, bound_by=by), kernel))
+    return out
+
+
+def no_decay(name: str) -> bool:
+    """Biases and norm parameters take no weight decay."""
+    return name.endswith("bias") or "norm" in name
+
+
+def check_adam(gen, dev):
+    """The Adam kernel over GPT-2-small's flat buffers (fp32, as in the
+    reference), with its per-tensor decay vector."""
+    import torch
+
+    from apex_tpu_torch.models import GPTModel, gpt2_small_config
+    from apex_tpu_torch.ops import flat_buffer
+
+    oa = importlib.import_module("apex_tpu_torch.ops.optim_kernels")
+
+    named = list(GPTModel(gpt2_small_config(), device="meta")
+                 .named_parameters())
+    spec = flat_buffer.build_spec(named)
+    rows = spec.total_rows
+    seg = spec.segment_rows().to(dev)
+    decays = torch.tensor([not no_decay(n) for n, _ in named], device=dev)
+    wd = decays.float() * ADAM_WD
+    g, p, m = (torch.randn(rows, flat_buffer.LANE, generator=gen).to(dev)
+               for _ in range(3))
+    v = torch.rand(rows, flat_buffer.LANE, generator=gen).to(dev)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=wd,
+              lr=ADAM_LR, step=torch.tensor(3, device=dev), seg_rows=seg)
+    p1, m1, v1 = oa.adam_update(g, p.clone(), m.clone(), v.clone(), **kw)
+    torch.cuda.synchronize()
+    rp, rm, rv = oa.adam_update_reference(g, p, m, v, **kw)
+    # the update itself (~lr), not the parameter it lands on, whose own
+    # tolerance would hide it
+    err = max(compare("adam p - p0", p1 - p, rp - p, "float32", UPDATE_TOL),
+              compare("adam m", m1, rm, "float32"),
+              compare("adam v", v1, rv, "float32"))
+    # the decay each row took, fitted from the kernel's parameters against
+    # the twin's without decay: ADAM_WD on the decayed tensors' rows, 0 on
+    # the biases' and norms'
+    nd = oa.adam_update_reference(
+        g, p, m, v, **dict(kw, weight_decay=torch.zeros_like(wd)))[0]
+    fitted = ((nd - p1) * p).sum(1) / (ADAM_LR * (p * p).sum(1))
+    decay_err = compare("adam decay per row", fitted, wd[seg.long()],
+                        "float32", (1e-3, 0.0))
+    if decays.all() or not decays.any():
+        raise AssertionError("adam: the check needs decayed and excluded "
+                             "tensors both")
+    bufs = [t.clone() for t in (p, m, v)]
+    kernel = partial(oa.adam_update, g, *bufs, **kw)
+    # library: fused AdamW over the same tensors, one per parameter, with
+    # the same decay groups
+    lp = flat_buffer.unflatten(p.clone(), spec)
+    lg = flat_buffer.unflatten(g, spec)
+    for n, t in lp.items():
+        t.grad = lg[n]
+    lib = torch.optim.AdamW(
+        [{"params": [lp[n] for n, _ in named if not no_decay(n)],
+          "weight_decay": ADAM_WD},
+         {"params": [lp[n] for n, _ in named if no_decay(n)],
+          "weight_decay": 0.0}], lr=ADAM_LR, fused=True)
+    # read g, p, m, v and seg_rows; write p, m, v
+    nbytes = 7 * rows * flat_buffer.LANE * 4 + rows * 4 + wd.numel() * 4
+    bms, by = bound_ms(nbytes, 17 * rows * flat_buffer.LANE, "float32")
+    return [(dict(
+        name="adam", dtype="float32", shape=[rows, flat_buffer.LANE],
+        max_abs_err=err, decay_fit_err=decay_err, ms=time_ms(kernel),
+        plain_ms=time_ms(partial(oa.adam_update_reference, g, p, m, v, **kw)),
+        library_ms=time_ms(lib.step),
+        library="torch.optim.AdamW(fused=True).step()",
+        bound_ms=bms, bound_by=by), kernel)]
+
+
 # --- phases 3 and 4: the engine --------------------------------------------
 
 
@@ -325,7 +568,7 @@ def run_engine(model, prompts, new_tokens):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(_build.launches)
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in SERVING_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"the engine run launched no {missing} kernel")
     free = engine.cache["free_top"]
@@ -340,8 +583,154 @@ def build_model(dtype):
 
     from apex_tpu_torch.models import GPTModel, gpt2_small_config
 
-    return GPTModel(gpt2_small_config(dtype=dtype), device="cuda",
+    return GPTModel(gpt2_small_config(dtype=dtype), device=DEV,
                     generator=torch.Generator().manual_seed(SEED)).eval()
+
+
+# --- phases 5 and 6: training ----------------------------------------------
+
+
+def train_batch(cfg, batch: int, seq: int, dev):
+    """Token ids (GPT-2's 50257, within the padded vocab) and next-token
+    labels, from the seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, min(50257, cfg.vocab_size),
+                                        (batch, seq)))
+    return ids.to(dev), torch.roll(ids, -1, dims=1).to(dev)
+
+
+def make_optimizer(model):
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    return FusedAdam(model.named_parameters(), lr=TRAIN_LR,
+                     weight_decay=TRAIN_WD, exclude_from_weight_decay=no_decay)
+
+
+def train_fp32():
+    """Card against CPU: loss, every gradient, and two FusedAdam steps."""
+    import torch
+
+    from apex_tpu_torch.models import GPTModel, gpt2_small_config, gpt_loss
+    from apex_tpu_torch.ops import _build
+
+    cfg = gpt2_small_config(dtype=torch.float32)
+    sides = {}
+    for side, dev in (("card", DEV), ("cpu", "cpu")):
+        model = GPTModel(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(SEED))
+        sides[side] = (model, *train_batch(cfg, FP32_BATCH, FP32_SEQ, dev))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    losses, grads = {}, {}
+    for side, (model, ids, labels) in sides.items():
+        loss = gpt_loss(model, ids, labels)
+        loss.backward()
+        grads[side] = {n: p.grad for n, p in model.named_parameters()}
+        losses[side] = [loss.item()]
+    missing = [n for n, g in grads["card"].items() if g is None]
+    if missing:
+        raise AssertionError(f"train_fp32: no gradient on the card for "
+                             f"{missing}")
+    grad_err = 0.0
+    for n, g in grads["card"].items():
+        grad_err = max(grad_err, compare(f"train_fp32 grad {n}", g.cpu(),
+                                         grads["cpu"][n], "float32",
+                                         (1e-4, 1e-3)))
+    for side, (model, ids, labels) in sides.items():
+        opt = make_optimizer(model)          # keeps the gradients above
+        opt.step()
+        opt.zero_grad()
+        loss = gpt_loss(model, ids, labels)
+        loss.backward()
+        opt.step()
+        losses[side].append(loss.item())
+        with torch.no_grad():
+            losses[side].append(gpt_loss(model, ids, labels).item())
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for i, (a, b) in enumerate(zip(losses["card"], losses["cpu"])):
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"train_fp32: loss {i} differs: card {a} "
+                                 f"vs CPU {b}")
+    idle = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"train_fp32: no launch of {idle}")
+    emit("train_fp32", batch=FP32_BATCH, seq=FP32_SEQ,
+         layers=cfg.num_layers, losses_card=losses["card"],
+         losses_cpu=losses["cpu"], max_grad_abs_err=grad_err,
+         params_with_grad=len(grads["card"]), launches=launches)
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """FLOPs of one training step: 6 x the matmul parameters (the tied LM
+    head included, embeddings' gathers and norms not) per token, plus causal
+    attention, 3 x (forward) 2 products x 2 FLOPs x d per visible pair."""
+    e, layers = cfg.hidden_size, cfg.num_layers
+    matmul_params = layers * 12 * e * e + cfg.vocab_size * e
+    pairs = batch * cfg.num_heads * seq * (seq + 1) // 2
+    return (6 * matmul_params * batch * seq
+            + layers * 12 * pairs * cfg.head_dim)
+
+
+def train_bf16(smi):
+    import torch
+
+    from apex_tpu_torch.models import gpt_loss
+    from apex_tpu_torch.ops import _build
+
+    model = build_model(torch.bfloat16)
+    cfg = model.config
+    opt = make_optimizer(model)
+    ids, labels = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, DEV)
+
+    def step():
+        opt.zero_grad()
+        loss = gpt_loss(model, ids, labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(TRAIN_WARM)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    with torch.no_grad():
+        final = gpt_loss(model, ids, labels).item()
+    losses = [x.item() for x in losses]
+    want = {"flash_fwd": cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
+            "flash_bwd_dkdv": cfg.num_layers,
+            "layer_norm_fwd": 2 * cfg.num_layers + 1,
+            "layer_norm_bwd": 2 * cfg.num_layers + 1, "adam": 1}
+    per_step = {k: launches[k] / TRAIN_TIMED for k in want}
+    wrong = {k: n for k, n in per_step.items() if n != want[k]}
+    if wrong:
+        raise AssertionError(f"train_bf16: launches per step {wrong}, want "
+                             f"{want}")
+    if not all(map(math.isfinite, losses + [final])) or not final < losses[0]:
+        raise AssertionError(f"train_bf16: loss not finite and falling: "
+                             f"{losses} then {final}")
+    step_s = elapsed / TRAIN_TIMED
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    emit("train_bf16", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         layers=cfg.num_layers, timed_steps=TRAIN_TIMED,
+         step_ms=step_s * 1e3, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+         flops_per_step=flops,
+         flops_formula="6 * (12 L e^2 + V e) * B * S + 12 L * B H S(S+1)/2 "
+                       "* d",
+         mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+         peak_flops=PEAK_FLOPS["bfloat16"], losses=losses,
+         loss_after=final, launches_per_step=per_step, launches=launches,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         nvidia_smi=smi, card_after=card_state())
+    return step, launches
 
 
 def main() -> int:
@@ -366,14 +755,15 @@ def main() -> int:
     build_s = _build.build_all()
     emit("device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=build_s)
+         build_s=build_s, registers=ptxas_registers())
     print(smi, flush=True)
 
     warm_card()
     card_before = card_state()
     gen = torch.Generator().manual_seed(SEED)
-    checks = (check_layer_norm(gen, "cuda") + check_flash(gen, "cuda")
-              + check_paged(gen, "cuda"))
+    checks = (check_layer_norm(gen, DEV) + check_flash(gen, DEV)
+              + check_paged(gen, DEV) + check_layer_norm_bwd(gen, DEV)
+              + check_flash_bwd(gen, DEV) + check_adam(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, card_before=card_before,
          card_after=card_state(), results=rows)
@@ -384,7 +774,7 @@ def main() -> int:
     model = build_model(torch.float32)
     outs, stats, elapsed, launches32 = run_engine(model, prompts, new_tokens)
     for i, (p, n, o) in enumerate(zip(prompts, new_tokens, outs)):
-        ref = generate(model, torch.from_numpy(p)[None].cuda(), n)
+        ref = generate(model, torch.from_numpy(p)[None].to(DEV), n)
         ref = ref[0, p.shape[0]:].cpu().numpy()
         if o.shape != ref.shape or (o != ref).any():
             raise AssertionError(f"request {i}: engine tokens differ from "
@@ -409,6 +799,9 @@ def main() -> int:
          launches=launches, nvidia_smi=smi, card_after=card_state(),
          **stats)
 
+    train_fp32()
+    train_step, train_launches = train_bf16(smi)
+
     # where the time goes, last, so that no profiler state touches the times
     # above: one more run of the same workload, then each kernel alone at
     # the shapes of phase 2
@@ -420,27 +813,46 @@ def main() -> int:
          device_idle_share=1.0 - busy / 1e3 / wall,
          top_device=[dict(name=k[:120], ms=t, count=c)
                      for k, (t, c) in top])
-    emit("kernel_device_ms", card_before=card_state(), results=[
-        dict(name=row["name"], dtype=row["dtype"], shape=row["shape"],
-             device_ms=kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]]))
-        for row, fn in checks])
+    results = []
+    for row, fn in checks:
+        ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
+        results.append(dict(name=row["name"], dtype=row["dtype"],
+                            shape=row["shape"], device_ms=ms,
+                            launches_seen=seen))
+    emit("kernel_device_ms", card_before=card_state(), reps=20,
+         results=results)
     # the same timed run once more, after the profiler: its slowdown, if any
     _, stats_after, elapsed_after, _ = run_engine(model, prompts, new_tokens)
     emit("engine_bf16_after_profile",
          tokens_per_s=stats_after["generated_tokens"] / elapsed_after)
+    wall, acts = device_profile(train_step)
+    busy = sum(t for t, _ in acts.values())
+    top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:15]
+    emit("train_bf16_profile", wall_s=wall, device_busy_s=busy / 1e3,
+         device_idle_share=1.0 - busy / 1e3 / wall,
+         top_device=[dict(name=k[:120], ms=t, count=c)
+                     for k, (t, c) in top])
 
-    # summary: each kernel at the main path's bf16 shapes (decode rows for
-    # the norm, a 128-token prefill for flash, the 8-slot pool for paged)
-    main_shape = {"layer_norm_fwd": [8, 768], "flash_fwd": [1, 12, 128, 64]}
+    # summary: each serving kernel at the serving path's bf16 shapes (decode
+    # rows for the norm, a 128-token prefill for flash, the 8-slot pool for
+    # paged) with the timed engine run's launches; each training kernel at
+    # the training shapes (Adam in fp32) with the timed training run's
+    main_shape = {"layer_norm_fwd": [8, 768], "flash_fwd": [1, 12, 128, 64],
+                  "layer_norm_bwd": [TRAIN_BATCH * TRAIN_SEQ, 768],
+                  "flash_bwd_dq": [TRAIN_BATCH, 12, TRAIN_SEQ, 64],
+                  "flash_bwd_dkdv": [TRAIN_BATCH, 12, TRAIN_SEQ, 64]}
     summary = []
     for name, (src, replaces) in _build.KERNELS.items():
         row = next(r for r in rows if r["name"] == name
-                   and r["dtype"] == "bfloat16"
+                   and r["dtype"] == ("float32" if name == "adam"
+                                      else "bfloat16")
                    and r["shape"] == main_shape.get(name, r["shape"]))
         summary.append(dict(
             name=name, route="cuda",
             source=os.path.relpath(_build.source_path(name), HERE),
-            replaces=replaces, launches=launches[name],
+            replaces=replaces,
+            launches=(launches if name in SERVING_KERNELS
+                      else train_launches)[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))

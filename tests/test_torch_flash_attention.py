@@ -1,10 +1,14 @@
-"""Port parity: apex_tpu_torch causal flash attention vs the JAX kernel.
+"""Port parity: apex_tpu_torch causal flash attention vs the JAX kernels.
 
-Same numpy inputs through both; on the CPU the port runs the kernel's
-plain twin, the JAX side its Pallas kernel in interpret mode (and the
+Same numpy inputs through both; on the CPU the port runs the kernels'
+plain twins, the JAX side its Pallas kernels in interpret mode (and the
 pure-jnp ``mha_reference``). Covers MHA and GQA (H=4, Hkv=2) at
-S in {8, 33, 64}, O and LSE. fp32 tolerance atol = rtol = 1e-5.
+S in {8, 33, 64}, O and LSE, fp32 tolerance atol = rtol = 1e-5; and the
+backward (dq, dk, dv) against ``jax.grad`` at S in {33, 128}, atol = rtol =
+1e-4.
 """
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -102,3 +106,88 @@ def test_gqa_heads_must_divide():
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, 4, 3))
     with pytest.raises(ValueError, match="multiple of kv heads"):
         flash_attention(q, k, v, causal=True)
+
+
+# --- backward -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s", [33, 128])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)])
+def test_flash_grads_match_jax(s, h, hkv):
+    """dq, dk, dv through the autograd Function vs ``jax.grad`` of the
+    reference's ``flash_attention(causal=True)`` (its ``_dq_kernel`` and
+    ``_dkdv_kernel`` in interpret mode), MHA and GQA. fp32 atol = rtol =
+    1e-4: the two sum the same fp32 products over up to S keys in other
+    orders."""
+    import jax
+
+    q, k, v = _qkv(s, h, hkv, seed=100 + s)
+    do = np.random.default_rng(s + h + hkv).standard_normal(q.shape).astype(
+        np.float32)
+
+    def f(q_, k_, v_):
+        return jnp.sum(jax_flash(q_, k_, v_, causal=True) * jnp.asarray(do))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    flash_attention(qt, kt, vt, causal=True).backward(torch.from_numpy(do))
+    for t, w in zip((qt, kt, vt), want):
+        assert t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_flash_lse_cotangent_matches_jax():
+    """The LSE cotangent folds into delta, as the reference's
+    ``flash_attention_with_lse`` backward does."""
+    import jax
+
+    q, k, v = _qkv(33, 4, 2, seed=11)
+    rng = np.random.default_rng(12)
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    dl = rng.standard_normal(q.shape[:3]).astype(np.float32)
+
+    def f(q_, k_, v_):
+        o, lse = jax_flash_lse(q_, k_, v_, causal=True)
+        return jnp.sum(o * jnp.asarray(do)) + jnp.sum(lse * jnp.asarray(dl))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o, lse = flash_attention_with_lse(qt, kt, vt, causal=True)
+    ((o * torch.from_numpy(do)).sum()
+     + (lse * torch.from_numpy(dl)).sum()).backward()
+    for t, w in zip((qt, kt, vt), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_flash_backward_calls_the_backward_twins(monkeypatch):
+    """On the CPU the Function's backward is the twins of the two backward
+    kernels, not autograd through the forward twin; its output equals the
+    whole-backward twin's."""
+    mod = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    calls = []
+
+    def spy(name):
+        real = getattr(mod, name)
+
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return real(*args, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    spy("flash_bwd_dq_reference")
+    spy("flash_bwd_dkdv_reference")
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(8, 4, 4, seed=13))
+    o = flash_attention(q, k, v, causal=True)
+    assert "FlashAttentionFunction" in type(o.grad_fn).__name__
+    o.sum().backward()
+    assert calls == ["flash_bwd_dq_reference", "flash_bwd_dkdv_reference"]
+    ro, rlse = mod.flash_attention_reference(q.detach(), k.detach(),
+                                             v.detach(), scale=0.25)
+    want = mod.flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), ro, rlse, torch.ones_like(ro),
+        scale=0.25)
+    for t, w in zip((q, k, v), want):
+        torch.testing.assert_close(t.grad, w, atol=0, rtol=0)
