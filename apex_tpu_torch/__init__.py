@@ -6,15 +6,16 @@ kernels (``csrc/``) build with ``nvcc`` at first use on a CUDA tensor;
 importing the package builds nothing and needs neither ``nvcc`` nor a card.
 
 Subpackages load lazily: ``apex_tpu_torch.serving``, ``.models``,
-``.ops``, ``.normalization``, ``.optimizers``, ``.transformer``.
+``.ops``, ``.normalization``, ``.optimizers``, ``.transformer``,
+``.contrib``.
 """
 
 import importlib
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("bridge", "models", "normalization", "ops", "optimizers",
-                "serving", "transformer")
+_SUBPACKAGES = ("bridge", "contrib", "models", "normalization", "ops",
+                "optimizers", "serving", "transformer")
 
 
 def __getattr__(name):

@@ -1,5 +1,6 @@
 // Online-softmax row state shared by the flash prefill and paged decode
-// kernels.
+// kernels, and the masking (causal, segment ids, dropout) the three flash
+// kernels share.
 //
 // One warp owns one query row at a time. A key tile of up to 32 keys sits in
 // shared memory as fp32 rows of stride `ld`; lane j scores key j against the
@@ -12,7 +13,55 @@
 
 #pragma once
 
+#include <float.h>
+#include <stdint.h>
+
 #include "common.cuh"
+
+// The reference's DEFAULT_MASK_VALUE: the LSE of a row that saw no key.
+constexpr float kMaskValue = -0.7f * FLT_MAX;
+
+// The keep-mask hash of apex_tpu/ops/flash_attention.py::_dropout_keep,
+// bit for bit: the global position (bh = b * H + h with H the QUERY heads,
+// row, col) and the seed mix in uint32, then the murmur3 finalizer. The
+// forward and both backward kernels regenerate the same mask from it.
+__device__ __forceinline__ uint32_t dropout_hash(uint32_t seed, uint32_t bh, uint32_t row,
+                                                 uint32_t col) {
+  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u + bh * 0xC2B2AE3Du + seed;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// Which (query row, key) pairs a row sees, and the dropout factor of a pair.
+// Rows index Sq and keys Sk of one batch entry b; under `causal` a row sees
+// keys <= row + (Sk - Sq), under segment ids only keys of its own segment.
+struct AttnMask {
+  const int* q_seg;   // int32 [B, Sq], or null: no segments
+  const int* kv_seg;  // int32 [B, Sk]
+  int causal;
+  int dropout;
+  uint32_t seed;
+  uint32_t threshold;  // min(int(rate * 2^32), 2^32 - 1), from the host
+  float keep_scale;    // 1 / (1 - rate) in fp32, from the host
+
+  __device__ __forceinline__ bool visible(int b, int sq, int sk, int row, int key) const {
+    if (causal && key > row + (sk - sq)) return false;
+    return q_seg == nullptr || q_seg[(long)b * sq + row] == kv_seg[(long)b * sk + key];
+  }
+
+  // keep_scale where the pair is kept, 0 where it is dropped, 1 without dropout
+  __device__ __forceinline__ float keep(uint32_t bh, int row, int key) const {
+    if (!dropout) return 1.f;
+    return dropout_hash(seed, bh, static_cast<uint32_t>(row), static_cast<uint32_t>(key)) >=
+                   threshold
+               ? keep_scale
+               : 0.f;
+  }
+};
 
 constexpr int kMaxHeadDim = 128;
 constexpr int kDimsPerLane = kMaxHeadDim / 32;
@@ -33,10 +82,12 @@ __device__ __forceinline__ void row_init(RowState& st) {
 }
 
 // Fold the tile's keys into the row: `valid` says whether this lane's key is
-// visible to the row. Warp-uniform control flow throughout.
+// visible to the row, `keep` is its dropout factor (AttnMask::keep). The
+// denominator l sums the undropped probabilities; only the PV product sees
+// p * keep, as in the reference. Warp-uniform control flow throughout.
 __device__ __forceinline__ void row_fold(RowState& st, const float* qrow, const float* ks,
                                          const float* vs, int d, bool valid, float scale,
-                                         int lane) {
+                                         int lane, float keep) {
   float s = -INFINITY;
   if (valid) {
     const float* krow = ks + lane * kTileStride;
@@ -53,9 +104,10 @@ __device__ __forceinline__ void row_fold(RowState& st, const float* qrow, const 
   st.m = m_new;
 #pragma unroll
   for (int r = 0; r < kDimsPerLane; ++r) st.acc[r] *= alpha;
+  const float pd = p * keep;
   for (int j = 0; j < kTileKeys; ++j) {
-    const float pj = __shfl_sync(0xffffffffu, p, j);
-    if (pj == 0.f) continue;  // masked or unloaded rows of the tile are never read
+    const float pj = __shfl_sync(0xffffffffu, pd, j);
+    if (pj == 0.f) continue;  // masked, dropped or unloaded keys are never read
     const float* vrow = vs + j * kTileStride;
 #pragma unroll
     for (int r = 0; r < kDimsPerLane; ++r) {
@@ -65,7 +117,8 @@ __device__ __forceinline__ void row_fold(RowState& st, const float* qrow, const 
   }
 }
 
-// Write the normalized row; returns the row's log-sum-exp.
+// Write the normalized row; returns the row's log-sum-exp (kMaskValue for a
+// row that saw no key, as the reference's).
 template <typename T>
 __device__ __forceinline__ float row_store(const RowState& st, T* out, int d, int lane) {
   const float l_safe = st.l == 0.f ? 1.f : st.l;
@@ -74,7 +127,7 @@ __device__ __forceinline__ float row_store(const RowState& st, T* out, int d, in
     const int c = lane + 32 * r;
     if (c < d) out[c] = from_f32<T>(st.acc[r] / l_safe);
   }
-  return st.m + logf(l_safe);
+  return st.l == 0.f ? kMaskValue : st.m + logf(l_safe);
 }
 
 // Copy `rows` rows of `d` elements (row stride `src_stride` elements) into a

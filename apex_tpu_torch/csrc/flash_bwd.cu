@@ -1,13 +1,16 @@
-// Causal flash-attention backward (FA-2 recompute): dq, and dk/dv.
+// Flash-attention backward (FA-2 recompute): dq, and dk/dv.
 //
 // Replaces the TPU kernels apex_tpu/ops/flash_attention.py::_dq_kernel and
-// ::_dkdv_kernel (the two pallas_calls in _fa_bwd_impl), causal branch with
-// no bias, segment ids, dropout or window. q, do and dq are [B, H, Sq, D];
-// k, v, dk and dv are [B, Hkv, Sk, D] with kv head h / (H / Hkv); lse and
-// delta = sum(do * o) are fp32 [B, H, Sq]. Query row r sees keys
-// j <= r + (Sk - Sq). With P = exp(scale * q k^T - lse) on the visible pairs:
-//   dv = P^T do,  dp = do v^T,  ds = P * (dp - delta) * scale,
-//   dq = ds k,    dk = ds^T q.
+// ::_dkdv_kernel (the two pallas_calls in _fa_bwd_impl), causal or not, with
+// segment ids and attention dropout; no bias, window or causal_offset. q, do
+// and dq are [B, H, Sq, D]; k, v, dk and dv are [B, Hkv, Sk, D] with kv head
+// h / (H / Hkv); lse and delta = sum(do * o) are fp32 [B, H, Sq]. AttnMask
+// (attention_common.cuh) gives the visible pairs and the forward's keep
+// factor K (1 without dropout, regenerated from the seed at the global
+// position with bh = b * H + h of the QUERY head). With P = exp(scale *
+// q k^T - lse) on the visible pairs:
+//   dv = (P K)^T do,  dp = do v^T,  ds = P * (dp K - delta) * scale,
+//   dq = ds k,        dk = ds^T q.
 // fp32 accumulation throughout, I/O in the input dtype (fp32 or bf16).
 //
 // Design. The TPU kernels carry dq (resp. dk/dv) in VMEM scratch across a
@@ -36,7 +39,7 @@
 // each, so it sits far from the tensor cores' bf16 bound; mma.sync / wgmma
 // tiles are the next step.
 
-#include "common.cuh"
+#include "attention_common.cuh"
 
 namespace {
 
@@ -45,7 +48,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPerWarp = 4;               // rows (dq) or keys (dk/dv) per warp
 constexpr int kOwn = kWarps * kPerWarp;   // rows or keys a block owns
 constexpr int kTile = 32;                 // keys (dq) or rows (dk/dv) per tile
-constexpr int kMaxHeadDim = 128;
 constexpr int kDims = kMaxHeadDim / 32;   // accumulator dims per lane
 constexpr int kStaticSmem = 48 * 1024;
 
@@ -75,8 +77,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int heads,
-                    int kv_heads, int sq, int sk, int d, float scale) {
+                    const float* __restrict__ delta, T* __restrict__ dq, AttnMask mask,
+                    int heads, int kv_heads, int sq, int sk, int d, float scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;                 // [kOwn][d], broadcast reads
@@ -88,7 +90,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int hk = h / (heads / kv_heads);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nq = min(kOwn, sq - q0);
-  const int offset = sk - sq;
+  const uint32_t bh = static_cast<uint32_t>(b * heads + h);
   const long row0 = (long)(b * heads + h) * sq + q0;
   const T* kb = k + (long)(b * kv_heads + hk) * sk * d;
   const T* vb = v + (long)(b * kv_heads + hk) * sk * d;
@@ -106,7 +108,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 
   // the last key any row of this block may see, exclusive
-  const int k_end = max(0, min(sk, q0 + nq + offset));
+  const int k_end = mask.causal ? max(0, min(sk, q0 + nq + sk - sq)) : sk;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     const int nk = min(kTile, k_end - k0);
     __syncthreads();  // previous tile consumed (and qs, dos visible)
@@ -117,16 +119,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int rr = 0; rr < kPerWarp; ++rr) {
       const int r = warp + rr * kWarps;
       if (r >= nq) continue;  // warp-uniform
-      const bool valid = lane < nk && k0 + lane <= q0 + r + offset;
+      const bool valid = lane < nk && mask.visible(b, sq, sk, q0 + r, k0 + lane);
       float ds = 0.f;
       if (valid) {
         float s, dp;
         dot2(qs + r * d, ks + lane * ld, dos + r * d, vs + lane * ld, d, s, dp);
         const float p = expf(s * scale - row_lse[rr]);
-        ds = p * (dp - row_delta[rr]) * scale;
+        ds = p * (dp * mask.keep(bh, q0 + r, k0 + lane) - row_delta[rr]) * scale;
       }
       // kept rolled: unrolled, this loop took the kernel to 255 registers a
-      // thread (one block per SM); rolled it takes 73 (three blocks per SM)
+      // thread (one block per SM); rolled it takes 64-73 (three or more)
 #pragma unroll 1
       for (int j = 0; j < kTile; ++j) {
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
@@ -159,8 +161,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      T* __restrict__ dk, T* __restrict__ dv, int heads, int kv_heads, int sq,
-                      int sk, int d, float scale) {
+                      T* __restrict__ dk, T* __restrict__ dv, AttnMask mask, int heads,
+                      int kv_heads, int sq, int sk, int d, float scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* ks = smem;                 // [kOwn][d], broadcast reads
@@ -174,7 +176,6 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rep = heads / kv_heads;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nk = min(kOwn, sk - k0);
-  const int offset = sk - sq;
   const long key0 = (long)(b * kv_heads + hk) * sk + k0;
   load_rows<T>(ks, d, k + key0 * d, kOwn, nk, d);
   load_rows<T>(vs, d, v + key0 * d, kOwn, nk, d);
@@ -185,10 +186,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c4 = 0; c4 < kDims; ++c4) dk_acc[kk][c4] = dv_acc[kk][c4] = 0.f;
 
-  // rows before q_begin see none of this block's keys
-  const int q_begin = max(0, k0 - offset);
+  // under causal, rows before q_begin see none of this block's keys
+  const int q_begin = mask.causal ? max(0, k0 - (sk - sq)) : 0;
   for (int g = 0; g < rep; ++g) {
-    const long hrow0 = (long)(b * heads + hk * rep + g) * sq;
+    const int h = hk * rep + g;  // the query head: its index keys the dropout hash
+    const uint32_t bh = static_cast<uint32_t>(b * heads + h);
+    const long hrow0 = (long)(b * heads + h) * sq;
     for (int q0 = q_begin; q0 < sq; q0 += kTile) {
       const int nq = min(kTile, sq - q0);
       __syncthreads();  // previous tile consumed (and ks, vs visible)
@@ -204,18 +207,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int kk = 0; kk < kPerWarp; ++kk) {
         const int j = warp + kk * kWarps;
         if (j >= nk) continue;  // warp-uniform
-        const bool valid = lane < nq && k0 + j <= q0 + lane + offset;
+        const bool valid = lane < nq && mask.visible(b, sq, sk, q0 + lane, k0 + j);
         float p = 0.f, ds = 0.f;
         if (valid) {
           float s, dp;
           dot2(ks + j * d, qs + lane * ld, vs + j * d, dos + lane * ld, d, s, dp);
-          p = expf(s * scale - ls[lane]);
-          ds = p * (dp - dl[lane]) * scale;
+          const float pr = expf(s * scale - ls[lane]);
+          const float keep = mask.keep(bh, q0 + lane, k0 + j);
+          p = pr * keep;  // dv takes the dropped probability
+          ds = pr * (dp * keep - dl[lane]) * scale;
         }
         for (int i = 0; i < kTile; ++i) {
           const float pi = __shfl_sync(0xffffffffu, p, i);
           const float dsi = __shfl_sync(0xffffffffu, ds, i);
-          if (pi == 0.f && dsi == 0.f) continue;  // masked or unloaded rows
+          if (pi == 0.f && dsi == 0.f) continue;  // masked, dropped or unloaded rows
           const float* qr = qs + i * ld;
           const float* dr = dos + i * ld;
 #pragma unroll
@@ -257,65 +262,76 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, void* dq, int batch, int heads,
-                      int kv_heads, int sq, int sk, int d, float scale, cudaStream_t s) {
+                      const float* lse, const float* delta, void* dq, const AttnMask& mask,
+                      int batch, int heads, int kv_heads, int sq, int sk, int d, float scale,
+                      cudaStream_t s) {
   const size_t smem = (2 * kOwn * d + 2 * kTile * (d + 1)) * sizeof(float);
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + kOwn - 1) / kOwn, heads, batch);
   flash_bwd_dq_kernel<T><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), heads, kv_heads, sq, sk, d,
-      scale);
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), mask, heads, kv_heads, sq, sk,
+      d, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* delta, void* dk, void* dv, int batch,
-                        int heads, int kv_heads, int sq, int sk, int d, float scale,
-                        cudaStream_t s) {
+                        const float* lse, const float* delta, void* dk, void* dv,
+                        const AttnMask& mask, int batch, int heads, int kv_heads, int sq, int sk,
+                        int d, float scale, cudaStream_t s) {
   const size_t smem = (2 * kOwn * d + 2 * kTile * (d + 1) + 2 * kTile) * sizeof(float);
   cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sk + kOwn - 1) / kOwn, kv_heads, batch);
   flash_bwd_dkdv_kernel<T><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), heads,
-      kv_heads, sq, sk, d, scale);
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), mask,
+      heads, kv_heads, sq, sk, d, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed, threshold and
+// keep_scale are read only when dropout is set (the forward's values).
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dq, int batch,
-                                 int heads, int kv_heads, int sq, int sk, int d, float scale,
-                                 int dtype, void* stream) {
+                                 const void* lse, const void* delta, void* dq, const void* q_seg,
+                                 const void* kv_seg, int causal, int dropout, unsigned seed,
+                                 unsigned threshold, float keep_scale, int batch, int heads,
+                                 int kv_heads, int sq, int sk, int d, float scale, int dtype,
+                                 void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
+  const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
+                      dropout, seed, threshold, keep_scale};
   cudaError_t err =
       dtype == APEX_BF16
-          ? launch_dq<__nv_bfloat16>(q, k, v, dout, l, dl, dq, batch, heads, kv_heads, sq, sk,
-                                     d, scale, s)
-          : launch_dq<float>(q, k, v, dout, l, dl, dq, batch, heads, kv_heads, sq, sk, d, scale,
-                             s);
+          ? launch_dq<__nv_bfloat16>(q, k, v, dout, l, dl, dq, mask, batch, heads, kv_heads, sq,
+                                     sk, d, scale, s)
+          : launch_dq<float>(q, k, v, dout, l, dl, dq, mask, batch, heads, kv_heads, sq, sk, d,
+                             scale, s);
   return static_cast<int>(err);
 }
 
 extern "C" int apex_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
-                                   void* dk, void* dv, int batch, int heads, int kv_heads,
-                                   int sq, int sk, int d, float scale, int dtype, void* stream) {
+                                   void* dk, void* dv, const void* q_seg, const void* kv_seg,
+                                   int causal, int dropout, unsigned seed, unsigned threshold,
+                                   float keep_scale, int batch, int heads, int kv_heads, int sq,
+                                   int sk, int d, float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
+  const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
+                      dropout, seed, threshold, keep_scale};
   cudaError_t err =
       dtype == APEX_BF16
-          ? launch_dkdv<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, batch, heads, kv_heads,
-                                       sq, sk, d, scale, s)
-          : launch_dkdv<float>(q, k, v, dout, l, dl, dk, dv, batch, heads, kv_heads, sq, sk, d,
-                               scale, s);
+          ? launch_dkdv<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, mask, batch, heads,
+                                       kv_heads, sq, sk, d, scale, s)
+          : launch_dkdv<float>(q, k, v, dout, l, dl, dk, dv, mask, batch, heads, kv_heads, sq,
+                               sk, d, scale, s);
   return static_cast<int>(err);
 }

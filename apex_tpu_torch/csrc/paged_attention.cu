@@ -73,7 +73,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
         const int r = warp + rr * kWarps;
         if (r >= rep) continue;  // warp-uniform
-        row_fold(st[rr], qs[r], ks, vs, d, lane < nk, scale, lane);
+        row_fold(st[rr], qs[r], ks, vs, d, lane < nk, scale, lane, 1.f);
       }
     }
   }

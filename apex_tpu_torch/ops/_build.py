@@ -50,6 +50,12 @@ KERNELS = {
     "flash_bwd_dkdv": ("flash_bwd.cu",
                        "apex_tpu/ops/flash_attention.py:572"),
     "adam": ("adam.cu", "apex_tpu/ops/optim_kernels.py:164"),
+    "xentropy_fwd": ("xentropy.cu", "apex_tpu/ops/xentropy.py:43"),
+    "xentropy_bwd": ("xentropy.cu", "apex_tpu/ops/xentropy.py:65"),
+    "segment_stats": ("segment_stats.cu",
+                      "apex_tpu/ops/optim_kernels.py:80"),
+    "lamb_phase1": ("lamb.cu", "apex_tpu/ops/optim_kernels.py:331"),
+    "lamb_phase2": ("lamb.cu", "apex_tpu/ops/optim_kernels.py:379"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`

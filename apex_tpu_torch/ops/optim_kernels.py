@@ -1,15 +1,20 @@
-"""Fused optimizer update over the flat parameter buffers: the Hopper kernel
-``csrc/adam.cu`` and its plain PyTorch twin.
+"""Fused optimizer kernels over the flat parameter buffers: the Hopper
+kernels ``csrc/adam.cu``, ``csrc/segment_stats.cu`` and ``csrc/lamb.cu``
+and their plain PyTorch twins.
 
-Counterpart of ``apex_tpu/ops/optim_kernels.py`` (``_adam_kernel``,
-``adam_update``). Parameters, gradients and the Adam moments are fp32
-``(rows, LANE)`` buffers laid out by ``flat_buffer``; one launch updates
-every parameter. The hyper-parameters travel as a 9-float tensor on the
-buffers' device (``adam_hyperparams``), as the reference's SMEM row does, so
-the step count, the grad scale and the skip flag may be device tensors and
-no host value is read. The other optimizer kernels of the reference (stats,
-SGD, LAMB, NovoGrad, scale) are not ported yet (ROADMAP queue B items
-12-17).
+Counterpart of ``apex_tpu/ops/optim_kernels.py`` (``_adam_kernel`` /
+``adam_update``, ``_stats_kernel`` / ``segment_stats`` /
+``global_grad_norm_and_finite``, ``_lamb_phase1_kernel`` and
+``_lamb_phase2_kernel`` / ``lamb_update``). Parameters, gradients and the
+moments are fp32 ``(rows, LANE)`` buffers laid out by ``flat_buffer``; one
+launch updates every parameter. The hyper-parameters travel as small fp32
+tensors on the buffers' device (``adam_hyperparams``,
+``lamb_hyperparams``), as the reference's SMEM rows do, so the step count,
+the grad scale and the skip flag may be device tensors and no host value is
+read. Per-tensor reductions (the gradient norm, LAMB's trust ratios) sum
+each tensor's contiguous rows in a fixed order on the card. The SGD,
+NovoGrad and scale kernels of the reference are not ported yet (ROADMAP
+queue B items 15-17).
 
 A tensor on the CPU takes the twin; a CUDA tensor always takes the kernel.
 """
@@ -34,35 +39,43 @@ def adam_hyperparams(*, beta1, beta2, eps, weight_decay, lr, step,
     per-tensor ``weight_decay`` vector puts 0 in the row (the kernel then
     reads the vector). ``rbc = 1 / (1 - beta^step)`` with bias correction,
     else 1."""
-    def f(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
-
+    f = _fp32(device)
     if _is_per_tensor(weight_decay):
         weight_decay = 0.0
     b1, b2 = f(beta1), f(beta2)
-    one = f(1.0)
-    if bias_correction:
-        t = f(step)
-        rbc1, rbc2 = one / (one - b1 ** t), one / (one - b2 ** t)
-    else:
-        rbc1 = rbc2 = one
+    rbc1, rbc2 = _bias_corrections(b1, b2, step, bias_correction, f)
     return torch.stack([b1, b2, f(eps), f(weight_decay), f(lr), rbc1, rbc2,
                         f(1.0 if grad_scale is None else grad_scale),
                         f(0.0 if noop is None else noop)])
+
+
+def _fp32(device):
+    return lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def _bias_corrections(b1, b2, step, bias_correction: bool, f):
+    """``(1 / (1 - b1^step), 1 / (1 - b2^step))`` in fp32, or ones."""
+    one = f(1.0)
+    if not bias_correction:
+        return one, one
+    t = f(step)
+    return one / (one - b1 ** t), one / (one - b2 ** t)
 
 
 def _is_per_tensor(weight_decay) -> bool:
     return isinstance(weight_decay, torch.Tensor) and weight_decay.ndim > 0
 
 
-def _check_buffers(g, p, m, v):
+def _check_buffers(g, p, m, v, op="adam_update"):
     for name, t in (("g", g), ("p", p), ("m", m), ("v", v)):
+        if t is None:
+            continue
         if t.dtype != torch.float32 or t.ndim != 2 or t.shape[1] != LANE:
-            raise ValueError(f"adam_update: {name} must be a float32 (rows, "
+            raise ValueError(f"{op}: {name} must be a float32 (rows, "
                              f"{LANE}) buffer, got {t.dtype} "
                              f"{tuple(t.shape)}")
         if t.shape != p.shape:
-            raise ValueError(f"adam_update: {name} {tuple(t.shape)} != p "
+            raise ValueError(f"{op}: {name} {tuple(t.shape)} != p "
                              f"{tuple(p.shape)}")
 
 
@@ -142,4 +155,209 @@ def adam_update(g, p, m, v, *, beta1, beta2, eps, weight_decay, lr, step,
         seg.data_ptr() if seg is not None else None,
         wd_seg.data_ptr() if wd_seg is not None else None, p.shape[0],
         int(bool(adam_w_mode)), _build.stream_of(p))
+    return p, m, v
+
+
+# --- segment statistics ------------------------------------------------------
+
+#: rows of ``segment_stats``' output, as ``STAT_*`` in the reference
+STAT_SUMSQ_A, STAT_SUMSQ_B, STAT_NONFINITE = 0, 1, 2
+
+
+def _check_seg_rows(seg_rows, rows: int):
+    if tuple(seg_rows.shape) != (rows,):
+        raise ValueError(f"seg_rows {tuple(seg_rows.shape)} != ({rows},)")
+
+
+def _sumsq_rows(t: torch.Tensor) -> torch.Tensor:
+    """Per-row sums of squares of a fp32 ``(rows, LANE)`` buffer, summed in
+    fp64."""
+    return (t * t).sum(dim=1, dtype=torch.float64)
+
+
+def _segment_sum(per_row: torch.Tensor, seg_rows, num_segments: int):
+    """``[k, rows]`` per-row values -> fp32 ``[k, num_segments]`` sums,
+    taken in fp64: far below fp32's rounding, so the result does not depend
+    on the order ``index_add_`` happens to add in."""
+    out = torch.zeros(per_row.shape[0], num_segments, dtype=torch.float64,
+                      device=per_row.device)
+    return out.index_add_(1, seg_rows.to(per_row.device).long(),
+                          per_row.double()).float()
+
+
+def segment_stats_reference(a, seg_rows, num_segments: int, b=None):
+    """Plain twin of the stats kernel: fp32 ``[3, num_segments]`` holding,
+    per segment, ``sum(a^2)``, ``sum(b^2)`` (0 without ``b``) and the count
+    of non-finite entries of ``a``."""
+    _check_buffers(None, a, None, b, op="segment_stats")
+    _check_seg_rows(seg_rows, a.shape[0])
+    sumsq_b = _sumsq_rows(b) if b is not None else torch.zeros(
+        a.shape[0], dtype=torch.float64, device=a.device)
+    per_row = torch.stack([_sumsq_rows(a), sumsq_b,
+                           (~torch.isfinite(a)).sum(dim=1).double()])
+    return _segment_sum(per_row, seg_rows, num_segments)
+
+
+def segment_stats(a, seg_rows, num_segments: int, b=None):
+    """Per-segment ``[sumsq(a), sumsq(b), nonfinite(a)]``, fp32 ``[3,
+    num_segments]``, in one pass: the kernel on a CUDA tensor, the twin on a
+    CPU one. Each segment's rows must be contiguous and in order, as
+    ``FlatSpec.segment_rows`` lays them out."""
+    if a.device.type == "cpu":
+        return segment_stats_reference(a, seg_rows, num_segments, b)
+    _check_buffers(None, a, None, b, op="segment_stats")
+    _check_seg_rows(seg_rows, a.shape[0])
+    rows = a.shape[0]
+    seg = seg_rows.to(device=a.device, dtype=torch.int32).contiguous()
+    part = torch.empty(3 * rows, dtype=torch.float32, device=a.device)
+    out = torch.empty(3, num_segments, dtype=torch.float32, device=a.device)
+    _build.check_cuda(*[t for t in (a, b, seg) if t is not None])
+    P, I = _build.P, _build.I
+    _build.launch("segment_stats", "apex_segment_stats",
+                  (P, P, P, P, P, I, I, P), a.data_ptr(),
+                  b.data_ptr() if b is not None else None, seg.data_ptr(),
+                  part.data_ptr(), out.data_ptr(), rows, num_segments,
+                  _build.stream_of(a))
+    return out
+
+
+def global_grad_norm_and_finite(g_flat, seg_rows, num_segments: int):
+    """``(norm, finite, stats)``: the global L2 norm of the flat gradient
+    buffer, a 0-d bool that no entry is inf or NaN, and the per-segment
+    stats, from one stats pass; all on the buffer's device, no host read."""
+    stats = segment_stats(g_flat, seg_rows, num_segments)
+    return (torch.sqrt(stats[STAT_SUMSQ_A].sum()),
+            stats[STAT_NONFINITE].sum() == 0.0, stats)
+
+
+# --- LAMB --------------------------------------------------------------------
+
+#: layout of LAMB's phase-1 row, as ``_LAMB_HP`` in the reference
+LAMB_HP = ("beta1", "beta2", "eps", "beta3", "rbc1", "rbc2", "grad_scale",
+           "noop", "unused")
+
+
+def lamb_hyperparams(*, beta1, beta2, eps, step, grad_scale=None, noop=None,
+                     bias_correction=True, grad_averaging=True,
+                     device=None) -> torch.Tensor:
+    """The ``(9,)`` fp32 row ``LAMB_HP`` on ``device``, in fp32 as the
+    reference computes it: ``beta3 = 1 - beta1`` with grad averaging, else
+    1; ``rbc = 1 / (1 - beta^step)`` with bias correction, else 1."""
+    f = _fp32(device)
+    b1, b2 = f(beta1), f(beta2)
+    rbc1, rbc2 = _bias_corrections(b1, b2, step, bias_correction, f)
+    beta3 = 1.0 - b1 if grad_averaging else f(1.0)
+    return torch.stack([b1, b2, f(eps), beta3, rbc1, rbc2,
+                        f(1.0 if grad_scale is None else grad_scale),
+                        f(0.0 if noop is None else noop), f(0.0)])
+
+
+def lamb_phase1_reference(hp, g, p, m, v, seg_rows, wd_seg):
+    """Plain twin of phase 1: ``(u, m, v, stats)`` with ``stats`` fp32
+    ``[2, num_segments]`` = per segment ``||p||^2`` and ``||u||^2``.
+    ``wd_seg`` is the per-segment decay vector."""
+    b1, b2, eps, beta3, rbc1, rbc2, gs, noop, _ = hp.unbind()
+    wd = wd_seg.float()[seg_rows.long()][:, None]
+    grad = g * gs
+    m_new = b1 * m + beta3 * grad
+    v_new = b2 * v + (1.0 - b2) * grad * grad
+    u = (m_new * rbc1) / (torch.sqrt(v_new * rbc2) + eps) + wd * p
+    skip = noop > 0.0
+    u = torch.where(skip, 0.0, u)
+    per_row = torch.stack([_sumsq_rows(p), _sumsq_rows(u)])
+    return (u, torch.where(skip, m, m_new), torch.where(skip, v, v_new),
+            _segment_sum(per_row, seg_rows, wd_seg.shape[0]))
+
+
+def lamb_phase1(hp, g, p, m, v, seg_rows, wd_seg):
+    """Phase 1, IN PLACE on ``m`` and ``v``: returns ``(u, m, v, stats)``;
+    the kernel on a CUDA tensor, the twin on a CPU one."""
+    _check_buffers(g, p, m, v, op="lamb_update")
+    _check_seg_rows(seg_rows, p.shape[0])
+    if p.device.type == "cpu":
+        u, m_new, v_new, stats = lamb_phase1_reference(hp, g, p, m, v,
+                                                       seg_rows, wd_seg)
+        m.copy_(m_new)
+        v.copy_(v_new)
+        return u, m, v, stats
+    rows, segments = p.shape[0], wd_seg.shape[0]
+    seg = seg_rows.to(device=p.device, dtype=torch.int32).contiguous()
+    wd = wd_seg.to(device=p.device, dtype=torch.float32).contiguous()
+    u = torch.empty_like(p)
+    part = torch.empty(2 * rows, dtype=torch.float32, device=p.device)
+    stats = torch.empty(2, segments, dtype=torch.float32, device=p.device)
+    _build.check_cuda(hp, g, p, m, v, seg, wd)
+    P, I = _build.P, _build.I
+    _build.launch("lamb_phase1", "apex_lamb_phase1",
+                  (P,) * 10 + (I, I, P), hp.data_ptr(), g.data_ptr(),
+                  p.data_ptr(), m.data_ptr(), v.data_ptr(), u.data_ptr(),
+                  seg.data_ptr(), wd.data_ptr(), part.data_ptr(),
+                  stats.data_ptr(), rows, segments, _build.stream_of(p))
+    return u, m, v, stats
+
+
+def lamb_trust_ratio(stats, wd_seg, use_nvlamb: bool = False):
+    """Per-segment trust ratio from phase 1's stats, as the reference:
+    ``||p|| / ||u||`` where both are positive, else 1; without
+    ``use_nvlamb`` only tensors with weight decay take it (the rest 1).
+    A few torch ops on a ``(num_segments,)`` vector, on its device."""
+    p_norm, u_norm = torch.sqrt(stats[0]), torch.sqrt(stats[1])
+    ratio = torch.where((p_norm > 0.0) & (u_norm > 0.0),
+                        p_norm / torch.clamp(u_norm, min=1e-30), 1.0)
+    if not use_nvlamb:
+        ratio = torch.where(wd_seg.to(ratio.device) > 0.0, ratio, 1.0)
+    return ratio
+
+
+def lamb_phase2_reference(hp2, u, p, ratio, seg_rows):
+    """Plain twin of phase 2: ``p - lr * ratio[seg] * u``, or ``p`` itself
+    under ``noop``. ``hp2`` is ``[lr, noop]``."""
+    lr, noop = hp2.unbind()
+    step = lr * ratio.float()[seg_rows.long()][:, None]
+    return torch.where(noop > 0.0, p, p - step * u)
+
+
+def lamb_phase2(hp2, u, p, ratio, seg_rows):
+    """Phase 2, IN PLACE on ``p`` (returned): the kernel on a CUDA tensor,
+    the twin on a CPU one."""
+    _check_buffers(u, p, None, None, op="lamb_update")
+    if p.device.type == "cpu":
+        return p.copy_(lamb_phase2_reference(hp2, u, p, ratio, seg_rows))
+    seg = seg_rows.to(device=p.device, dtype=torch.int32).contiguous()
+    ratio = ratio.to(device=p.device, dtype=torch.float32).contiguous()
+    _build.check_cuda(hp2, u, p, ratio, seg)
+    P, I = _build.P, _build.I
+    _build.launch("lamb_phase2", "apex_lamb_phase2", (P,) * 5 + (I, P),
+                  hp2.data_ptr(), u.data_ptr(), p.data_ptr(),
+                  ratio.data_ptr(), seg.data_ptr(), p.shape[0],
+                  _build.stream_of(p))
+    return p
+
+
+def lamb_update(g, p, m, v, seg_rows, num_segments: int, *, beta1, beta2,
+                eps, weight_decay, lr, step, grad_scale=None, noop=None,
+                bias_correction=True, grad_averaging=True, use_nvlamb=False):
+    """One fused LAMB step over the flat buffers, IN PLACE on ``p``, ``m``
+    and ``v`` (returned): phase 1 (direction and per-tensor norms), the
+    trust ratio, phase 2 (apply), as the two stages of the reference.
+    ``weight_decay`` is a scalar or a ``(num_segments,)`` per-tensor vector;
+    ``noop > 0`` leaves all three bit-identical."""
+    device = p.device
+    hp1 = lamb_hyperparams(beta1=beta1, beta2=beta2, eps=eps, step=step,
+                           grad_scale=grad_scale, noop=noop,
+                           bias_correction=bias_correction,
+                           grad_averaging=grad_averaging, device=device)
+    if _is_per_tensor(weight_decay):
+        wd_seg = weight_decay.to(device=device, dtype=torch.float32)
+    else:
+        wd_seg = torch.full((num_segments,), float(weight_decay),
+                            dtype=torch.float32, device=device)
+    if wd_seg.shape != (num_segments,):
+        raise ValueError(f"weight_decay {tuple(wd_seg.shape)} != "
+                         f"({num_segments},)")
+    u, m, v, stats = lamb_phase1(hp1, g, p, m, v, seg_rows, wd_seg)
+    ratio = lamb_trust_ratio(stats, wd_seg, use_nvlamb)
+    hp2 = torch.stack([torch.as_tensor(lr, dtype=torch.float32,
+                                       device=device), hp1[7]])
+    lamb_phase2(hp2, u, p, ratio, seg_rows)
     return p, m, v

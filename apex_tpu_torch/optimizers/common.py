@@ -28,12 +28,13 @@ import torch
 
 from apex_tpu_torch.ops import flat_buffer
 
-_B12 = ("the amp loss scaler path is not ported yet (ROADMAP queue B item "
-        "12: the segment-stats kernel behind the overflow check)")
+_AMP = ("the amp loss scaler path is not ported yet (ROADMAP queue A item "
+        "11: amp/, the scaler and the O0-O3 policy)")
 
 
 class FusedOptimizerBase:
-    """Flat-buffer state for FusedAdam (and, later, LAMB/SGD/NovoGrad)."""
+    """Flat-buffer state for FusedAdam and FusedLAMB (and, later,
+    SGD/NovoGrad)."""
 
     #: names of flat (rows, LANE) fp32 state buffers, e.g. ("m", "v")
     STATE_BUFFERS: tuple = ()
@@ -86,7 +87,7 @@ class FusedOptimizerBase:
         return self.decay_mask * float(self.param_groups[0]["weight_decay"])
 
     def attach_amp_scaler(self, scaler) -> None:
-        raise NotImplementedError(_B12)
+        raise NotImplementedError(_AMP)
 
     def zero_grad(self, set_to_none: bool = False) -> None:
         """Zero the flat gradient buffer and point every ``.grad`` at its
@@ -136,7 +137,10 @@ class FusedOptimizerBase:
         multiplies the gradients inside the kernel; ``noop`` (0/1, a number
         or a device tensor) skips the step, leaving parameters and state
         bit-identical and the step count where it was (the reference skips
-        the step entirely, so bias correction sees only applied steps)."""
+        the step entirely, so bias correction sees only applied steps). A
+        skip that an optimizer decides inside ``_update`` (LAMB's on a
+        non-finite gradient) comes after the count, as in the
+        reference."""
         loss = None
         if closure is not None:
             with torch.enable_grad():

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+from apex_tpu_torch.ops.flash_attention import (Masking, flash_attention,
+                                                flash_attention_bwd,
+                                                flash_fwd,
                                                 flash_attention_bwd_reference,
                                                 flash_attention_reference,
                                                 flash_attention_with_lse)
@@ -21,9 +23,18 @@ from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                            layer_norm_fwd,
                                            layer_norm_fwd_reference)
 from apex_tpu_torch.ops.optim_kernels import (adam_update,
-                                              adam_update_reference)
+                                              adam_update_reference,
+                                              lamb_hyperparams, lamb_phase1,
+                                              lamb_phase1_reference,
+                                              lamb_phase2,
+                                              lamb_phase2_reference,
+                                              segment_stats,
+                                              segment_stats_reference)
 from apex_tpu_torch.ops.paged_attention import (paged_attention,
                                                 paged_attention_reference)
+from apex_tpu_torch.ops.xentropy import (softmax_cross_entropy, xentropy_bwd,
+                                         xentropy_bwd_reference, xentropy_fwd,
+                                         xentropy_fwd_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -196,3 +207,206 @@ def test_adam_kernel_matches_twin(cuda, adam_w, per_segment, noop):
             assert torch.equal(a, old)
         else:
             torch.testing.assert_close(a, r, atol=1e-6, rtol=1e-5)
+
+
+# --- the BERT slice: masked flash, xentropy, segment stats, LAMB ------------
+
+
+def _masking(cuda, b, s, causal, segments, rate, seed=17):
+    seg = None
+    if segments:
+        g = torch.Generator().manual_seed(seed)
+        lengths = torch.randint(1, s + 1, (b,), generator=g)
+        seg = (torch.arange(s)[None, :] < lengths[:, None]).int().to(cuda)
+    return Masking(causal=causal, segment_ids=seg, kv_segment_ids=seg,
+                   dropout_rate=rate, dropout_seed=seed)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,segments,rate,h,hkv", [
+    (False, True, 0.1, 16, 16), (False, False, 0.2, 8, 2),
+    (True, True, 0.1, 4, 4), (False, True, 0.0, 4, 2)])
+def test_masked_flash_kernels_match_twin(cuda, dtype, causal, segments, rate,
+                                         h, hkv):
+    """Forward and both backward kernels with non-causal masking, padding
+    segment ids and dropout: the keep mask regenerated in the kernels is
+    the twin's (and so the reference's)."""
+    g = torch.Generator().manual_seed(8)
+    b, s = 2, 77
+    q, do = (torch.randn(b, h, s, 64, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, 64, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    masking = _masking(cuda, b, s, causal, segments, rate)
+    before = dict(_build.launches)
+    o, lse = flash_attention_reference(q, k, v, scale=0.125, masking=masking)
+    ko, klse = flash_fwd(q, k, v, scale=0.125, masking=masking)
+    _close(ko, o, dtype)
+    _close(klse, lse, torch.float32)
+    got = flash_attention_bwd(q, k, v, o, lse, do, scale=0.125,
+                              masking=masking)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        assert _build.launches[name] == before[name] + 1
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, scale=0.125,
+                                         masking=masking)
+    for a, r in zip(got, want):
+        _bwd_close(a, r, dtype)
+
+
+def test_masked_flash_autograd_on_the_card(cuda):
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(2, 4, 50, 64, generator=g).to(cuda)
+               .requires_grad_() for _ in range(3))
+    seg = torch.ones(2, 50, dtype=torch.int32, device=cuda)
+    seg[1, 30:] = 0
+    o = flash_attention(q, k, v, segment_ids=seg, dropout_rate=0.1,
+                        dropout_seed=5)
+    o.sum().backward()
+    masking = Masking(causal=False, segment_ids=seg, kv_segment_ids=seg,
+                      dropout_rate=0.1, dropout_seed=5)
+    ro, rlse = flash_attention_reference(q.detach(), k.detach(), v.detach(),
+                                         scale=0.125, masking=masking)
+    _close(o, ro, torch.float32)
+    want = flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), ro, rlse, torch.ones_like(ro),
+        scale=0.125, masking=masking)
+    for t, r in zip((q, k, v), want):
+        _close(t.grad, r, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,vocab,smoothing,padding_idx", [
+    (640, 30528, 0.0, 0), (64, 30528, 0.1, 0), (8, 2, 0.0, -1),
+    (33, 1000, 0.1, None)])
+def test_xentropy_kernels_match_twin(cuda, dtype, rows, vocab, smoothing,
+                                     padding_idx):
+    g = torch.Generator().manual_seed(10)
+    x = (torch.randn(rows, vocab, generator=g) * 4).to(cuda, dtype)
+    labels = torch.randint(0, vocab, (rows,), generator=g,
+                           dtype=torch.int32)
+    labels[::5] = 0
+    labels = labels.to(cuda)
+    dy = torch.randn(rows, generator=g).to(cuda)
+    before = dict(_build.launches)
+    loss, lse = xentropy_fwd(x, labels, smoothing, padding_idx)
+    dx = xentropy_bwd(x, labels, lse, dy, smoothing, padding_idx)
+    for name in ("xentropy_fwd", "xentropy_bwd"):
+        assert _build.launches[name] == before[name] + 1
+    rloss, rlse = xentropy_fwd_reference(x, labels, smoothing, padding_idx)
+    _close(loss, rloss, torch.float32)
+    _close(lse, rlse, torch.float32)
+    assert dx.dtype == dtype
+    _close(dx, xentropy_bwd_reference(x, labels, rlse, dy, smoothing,
+                                      padding_idx), dtype)
+    if padding_idx == 0:
+        assert (loss[::5] == 0).all() and (dx[::5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_xentropy_kernels_masked_columns_match_twin(cuda, dtype):
+    """-inf logits in every thread's first strided column (the first 256)
+    and a few later ones: a finite loss, as the twin gives it."""
+    g = torch.Generator().manual_seed(14)
+    x = (torch.randn(40, 1000, generator=g) * 4)
+    x[:, :256] = float("-inf")
+    x[::2, 500:510] = float("-inf")
+    x = x.to(cuda, dtype)
+    labels = torch.randint(600, 1000, (40,), generator=g,
+                           dtype=torch.int32).to(cuda)
+    dy = torch.randn(40, generator=g).to(cuda)
+    loss, lse = xentropy_fwd(x, labels, 0.0, 0)
+    dx = xentropy_bwd(x, labels, lse, dy, 0.0, 0)
+    rloss, rlse = xentropy_fwd_reference(x, labels, 0.0, 0)
+    assert torch.isfinite(loss).all() and torch.isfinite(dx).all()
+    _close(loss, rloss, torch.float32)
+    _close(lse, rlse, torch.float32)
+    _close(dx, xentropy_bwd_reference(x, labels, rlse, dy, 0.0, 0), dtype)
+
+
+def test_xentropy_autograd_takes_both_kernels(cuda):
+    x = torch.randn(16, 300, device=cuda, requires_grad=True)
+    labels = torch.randint(0, 300, (16,), device=cuda)
+    before = dict(_build.launches)
+    softmax_cross_entropy(x, labels, 0.1, 0).sum().backward()
+    for name in ("xentropy_fwd", "xentropy_bwd"):
+        assert _build.launches[name] == before[name] + 1
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+def _flat(cuda, counts, seed):
+    g = torch.Generator().manual_seed(seed)
+    rows = sum(counts)
+    seg = torch.repeat_interleave(torch.arange(len(counts), dtype=torch.int32),
+                                  torch.tensor(counts)).to(cuda)
+    bufs = [torch.randn(rows, 1024, generator=g).to(cuda) for _ in range(3)]
+    bufs.append(torch.rand(rows, 1024, generator=g).to(cuda) * 0.01)
+    return seg, bufs
+
+
+@pytest.mark.parametrize("with_b", [False, True])
+def test_segment_stats_kernel_matches_twin_counts_exactly(cuda, with_b):
+    counts = (3000, 1, 7, 1, 129, 1)
+    seg, (a, b, _, _) = _flat(cuda, counts, 11)
+    a[0, 5] = float("inf")
+    a[3005, 0] = float("nan")
+    a[3005, 1] = float("nan")
+    before = _build.launches["segment_stats"]
+    got = segment_stats(a, seg, len(counts), b if with_b else None)
+    assert _build.launches["segment_stats"] == before + 1
+    want = segment_stats_reference(a, seg, len(counts),
+                                   b if with_b else None)
+    assert torch.equal(got[2], want[2])
+    assert got[2].tolist() == [1, 0, 2, 0, 0, 0]
+    finite = torch.isfinite(want[:2])
+    torch.testing.assert_close(got[:2][finite], want[:2][finite], atol=1e-3,
+                               rtol=1e-5)
+    again = segment_stats(a, seg, len(counts), b if with_b else None)
+    assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(got))
+
+
+@pytest.mark.parametrize("noop", [0.0, 1.0])
+def test_lamb_phase_kernels_match_twin(cuda, noop):
+    counts = (300, 1, 40, 2)
+    seg, (g, p, m, v) = _flat(cuda, counts, 12)
+    wd = torch.tensor([0.01, 0.0, 0.01, 0.0], device=cuda)
+    hp = lamb_hyperparams(beta1=0.9, beta2=0.999, eps=1e-6,
+                          step=torch.tensor(4, device=cuda), grad_scale=0.3,
+                          noop=torch.tensor(noop, device=cuda), device=cuda)
+    ru, rm, rv, rstats = lamb_phase1_reference(hp, g, p, m, v, seg, wd)
+    m1, v1 = m.clone(), v.clone()
+    before = dict(_build.launches)
+    u, m1, v1, stats = lamb_phase1(hp, g, p, m1, v1, seg, wd)
+    ratio = (torch.rand(len(counts), generator=torch.Generator().manual_seed(
+        13)) + 0.5).to(cuda)
+    hp2 = torch.stack([torch.tensor(1e-2, device=cuda), hp[7]])
+    p1 = lamb_phase2(hp2, u, p.clone(), ratio, seg)
+    for name in ("lamb_phase1", "lamb_phase2"):
+        assert _build.launches[name] == before[name] + 1
+    # phase 2 on the kernel's own u, so that it is checked alone
+    rp = lamb_phase2_reference(hp2, u, p, ratio, seg)
+    if noop:
+        for got, old in ((m1, m), (v1, v), (p1, p)):
+            assert torch.equal(got, old)
+        assert (u == 0).all() and (stats[1] == 0).all()
+    else:
+        for got, want in ((u, ru), (m1, rm), (v1, rv)):
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+        # p - step u rounds to p's fp32 grid, whose ulp is up to 4.8e-7 at
+        # |p| < 8: one rounding apart (a fused multiply-add on the card)
+        torch.testing.assert_close(p1 - p, rp - p, atol=1e-6, rtol=1e-4)
+    torch.testing.assert_close(stats, rstats, atol=1e-3, rtol=1e-5)
+
+
+def test_fused_lamb_launches_three_kernels_per_step(cuda):
+    from apex_tpu_torch.optimizers import FusedLAMB
+
+    params = [(f"w{i}", torch.nn.Parameter(torch.randn(n, device=cuda)))
+              for i, n in enumerate((5000, 3, 2048))]
+    opt = FusedLAMB(params, lr=1e-2)
+    for _, p in params:
+        p.grad.normal_()
+    before = dict(_build.launches)
+    opt.step()
+    for name in ("segment_stats", "lamb_phase1", "lamb_phase2"):
+        assert _build.launches[name] == before[name] + 1
+    assert int(opt.step_count) == 1

@@ -87,7 +87,8 @@ def test_lazy_subpackages():
 
 
 def test_cuda_tensor_without_nvcc_raises_not_falls_back(monkeypatch):
-    """No CUDA here: a kernel launch must raise, never run the twin."""
+    """No CUDA here: a kernel launch must raise, never run the twin, for
+    every kernel of the port."""
     from apex_tpu_torch.ops import _build
 
     monkeypatch.setattr(_build.shutil, "which", lambda _n: None)
@@ -95,5 +96,13 @@ def test_cuda_tensor_without_nvcc_raises_not_falls_back(monkeypatch):
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "_library_path",
                         lambda n: pathlib.Path("/nonexistent") / f"{n}.so")
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.library("layer_norm_fwd")
+    assert {"xentropy_fwd", "xentropy_bwd", "segment_stats", "lamb_phase1",
+            "lamb_phase2"} <= set(_build.KERNELS)
+    before = dict(_build.launches)
+    for name in _build.KERNELS:
+        assert _build.source_path(name).exists(), name
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.library(name)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.launch(name, "apex_never_called", ())
+    assert _build.launches == before
