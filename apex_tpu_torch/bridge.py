@@ -9,6 +9,12 @@ BERT's ``(in, out)`` ``x @ W``), so every tensor maps one to one; only the
 names change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes numpy,
 so it imports nothing of JAX.
 
+A quantized GPT tree (a reference model built with a weight policy) maps
+too: narrow leaves keep their dtype (int8; uint8, the packed int4 nibbles;
+fp8 e4m3, carried through a uint8 view since ``torch.from_numpy`` does not
+take ml_dtypes' fp8) and each quantized linear's ``scale`` maps beside its
+``weight``. A leaf with no place in the port raises ``KeyError``.
+
 Any tree shaped like the params maps the same way, so the tests carry the
 reference's gradients (``jax.grad`` of ``gpt_loss``) and its Adam moments
 (``flat_buffer.unflatten`` of ``FusedAdam.state``) across by name too: the
@@ -21,28 +27,54 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_BLOCK_MODULES = ("input_norm", "post_norm", "qkv", "out_proj", "mlp_in",
-                  "mlp_out")
+#: GPTModel's leaves outside the decoder blocks, flax paths
+_GPT_TOP = ("word_embeddings/weight", "position_embeddings",
+            "final_norm/weight", "final_norm/bias")
+#: the leaves of one decoder block ``layer_i``; a quantized linear adds a
+#: ``scale`` beside its narrow ``weight``
+_GPT_LAYER = tuple(f"{mod}/{leaf}" for mod in ("input_norm", "post_norm")
+                   for leaf in ("weight", "bias")) + tuple(
+    f"{mod}/{leaf}" for mod in ("qkv", "out_proj", "mlp_in", "mlp_out")
+    for leaf in ("weight", "bias", "scale"))
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy leaf as a tensor: int8 and uint8 as they are, fp8 e4m3
+    through a uint8 view, every other float as fp32."""
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(np.array(a).view(np.uint8)).view(
+            torch.float8_e4m3fn)
+    if a.dtype in (np.int8, np.uint8):
+        return torch.from_numpy(np.array(a))
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _split_layer(path: str):
+    """``"layer_3/qkv/weight"`` -> ``(3, "qkv/weight")``; ``(None, path)``
+    outside the numbered layers."""
+    head, _, rest = path.partition("/")
+    if head.startswith("layer_") and head[len("layer_"):].isdigit():
+        return int(head[len("layer_"):]), rest
+    return None, path
 
 
 def gpt_params_from_flax(variables) -> dict:
-    """``{flax params}`` (or ``{"params": ...}``) -> torch state dict."""
+    """``{flax params}`` (or ``{"params": ...}``) of the reference's
+    ``GPTModel``, quantized or not -> torch state dict. A leaf the port has
+    no place for raises ``KeyError``."""
     params = variables.get("params", variables)
-
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    sd = {"word_embeddings.weight": t(params["word_embeddings"]["weight"]),
-          "position_embeddings": t(params["position_embeddings"]),
-          "final_norm.weight": t(params["final_norm"]["weight"]),
-          "final_norm.bias": t(params["final_norm"]["bias"])}
-    layers = sorted((k for k in params if k.startswith("layer_")),
-                    key=lambda k: int(k.split("_")[1]))
-    for name in layers:
-        i = int(name.split("_")[1])
-        for mod in _BLOCK_MODULES:
-            for leaf in ("weight", "bias"):
-                sd[f"layers.{i}.{mod}.{leaf}"] = t(params[name][mod][leaf])
+    sd = {}
+    for path, leaf in _flat_paths(params):
+        i, rest = _split_layer(path)
+        if i is not None and rest in _GPT_LAYER:
+            name = f"layers.{i}.{rest.replace('/', '.')}"
+        elif i is None and path in _GPT_TOP:
+            name = path.replace("/", ".")
+        else:
+            raise KeyError(f"flax leaf {path!r} has no counterpart in the "
+                           f"port's GPTModel")
+        sd[name] = _tensor(leaf)
     return sd
 
 
@@ -76,10 +108,8 @@ def bert_params_from_flax(variables) -> dict:
     params = variables.get("params", variables)
     sd, layers = {}, set()
     for path, leaf in _flat_paths(params):
-        head, _, rest = path.partition("/")
-        if (head.startswith("layer_") and head[len("layer_"):].isdigit()
-                and rest in _BERT_LAYER):
-            i = int(head[len("layer_"):])
+        i, rest = _split_layer(path)
+        if i is not None and rest in _BERT_LAYER:
             layers.add(i)
             name = f"layers.{i}.{rest.replace('/', '.')}"
         elif path in _BERT_TOP:

@@ -1,9 +1,15 @@
 // Paged-attention decode (one query token per slot) over the KV page pool.
 //
 // Replaces the TPU kernel apex_tpu/ops/paged_attention.py::_paged_kernel
-// (pallas_call in paged_attention), unquantized branch at s = 1 with no
-// window. The pool is (num_pages, kv_heads, page_size, D); slot b's position
-// p lives in page block_tables[b, p / page_size] at offset p % page_size.
+// (pallas_call in paged_attention) at s = 1 with no window, in its two
+// branches: an fp32 or bf16 pool (paged_decode_kernel, entry point
+// apex_paged_attention), and a quantized pool of int8 or fp8 e4m3 pages with
+// fp32 per-(page, kv head) scales (paged_decode_quant_kernel, entry point
+// apex_paged_attention_quant; the reference's quantized branch,
+// _paged_kernel lines 108-121 and 141-143). The page type is a template
+// parameter apart from q's type. The pool is (num_pages, kv_heads,
+// page_size, D); slot b's position p lives in page
+// block_tables[b, p / page_size] at offset p % page_size.
 // Query head h reads kv head h / rep without repeating it. The query sits at
 // position lengths[b] - 1 and sees every position below lengths[b]. Pages at
 // or past lengths[b] are never read (dead table entries point at the null
@@ -22,6 +28,13 @@
 // head) an 8-slot, 12-head batch fills only 96 of the 132 SMs and each block
 // streams its pages serially; splitting a slot's pages across blocks
 // (flash-decode) is the next step.
+//
+// The quantized branch reads a page at 1 byte per value, widened to fp32 as
+// it is staged, and the two scales of (page, kv head) through the same
+// block-table entry. The k scale folds into the score scale (scores are
+// q.k * scale * k_scale), the v scale into the probabilities that enter the
+// PV product (p * v_scale), while the denominator l sums the unscaled p, as
+// in the reference. A page's dequantized values never exist in memory.
 
 #include "attention_common.cuh"
 
@@ -31,12 +44,17 @@ constexpr int kWarps = 4;
 constexpr int kMaxRep = 16;
 constexpr int kRowsPerWarp = kMaxRep / kWarps;
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
-                    const int* __restrict__ lengths, T* __restrict__ out, int heads,
-                    int kv_heads, int page_size, int d, int max_pages, float scale) {
+// q and out of type T, pages of type P; k_scales/v_scales (num_pages,
+// kv_heads) fp32, or null for an unquantized pool
+template <typename T, typename P>
+__device__ __forceinline__ void paged_decode(const T* __restrict__ q, const P* __restrict__ k_pages,
+                                             const P* __restrict__ v_pages,
+                                             const float* __restrict__ k_scales,
+                                             const float* __restrict__ v_scales,
+                                             const int* __restrict__ block_tables,
+                                             const int* __restrict__ lengths, T* __restrict__ out,
+                                             int heads, int kv_heads, int page_size, int d,
+                                             int max_pages, float scale) {
   __shared__ float qs[kMaxRep][kMaxHeadDim];
   __shared__ float ks[kTileKeys * kTileStride];
   __shared__ float vs[kTileKeys * kTileStride];
@@ -62,18 +80,22 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int j = 0; j < live_pages; ++j) {
     const long page = table[j];
     const long base = (page * kv_heads + hk) * page_size * d;
+    // this page's dequant scales: k's joins the score scale, v's weighs p
+    // in the PV product only (row_fold's `keep`)
+    const float k_scale = k_scales != nullptr ? k_scales[page * kv_heads + hk] : 1.f;
+    const float v_scale = v_scales != nullptr ? v_scales[page * kv_heads + hk] : 1.f;
     for (int c0 = 0; c0 < page_size; c0 += kTileKeys) {
       const int nk = min(min(kTileKeys, page_size - c0), len - (j * page_size + c0));
       if (nk <= 0) break;
       __syncthreads();  // previous tile fully consumed (and qs visible)
-      load_tile<T>(ks, k_pages + base + (long)c0 * d, nk, d, d);
-      load_tile<T>(vs, v_pages + base + (long)c0 * d, nk, d, d);
+      load_tile<P>(ks, k_pages + base + (long)c0 * d, nk, d, d);
+      load_tile<P>(vs, v_pages + base + (long)c0 * d, nk, d, d);
       __syncthreads();
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
         const int r = warp + rr * kWarps;
         if (r >= rep) continue;  // warp-uniform
-        row_fold(st[rr], qs[r], ks, vs, d, lane < nk, scale, lane, 1.f);
+        row_fold(st[rr], qs[r], ks, vs, d, lane < nk, scale * k_scale, lane, v_scale);
       }
     }
   }
@@ -87,6 +109,28 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
+                    const int* __restrict__ lengths, T* __restrict__ out, int heads,
+                    int kv_heads, int page_size, int d, int max_pages, float scale) {
+  paged_decode<T, T>(q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out, heads,
+                     kv_heads, page_size, d, max_pages, scale);
+}
+
+template <typename T, typename P>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_decode_quant_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
+                          const P* __restrict__ v_pages, const float* __restrict__ k_scales,
+                          const float* __restrict__ v_scales,
+                          const int* __restrict__ block_tables, const int* __restrict__ lengths,
+                          T* __restrict__ out, int heads, int kv_heads, int page_size, int d,
+                          int max_pages, float scale) {
+  paged_decode<T, P>(q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out, heads,
+                     kv_heads, page_size, d, max_pages, scale);
+}
+
+template <typename T>
 void launch(const void* q, const void* kp, const void* vp, const int* bt, const int* len,
             void* out, int batch, int heads, int kv_heads, int page_size, int d,
             int max_pages, float scale, cudaStream_t stream) {
@@ -94,6 +138,30 @@ void launch(const void* q, const void* kp, const void* vp, const int* bt, const 
   paged_decode_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), bt, len,
       static_cast<T*>(out), heads, kv_heads, page_size, d, max_pages, scale);
+}
+
+template <typename T, typename P>
+void launch_quant(const void* q, const void* kp, const void* vp, const float* ksc,
+                  const float* vsc, const int* bt, const int* len, void* out, int batch,
+                  int heads, int kv_heads, int page_size, int d, int max_pages, float scale,
+                  cudaStream_t stream) {
+  dim3 grid(kv_heads, batch);
+  paged_decode_quant_kernel<T, P><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp), ksc, vsc,
+      bt, len, static_cast<T*>(out), heads, kv_heads, page_size, d, max_pages, scale);
+}
+
+template <typename T>
+void launch_quant_pages(int page_dtype, const void* q, const void* kp, const void* vp,
+                        const float* ksc, const float* vsc, const int* bt, const int* len,
+                        void* out, int batch, int heads, int kv_heads, int page_size, int d,
+                        int max_pages, float scale, cudaStream_t stream) {
+  if (page_dtype == APEX_E4M3)
+    launch_quant<T, __nv_fp8_e4m3>(q, kp, vp, ksc, vsc, bt, len, out, batch, heads, kv_heads,
+                                   page_size, d, max_pages, scale, stream);
+  else
+    launch_quant<T, int8_t>(q, kp, vp, ksc, vsc, bt, len, out, batch, heads, kv_heads,
+                            page_size, d, max_pages, scale, stream);
 }
 
 }  // namespace
@@ -111,5 +179,29 @@ extern "C" int apex_paged_attention(const void* q, const void* k_pages, const vo
   else
     launch<float>(q, k_pages, v_pages, bt, ln, out, batch, heads, kv_heads, page_size, d,
                   max_pages, scale, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q of `dtype` (f32 or bf16), pages of `page_dtype` (APEX_I8 or APEX_E4M3),
+// scales fp32 (num_pages, kv_heads)
+extern "C" int apex_paged_attention_quant(const void* q, const void* k_pages,
+                                          const void* v_pages, const void* k_scales,
+                                          const void* v_scales, const void* block_tables,
+                                          const void* lengths, void* out, int batch, int heads,
+                                          int kv_heads, int page_size, int d, int max_pages,
+                                          float scale, int dtype, int page_dtype,
+                                          void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* bt = static_cast<const int*>(block_tables);
+  auto* ln = static_cast<const int*>(lengths);
+  auto* ksc = static_cast<const float*>(k_scales);
+  auto* vsc = static_cast<const float*>(v_scales);
+  if (dtype == APEX_BF16)
+    launch_quant_pages<__nv_bfloat16>(page_dtype, q, k_pages, v_pages, ksc, vsc, bt, ln, out,
+                                      batch, heads, kv_heads, page_size, d, max_pages, scale,
+                                      s);
+  else
+    launch_quant_pages<float>(page_dtype, q, k_pages, v_pages, ksc, vsc, bt, ln, out, batch,
+                              heads, kv_heads, page_size, d, max_pages, scale, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,9 @@ Counterpart of ``apex_tpu/models/generation.py``, in the pieces the serving
 slice runs: the contiguous cache (``init_cache``, ``layer_cache``,
 ``is_static_prefill``, ``update_layer_cache``, ``advance_cache``,
 ``cached_attention``), the paged-cache write (``is_paged``,
-``update_paged_layer_cache``, unquantized), the greedy token and greedy
-lock-step ``generate`` — the token-identity oracle of the serving engine.
+``update_paged_layer_cache``, with the quantized pool's requantize-on-grow
+append), the greedy token and greedy lock-step ``generate`` — the
+token-identity oracle of the serving engine.
 
 Cache structure, as in the reference::
 
@@ -26,6 +27,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from apex_tpu_torch.ops.quant import kv_cast, kv_inverse, kv_qmax
 
 
 def init_cache(config, batch: int, max_len: int, *, dtype=None,
@@ -82,15 +85,102 @@ def update_layer_cache(lc, k_chunk, v_chunk):
     return dict(lc)
 
 
+def _append_quantized_pages(pages, scales, chunk, bt, t, ps: int,
+                            max_pages: int, qmax: float) -> None:
+    """Quantized-pool append with requantize-on-grow (in place), as the
+    reference's: the ``s <= page_size`` chunk spans at most the boundary
+    page and its successor, so two sequential rounds each (1) take the
+    per-(slot, kv head) amax of the new tokens landing in that page, (2)
+    grow the page's scale, ``new = max(old, amax / qmax)``, (3) rescale the
+    page's existing codes by ``old / new`` (a ratio of 1, the common case,
+    rewrites them bit for bit) and requantize, and (4) write the new tokens
+    quantized at ``new``. Only pages at or past ``len // page_size`` are
+    touched, so full pages stay bit-stable."""
+    slots, _, s, _ = chunk.shape
+    cf = chunk.float()
+    pos = t[:, None] + torch.arange(s, device=t.device)[None, :]  # (slots, s)
+    base = t // ps
+    sl = torch.arange(slots, device=t.device)
+    for j in (0, 1):
+        ent = base + j
+        pg = torch.gather(bt.long(), 1,
+                          ent.clamp(0, max_pages - 1)[:, None])[:, 0]
+        in_pg = (pos // ps) == ent[:, None]                  # (slots, s)
+        has = in_pg.any(dim=1)
+        amax = torch.where(in_pg[:, None, :, None], cf.abs(), 0.0).amax(
+            dim=(2, 3))                                      # (slots, kv)
+        old = scales[pg]
+        new = torch.where(has[:, None], torch.maximum(old, amax / qmax), old)
+        ratio = torch.where(new > 0, old / torch.clamp(new, min=1e-30), 0.0)
+        # the page's codes on the grown grid: (slots, kv, ps, d)
+        tile = pages[pg].float() * ratio[:, :, None, None]
+        qtok = kv_cast(cf * kv_inverse(new)[:, :, None, None], pages.dtype,
+                       qmax)
+        # members land at their in-page offset, the rest at the extra row
+        # ps, dropped below
+        off = torch.where(in_pg, pos % ps, ps)
+        tile_q = kv_cast(tile, pages.dtype, qmax)
+        tile_q = torch.cat([tile_q, torch.zeros_like(tile_q[:, :, :1])],
+                           dim=2)
+        tile_q[sl[:, None], :, off, :] = qtok.transpose(1, 2)
+        # distinct live slots own distinct pages; idle and done slots meet
+        # only on the null page 0, which no live slot reads
+        pages[pg] = tile_q[:, :, :ps]
+        scales[pg] = new
+
+
+def _append_quantized_token(lc, k_tok, v_tok, qmax: float) -> None:
+    """The decode step's append (``s = 1``) into a quantized pool, K and V
+    together: the reference's first round on the page that takes the
+    token, with the same arithmetic (in place). Its second round, on the
+    next page, changes no value a slot reads when ``s = 1``: no token lands
+    there, so the page's scale stays, and its codes are rescaled by 1 (a
+    bit-exact rewrite) or, while its scale is still 0, zeroed, which the
+    first token to land there does too. So it is left out."""
+    kp, vp, ks, vs = (lc[n] for n in ("k_pages", "v_pages", "k_scales",
+                                      "v_scales"))
+    bt, t = lc["block_tables"], lc["len"].long()
+    ps = kp.shape[2]
+    ent = (t // ps).clamp(0, bt.shape[1] - 1)
+    pg = torch.gather(bt, 1, ent[:, None])[:, 0].long()      # (slots,)
+    off = t % ps
+    # K and V stacked: (2, slots, kv, d)
+    cf = torch.stack((k_tok[:, :, 0], v_tok[:, :, 0])).float()
+    old = torch.stack((ks[pg], vs[pg]))                      # (2, slots, kv)
+    new = torch.maximum(old, cf.abs().amax(dim=-1) / qmax)
+    ratio = torch.where(new > 0, old / torch.clamp(new, min=1e-30), 0.0)
+    tile = kv_cast(torch.stack((kp[pg], vp[pg])).float()
+                   * ratio[..., None, None], kp.dtype, qmax)
+    qtok = kv_cast(cf * kv_inverse(new)[..., None], kp.dtype, qmax)
+    tile[:, torch.arange(pg.shape[0], device=pg.device), :, off, :] = \
+        qtok.transpose(0, 1)
+    # distinct live slots own distinct pages; idle and done slots meet only
+    # on the null page 0, which no live slot reads
+    kp[pg], vp[pg] = tile[0], tile[1]
+    ks[pg], vs[pg] = new[0], new[1]
+
+
 def update_paged_layer_cache(lc, k_chunk, v_chunk):
     """Write an ``(slots, kv, s, d)`` chunk into the page pool at each slot's
     current length (in place): slot ``b``'s position ``len_b + i`` lands in
     page ``block_tables[b, (len_b + i) // page_size]`` at offset
     ``(len_b + i) % page_size``. Idle slots (all-null table rows) write into
-    the null page 0, which no live slot reads."""
+    the null page 0, which no live slot reads. A quantized pool (``k_scales``
+    in the layer view) quantizes on write through
+    :func:`_append_quantized_token` at a decode step (``s = 1``), else
+    :func:`_append_quantized_pages`."""
+    if "k_scales" in lc and k_chunk.shape[2] == 1:
+        _append_quantized_token(lc, k_chunk, v_chunk,
+                                kv_qmax(lc["k_pages"].dtype))
+        return dict(lc)
     if "k_scales" in lc:
-        raise NotImplementedError(
-            "quantized KV pages are not ported yet (ROADMAP queue B item 6)")
+        kp = lc["k_pages"]
+        args = (lc["block_tables"], lc["len"].long(), kp.shape[2],
+                lc["block_tables"].shape[1], kv_qmax(kp.dtype))
+        _append_quantized_pages(kp, lc["k_scales"], k_chunk, *args)
+        _append_quantized_pages(lc["v_pages"], lc["v_scales"], v_chunk,
+                                *args)
+        return dict(lc)
     kp, vp = lc["k_pages"], lc["v_pages"]
     ps = kp.shape[2]
     bt = lc["block_tables"]

@@ -16,6 +16,13 @@ Counterpart of ``apex_tpu/models/gpt.py`` (``GPTConfig``,
 dtype flow as in the reference: ``x = (emb + pos).to(dtype)``; each
 LayerNorm reads and writes x's dtype; linears cast their fp32 weights to
 x's dtype; the tied LM head returns logits in ``dtype``.
+
+Quantized serving: ``weight_policy=WeightPrecisionPolicy(...)`` (or the
+``quantize_int8=True`` alias) stores the four block linears narrow and runs
+them through the dequant-matmul kernels; embeddings, norms, biases and the
+tied head stay in ``param_dtype``. Load real values with
+``models/quantize.py``. A paged cache built with ``kv_dtype=`` carries
+per-page scales, which the block passes to ``paged_attention``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from apex_tpu_torch.models.generation import (advance_cache, cached_attention,
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.paged_attention import paged_attention
+from apex_tpu_torch.ops.quant import WeightPrecisionPolicy
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 
@@ -50,10 +58,21 @@ class GPTConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     tensor_parallel_size: int = 1
+    # quantized block linears (inference only): ``quantize_int8`` is the
+    # alias of the int8-everywhere policy, ``weight_policy`` a
+    # WeightPrecisionPolicy (int8 / fp8 / int4-grouped)
+    quantize_int8: bool = False
+    weight_policy: Any = None
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    def weight_quant(self) -> Optional[WeightPrecisionPolicy]:
+        """The resolved policy, or None for full-precision weights (a named
+        error when ``quantize_int8`` and ``weight_policy`` conflict)."""
+        return WeightPrecisionPolicy.resolve(self.weight_policy,
+                                             self.quantize_int8)
 
 
 def gpt2_small_config(**overrides) -> GPTConfig:
@@ -74,7 +93,10 @@ class ParallelDecoderBlock(nn.Module):
         super().__init__()
         cfg = config
         e, pd, tp = cfg.hidden_size, cfg.param_dtype, cfg.tensor_parallel_size
-        kw = dict(world_size=tp, params_dtype=pd, device=device)
+        pol = cfg.weight_quant()
+        kw = dict(world_size=tp, params_dtype=pd, device=device,
+                  quantize=pol.linears if pol else False,
+                  quantize_group_size=pol.group_size if pol else 128)
         self.config = cfg
         self.input_norm = FusedLayerNorm(e, cfg.layernorm_eps, param_dtype=pd,
                                          device=device)
@@ -103,7 +125,9 @@ class ParallelDecoderBlock(nn.Module):
             cache = update_paged_layer_cache(cache, to_bhsd(k), to_bhsd(v))
             ctx = paged_attention(to_bhsd(q), cache["k_pages"],
                                   cache["v_pages"], cache["block_tables"],
-                                  cache["len"] + s)
+                                  cache["len"] + s,
+                                  k_scales=cache.get("k_scales"),
+                                  v_scales=cache.get("v_scales"))
         elif cache is not None:
             prefill = is_static_prefill(cache, s)
             cache = update_layer_cache(cache, to_bhsd(k), to_bhsd(v))
@@ -155,7 +179,8 @@ class GPTModel(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Seeded random weights (CPU ``generator``): normal(0.02)
-        embeddings, LeCun-normal linears, zero biases, unit norms."""
+        embeddings, LeCun-normal linears, zero biases, unit norms.
+        Quantized linears keep their placeholders."""
         self.word_embeddings.reset_parameters(generator)
         with torch.no_grad():
             self.position_embeddings.copy_(torch.randn(

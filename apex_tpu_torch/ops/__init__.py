@@ -10,9 +10,12 @@ from apex_tpu_torch.ops.optim_kernels import (adam_update,
                                               lamb_update, segment_stats)
 from apex_tpu_torch.ops.paged_attention import (paged_attention,
                                                 paged_attention_reference)
+from apex_tpu_torch.ops.quant import (fused_dequant_matmul,
+                                      fused_dequant_matmul_reference)
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
 
 __all__ = ["adam_update", "flash_attention", "flash_attention_with_lse",
+           "fused_dequant_matmul", "fused_dequant_matmul_reference",
            "global_grad_norm_and_finite", "lamb_update", "layer_norm",
            "mha_reference", "paged_attention", "paged_attention_reference",
            "segment_stats", "softmax_cross_entropy"]

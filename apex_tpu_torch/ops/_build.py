@@ -56,12 +56,22 @@ KERNELS = {
                       "apex_tpu/ops/optim_kernels.py:80"),
     "lamb_phase1": ("lamb.cu", "apex_tpu/ops/optim_kernels.py:331"),
     "lamb_phase2": ("lamb.cu", "apex_tpu/ops/optim_kernels.py:379"),
+    "dequant_matmul": ("dequant_matmul.cu", "apex_tpu/ops/quant.py:290"),
+    "dequant_matmul_w4": ("dequant_matmul.cu", "apex_tpu/ops/quant.py:300"),
+    "paged_attention_quant": ("paged_attention.cu",
+                              "apex_tpu/ops/paged_attention.py:108"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`
 launches = {name: 0 for name in KERNELS}
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype codes shared with ``common.cuh``'s ``ApexDtype``
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3}
+#: the compute dtypes every kernel takes, and the narrow storage dtypes of
+#: quantized weights and KV pages
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+NARROW_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
@@ -180,11 +190,11 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def dtype_code(t: torch.Tensor) -> int:
-    code = DTYPE_CODES.get(t.dtype)
-    if code is None:
-        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {t.dtype}")
-    return code
+def dtype_code(t: torch.Tensor, allowed=COMPUTE_DTYPES) -> int:
+    if t.dtype not in allowed:
+        names = " or ".join(str(d).split(".")[-1] for d in allowed)
+        raise TypeError(f"this CUDA kernel takes {names}, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
 
 
 def check_cuda(*tensors: torch.Tensor) -> None:

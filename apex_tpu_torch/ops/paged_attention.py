@@ -1,16 +1,20 @@
-"""Paged-attention decode: the Hopper kernel ``csrc/paged_attention.cu``
-and its plain PyTorch twin.
+"""Paged-attention decode: the Hopper kernels of ``csrc/paged_attention.cu``
+and their plain PyTorch twin.
 
 Counterpart of ``apex_tpu/ops/paged_attention.py`` (``_paged_kernel``,
-``paged_attention``, ``paged_attention_reference``) in its unquantized
-branch at ``s = 1`` with no window. The pool is ``(num_pages, kv_heads,
-page_size, head_dim)`` and is read through the int32 ``(batch, max_pages)``
-block table; slot ``b``'s query sits at position ``lengths[b] - 1`` and sees
-every position below ``lengths[b]``. Entries past a slot's length must hold
-a valid page id (page 0, the pool's null page) and are never read. A slot
-of length 0 outputs exactly 0. Decode only: it has no backward, as the
-reference kernel has no VJP, so a call under autograd on an input that
-requires grad raises on either device.
+``paged_attention``, ``paged_attention_reference``) at ``s = 1`` with no
+window, in both its branches: an fp32 or bf16 pool (kernel
+``paged_attention``), and a quantized pool of int8 or fp8 e4m3 pages with
+fp32 per-(page, kv head) scales ``k_scales``/``v_scales`` (kernel
+``paged_attention_quant``), where the true K of page ``p``, head ``h`` is
+``k_pages[p, h].float() * k_scales[p, h]``. The pool is ``(num_pages,
+kv_heads, page_size, head_dim)`` and is read through the int32 ``(batch,
+max_pages)`` block table; slot ``b``'s query sits at position
+``lengths[b] - 1`` and sees every position below ``lengths[b]``. Entries
+past a slot's length must hold a valid page id (page 0, the pool's null
+page) and are never read. A slot of length 0 outputs exactly 0. Decode
+only: it has no backward, as the reference kernel has no VJP, so a call
+under autograd on an input that requires grad raises on either device.
 
 A tensor on the CPU takes the twin; a CUDA tensor always takes the kernel.
 """
@@ -26,10 +30,23 @@ from apex_tpu_torch.ops import _build
 
 def _validate(q, k_pages, v_pages, block_tables, lengths, window, k_scales,
               v_scales):
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "quantized KV pages (k_scales/v_scales) are not ported yet "
-            "(ROADMAP queue B item 6: quantized paged attention)")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together "
+                         "(a quantized pool quantizes both tensors)")
+    if k_scales is not None:
+        if k_pages.dtype not in _build.NARROW_DTYPES:
+            raise NotImplementedError(
+                f"quantized paged attention (k_scales/v_scales) takes int8 "
+                f"or float8_e4m3fn pages in this port, got {k_pages.dtype}")
+        want = tuple(k_pages.shape[:2])
+        for name, sc in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if tuple(sc.shape) != want:
+                raise ValueError(
+                    f"{name} must be (num_pages, kv_heads) = {want} "
+                    f"per-page/per-kv-head scales, got {tuple(sc.shape)}")
+            if not sc.is_floating_point():
+                raise ValueError(f"{name} must be float scales, got "
+                                 f"{sc.dtype}")
     if window is not None:
         raise NotImplementedError(
             "sliding-window paged attention is not ported yet (ROADMAP "
@@ -64,8 +81,9 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths, *,
                               scale: Optional[float] = None, window=None,
                               k_scales=None, v_scales=None):
     """Plain twin: gather every table entry into a contiguous
-    ``(b, kv, max_pages * page_size, d)`` view and run dense masked GQA
-    attention with fp32 scores."""
+    ``(b, kv, max_pages * page_size, d)`` view (dequantized in fp32 with the
+    gathered per-page scales when given) and run dense masked GQA attention
+    with fp32 scores."""
     _validate(q, k_pages, v_pages, block_tables, lengths, window, k_scales,
               v_scales)
     _, kv, page_size, d = k_pages.shape
@@ -76,11 +94,13 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths, *,
         scale = 1.0 / (d ** 0.5)
     bt = block_tables.long()
 
-    def contig(pages):
+    def contig(pages, scales):
         g = pages[bt].float()                        # (b, mp, kv, ps, d)
+        if scales is not None:
+            g = g * scales[bt].float()[..., None, None]
         return g.transpose(1, 2).reshape(b, kv, max_pages * page_size, d)
 
-    k, v = contig(k_pages), contig(v_pages)
+    k, v = contig(k_pages, k_scales), contig(v_pages, v_scales)
     qf = q.reshape(b, kv, rep, 1, d).float()
     s = torch.einsum("bkrsd,bktd->bkrst", qf, k) * scale
     pos = torch.arange(max_pages * page_size, device=q.device)
@@ -92,14 +112,19 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths, *,
     return ctx.reshape(b, h, 1, d).to(q.dtype)
 
 
-def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale):
+def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
+                  k_scales=None, v_scales=None):
+    """Launch ``paged_attention`` or, with scales, ``paged_attention_quant``
+    (q in fp32 or bf16, pages int8 or e4m3)."""
     _, kv, page_size, d = k_pages.shape
     b, h = q.shape[0], q.shape[1]
     if d > 128 or h // kv > 16:
         raise NotImplementedError(
             f"paged kernel takes head_dim <= 128 and <= 16 query heads per "
             f"kv head, got d={d}, rep={h // kv}")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+    quant = k_scales is not None
+    if k_pages.dtype != v_pages.dtype or (
+            not quant and q.dtype != k_pages.dtype):
         raise TypeError(f"q and page dtypes differ: {q.dtype}, "
                         f"{k_pages.dtype}, {v_pages.dtype}")
     q = q.contiguous()
@@ -110,12 +135,26 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale):
     if b == 0:
         return out
     P, I, F = _build.P, _build.I, _build.F
-    _build.launch(
-        "paged_attention", "apex_paged_attention",
-        (P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        ln.data_ptr(), out.data_ptr(), b, h, kv, page_size, d, bt.shape[1],
-        float(scale), _build.dtype_code(q), _build.stream_of(q))
+    shape = (b, h, kv, page_size, d, bt.shape[1], float(scale))
+    if quant:
+        ks = k_scales.float().contiguous()
+        vs = v_scales.float().contiguous()
+        _build.check_cuda(q, ks, vs)
+        _build.launch(
+            "paged_attention_quant", "apex_paged_attention_quant",
+            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P),
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            ks.data_ptr(), vs.data_ptr(), bt.data_ptr(), ln.data_ptr(),
+            out.data_ptr(), *shape, _build.dtype_code(q),
+            _build.dtype_code(k_pages, _build.NARROW_DTYPES),
+            _build.stream_of(q))
+    else:
+        _build.launch(
+            "paged_attention", "apex_paged_attention",
+            (P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            bt.data_ptr(), ln.data_ptr(), out.data_ptr(), *shape,
+            _build.dtype_code(q), _build.stream_of(q))
     return out
 
 
@@ -123,8 +162,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     scale: Optional[float] = None,
                     window: Optional[int] = None,
                     k_scales=None, v_scales=None):
-    """Decode GQA attention over a paged KV pool. Returns ``(batch, heads,
-    1, head_dim)`` in q's dtype."""
+    """Decode GQA attention over a paged KV pool (a quantized one with
+    ``k_scales``/``v_scales``). Returns ``(batch, heads, 1, head_dim)`` in
+    q's dtype."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_pages, v_pages)):
         raise RuntimeError(
@@ -137,5 +177,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         scale = 1.0 / (k_pages.shape[3] ** 0.5)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
-                                         lengths, scale=scale)
-    return _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale)
+                                         lengths, scale=scale,
+                                         k_scales=k_scales, v_scales=v_scales)
+    return _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
+                         k_scales, v_scales)

@@ -1,13 +1,17 @@
 """Paged KV pool: page-granular cache storage, block tables and the free
-stack (unquantized, unshared).
+stack (unshared), full-precision or quantized.
 
 Counterpart of ``apex_tpu/serving/kv_pool.py`` (``init_paged_cache``,
 ``alloc_slot``, ``release_slot``, ``free_slot``, ``prefill_into_pages``,
-``pages_for``, ``free_page_count``). Layout::
+``pages_for``, ``free_page_count``, ``page_bytes``,
+``max_slots_for_pool_bytes``). Layout::
 
     pcache = {
       "layers": [{"k_pages": (num_pages, kv, page_size, d),
-                  "v_pages": ...}] * num_layers,      # on the device
+                  "v_pages": ...,
+                  # a quantized pool (kv_dtype="int8" or "fp8") only:
+                  "k_scales": (num_pages, kv) fp32, "v_scales": ...,
+                  }] * num_layers,                     # on the device
       "block_tables": (num_slots, max_pages_per_seq) int32,   # device
       "len":          (num_slots,) int32,  # tokens written per slot, device
       "alloc_pages":  (num_slots,) int32,  # pages OWNED per slot, host
@@ -22,6 +26,13 @@ the free count. Page 0 is the reserved NULL page: never allocated, every
 dead table entry points at it, and idle slots write their K/V there — no
 live slot ever reads it.
 
+A quantized pool stores int8 or fp8 e4m3 pages with one symmetric fp32
+scale per (page, kv head): a page's true K is ``k_pages[p].float() *
+k_scales[p][:, None, None]``. A freshly allocated page's scales are zeroed
+(scale 0 means "holds nothing yet"); ``prefill_into_pages`` quantizes on
+write with each page's scale SET from its tokens' amax, and decode appends
+requantize on grow (``models/generation.update_paged_layer_cache``).
+
 Unlike the reference's pure functions, these update the cache dict and its
 tensors IN PLACE, and return it for the reference's call style.
 """
@@ -31,6 +42,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from apex_tpu_torch.ops.quant import (kv_cast, kv_inverse, kv_qmax,
+                                      resolve_kv_dtype)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -54,29 +68,50 @@ def pages_for(length: int, page_size: int) -> int:
     return cdiv(length, page_size)
 
 
+def _page_dtype(config, dtype, quant):
+    """The pool's page dtype: the quantized one, else ``dtype`` or the
+    model's compute dtype."""
+    if quant is not None:
+        return quant[0]
+    return dtype if dtype is not None else config.dtype
+
+
 def init_paged_cache(config, num_slots: int, *, num_pages: int,
                      page_size: int = 16,
                      max_pages_per_seq: Optional[int] = None, dtype=None,
                      kv_dtype=None, device="cuda"):
     """Allocate the shared page pool + empty slot state. ``num_pages``
-    includes the null page 0."""
-    if kv_dtype is not None:
-        raise NotImplementedError(
-            "quantized KV pools are not ported yet (ROADMAP queue B item 6)")
+    includes the null page 0. ``kv_dtype`` (``"int8"``/``"fp8"``) makes a
+    quantized pool with fp32 per-(page, kv head) ``k_scales``/``v_scales``
+    in each layer; it excludes ``dtype``, since the page dtype is then the
+    quantized one."""
+    if kv_dtype is not None and dtype is not None:
+        raise ValueError("kv-dtype-conflict: pass dtype= OR kv_dtype=, "
+                         "not both — a quantized pool's page dtype is "
+                         "the quantized dtype")
+    quant = resolve_kv_dtype(kv_dtype)
+    dt = _page_dtype(config, dtype, quant)
     if page_size % 8 != 0:
         raise ValueError(f"page_size must be a multiple of 8, got "
                          f"{page_size}")
     if num_pages < 2:
         raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
     kv = getattr(config, "num_kv_heads", config.num_heads)
-    dt = dtype if dtype is not None else config.dtype
     if max_pages_per_seq is None:
         max_pages_per_seq = cdiv(config.max_position_embeddings, page_size)
     shape = (num_pages, kv, page_size, config.head_dim)
+
+    def layer():
+        lc = {"k_pages": torch.zeros(shape, dtype=dt, device=device),
+              "v_pages": torch.zeros(shape, dtype=dt, device=device)}
+        if quant is not None:
+            for name in ("k_scales", "v_scales"):
+                lc[name] = torch.zeros((num_pages, kv), dtype=torch.float32,
+                                       device=device)
+        return lc
+
     return {
-        "layers": [{"k_pages": torch.zeros(shape, dtype=dt, device=device),
-                    "v_pages": torch.zeros(shape, dtype=dt, device=device)}
-                   for _ in range(config.num_layers)],
+        "layers": [layer() for _ in range(config.num_layers)],
         "block_tables": torch.zeros((num_slots, max_pages_per_seq),
                                     dtype=torch.int32, device=device),
         "len": torch.zeros((num_slots,), dtype=torch.int32, device=device),
@@ -92,10 +127,28 @@ def free_page_count(cache) -> int:
     return cache["free_top"]
 
 
+def is_quantized(cache) -> bool:
+    return "k_scales" in cache["layers"][0]
+
+
+def _reset_page_scales(cache, page_ids) -> None:
+    """Zero the scales of freshly allocated pages (a no-op on a
+    full-precision pool): the prefill write and the requantize-on-grow
+    append trust scale 0 to mean an empty page, and a previous occupant's
+    scale would inflate the new occupant's grid. ``page_ids`` may hold the
+    null page 0, whose scale no live slot reads."""
+    if not is_quantized(cache):
+        return
+    for lc in cache["layers"]:
+        lc["k_scales"][page_ids] = 0.0
+        lc["v_scales"][page_ids] = 0.0
+
+
 def alloc_slot(cache, slot: int, n_pages: int):
     """Pop ``n_pages`` pages off the free stack and install them as slot
     ``slot``'s block-table row (entries past ``n_pages`` point at the null
-    page). The caller ensures ``free_page_count(cache) >= n_pages``."""
+    page), zeroing their scales in a quantized pool. The caller ensures
+    ``free_page_count(cache) >= n_pages``."""
     top = cache["free_top"]
     if n_pages > top:
         raise ValueError(f"alloc of {n_pages} pages with {top} free")
@@ -106,8 +159,10 @@ def alloc_slot(cache, slot: int, n_pages: int):
     row = torch.zeros((max_pages,), dtype=torch.int32)
     row[:n_pages] = cache["free_stack"][top - n_pages:top].flip(0)
     cache["free_top"] = top - n_pages
-    cache["block_tables"][slot] = row.to(cache["block_tables"].device)
+    row = row.to(cache["block_tables"].device)
+    cache["block_tables"][slot] = row
     cache["alloc_pages"][slot] = n_pages
+    _reset_page_scales(cache, row.long())
     return cache
 
 
@@ -142,19 +197,73 @@ def prefill_into_pages(cache, slot: int, contig_layers, s0: int):
     ``(1, kv, len_bucket, d)``) into slot ``slot``'s allocated pages and
     set its length to ``s0``. Position ``p`` lands in table entry
     ``p // page_size`` at offset ``p % page_size``; bucket padding
-    (``p >= s0``) goes to the null page."""
+    (``p >= s0``) goes to the null page.
+
+    A quantized pool quantizes on write: each written table entry's scale
+    per kv head is SET (alloc zeroed it) to the amax of its valid tokens
+    over ``qmax``, and the tokens are quantized at that scale."""
     bt = cache["block_tables"]
     ps = page_size_of(cache)
     max_pages = bt.shape[1]
     len_bucket = contig_layers[0]["k"].shape[2]
     pos = torch.arange(len_bucket, device=bt.device)
+    valid = pos < s0
     row = bt[slot].long()
-    phys = torch.where(pos < s0, row[(pos // ps).clamp(0, max_pages - 1)], 0)
+    phys = torch.where(valid, row[(pos // ps).clamp(0, max_pages - 1)], 0)
     off = pos % ps
+    if is_quantized(cache):
+        qdt = cache["layers"][0]["k_pages"].dtype
+        qmax = kv_qmax(qdt)
+        nb = cdiv(len_bucket, ps)
+        pad = nb * ps - len_bucket
+        ent_any = torch.nn.functional.pad(valid, (0, pad)).reshape(
+            nb, ps).any(dim=1)                                  # (nb,)
+        page_e = torch.where(ent_any, row[:nb], 0)
+        ent_of = (pos // ps).clamp(0, nb - 1)
+
+        def write(pages, scales, x):
+            xf = x.float()                             # (len_bucket, kv, d)
+            ax = torch.where(valid[:, None, None], xf.abs(), 0.0)
+            ax = torch.nn.functional.pad(ax, (0, 0, 0, 0, 0, pad))
+            amax = ax.reshape(nb, ps, *x.shape[1:]).amax(dim=(1, 3))
+            sc = amax / qmax                                   # (nb, kv)
+            q = kv_cast(xf * kv_inverse(sc)[ent_of][:, :, None], qdt, qmax)
+            pages[phys, :, off, :] = q
+            scales[page_e] = torch.where(ent_any[:, None], sc, 0.0)
+    else:
+        def write(pages, scales, x):
+            pages[phys, :, off, :] = x.to(pages.dtype)
+
     for lc, src in zip(cache["layers"], contig_layers):
-        k = src["k"][0].transpose(0, 1)          # (len_bucket, kv, d)
-        v = src["v"][0].transpose(0, 1)
-        lc["k_pages"][phys, :, off, :] = k.to(lc["k_pages"].dtype)
-        lc["v_pages"][phys, :, off, :] = v.to(lc["v_pages"].dtype)
+        write(lc["k_pages"], lc.get("k_scales"),
+              src["k"][0].transpose(0, 1))            # (len_bucket, kv, d)
+        write(lc["v_pages"], lc.get("v_scales"), src["v"][0].transpose(0, 1))
     cache["len"][slot] = s0
     return cache
+
+
+# --- pool sizing ------------------------------------------------------------
+
+def page_bytes(config, page_size: int = 16, *, kv_dtype=None,
+               dtype=None) -> int:
+    """Pool bytes one page costs across all layers: the K and V page tiles
+    at the pool dtype plus, in a quantized pool, their two fp32 per-(page,
+    kv head) scales. At page 16, head_dim 64 an int8 page costs ``(16 * 64
+    + 4) / (2 * 16 * 64) ~= 0.502`` of a bf16 page."""
+    quant = resolve_kv_dtype(kv_dtype)
+    dt = _page_dtype(config, dtype, quant)
+    kv = getattr(config, "num_kv_heads", config.num_heads)
+    per_tensor = kv * page_size * config.head_dim * dt.itemsize
+    if quant is not None:
+        per_tensor += kv * 4
+    return 2 * per_tensor * config.num_layers
+
+
+def max_slots_for_pool_bytes(config, pool_bytes: int, *,
+                             pages_per_slot: int, page_size: int = 16,
+                             kv_dtype=None, dtype=None) -> int:
+    """How many ``pages_per_slot``-page slots a ``pool_bytes`` budget
+    admits (the null page 0 carved out first)."""
+    pb = page_bytes(config, page_size, kv_dtype=kv_dtype, dtype=dtype)
+    num_pages = pool_bytes // pb
+    return max(int(num_pages - 1) // pages_per_slot, 0)

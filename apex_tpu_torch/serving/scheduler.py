@@ -15,7 +15,12 @@ finished slots (their pages return to the free stack at once) and admits
 queued requests into the vacancies while the free pages cover each one's
 whole demand, ``pages_for(prompt + max_new_tokens)``, head-of-line.
 
-Greedy outputs are token-identical to per-request lock-step ``generate``.
+``kv_dtype="int8"`` or ``"fp8"`` serves over a quantized pool (int8 or
+fp8 e4m3 pages with per-(page, kv head) scales); a model built with a
+weight policy serves quantized block linears. Greedy outputs are
+token-identical to per-request lock-step ``generate`` of the same model
+(over a quantized pool, prefill never reads the pool, so first tokens
+match the full-precision pool's).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.models.generation import _greedy_token, init_cache
+from apex_tpu_torch.ops.quant import resolve_kv_dtype
 from apex_tpu_torch.serving import kv_pool
 
 
@@ -65,7 +71,8 @@ class PagedDecodeEngine:
                  temperature: float = 0.0, sync_every: int = 1,
                  prefix_cache: bool = False, draft_model=None,
                  draft_len: int = 0, prefill_chunk: Optional[int] = None,
-                 kv_dtype=None, host_tier_bytes: Optional[int] = None):
+                 kv_dtype=None, draft_kv_dtype="match",
+                 host_tier_bytes: Optional[int] = None):
         cfg = model.config
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
@@ -77,8 +84,12 @@ class PagedDecodeEngine:
         if prefix_cache or host_tier_bytes:
             raise _not_ported("the prefix cache and host tier",
                               "queue A item 6: host side of serving")
-        if kv_dtype is not None:
-            raise _not_ported("quantized KV pages", "queue B item 6")
+        # resolved eagerly: an unsupported kv_dtype is a named ValueError
+        # here, never a silent full-precision pool
+        resolve_kv_dtype(kv_dtype)
+        if draft_kv_dtype not in ("match", kv_dtype):
+            raise _not_ported("a quantized draft pool (draft_kv_dtype)",
+                              "queue A item 8: speculative decode")
         if draft_model is not None or draft_len:
             raise _not_ported("speculative decode", "queue A item 8")
         if prefill_chunk is not None:
@@ -101,7 +112,8 @@ class PagedDecodeEngine:
             num_pages = 1 + num_slots * max_pages_per_seq
         self.cache = kv_pool.init_paged_cache(
             cfg, num_slots, num_pages=num_pages, page_size=page_size,
-            max_pages_per_seq=max_pages_per_seq, device=self.device)
+            max_pages_per_seq=max_pages_per_seq, kv_dtype=kv_dtype,
+            device=self.device)
 
     # --- device programs ----------------------------------------------------
 
@@ -235,7 +247,7 @@ def generate_paged(model, prompt_ids, max_new_tokens: int, *,
                    eos_token_id: Optional[int] = None,
                    num_slots: Optional[int] = None, page_size: int = 16,
                    num_pages: Optional[int] = None, sync_every: int = 1,
-                   return_stats: bool = False):
+                   kv_dtype=None, return_stats: bool = False):
     """``generate``-shaped front end over the engine: a rectangular
     ``(batch, s0)`` prompt array returns ``(batch, s0 + max_new_tokens)``
     ids with EOS padding after a row finishes; a list of 1-D prompts of
@@ -246,7 +258,7 @@ def generate_paged(model, prompt_ids, max_new_tokens: int, *,
     engine = PagedDecodeEngine(
         model, num_slots=num_slots if num_slots is not None else len(prompts),
         page_size=page_size, num_pages=num_pages, eos_token_id=eos_token_id,
-        sync_every=sync_every)
+        sync_every=sync_every, kv_dtype=kv_dtype)
     outs, stats = engine.run([Request(p, max_new_tokens) for p in prompts])
     fill = eos_token_id if eos_token_id is not None else 0
     full = [torch.from_numpy(np.concatenate(

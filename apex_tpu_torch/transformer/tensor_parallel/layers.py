@@ -7,12 +7,25 @@ Counterparts of ``apex_tpu/transformer/tensor_parallel/layers.py``
 input's dtype and computes ``y = x @ w.T + b``, as the reference does. These
 GEMMs sit outside any Pallas kernel in the reference, so they stay
 ``torch.matmul`` here.
+
+With ``quantize=`` (``"int8"``/``True``, ``"fp8"`` or ``"int4"``, as the
+reference's) a linear stores its weight narrow, as buffers ``weight`` and
+``scale`` (int8/fp8: ``(out, in)`` with ``(out,)`` scales; int4: ``(out,
+in // 2)`` uint8 with ``(in // quantize_group_size, out)`` scales), and its
+forward is ``fused_dequant_matmul`` (the dequant-matmul kernels). The
+buffers start as placeholders, zeros and ones, as in the reference; real
+values come from ``models/quantize.py``. Inference only.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from apex_tpu_torch.ops.quant import (fused_dequant_matmul,
+                                      resolve_weight_dtype,
+                                      validate_int4_group,
+                                      weight_storage_dtype)
 
 _TP_TODO = ("tensor parallelism (world_size > 1) is not ported yet "
             "(ROADMAP queue A item 10: tensor-parallel serving)")
@@ -26,28 +39,50 @@ def _tp1(world_size: int) -> None:
 class _Linear(nn.Module):
     def __init__(self, input_size: int, output_size: int, *,
                  bias: bool = True, world_size: int = 1,
-                 params_dtype=torch.float32, device=None):
+                 params_dtype=torch.float32, quantize=False,
+                 quantize_group_size: int = 128, device=None):
         super().__init__()
         _tp1(world_size)
-        self.weight = nn.Parameter(torch.empty(
-            output_size, input_size, dtype=params_dtype, device=device))
+        self.quantize = resolve_weight_dtype(quantize)
+        if self.quantize == "int4":
+            validate_int4_group(input_size, quantize_group_size)
+            self.register_buffer("weight", torch.zeros(
+                output_size, input_size // 2, dtype=torch.uint8,
+                device=device))
+            self.register_buffer("scale", torch.ones(
+                input_size // quantize_group_size, output_size,
+                dtype=torch.float32, device=device))
+        elif self.quantize:
+            self.register_buffer("weight", torch.zeros(
+                output_size, input_size,
+                dtype=weight_storage_dtype(self.quantize), device=device))
+            self.register_buffer("scale", torch.ones(
+                output_size, dtype=torch.float32, device=device))
+        else:
+            self.weight = nn.Parameter(torch.empty(
+                output_size, input_size, dtype=params_dtype, device=device))
         self.bias = (nn.Parameter(torch.zeros(output_size, dtype=params_dtype,
                                               device=device))
                      if bias else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """LeCun-normal weight (std ``1/sqrt(fan_in)``, the reference's
-        default init family), zero bias."""
-        std = self.weight.shape[1] ** -0.5
+        default init family), zero bias. A quantized weight keeps its
+        placeholders."""
         with torch.no_grad():
-            w = torch.randn(self.weight.shape, generator=generator,
-                            dtype=torch.float32) * std
-            self.weight.copy_(w)
+            if not self.quantize:
+                std = self.weight.shape[1] ** -0.5
+                w = torch.randn(self.weight.shape, generator=generator,
+                                dtype=torch.float32) * std
+                self.weight.copy_(w)
             if self.bias is not None:
                 self.bias.zero_()
 
     def forward(self, x):
-        y = x @ self.weight.to(x.dtype).T
+        if self.quantize:
+            y = fused_dequant_matmul(x, self.weight, self.scale)
+        else:
+            y = x @ self.weight.to(x.dtype).T
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s three paths at full width with seeded random
+Drives ``apex_tpu_torch``'s four paths at full width with seeded random
 weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (into ``apex_tpu_torch/_build/``): GPT-2-small greedy paged decode through
-``PagedDecodeEngine``; GPT-2-small training steps (``GPTModel``,
-``gpt_loss``, ``loss.backward()``, ``FusedAdam.step()``); and BERT-Large
-pretraining steps (``BertForPreTraining``, ``bert_pretrain_loss_fn``,
-``loss.backward()``, ``FusedLAMB.step()``). Phases, one JSON line each:
+``PagedDecodeEngine``; the same decode with quantized weights
+(``GPTModel(gpt2_small_config(weight_policy=...))``,
+``quantize_model_params``) and a quantized page pool
+(``PagedDecodeEngine(..., kv_dtype=)``); GPT-2-small training steps
+(``GPTModel``, ``gpt_loss``, ``loss.backward()``, ``FusedAdam.step()``);
+and BERT-Large pretraining steps (``BertForPreTraining``,
+``bert_pretrain_loss_fn``, ``loss.backward()``, ``FusedLAMB.step()``).
+Phases, one JSON line each, ``t_s`` giving the seconds since the start:
 
 1. ``device``: the card, its power limit, the kernels' build time and
    registers per thread (from the ptxas reports). The
@@ -29,13 +33,33 @@ pretraining steps (``BertForPreTraining``, ``bert_pretrain_loss_fn``,
    30528 and the NSP head's 8 x 2, with smoothing 0 and 0.1 and padded
    rows; the stats and LAMB kernels over BERT-Large's flat buffers, with
    an injected inf and NaNs whose count must be exact, and a skipped step
-   that must leave every buffer bit-identical.
+   that must leave every buffer bit-identical. The quantized serving rows:
+   the dequant-matmul kernels (int8 and fp8 per channel; int4 at group
+   128) at GPT-2-small's four linear shapes, 8 and 128 rows, x in fp32 and
+   bf16, timed over copies of the weight that together exceed the L2
+   cache (a decode step streams 48 weights), against cuBLAS on the
+   dequantized weight; a row alone must equal the same row in the batch,
+   bit for bit. The quantized paged kernel with int8 and fp8 pools at the
+   paged row's shape, beside the unquantized kernel's time there.
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
    ``generate``, and must have launched every kernel.
+   ``engine_quant_fp32``: the workload over (a) int8 and (b) int4 (group
+   128) weights, fp pool, each token-identical, request by request, to
+   lock-step ``generate`` of the same quantized model; over an fp model
+   with (c) an int8 and (d) an fp8 pool, every request's first token equal
+   to ``engine_fp32``'s (prefill never reads the pool), with the count of
+   fully identical requests and the mean common generated prefix (not
+   gated); after one admission into each quantized pool, its pages,
+   dequantized, within the bound of each value's quantization step of the
+   contiguous prefill K/V. Each run must have launched its kernels.
 4. ``engine_bf16``: the same workload in bf16, a warm run then two timed
-   runs: generated tokens per second.
+   runs: generated tokens per second. ``engine_quant_bf16``: the same for
+   ``w8_kv8`` (int8 weights, int8 pool) and ``w4_kv8`` (int4 group 128,
+   int8 pool), with launches per kernel, block-linear weight bytes per
+   decode step against bf16, a page's bytes against a bf16 page, and the
+   slots a fixed pool budget admits.
 5. ``train_fp32``: GPT-2-small, fp32, one batch of 2 x 256 tokens, on the
    card (kernels) and on the CPU (twins) from the same seeded weights: the
    losses agree to 1e-4 relative, every parameter has a gradient on the
@@ -63,8 +87,10 @@ pretraining steps (``BertForPreTraining``, ``bert_pretrain_loss_fn``,
    ms, tokens/s, FLOPs per step by ``bench.py``'s formula and MFU, the
    phase's own peak memory (above what earlier phases keep live), the
    launches of each kernel per step (asserted), and a falling finite loss.
-9. ``engine_bf16_profile``, ``kernel_device_ms``, ``train_bf16_profile``
-   and ``bert_bf16_profile``: one more bf16 engine run under
+9. ``engine_bf16_profile``, ``engine_quant_bf16_profile``,
+   ``kernel_device_ms``, ``train_bf16_profile`` and
+   ``bert_bf16_profile``: one more bf16 engine run (and one of each
+   quantized configuration, with each kernel's device ms and launches) under
    ``torch.profiler`` (device busy and idle share, the top device kernels),
    each kernel's device time per call at the shapes of phase 2, the timed
    bf16 engine run once more, and last one profiled step of each training
@@ -72,9 +98,10 @@ pretraining steps (``BertForPreTraining``, ``bert_pretrain_loss_fn``,
    2-8.
 
 Then the per-kernel summary line (serving kernels with the launches of the
-timed engine run, GPT training kernels with those of its timed run, the
-BERT kernels with those of the timed BERT run; every path's count beside
-it) and, last, ``{"ok": true, "device": ...}``.
+timed engine run, the quantized serving kernels with those of the timed
+``w8_kv8`` or ``w4_kv8`` run, GPT training kernels with those of its timed
+run, the BERT kernels with those of the timed BERT run; every path's count
+beside it) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises, so the run exits non-zero without the last line. With
 no CUDA device, or without the ``apex_tpu_torch`` package beside it, it
 exits non-zero at once. Imports nothing of JAX.
@@ -83,6 +110,7 @@ exits non-zero at once. Imports nothing of JAX.
 from __future__ import annotations
 
 import importlib
+import itertools
 import json
 import math
 import os
@@ -138,8 +166,22 @@ BERT_HEADS, BERT_MLM_K = 16, 80       # K = 0.15 S rounded up to 8
 BERT_FP32_BATCH, BERT_FP32_SEQ, BERT_FP32_LAYERS = 2, 128, 4
 BERT_FP32_LR = 1e-3
 
+# the quantized serving slice: the int4 group, GPT-2-small's block linears
+# (in, out), the rows of a decode step and of a prefill; fp8 values carry
+# 3 mantissa bits, so a quantized page value is within 1/16 of |x| plus
+# half the smallest subnormal step (scale / 1024) of the value written
+QUANT_GS = 128
+QUANT_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+QUANT_ROWS = (NUM_SLOTS, 128)
+L2_BYTES = 50 * 2 ** 20
+
 #: the kernels of the serving path and of the two training paths
 SERVING_KERNELS = ("layer_norm_fwd", "flash_fwd", "paged_attention")
+#: the kernel each weight kind and each pool runs on the serving path
+DEQUANT_KERNEL = {"int8": "dequant_matmul", "fp8": "dequant_matmul",
+                  "int4": "dequant_matmul_w4"}
+QUANT_KERNELS = ("dequant_matmul", "dequant_matmul_w4",
+                 "paged_attention_quant")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
                  "layer_norm_fwd", "layer_norm_bwd", "adam")
 BERT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
@@ -164,7 +206,10 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "xentropy_bwd": "xentropy_bwd_kernel",
                   "segment_stats": "stats_rows_kernel",
                   "lamb_phase1": "lamb_phase1_kernel",
-                  "lamb_phase2": "lamb_phase2_kernel"}
+                  "lamb_phase2": "lamb_phase2_kernel",
+                  "dequant_matmul": "dequant_matmul_kernel",
+                  "dequant_matmul_w4": "dequant_matmul_w4_kernel",
+                  "paged_attention_quant": "paged_decode_quant_kernel"}
 
 
 def ptxas_registers() -> dict:
@@ -181,7 +226,8 @@ def ptxas_registers() -> dict:
              "paged_decode_kernel", "adam_kernel", "xentropy_fwd_kernel",
              "xentropy_bwd_kernel", "stats_rows_kernel",
              "segment_reduce_kernel", "lamb_phase1_kernel",
-             "lamb_phase2_kernel")
+             "lamb_phase2_kernel", "dequant_matmul_kernel",
+             "dequant_matmul_w4_kernel", "paged_decode_quant_kernel")
     regs = {}
     for log in sorted(_build.BUILD.glob("*.log")):
         entry = None
@@ -193,13 +239,24 @@ def ptxas_registers() -> dict:
             if m and entry:
                 name = next((n for n in names if n in entry), entry)
                 bf16 = "<bf16>" if "nv_bfloat16" in entry else ""
-                regs[name + bf16] = int(m.group(1))
+                # the e4m3 instantiations of the quantized kernels
+                fp8 = "<e4m3>" if ("fp8_e4m3" in entry or (
+                    "dequant_matmul_kernel" in entry and "Li1E" in entry)) \
+                    else ""
+                regs[name + bf16 + fp8] = int(m.group(1))
                 entry = None
     return regs
 
 
+#: the script's start, for each phase line's ``t_s``
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase,
+                      "t_s": time.perf_counter() - START, **fields}),
+          flush=True)
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -253,17 +310,41 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, reps: int = 1):
+def queued_ms(fn, iters: int = 50) -> float:
+    """``time_ms`` with the calls queued behind a sleep on the card, so that
+    the events time the card's work and not the host's launch rate: calls
+    of tens of µs are launch-bound in ``time_ms``. The sleep (~0.4 ms of
+    host time per call at the H100's 1.98 GHz) ends before the start
+    event, so it is not timed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(800_000 * iters)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, reps: int = 1, cpu: bool = True):
     """Run ``fn`` ``reps`` times under ``torch.profiler``; returns the wall
     seconds and ``{device activity name: (total ms, count)}`` for every
     kernel and copy the card ran. Empty when the profiler sees no device
-    activity."""
+    activity. ``cpu=False`` leaves the host's ops untraced, which keeps a
+    run of many small ops cheap to trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -900,6 +981,145 @@ def check_lamb(gen, dev):
     return out
 
 
+def cycling(fn, arg_sets):
+    """``fn(*args)`` over the argument sets in turn, one set per call."""
+    sets = itertools.cycle(arg_sets)
+    return lambda: fn(*next(sets))
+
+
+def copies_for(nbytes: int) -> int:
+    """Copies of a tensor that together exceed the L2 cache by half, so that
+    a timed loop over them reads each from device memory."""
+    return max(1, min(256, math.ceil(1.5 * L2_BYTES / nbytes)))
+
+
+def check_dequant(gen, dev):
+    """The dequant-matmul kernels at GPT-2-small's block-linear shapes:
+    int8 and fp8 per channel (``dequant_matmul``), int4 at group 128
+    (``dequant_matmul_w4``), at a decode step's 8 rows and a 128-token
+    prefill, x in fp32 and bf16. Kernel, twin and library are each timed
+    by ``queued_ms`` over copies of their weight that exceed the L2 cache;
+    the library is ``F.linear`` on the dequantized weight in x's dtype
+    (cuBLAS on the full-width weight)."""
+    import torch
+    import torch.nn.functional as F
+
+    quant = importlib.import_module("apex_tpu_torch.ops.quant")
+
+    quantizers = {"int8": quant.quantize_weight,
+                  "fp8": quant.quantize_weight_fp8,
+                  "int4": partial(quant.quantize_weight_int4,
+                                  group_size=QUANT_GS)}
+    out = []
+    for kind, quantize in quantizers.items():
+        name = DEQUANT_KERNEL[kind]
+        for n_in, n_out in QUANT_SHAPES:
+            w = torch.randn(n_out, n_in, generator=gen) * n_in ** -0.5
+            qw, sc = (t.to(dev) for t in quantize(w))
+            wbytes = qw.numel() * qw.element_size() + sc.numel() * 4
+            qsets = [(qw.clone(), sc.clone())
+                     for _ in range(copies_for(wbytes))]
+            for dtype in (torch.float32, torch.bfloat16):
+                full = quant.dequantize_weight(qw, sc).to(dtype)
+                fsets = [(full.clone(),) for _ in range(
+                    copies_for(full.numel() * full.element_size()))]
+                dn = str(dtype).split(".")[1]
+                elt = full.element_size()
+                for m in QUANT_ROWS:
+                    x = torch.randn(m, n_in, generator=gen).to(dev, dtype)
+                    y = quant.fused_dequant_matmul(x, qw, sc)
+                    torch.cuda.synchronize()
+                    err = compare(name, y,
+                                  quant.fused_dequant_matmul_reference(
+                                      x, qw, sc), dn)
+                    # the kernel's rows do not depend on the batch (the
+                    # twin's CPU matmul makes no such promise)
+                    if x.is_cuda and not torch.equal(
+                            quant.fused_dequant_matmul(x[3:4], qw, sc),
+                            y[3:4]):
+                        raise AssertionError(f"{name}: a row alone differs "
+                                             f"from the same row in a batch")
+                    nbytes = m * n_in * elt + wbytes + m * n_out * elt
+                    bms, by = bound_ms(nbytes, 2 * m * n_in * n_out, dn)
+                    kernel = cycling(partial(quant.fused_dequant_matmul, x),
+                                     qsets)
+                    out.append((dict(
+                        name=name, kind=kind, dtype=dn, shape=[m, n_in, n_out],
+                        **({"group_size": QUANT_GS} if kind == "int4" else {}),
+                        path="quant_serving", max_abs_err=err,
+                        ms=queued_ms(kernel),
+                        plain_ms=queued_ms(cycling(partial(
+                            quant.fused_dequant_matmul_reference, x), qsets)),
+                        library_ms=queued_ms(cycling(partial(F.linear, x),
+                                                   fsets)),
+                        library="F.linear on the dequantized weight in x's "
+                                "dtype (cuBLAS)",
+                        weight_copies=len(qsets), bound_ms=bms, bound_by=by),
+                        kernel))
+    return out
+
+
+def check_paged_quant(gen, dev):
+    """The quantized paged kernel at ``check_paged``'s shape, over int8 and
+    fp8 pools quantized from random K/V with per-(page, kv head) scales, q
+    in fp32 and bf16; beside it the unquantized kernel's time at the same
+    shape over the dequantized pool in q's dtype (all by ``queued_ms``)."""
+    import torch
+
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    quant = importlib.import_module("apex_tpu_torch.ops.quant")
+
+    out = []
+    slots, h, d, ps, maxp = NUM_SLOTS, 12, 64, PAGE_SIZE, 64
+    num_pages = 1 + slots * maxp
+    lengths = torch.tensor([0, 1, 16, 17, 100, 255, 1000, maxp * ps],
+                           dtype=torch.int32)
+    perm = torch.randperm(num_pages - 1, generator=gen) + 1
+    bt = torch.zeros(slots, maxp, dtype=torch.int32)
+    for i in range(slots):
+        n = -(-int(lengths[i]) // ps)
+        bt[i, :n] = perm[i * maxp:i * maxp + n]
+    bt, ln = bt.to(dev), lengths.to(dev)
+    n_pos = int(lengths.sum())
+    live_pages = sum(-(-int(n) // ps) for n in lengths)
+    for kv_name in ("int8", "fp8"):
+        qdt, qmax = quant.resolve_kv_dtype(kv_name)
+        pools = [quant.kv_quantize(
+            torch.randn(num_pages, h, ps, d, generator=gen).to(dev) * 2, qdt,
+            qmax, axes=(2, 3)) for _ in range(2)]
+        (kp, ks), (vp, vs) = ((p, sc[:, :, 0, 0].contiguous())
+                              for p, sc in pools)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(slots, h, 1, d, generator=gen).to(dev, dtype)
+            kw = dict(k_scales=ks, v_scales=vs)
+            o = pa.paged_attention(q, kp, vp, bt, ln, **kw)
+            torch.cuda.synchronize()
+            ro = pa.paged_attention_reference(q, kp, vp, bt, ln, **kw)
+            dn = str(dtype).split(".")[1]
+            err = compare("paged_attention_quant", o, ro, dn)
+            if (o[0] != 0).any():
+                raise AssertionError("paged_attention_quant: a zero-length "
+                                     "slot must output exactly 0")
+            kpf, vpf = ((p.float() * sc[:, :, None, None]).to(dtype)
+                        for p, sc in ((kp, ks), (vp, vs)))
+            elt = q.element_size()
+            nbytes = (2 * n_pos * h * d + 2 * live_pages * h * 4
+                      + 2 * slots * h * d * elt + slots * maxp * 4
+                      + slots * 4)
+            bms, by = bound_ms(nbytes, 4 * n_pos * h * d, dn)
+            kernel = partial(pa.paged_attention, q, kp, vp, bt, ln, **kw)
+            out.append((dict(
+                name="paged_attention_quant", kind=kv_name, dtype=dn,
+                shape=[slots, h, ps, d, maxp], lengths=lengths.tolist(),
+                path="quant_serving", max_abs_err=err, ms=queued_ms(kernel),
+                plain_ms=queued_ms(partial(pa.paged_attention_reference, q, kp,
+                                         vp, bt, ln, **kw)),
+                unquantized_ms=queued_ms(partial(pa.paged_attention, q, kpf,
+                                               vpf, bt, ln)),
+                library_ms=None, bound_ms=bms, bound_by=by), kernel))
+    return out
+
+
 # --- phases 3 and 4: the engine --------------------------------------------
 
 
@@ -924,14 +1144,18 @@ def lockstep_steps(new_tokens, fifo: bool = False):
                for g in range(0, len(order), NUM_SLOTS))
 
 
-def run_engine(model, prompts, new_tokens):
+def run_engine(model, prompts, new_tokens, kernels=SERVING_KERNELS,
+               kv_dtype=None):
+    """One engine run over the workload, the launch counts set to 0 just
+    before it and read just after; it fails if a kernel of ``kernels`` was
+    not launched or the pool leaked."""
     import torch
 
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.serving import PagedDecodeEngine, Request
 
     engine = PagedDecodeEngine(model, num_slots=NUM_SLOTS,
-                               page_size=PAGE_SIZE)
+                               page_size=PAGE_SIZE, kv_dtype=kv_dtype)
     reqs = [Request(p, n) for p, n in zip(prompts, new_tokens)]
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -940,7 +1164,7 @@ def run_engine(model, prompts, new_tokens):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(_build.launches)
-    missing = [k for k in SERVING_KERNELS if launches[k] == 0]
+    missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"the engine run launched no {missing} kernel")
     free = engine.cache["free_top"]
@@ -957,6 +1181,216 @@ def build_model(dtype):
 
     return GPTModel(gpt2_small_config(dtype=dtype), device=DEV,
                     generator=torch.Generator().manual_seed(SEED)).eval()
+
+
+def build_quant_model(fp_model, kind: str):
+    """``fp_model``'s configuration with its block linears quantized to
+    ``kind`` (int4 at group ``QUANT_GS``), loaded from its weights."""
+    import dataclasses
+
+    import torch
+
+    from apex_tpu_torch.models import (GPTModel, WeightPrecisionPolicy,
+                                       assert_quantized_loaded,
+                                       quantize_model_params)
+
+    cfg = dataclasses.replace(fp_model.config, weight_policy=(
+        WeightPrecisionPolicy(kind, group_size=QUANT_GS)))
+    qmodel = GPTModel(cfg, device=DEV,
+                      generator=torch.Generator().manual_seed(SEED))
+    qmodel.load_state_dict(quantize_model_params(qmodel, fp_model))
+    assert_quantized_loaded(qmodel)
+    return qmodel.eval()
+
+
+def quant_kernels(weights=None, kv_dtype=None):
+    """The kernels a serving run with these weights and this pool runs."""
+    paged = "paged_attention_quant" if kv_dtype else "paged_attention"
+    return (("layer_norm_fwd", "flash_fwd", paged)
+            + ((DEQUANT_KERNEL[weights],) if weights else ()))
+
+
+def block_linear_bytes(model) -> int:
+    """Bytes of the four block linears' weights (and scales) of every
+    layer: what one decode step streams besides the head."""
+    return sum(t.numel() * t.element_size()
+               for n, t in model.state_dict().items()
+               if n.startswith("layers.") and n.endswith((".weight", ".scale"))
+               and n.split(".")[2] in ("qkv", "out_proj", "mlp_in",
+                                       "mlp_out"))
+
+
+def pool_error(model, prompt, n_new: int, kv_dtype: str) -> dict:
+    """Admit ``prompt`` into a fresh engine's quantized pool and hold each
+    written value, dequantized with its page's scale (in fp64), against the
+    same prompt's contiguous prefill K/V: for int8 within half a
+    quantization step, scale / 2 + 1e-6 (the reference's bound), plus
+    |x| * 2^-22 for the two fp32 roundings of x * (1 / scale); for e4m3,
+    whose values carry 3 mantissa bits, within |x| (1/16 + 2^-22) +
+    scale / 1024 + 1e-6."""
+    import torch
+
+    from apex_tpu_torch.models.generation import init_cache
+    from apex_tpu_torch.serving import PagedDecodeEngine, kv_pool
+    from apex_tpu_torch.serving.scheduler import prompt_bucket
+
+    cfg = model.config
+    engine = PagedDecodeEngine(model, num_slots=NUM_SLOTS,
+                               page_size=PAGE_SIZE, kv_dtype=kv_dtype)
+    s0 = prompt.shape[0]
+    with torch.no_grad():
+        engine._admit(prompt, 0, kv_pool.pages_for(s0 + n_new, PAGE_SIZE))
+        bucket = prompt_bucket(s0, PAGE_SIZE, cfg.max_position_embeddings)
+        ids = torch.zeros((1, bucket), dtype=torch.int32)
+        ids[0, :s0] = torch.from_numpy(prompt)
+        contig = init_cache(cfg, 1, bucket, device=DEV)
+        _, contig = model(ids.to(DEV), cache=contig)
+    n_pages = kv_pool.pages_for(s0, PAGE_SIZE)
+    row = engine.cache["block_tables"][0, :n_pages].long()
+    worst, max_err = 0.0, 0.0
+    for lc, src in zip(engine.cache["layers"], contig["layers"]):
+        for t in ("k", "v"):
+            sc = lc[f"{t}_scales"][row].double()             # (pages, kv)
+            deq = lc[f"{t}_pages"][row].double() * sc[:, :, None, None]
+            kv, d = deq.shape[1], deq.shape[3]
+            deq = deq.transpose(0, 1).reshape(kv, -1, d)[:, :s0]
+            ref = src[t][0, :, :s0].double()
+            step = sc.T.repeat_interleave(PAGE_SIZE, dim=1)[:, :s0, None]
+            rounding = ref.abs() * 2.0 ** -22
+            bound = (step / 2 + rounding + 1e-6 if kv_dtype == "int8" else
+                     ref.abs() / 16 + rounding + step / 1024 + 1e-6)
+            err = (deq - ref).abs()
+            max_err = max(max_err, err.max().item())
+            worst = max(worst, (err / bound).max().item())
+    if worst > 1.0:
+        raise AssertionError(f"{kv_dtype} pool: a prefilled value is "
+                             f"{worst:.3f}x its bound from the prefill K/V")
+    return dict(prompt_tokens=int(s0), max_abs_err=max_err,
+                max_err_over_bound=worst,
+                bound="scale/2 + |x| 2^-22 + 1e-6" if kv_dtype == "int8"
+                else "|x| (1/16 + 2^-22) + scale/1024 + 1e-6")
+
+
+def common_prefix(a, b) -> int:
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def engine_quant_fp32(model, prompts, new_tokens, fp_outs):
+    """(a), (b): int8 and int4 weights over an fp pool, token identity with
+    lock-step ``generate`` of the same quantized model; (c), (d): int8 and
+    fp8 pools over the fp model, first tokens equal to ``engine_fp32``'s,
+    and the pool's error bound after one admission."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch.models import generate
+
+    results = {}
+    for label, kind in (("w8", "int8"), ("w4", "int4")):
+        qmodel = build_quant_model(model, kind)
+        outs, stats, elapsed, launches = run_engine(
+            qmodel, prompts, new_tokens, kernels=quant_kernels(kind))
+        for i, (p, n, o) in enumerate(zip(prompts, new_tokens, outs)):
+            ref = generate(qmodel, torch.from_numpy(p)[None].to(DEV), n)
+            ref = ref[0, p.shape[0]:].cpu().numpy()
+            if o.shape != ref.shape or (o != ref).any():
+                raise AssertionError(f"{label}: request {i}: engine tokens "
+                                     f"differ from lock-step generate")
+        results[label] = dict(weights=kind, pool="fp32",
+                              requests=len(outs), token_identical=True,
+                              launches=launches, seconds=elapsed, **stats)
+        del qmodel
+    for label, kv_dtype in (("kv8", "int8"), ("kv_fp8", "fp8")):
+        bound = pool_error(model, prompts[0], new_tokens[0], kv_dtype)
+        outs, stats, elapsed, launches = run_engine(
+            model, prompts, new_tokens, kernels=quant_kernels(None, kv_dtype),
+            kv_dtype=kv_dtype)
+        firsts = [int(o[0]) == int(r[0]) for o, r in zip(outs, fp_outs)]
+        if not all(firsts):
+            bad = [i for i, f in enumerate(firsts) if not f]
+            raise AssertionError(f"{label}: first tokens differ from "
+                                 f"engine_fp32's for requests {bad}")
+        prefix = [common_prefix(o, r) for o, r in zip(outs, fp_outs)]
+        results[label] = dict(
+            weights="fp32", pool=kv_dtype, requests=len(outs),
+            first_tokens_identical=True,
+            fully_identical=sum(bool(np.array_equal(o, r))
+                                for o, r in zip(outs, fp_outs)),
+            mean_common_prefix=sum(prefix) / len(prefix),
+            mean_generated=sum(len(r) for r in fp_outs) / len(fp_outs),
+            pool_error=bound, launches=launches, seconds=elapsed, **stats)
+    emit("engine_quant_fp32", requests=len(prompts), num_slots=NUM_SLOTS,
+         page_size=PAGE_SIZE, layers=model.config.num_layers,
+         group_size=QUANT_GS, runs=results)
+
+
+def engine_quant_bf16(model, prompts, new_tokens, smi):
+    """``w8_kv8`` and ``w4_kv8`` in bf16: a warm run, two timed runs;
+    returns each configuration's run and its timed launches."""
+    import torch
+
+    from apex_tpu_torch.serving import kv_pool
+
+    cfg = model.config
+    bf16_linear_bytes = block_linear_bytes(model) // 2       # fp32 params
+    runs, results = {}, {}
+    for label, kind in (("w8_kv8", "int8"), ("w4_kv8", "int4")):
+        qmodel = build_quant_model(model, kind)
+        run = partial(run_engine, qmodel, prompts, new_tokens,
+                      kernels=quant_kernels(kind, "int8"), kv_dtype="int8")
+        run()                                                # warm
+        timed = [run() for _ in range(2)]
+        _, stats, elapsed, launches = timed[0]
+        wbytes = block_linear_bytes(qmodel)
+        results[label] = dict(
+            weights=kind, pool="int8",
+            tokens_per_s=stats["generated_tokens"] / elapsed,
+            repeat_tokens_per_s=stats["generated_tokens"] / timed[1][2],
+            seconds=elapsed, launches=launches,
+            weight_bytes_per_step=wbytes,
+            weight_bytes_ratio_vs_bf16=wbytes / bf16_linear_bytes, **stats)
+        runs[label] = (run, launches, qmodel)
+    budget = 2 ** 30
+    pages_per_slot = kv_pool.cdiv(cfg.max_position_embeddings, PAGE_SIZE)
+    pool = {kv or "bf16": dict(
+        page_bytes=kv_pool.page_bytes(cfg, PAGE_SIZE, kv_dtype=kv),
+        max_slots=kv_pool.max_slots_for_pool_bytes(
+            cfg, budget, pages_per_slot=pages_per_slot, page_size=PAGE_SIZE,
+            kv_dtype=kv)) for kv in (None, "int8")}
+    emit("engine_quant_bf16", requests=N_REQUESTS, num_slots=NUM_SLOTS,
+         page_size=PAGE_SIZE, layers=cfg.num_layers, group_size=QUANT_GS,
+         runs=results, bf16_weight_bytes_per_step=bf16_linear_bytes,
+         pool=pool, page_bytes_ratio_vs_bf16=pool["int8"]["page_bytes"]
+         / pool["bf16"]["page_bytes"], pool_budget_bytes=budget,
+         pages_per_slot=pages_per_slot, nvidia_smi=smi,
+         card_after=card_state())
+    return runs
+
+
+def profile_quant(runs) -> None:
+    """One profiled run of each quantized bf16 configuration: device busy
+    and idle share, each quantized kernel's device ms and launches."""
+    out = {}
+    for label, (run, launches, _) in runs.items():
+        wall, acts = device_profile(run, cpu=False)
+        busy = sum(t for t, _ in acts.values())
+        kernels = {}
+        for name in QUANT_KERNELS:
+            hits = [(t, c) for k, (t, c) in acts.items()
+                    if KERNEL_SYMBOLS[name] in k]
+            kernels[name] = dict(device_ms=sum(t for t, _ in hits),
+                                 launches_seen=sum(c for _, c in hits),
+                                 launches=launches[name])
+        top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:10]
+        out[label] = dict(wall_s=wall, device_busy_s=busy / 1e3,
+                          device_idle_share=1.0 - busy / 1e3 / wall,
+                          kernels=kernels,
+                          top_device=[dict(name=k[:120], ms=t, count=c)
+                                      for k, (t, c) in top])
+    emit("engine_quant_bf16_profile", runs=out)
 
 
 # --- phases 5 and 6: training ----------------------------------------------
@@ -1302,7 +1736,6 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -1319,7 +1752,8 @@ def main() -> int:
               + check_paged(gen, DEV) + check_layer_norm_bwd(gen, DEV)
               + check_flash_bwd(gen, DEV) + check_adam(gen, DEV)
               + check_flash_bert(gen, DEV) + check_xentropy(gen, DEV)
-              + check_lamb(gen, DEV))
+              + check_lamb(gen, DEV) + check_dequant(gen, DEV)
+              + check_paged_quant(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, card_before=card_before,
          card_after=card_state(), results=rows)
@@ -1339,6 +1773,7 @@ def main() -> int:
          page_size=PAGE_SIZE, layers=model.config.num_layers,
          token_identical=True, launches=launches32, **stats,
          seconds=elapsed)
+    engine_quant_fp32(model, prompts, new_tokens, outs)
     del model
     torch.cuda.empty_cache()
 
@@ -1354,6 +1789,7 @@ def main() -> int:
          lockstep_steps_fifo=lockstep_steps(new_tokens, fifo=True),
          launches=launches, nvidia_smi=smi, card_after=card_state(),
          **stats)
+    quant_runs = engine_quant_bf16(model, prompts, new_tokens, smi)
 
     train_fp32()
     train_step, train_launches = train_bf16(smi)
@@ -1365,8 +1801,11 @@ def main() -> int:
     # the shapes of phase 2
     profile_phase("engine_bf16_profile",
                   partial(run_engine, model, prompts, new_tokens))
+    profile_quant(quant_runs)
     results = []
     for row, fn in checks:
+        if row.get("path") == "quant_serving":
+            continue                  # timed by queued_ms already
         ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
         results.append(dict(name=row["name"], dtype=row["dtype"],
                             shape=row["shape"], device_ms=ms,
@@ -1397,19 +1836,29 @@ def main() -> int:
                   "xentropy_bwd": [BERT_BATCH * BERT_MLM_K, 30528]}
     bert_shape = {"layer_norm_fwd": [BERT_BATCH * BERT_SEQ, 1024],
                   "layer_norm_bwd": [BERT_BATCH * BERT_SEQ, 1024]}
+    # the quantized kernels: the int8 (or int4) weight of the widest
+    # block linear at the decode step's 8 rows, the int8 pool, bf16
+    main_shape.update({"dequant_matmul": [NUM_SLOTS, *QUANT_SHAPES[2]],
+                       "dequant_matmul_w4": [NUM_SLOTS, *QUANT_SHAPES[2]]})
+    main_kind = {"dequant_matmul": "int8", "paged_attention_quant": "int8"}
     by_path = {"serving": launches, "gpt_train": train_launches,
-               "bert_train": bert_launches}
+               "bert_train": bert_launches,
+               **{label: run[1] for label, run in quant_runs.items()}}
+    quant_path = {"dequant_matmul": "w8_kv8", "dequant_matmul_w4": "w4_kv8",
+                  "paged_attention_quant": "w8_kv8"}
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     summary = []
     for name, (src, replaces) in _build.KERNELS.items():
         path = ("serving" if name in SERVING_KERNELS else "gpt_train"
-                if name in TRAIN_KERNELS else "bert_train")
+                if name in TRAIN_KERNELS else quant_path[name]
+                if name in QUANT_KERNELS else "bert_train")
         row = next(r for r in rows if r["name"] == name
                    and r["dtype"] == ("float32" if name in FP32_KERNELS
                                       else "bfloat16")
                    and (r.get("path") == "bert") == (path == "bert_train")
-                   and r["shape"] == main_shape.get(name, r["shape"]))
+                   and r["shape"] == main_shape.get(name, r["shape"])
+                   and r.get("kind") == main_kind.get(name, r.get("kind")))
         entry = dict(
             name=name, route="cuda",
             source=os.path.relpath(_build.source_path(name), HERE),
@@ -1420,7 +1869,10 @@ def main() -> int:
                if k in row},
             ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"])
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            **{k: row[k] for k in ("kind", "shape", "unquantized_ms",
+                                   "library") if k in row and path in
+               quant_path.values()})
         if path != "bert_train" and name in BERT_KERNELS:
             bert = next(r for r in rows if r["name"] == name
                         and r.get("path") == "bert"
@@ -1430,7 +1882,7 @@ def main() -> int:
                 shape=bert["shape"], dtype="bfloat16",
                 launches=bert_launches[name], **{k: bert[k] for k in timing})
         summary.append(entry)
-    emit("done", seconds=time.perf_counter() - t_start)
+    emit("done", seconds=time.perf_counter() - START)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,11 +2,14 @@
 
 Marked ``cuda``: each test skips (inside the ``cuda`` fixture, never at
 collection) where there is no CUDA device. On a GPU machine run
-``python -m pytest tests/test_torch_cuda_kernels.py -q``. Tolerances as in
-``chip_smoke.py``: fp32 atol = rtol = 1e-4, bf16 atol 2e-2 / rtol 1e-2 (the
-backward kernels' summed outputs at wider bf16 bounds, stated where used).
+``python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q``.
+Tolerances as in ``chip_smoke.py``: fp32 atol = rtol = 1e-4, bf16 atol
+2e-2 / rtol 1e-2 (the backward kernels' summed outputs at wider bf16
+bounds, stated where used).
 Each test also checks that the wrapper counted exactly its launches.
 """
+
+from functools import partial
 
 import pytest
 import torch
@@ -32,6 +35,11 @@ from apex_tpu_torch.ops.optim_kernels import (adam_update,
                                               segment_stats_reference)
 from apex_tpu_torch.ops.paged_attention import (paged_attention,
                                                 paged_attention_reference)
+from apex_tpu_torch.ops.quant import (fused_dequant_matmul,
+                                      fused_dequant_matmul_reference,
+                                      kv_quantize, quantize_weight,
+                                      quantize_weight_fp8,
+                                      quantize_weight_int4)
 from apex_tpu_torch.ops.xentropy import (softmax_cross_entropy, xentropy_bwd,
                                          xentropy_bwd_reference, xentropy_fwd,
                                          xentropy_fwd_reference)
@@ -410,3 +418,57 @@ def test_fused_lamb_launches_three_kernels_per_step(cuda):
     for name in ("segment_stats", "lamb_phase1", "lamb_phase2"):
         assert _build.launches[name] == before[name] + 1
     assert int(opt.step_count) == 1
+
+
+QUANTIZERS = {"int8": quantize_weight, "fp8": quantize_weight_fp8,
+              "int4": partial(quantize_weight_int4, group_size=128),
+              "int4_gs16": partial(quantize_weight_int4, group_size=16)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", list(QUANTIZERS))
+@pytest.mark.parametrize("n_in,n_out", [(768, 2304), (3072, 768)])
+def test_dequant_matmul_kernels_match_twin(cuda, dtype, kind, n_in, n_out):
+    """GPT-2-small's linear shapes at decode (8 rows, 1 row) and prefill
+    (37, 128 rows); a row's value must not depend on the rows beside it."""
+    g = torch.Generator().manual_seed(3)
+    qw, sc = QUANTIZERS[kind](torch.randn(n_out, n_in, generator=g)
+                              * n_in ** -0.5)
+    qw, sc = qw.to(cuda), sc.to(cuda)
+    name = "dequant_matmul_w4" if kind.startswith("int4") else \
+        "dequant_matmul"
+    for m in (8, 1, 37, 128):
+        x = torch.randn(m, n_in, generator=g).to(cuda, dtype)
+        before = _build.launches[name]
+        got = fused_dequant_matmul(x, qw, sc)
+        assert _build.launches[name] == before + 1
+        _close(got, fused_dequant_matmul_reference(x, qw, sc), dtype)
+        if m == 37:
+            alone = fused_dequant_matmul(x[5:6], qw, sc)
+            assert torch.equal(alone, got[5:6])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv_dtype", [torch.int8, torch.float8_e4m3fn])
+def test_paged_quant_kernel_matches_twin(cuda, dtype, kv_dtype):
+    g = torch.Generator().manual_seed(4)
+    lengths = torch.tensor([0, 1, 16, 17, 200, 1024], dtype=torch.int32)
+    slots, maxp, ps = lengths.shape[0], 64, 16
+    perm = torch.randperm(slots * maxp, generator=g) + 1
+    bt = torch.zeros(slots, maxp, dtype=torch.int32)
+    for i, n in enumerate(lengths.tolist()):
+        bt[i, :-(-n // ps)] = perm[i * maxp:i * maxp - (-n // ps)]
+    q = torch.randn(slots, 12, 1, 64, generator=g).to(cuda, dtype)
+    qmax = 127.0 if kv_dtype == torch.int8 else 448.0
+    pools = [kv_quantize(torch.randn(1 + slots * maxp, 4, ps, 64,
+                                     generator=g) * 2, kv_dtype, qmax,
+                         axes=(2, 3)) for _ in range(2)]
+    (kp, ks), (vp, vs) = ((p.to(cuda), s[:, :, 0, 0].to(cuda))
+                          for p, s in pools)
+    args = (q, kp, vp, bt.to(cuda), lengths.to(cuda))
+    before = _build.launches["paged_attention_quant"]
+    got = paged_attention(*args, k_scales=ks, v_scales=vs)
+    assert _build.launches["paged_attention_quant"] == before + 1
+    _close(got, paged_attention_reference(*args, k_scales=ks, v_scales=vs),
+           dtype)
+    assert (got[0] == 0).all()

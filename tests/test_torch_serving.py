@@ -144,7 +144,7 @@ def test_prompt_bucket_matches(s0):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(prefix_cache=True), "prefix cache"),
-    (dict(kv_dtype="int8"), "quantized"),
+    (dict(draft_kv_dtype="int8"), "quantized"),
     (dict(draft_len=2), "speculative"),
     (dict(prefill_chunk=4), "chunked prefill"),
     (dict(temperature=0.7), "sampled"),
