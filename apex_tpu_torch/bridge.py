@@ -3,17 +3,19 @@
 ``gpt_params_from_flax`` maps the tree ``apex_tpu.models.gpt.GPTModel.init``
 returns — as plain numpy arrays, e.g. ``jax.tree.map(np.asarray,
 variables)`` — onto the state dict of ``apex_tpu_torch.models.GPTModel``;
-``bert_params_from_flax`` does the same for ``BertForPreTraining``. Both
-sides keep the reference's weight layouts (GPT's ``(out, in)`` linears,
-BERT's ``(in, out)`` ``x @ W``), so every tensor maps one to one; only the
-names change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes numpy,
-so it imports nothing of JAX.
+``bert_params_from_flax`` does the same for ``BertForPreTraining`` and
+``llama_params_from_flax`` for ``LlamaModel``. All sides keep the
+reference's weight layouts (GPT's and Llama's ``(out, in)`` linears, BERT's
+``(in, out)`` ``x @ W``), so every tensor maps one to one; only the names
+change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes numpy, so it
+imports nothing of JAX.
 
-A quantized GPT tree (a reference model built with a weight policy) maps
-too: narrow leaves keep their dtype (int8; uint8, the packed int4 nibbles;
-fp8 e4m3, carried through a uint8 view since ``torch.from_numpy`` does not
-take ml_dtypes' fp8) and each quantized linear's ``scale`` maps beside its
-``weight``. A leaf with no place in the port raises ``KeyError``.
+A quantized GPT or Llama tree (a reference model built with a weight
+policy) maps too: narrow leaves keep their dtype (int8; uint8, the packed
+int4 nibbles; fp8 e4m3, carried through a uint8 view since
+``torch.from_numpy`` does not take ml_dtypes' fp8) and each quantized
+linear's ``scale`` maps beside its ``weight``. A leaf with no place in the
+port raises ``KeyError``.
 
 Any tree shaped like the params maps the same way, so the tests carry the
 reference's gradients (``jax.grad`` of ``gpt_loss``) and its Adam moments
@@ -74,6 +76,35 @@ def gpt_params_from_flax(variables) -> dict:
         else:
             raise KeyError(f"flax leaf {path!r} has no counterpart in the "
                            f"port's GPTModel")
+        sd[name] = _tensor(leaf)
+    return sd
+
+
+#: LlamaModel's leaves outside the decoder blocks, flax paths
+_LLAMA_TOP = ("embed_tokens/weight", "final_norm/weight", "lm_head/weight")
+#: the leaves of one Llama block ``layer_i``; a quantized linear adds a
+#: ``scale`` beside its narrow ``weight``
+_LLAMA_LAYER = ("input_norm/weight", "post_norm/weight") + tuple(
+    f"{mod}/{leaf}" for mod in ("q_proj", "kv_proj", "o_proj",
+                                "gate_up_proj", "down_proj")
+    for leaf in ("weight", "scale"))
+
+
+def llama_params_from_flax(variables) -> dict:
+    """``{flax params}`` (or ``{"params": ...}``) of the reference's
+    ``LlamaModel``, quantized or not -> torch state dict. A leaf the port
+    has no place for raises ``KeyError``."""
+    params = variables.get("params", variables)
+    sd = {}
+    for path, leaf in _flat_paths(params):
+        i, rest = _split_layer(path)
+        if i is not None and rest in _LLAMA_LAYER:
+            name = f"layers.{i}.{rest.replace('/', '.')}"
+        elif i is None and path in _LLAMA_TOP:
+            name = path.replace("/", ".")
+        else:
+            raise KeyError(f"flax leaf {path!r} has no counterpart in the "
+                           f"port's LlamaModel")
         sd[name] = _tensor(leaf)
     return sd
 

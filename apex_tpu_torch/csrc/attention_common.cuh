@@ -1,6 +1,6 @@
 // Online-softmax row state shared by the flash prefill and paged decode
-// kernels, and the masking (causal, segment ids, dropout) the three flash
-// kernels share.
+// kernels, and the masking (causal, sliding window, segment ids, dropout)
+// the three flash kernels share.
 //
 // One warp owns one query row at a time. A key tile of up to 32 keys sits in
 // shared memory as fp32 rows of stride `ld`; lane j scores key j against the
@@ -38,7 +38,9 @@ __device__ __forceinline__ uint32_t dropout_hash(uint32_t seed, uint32_t bh, uin
 
 // Which (query row, key) pairs a row sees, and the dropout factor of a pair.
 // Rows index Sq and keys Sk of one batch entry b; under `causal` a row sees
-// keys <= row + (Sk - Sq), under segment ids only keys of its own segment.
+// keys <= row + (Sk - Sq), under a sliding window (with causal) only keys
+// >= row + (Sk - Sq) - (window - 1), under segment ids only keys of its own
+// segment.
 struct AttnMask {
   const int* q_seg;   // int32 [B, Sq], or null: no segments
   const int* kv_seg;  // int32 [B, Sk]
@@ -47,10 +49,21 @@ struct AttnMask {
   uint32_t seed;
   uint32_t threshold;  // min(int(rate * 2^32), 2^32 - 1), from the host
   float keep_scale;    // 1 / (1 - rate) in fp32, from the host
+  int window;          // sliding window in keys, 0 = none (forward only)
 
   __device__ __forceinline__ bool visible(int b, int sq, int sk, int row, int key) const {
     if (causal && key > row + (sk - sq)) return false;
+    if (window > 0 && key < row + (sk - sq) - (window - 1)) return false;
     return q_seg == nullptr || q_seg[(long)b * sq + row] == kv_seg[(long)b * sk + key];
+  }
+
+  // The first key tile (a multiple of kTileKeys) any of the rows >= row0 may
+  // see: the band floor of row0 under a window, else 0. The band only moves
+  // forward with the row, so later rows' floors are no lower.
+  __device__ __forceinline__ int first_key(int sq, int sk, int row0, int tile) const {
+    if (window <= 0) return 0;
+    const int lo = max(0, row0 + (sk - sq) - (window - 1));
+    return lo / tile * tile;
   }
 
   // keep_scale where the pair is kept, 0 where it is dropped, 1 without dropout

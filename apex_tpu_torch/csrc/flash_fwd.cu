@@ -2,20 +2,25 @@
 // training forward.
 //
 // Replaces the TPU kernel apex_tpu/ops/flash_attention.py::_fwd_kernel
-// (pallas_call in _fa_fwd), causal or not, with segment ids and attention
-// dropout; no bias, no window, no causal_offset. q is [B, H, Sq, D], k and v
-// are [B, Hkv, Sk, D] with the kv head read as h / (H / Hkv), never
-// repeated. AttnMask (attention_common.cuh) says which keys a row sees and
-// regenerates the reference's dropout keep mask at global positions.
+// (pallas_call in _fa_fwd), causal or not, with segment ids, attention
+// dropout and a causal sliding window at the default diagonal; no bias, no
+// causal_offset. q is [B, H, Sq, D], k and v are [B, Hkv, Sk, D] with the kv
+// head read as h / (H / Hkv), never repeated. AttnMask
+// (attention_common.cuh) says which keys a row sees and regenerates the
+// reference's dropout keep mask at global positions.
 //
 // Design: one block of 4 warps per (query tile of 16 rows, head, batch). The
 // block walks the key range (under causal only up to the tile's last
-// visible key) in tiles of 32 keys staged in shared memory as fp32; each
+// visible key; under a window only from the tile's band floor, rounded down
+// to a key tile) in tiles of 32 keys staged in shared memory as fp32; each
 // warp carries the online-softmax state of 4 query rows in registers
 // (attention_common.cuh). Nothing crosses blocks, so the TPU kernel's
-// sequential k-grid axis becomes the loop inside the block.
+// sequential k-grid axis becomes the loop inside the block, and its
+// band-restricted k grid under a window (_fa_fwd) becomes the loop's start:
+// a windowed prefill costs O(S * window), not O(S^2).
 //
-// What bounds it on the H100: at these lengths (S <= 1024, D = 64) the
+// What bounds it on the H100: at these lengths (S <= 1024, D = 64; and
+// Mistral-7B's windowed prefill, S up to 6000, D = 128, window 4096) the
 // work is ~4*D FLOPs per visible (query, key) pair against ~4*S*D elements
 // of I/O per head, so it is bound by operations; this first version does
 // them as fp32 FMAs on the CUDA cores (67 TFLOP/s peak) rather than on the
@@ -59,9 +64,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) row_init(st[rr]);
 
-  // the last key any row of this tile may see, exclusive
+  // the last key any row of this tile may see, exclusive, and the first
+  // key tile the tile's first row may see (0 without a window)
   const int k_end = mask.causal ? max(0, min(sk, q0 + nq + sk - sq)) : sk;
-  for (int k0 = 0; k0 < k_end; k0 += kTileKeys) {
+  const int k_begin = mask.first_key(sq, sk, q0, kTileKeys);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTileKeys) {
     const int nk = min(kTileKeys, k_end - k0);
     __syncthreads();  // previous tile fully consumed (and qs visible)
     load_tile<T>(ks, kb + (long)k0 * d, nk, d, d);
@@ -101,16 +108,17 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed, threshold and
-// keep_scale are read only when dropout is set.
+// keep_scale are read only when dropout is set; window 0 = none (the
+// wrapper passes one only with causal).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               const void* q_seg, const void* kv_seg, int causal, int dropout,
-                              unsigned seed, unsigned threshold, float keep_scale, int batch,
-                              int heads, int kv_heads, int sq, int sk, int d, float scale,
-                              int dtype, void* stream) {
+                              unsigned seed, unsigned threshold, float keep_scale, int window,
+                              int batch, int heads, int kv_heads, int sq, int sk, int d,
+                              float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
-                      dropout, seed, threshold, keep_scale};
+                      dropout, seed, threshold, keep_scale, window};
   if (dtype == APEX_BF16)
     launch<__nv_bfloat16>(q, k, v, o, l, mask, batch, heads, kv_heads, sq, sk, d, scale, s);
   else

@@ -1,8 +1,8 @@
 // Paged-attention decode (one query token per slot) over the KV page pool.
 //
 // Replaces the TPU kernel apex_tpu/ops/paged_attention.py::_paged_kernel
-// (pallas_call in paged_attention) at s = 1 with no window, in its two
-// branches: an fp32 or bf16 pool (paged_decode_kernel, entry point
+// (pallas_call in paged_attention) at s = 1, with or without a sliding
+// window, in its two branches: an fp32 or bf16 pool (paged_decode_kernel, entry point
 // apex_paged_attention), and a quantized pool of int8 or fp8 e4m3 pages with
 // fp32 per-(page, kv head) scales (paged_decode_quant_kernel, entry point
 // apex_paged_attention_quant; the reference's quantized branch,
@@ -11,13 +11,20 @@
 // page_size, D); slot b's position p lives in page
 // block_tables[b, p / page_size] at offset p % page_size.
 // Query head h reads kv head h / rep without repeating it. The query sits at
-// position lengths[b] - 1 and sees every position below lengths[b]. Pages at
-// or past lengths[b] are never read (dead table entries point at the null
-// page 0), and a slot of length 0 outputs exactly 0.
+// position lengths[b] - 1 and sees every position below lengths[b]; under a
+// window w (> 0) only the positions >= lengths[b] - w (the reference's
+// band, pos > qpos - w, _paged_kernel lines 128-132). Pages at or past
+// lengths[b] are never read (dead table entries point at the null page 0),
+// nor, under a window, pages whose last position lies below the band (the
+// s = 1 case of the reference's dead-page gate, line 102): the serving
+// engine nulls their table entries (kv_pool.drop_slot_pages), and the walk
+// starts at the first live page. A slot of length 0 outputs exactly 0.
 //
 // Design: one block of 4 warps per (kv head, slot). The block walks the
-// slot's live pages through its block table, staging each page 32 positions
-// at a time in shared memory as fp32; the rep query heads of the group are
+// slot's live pages through its block table (under a window from the page
+// holding the band's floor; positions below the floor are masked in that
+// page only), staging each page 32 positions at a time in shared memory as
+// fp32; the rep query heads of the group are
 // spread over the warps, each carrying its online-softmax state in registers
 // (attention_common.cuh). The TPU kernel's sequential page axis becomes the
 // loop inside the block.
@@ -54,7 +61,7 @@ __device__ __forceinline__ void paged_decode(const T* __restrict__ q, const P* _
                                              const int* __restrict__ block_tables,
                                              const int* __restrict__ lengths, T* __restrict__ out,
                                              int heads, int kv_heads, int page_size, int d,
-                                             int max_pages, float scale) {
+                                             int max_pages, float scale, int window) {
   __shared__ float qs[kMaxRep][kMaxHeadDim];
   __shared__ float ks[kTileKeys * kTileStride];
   __shared__ float vs[kTileKeys * kTileStride];
@@ -77,7 +84,9 @@ __device__ __forceinline__ void paged_decode(const T* __restrict__ q, const P* _
 
   const int* table = block_tables + (long)b * max_pages;
   const int live_pages = (len + page_size - 1) / page_size;
-  for (int j = 0; j < live_pages; ++j) {
+  // the band's floor: the first position the query (at len - 1) sees
+  const int lo = window > 0 ? max(len - window, 0) : 0;
+  for (int j = lo / page_size; j < live_pages; ++j) {
     const long page = table[j];
     const long base = (page * kv_heads + hk) * page_size * d;
     // this page's dequant scales: k's joins the score scale, v's weighs p
@@ -95,7 +104,8 @@ __device__ __forceinline__ void paged_decode(const T* __restrict__ q, const P* _
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
         const int r = warp + rr * kWarps;
         if (r >= rep) continue;  // warp-uniform
-        row_fold(st[rr], qs[r], ks, vs, d, lane < nk, scale * k_scale, lane, v_scale);
+        const bool valid = lane < nk && j * page_size + c0 + lane >= lo;
+        row_fold(st[rr], qs[r], ks, vs, d, valid, scale * k_scale, lane, v_scale);
       }
     }
   }
@@ -113,9 +123,10 @@ __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages, const int* __restrict__ block_tables,
                     const int* __restrict__ lengths, T* __restrict__ out, int heads,
-                    int kv_heads, int page_size, int d, int max_pages, float scale) {
+                    int kv_heads, int page_size, int d, int max_pages, float scale,
+                    int window) {
   paged_decode<T, T>(q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out, heads,
-                     kv_heads, page_size, d, max_pages, scale);
+                     kv_heads, page_size, d, max_pages, scale, window);
 }
 
 template <typename T, typename P>
@@ -125,71 +136,73 @@ paged_decode_quant_kernel(const T* __restrict__ q, const P* __restrict__ k_pages
                           const float* __restrict__ v_scales,
                           const int* __restrict__ block_tables, const int* __restrict__ lengths,
                           T* __restrict__ out, int heads, int kv_heads, int page_size, int d,
-                          int max_pages, float scale) {
+                          int max_pages, float scale, int window) {
   paged_decode<T, P>(q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out, heads,
-                     kv_heads, page_size, d, max_pages, scale);
+                     kv_heads, page_size, d, max_pages, scale, window);
 }
 
 template <typename T>
 void launch(const void* q, const void* kp, const void* vp, const int* bt, const int* len,
             void* out, int batch, int heads, int kv_heads, int page_size, int d,
-            int max_pages, float scale, cudaStream_t stream) {
+            int max_pages, float scale, int window, cudaStream_t stream) {
   dim3 grid(kv_heads, batch);
   paged_decode_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), bt, len,
-      static_cast<T*>(out), heads, kv_heads, page_size, d, max_pages, scale);
+      static_cast<T*>(out), heads, kv_heads, page_size, d, max_pages, scale, window);
 }
 
 template <typename T, typename P>
 void launch_quant(const void* q, const void* kp, const void* vp, const float* ksc,
                   const float* vsc, const int* bt, const int* len, void* out, int batch,
                   int heads, int kv_heads, int page_size, int d, int max_pages, float scale,
-                  cudaStream_t stream) {
+                  int window, cudaStream_t stream) {
   dim3 grid(kv_heads, batch);
   paged_decode_quant_kernel<T, P><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp), ksc, vsc,
-      bt, len, static_cast<T*>(out), heads, kv_heads, page_size, d, max_pages, scale);
+      bt, len, static_cast<T*>(out), heads, kv_heads, page_size, d, max_pages, scale, window);
 }
 
 template <typename T>
 void launch_quant_pages(int page_dtype, const void* q, const void* kp, const void* vp,
                         const float* ksc, const float* vsc, const int* bt, const int* len,
                         void* out, int batch, int heads, int kv_heads, int page_size, int d,
-                        int max_pages, float scale, cudaStream_t stream) {
+                        int max_pages, float scale, int window, cudaStream_t stream) {
   if (page_dtype == APEX_E4M3)
     launch_quant<T, __nv_fp8_e4m3>(q, kp, vp, ksc, vsc, bt, len, out, batch, heads, kv_heads,
-                                   page_size, d, max_pages, scale, stream);
+                                   page_size, d, max_pages, scale, window, stream);
   else
     launch_quant<T, int8_t>(q, kp, vp, ksc, vsc, bt, len, out, batch, heads, kv_heads,
-                            page_size, d, max_pages, scale, stream);
+                            page_size, d, max_pages, scale, window, stream);
 }
 
 }  // namespace
 
+// window: the sliding window in positions, 0 = none
 extern "C" int apex_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                     const void* block_tables, const void* lengths, void* out,
                                     int batch, int heads, int kv_heads, int page_size, int d,
-                                    int max_pages, float scale, int dtype, void* stream) {
+                                    int max_pages, float scale, int window, int dtype,
+                                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* bt = static_cast<const int*>(block_tables);
   auto* ln = static_cast<const int*>(lengths);
   if (dtype == APEX_BF16)
     launch<__nv_bfloat16>(q, k_pages, v_pages, bt, ln, out, batch, heads, kv_heads, page_size,
-                          d, max_pages, scale, s);
+                          d, max_pages, scale, window, s);
   else
     launch<float>(q, k_pages, v_pages, bt, ln, out, batch, heads, kv_heads, page_size, d,
-                  max_pages, scale, s);
+                  max_pages, scale, window, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // q of `dtype` (f32 or bf16), pages of `page_dtype` (APEX_I8 or APEX_E4M3),
-// scales fp32 (num_pages, kv_heads)
+// scales fp32 (num_pages, kv_heads); window as apex_paged_attention's
 extern "C" int apex_paged_attention_quant(const void* q, const void* k_pages,
                                           const void* v_pages, const void* k_scales,
                                           const void* v_scales, const void* block_tables,
                                           const void* lengths, void* out, int batch, int heads,
                                           int kv_heads, int page_size, int d, int max_pages,
-                                          float scale, int dtype, int page_dtype,
+                                          float scale, int window, int dtype, int page_dtype,
                                           void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* bt = static_cast<const int*>(block_tables);
@@ -199,9 +212,9 @@ extern "C" int apex_paged_attention_quant(const void* q, const void* k_pages,
   if (dtype == APEX_BF16)
     launch_quant_pages<__nv_bfloat16>(page_dtype, q, k_pages, v_pages, ksc, vsc, bt, ln, out,
                                       batch, heads, kv_heads, page_size, d, max_pages, scale,
-                                      s);
+                                      window, s);
   else
     launch_quant_pages<float>(page_dtype, q, k_pages, v_pages, ksc, vsc, bt, ln, out, batch,
-                              heads, kv_heads, page_size, d, max_pages, scale, s);
+                              heads, kv_heads, page_size, d, max_pages, scale, window, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,10 @@
 """Autoregressive decoding with a static-shape KV cache.
 
 Counterpart of ``apex_tpu/models/generation.py``, in the pieces the serving
-slice runs: the contiguous cache (``init_cache``, ``layer_cache``,
+slices run: the contiguous cache (``init_cache``, ``layer_cache``,
 ``is_static_prefill``, ``update_layer_cache``, ``advance_cache``,
-``cached_attention``), the paged-cache write (``is_paged``,
+``cached_attention``, banded under a sliding window; the reference's
+rolling cache is not ported), the paged-cache write (``is_paged``,
 ``update_paged_layer_cache``, with the quantized pool's requantize-on-grow
 append), the greedy token and greedy lock-step ``generate`` — the
 token-identity oracle of the serving engine.
@@ -206,11 +207,14 @@ def advance_cache(cache, new_layers, s: int):
     return out
 
 
-def cached_attention(q, lc, *, scale: Optional[float] = None):
+def cached_attention(q, lc, *, window: Optional[int] = None,
+                     scale: Optional[float] = None):
     """Masked dot-product attention of a ``(b, h, s, d)`` chunk at absolute
-    positions ``[len, len + s)`` against the whole contiguous buffer; GQA
-    against the unexpanded kv heads; fp32 scores and accumulation. Plain
-    torch, as the reference's is plain jnp."""
+    positions ``[len, len + s)`` against the whole contiguous buffer: key
+    ``j`` is visible to the query at position ``p`` iff ``j <= p`` and,
+    under a ``window``, ``j > p - window``. GQA against the unexpanded kv
+    heads; fp32 scores and accumulation. Plain torch, as the reference's is
+    plain jnp."""
     k, v, t0 = lc["k"], lc["v"], lc["len"]
     b, h, s, d = q.shape
     kv, t_max = k.shape[1], k.shape[2]
@@ -218,6 +222,8 @@ def cached_attention(q, lc, *, scale: Optional[float] = None):
     pos_q = t0 + torch.arange(s, device=q.device)[:, None]
     pos_k = torch.arange(t_max, device=q.device)[None, :]
     mask = pos_k <= pos_q                                   # (s, T)
+    if window is not None:
+        mask = mask & (pos_k > pos_q - window)
     qf = q.reshape(b, kv, rep, s, d).float()
     scores = torch.einsum("bkrsd,bktd->bkrst", qf, k.float())
     scores = scores * (scale if scale is not None else d ** -0.5)

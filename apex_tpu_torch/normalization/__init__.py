@@ -1,3 +1,4 @@
-from apex_tpu_torch.normalization.fused_layer_norm import FusedLayerNorm
+from apex_tpu_torch.normalization.fused_layer_norm import (FusedLayerNorm,
+                                                           FusedRMSNorm)
 
-__all__ = ["FusedLayerNorm"]
+__all__ = ["FusedLayerNorm", "FusedRMSNorm"]

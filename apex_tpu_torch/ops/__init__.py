@@ -4,7 +4,7 @@
 from apex_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_with_lse,
                                                 mha_reference)
-from apex_tpu_torch.ops.layer_norm import layer_norm
+from apex_tpu_torch.ops.layer_norm import layer_norm, rms_norm
 from apex_tpu_torch.ops.optim_kernels import (adam_update,
                                               global_grad_norm_and_finite,
                                               lamb_update, segment_stats)
@@ -18,4 +18,4 @@ __all__ = ["adam_update", "flash_attention", "flash_attention_with_lse",
            "fused_dequant_matmul", "fused_dequant_matmul_reference",
            "global_grad_norm_and_finite", "lamb_update", "layer_norm",
            "mha_reference", "paged_attention", "paged_attention_reference",
-           "segment_stats", "softmax_cross_entropy"]
+           "rms_norm", "segment_stats", "softmax_cross_entropy"]

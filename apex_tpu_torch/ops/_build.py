@@ -10,6 +10,13 @@ of the sources and flags, so an edited source rebuilds and a stale library
 is never loaded. All sources build at once, one ``nvcc`` process each,
 started together.
 
+A kernel branch that a main path must be shown to take has a name of its
+own over the same source and symbol: ``rms_norm_fwd`` is the LayerNorm
+kernel with its ``rms`` flag, ``flash_fwd_window`` the flash forward under a
+sliding window, ``paged_attention_window`` the unquantized paged decode
+under one (a windowed call over a quantized pool counts as
+``paged_attention_quant``).
+
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on a non-zero code. A failed build raises too: a CUDA
 tensor never falls back to a kernel's plain PyTorch twin. Each wrapper that
@@ -60,6 +67,11 @@ KERNELS = {
     "dequant_matmul_w4": ("dequant_matmul.cu", "apex_tpu/ops/quant.py:300"),
     "paged_attention_quant": ("paged_attention.cu",
                               "apex_tpu/ops/paged_attention.py:108"),
+    "rms_norm_fwd": ("layer_norm_fwd.cu", "apex_tpu/ops/layer_norm.py:55"),
+    "flash_fwd_window": ("flash_fwd.cu",
+                         "apex_tpu/ops/flash_attention.py:308"),
+    "paged_attention_window": ("paged_attention.cu",
+                               "apex_tpu/ops/paged_attention.py:65"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`

@@ -5,14 +5,16 @@ and their plain PyTorch twins.
 Counterpart of ``apex_tpu/ops/flash_attention.py`` (``_fwd_kernel``,
 ``_dq_kernel``, ``_dkdv_kernel``, ``_fa_bwd_impl``, ``flash_attention``,
 ``flash_attention_with_lse``, ``mha_reference``), causal or not, with
-``segment_ids``/``kv_segment_ids`` and attention dropout; no bias, no
-window, no ``causal_offset``. Layout as in the reference: q ``[B, H, Sq,
-D]``, k/v ``[B, Hkv, Sk, D]`` with ``Hkv`` dividing ``H`` (GQA reads kv head
-``h // (H / Hkv)``, never repeated in the kernels). A :class:`Masking` says
-which (query, key) pairs a row sees: under ``causal`` row ``r`` sees keys
-``j <= r + (Sk - Sq)``; under segment ids only keys of its own segment. A
-row that sees no key outputs 0. The forward returns O in q's dtype and the
-fp32 log-sum-exp.
+``segment_ids``/``kv_segment_ids``, attention dropout and, in the forward,
+a causal sliding window at the default diagonal; no bias, no
+``causal_offset``, and no window in the backward kernels. Layout as in the
+reference: q ``[B, H, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` with ``Hkv``
+dividing ``H`` (GQA reads kv head ``h // (H / Hkv)``, never repeated in the
+kernels). A :class:`Masking` says which (query, key) pairs a row sees: under
+``causal`` row ``r`` sees keys ``j <= r + (Sk - Sq)``; under a ``window``
+``w`` (causal only) also ``j >= r + (Sk - Sq) - (w - 1)``; under segment
+ids only keys of its own segment. A row that sees no key outputs 0. The
+forward returns O in q's dtype and the fp32 log-sum-exp.
 
 Dropout is the reference's counter-based keep mask, exactly: each global
 position ``(seed, b * H + h, row, col)`` (H the query heads) hashes through
@@ -42,9 +44,13 @@ from apex_tpu_torch.ops import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-_UNSUPPORTED = ("flash attention in this port takes no bias, window or "
+_UNSUPPORTED = ("flash attention in this port takes no bias or "
                 "causal_offset (ROADMAP queue B item 8: the rest of the flash "
                 "surface; item 9 for its backward)")
+_WINDOW_BWD = ("the flash backward kernels take no window yet (ROADMAP "
+               "queue B item 9: the window, bias and causal_offset "
+               "backward): call a windowed flash_attention under "
+               "torch.no_grad() or on inputs that do not require grad")
 
 _M32 = 0xFFFFFFFF
 
@@ -92,15 +98,18 @@ def dropout_hash(seed: int, bh, rows, cols) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Masking:
     """Which (query, key) pairs each query row sees, and the attention
-    dropout: ``causal`` (key ``j <= r + Sk - Sq``), int32 ``segment_ids``
-    ``[B, Sq]`` and ``kv_segment_ids`` ``[B, Sk]`` (a row sees keys of its
-    own segment), ``dropout_rate`` in ``[0, 1)`` with ``dropout_seed``."""
+    dropout: ``causal`` (key ``j <= r + Sk - Sq``), a sliding ``window``
+    (with ``causal``, key ``j >= r + Sk - Sq - (window - 1)``), int32
+    ``segment_ids`` ``[B, Sq]`` and ``kv_segment_ids`` ``[B, Sk]`` (a row
+    sees keys of its own segment), ``dropout_rate`` in ``[0, 1)`` with
+    ``dropout_seed``."""
 
     causal: bool = True
     segment_ids: Optional[torch.Tensor] = None
     kv_segment_ids: Optional[torch.Tensor] = None
     dropout_rate: float = 0.0
     dropout_seed: int = 0
+    window: Optional[int] = None
 
     @property
     def threshold(self) -> int:
@@ -115,6 +124,12 @@ class Masking:
                 / torch.tensor(1.0 - self.dropout_rate)).item()
 
     def check(self, q, k) -> None:
+        if self.window is not None:
+            if not self.causal:
+                raise ValueError("window requires causal=True (Mistral-style "
+                                 "sliding window over a causal sequence)")
+            if self.window < 1:
+                raise ValueError(f"window must be >= 1, got {self.window}")
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got "
                              f"{self.dropout_rate}")
@@ -135,6 +150,8 @@ class Masking:
         mask = torch.ones(q_len, kv_len, dtype=torch.bool, device=device)
         if self.causal:
             mask = rows + (kv_len - q_len) >= cols
+        if self.window is not None:
+            mask = mask & (cols >= rows + (kv_len - q_len) - (self.window - 1))
         mask = mask[None, None]
         if self.segment_ids is not None:
             qs = self.segment_ids.to(device)
@@ -158,7 +175,8 @@ class Masking:
 
     def kernel_args(self, device):
         """The C arguments ``(q_seg, kv_seg, causal, dropout, seed,
-        threshold, keep_scale)`` and the segment tensors to keep alive."""
+        threshold, keep_scale)`` and the segment tensors to keep alive (the
+        forward passes the window after them)."""
         segs = []
         if self.segment_ids is not None:
             segs = [t.to(device=device, dtype=torch.int32).contiguous()
@@ -218,12 +236,14 @@ def _flash_fwd_kernel(q, k, v, scale: float, masking: Masking = CAUSAL):
     if b * h * sq == 0:
         return o, lse
     P, I, F = _build.P, _build.I, _build.F
+    window = masking.window
     _build.launch(
-        "flash_fwd", "apex_flash_fwd",
-        (P, P, P, P, P) + _MASK_ARGTYPES + (I, I, I, I, I, I, F, I, P),
+        "flash_fwd" if window is None else "flash_fwd_window",
+        "apex_flash_fwd",
+        (P, P, P, P, P) + _MASK_ARGTYPES + (I,) * 7 + (F, I, P),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *mask_args, b, h, hkv, sq, sk, d, float(scale),
-        _build.dtype_code(q), _build.stream_of(q))
+        lse.data_ptr(), *mask_args, int(window or 0), b, h, hkv, sq, sk, d,
+        float(scale), _build.dtype_code(q), _build.stream_of(q))
     return o, lse
 
 
@@ -302,6 +322,8 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, scale: float,
 
 
 def _bwd_operands(q, k, v, do, lse, delta, masking):
+    if masking.window is not None:
+        raise NotImplementedError(_WINDOW_BWD)
     d = q.shape[3]
     if d > 128:
         raise NotImplementedError(f"flash kernel takes head_dim <= 128, "
@@ -401,6 +423,10 @@ class _FlashAttentionFunction(torch.autograd.Function):
 def _attend(q, k, v, scale, masking):
     _check_shapes(q, k, v)
     masking.check(q, k)
+    if (masking.window is not None and q.device.type != "cpu"
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        raise NotImplementedError(_WINDOW_BWD)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     return _FlashAttentionFunction.apply(q, k, v, float(scale), masking)
@@ -409,16 +435,18 @@ def _attend(q, k, v, scale, masking):
 def flash_attention_with_lse(q, k, v, *, scale: Optional[float] = None,
                              causal: bool = False,
                              window: Optional[int] = None,
+                             causal_offset=None,
                              dropout_rate: float = 0.0,
                              dropout_seed: int = 0):
     """``(o, lse)``: the kernel on a CUDA tensor, the twin on a CPU one;
-    differentiable in q, k and v through both outputs. The keep mask is
-    drawn at global positions from row and column 0; ``window`` raises."""
-    if window is not None:
+    differentiable in q, k and v through both outputs (without a window on
+    the card). The keep mask is drawn at global positions from row and
+    column 0; ``causal_offset`` raises."""
+    if causal_offset is not None:
         raise NotImplementedError(_UNSUPPORTED)
     return _attend(q, k, v, scale, Masking(
         causal=bool(causal), dropout_rate=float(dropout_rate),
-        dropout_seed=int(dropout_seed)))
+        dropout_seed=int(dropout_seed), window=window))
 
 
 def flash_attention(q, k, v, bias=None, segment_ids=None,
@@ -427,16 +455,16 @@ def flash_attention(q, k, v, bias=None, segment_ids=None,
                     dropout_seed: int = 0, window: Optional[int] = None):
     """Flash attention ``softmax(scale * q @ k^T [masked]) @ v`` with the
     reference's signature. ``kv_segment_ids`` defaults to ``segment_ids``
-    (self attention); ``bias`` and ``window`` raise
+    (self attention); ``window`` requires ``causal``; ``bias`` raises
     ``NotImplementedError``."""
-    if bias is not None or window is not None:
+    if bias is not None:
         raise NotImplementedError(_UNSUPPORTED)
     if segment_ids is not None and kv_segment_ids is None:
         kv_segment_ids = segment_ids
     return _attend(q, k, v, scale, Masking(
         causal=bool(causal), segment_ids=segment_ids,
         kv_segment_ids=kv_segment_ids, dropout_rate=float(dropout_rate),
-        dropout_seed=int(dropout_seed)))[0]
+        dropout_seed=int(dropout_seed), window=window))[0]
 
 
 def mha_reference(q, k, v, segment_ids=None, kv_segment_ids=None, *,

@@ -2,19 +2,23 @@
 and their plain PyTorch twin.
 
 Counterpart of ``apex_tpu/ops/paged_attention.py`` (``_paged_kernel``,
-``paged_attention``, ``paged_attention_reference``) at ``s = 1`` with no
-window, in both its branches: an fp32 or bf16 pool (kernel
+``paged_attention``, ``paged_attention_reference``) at ``s = 1``, with or
+without a sliding window, in both its branches: an fp32 or bf16 pool (kernel
 ``paged_attention``), and a quantized pool of int8 or fp8 e4m3 pages with
 fp32 per-(page, kv head) scales ``k_scales``/``v_scales`` (kernel
 ``paged_attention_quant``), where the true K of page ``p``, head ``h`` is
 ``k_pages[p, h].float() * k_scales[p, h]``. The pool is ``(num_pages,
 kv_heads, page_size, head_dim)`` and is read through the int32 ``(batch,
 max_pages)`` block table; slot ``b``'s query sits at position
-``lengths[b] - 1`` and sees every position below ``lengths[b]``. Entries
-past a slot's length must hold a valid page id (page 0, the pool's null
-page) and are never read. A slot of length 0 outputs exactly 0. Decode
-only: it has no backward, as the reference kernel has no VJP, so a call
-under autograd on an input that requires grad raises on either device.
+``lengths[b] - 1`` and sees every position below ``lengths[b]``; under a
+``window`` ``w`` only the positions ``> lengths[b] - 1 - w`` (the
+reference's band). Entries past a slot's length must hold a valid page id
+(page 0, the pool's null page) and are never read; under a window neither
+are the entries of pages that lie wholly below the band, which the serving
+engine nulls (``kv_pool.drop_slot_pages``). A slot of length 0 outputs
+exactly 0. Decode only: it has no backward, as the reference kernel has no
+VJP, so a call under autograd on an input that requires grad raises on
+either device.
 
 A tensor on the CPU takes the twin; a CUDA tensor always takes the kernel.
 """
@@ -47,18 +51,16 @@ def _validate(q, k_pages, v_pages, block_tables, lengths, window, k_scales,
             if not sc.is_floating_point():
                 raise ValueError(f"{name} must be float scales, got "
                                  f"{sc.dtype}")
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window paged attention is not ported yet (ROADMAP "
-            "queue B item 7: window and s>1 paged attention)")
+    if window is not None and (not isinstance(window, int) or window < 1):
+        raise ValueError(f"window must be a positive int, got {window!r}")
     if q.ndim != 4:
         raise ValueError(f"q must be (batch, heads, s, d), got "
                          f"{tuple(q.shape)}")
     if q.shape[2] != 1:
         raise NotImplementedError(
             f"paged attention takes s=1 decode queries in this port, got "
-            f"s={q.shape[2]} (ROADMAP queue B item 7: window and s>1 paged "
-            f"attention)")
+            f"s={q.shape[2]} (ROADMAP queue B item 7: s>1 paged attention, "
+            f"windowed or not)")
     if k_pages.shape != v_pages.shape:
         raise ValueError(f"k_pages {tuple(k_pages.shape)} != v_pages "
                          f"{tuple(v_pages.shape)}")
@@ -83,7 +85,7 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths, *,
     """Plain twin: gather every table entry into a contiguous
     ``(b, kv, max_pages * page_size, d)`` view (dequantized in fp32 with the
     gathered per-page scales when given) and run dense masked GQA attention
-    with fp32 scores."""
+    with fp32 scores, banded to ``pos > qpos - window`` under a window."""
     _validate(q, k_pages, v_pages, block_tables, lengths, window, k_scales,
               v_scales)
     _, kv, page_size, d = k_pages.shape
@@ -103,8 +105,11 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths, *,
     k, v = contig(k_pages, k_scales), contig(v_pages, v_scales)
     qf = q.reshape(b, kv, rep, 1, d).float()
     s = torch.einsum("bkrsd,bktd->bkrst", qf, k) * scale
-    pos = torch.arange(max_pages * page_size, device=q.device)
-    mask = pos[None, :] < lengths.long()[:, None]    # (b, T)
+    pos = torch.arange(max_pages * page_size, device=q.device)[None, :]
+    qpos = lengths.long()[:, None] - 1
+    mask = pos <= qpos                                # (b, T)
+    if window is not None:
+        mask = mask & (pos > qpos - window)
     mask = mask[:, None, None, None, :]
     s = torch.where(mask, s, float("-inf"))
     p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
@@ -113,9 +118,10 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths, *,
 
 
 def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
-                  k_scales=None, v_scales=None):
-    """Launch ``paged_attention`` or, with scales, ``paged_attention_quant``
-    (q in fp32 or bf16, pages int8 or e4m3)."""
+                  window=None, k_scales=None, v_scales=None):
+    """Launch ``paged_attention`` (``paged_attention_window`` under a
+    window) or, with scales, ``paged_attention_quant`` (q in fp32 or bf16,
+    pages int8 or e4m3)."""
     _, kv, page_size, d = k_pages.shape
     b, h = q.shape[0], q.shape[1]
     if d > 128 or h // kv > 16:
@@ -135,14 +141,15 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
     if b == 0:
         return out
     P, I, F = _build.P, _build.I, _build.F
-    shape = (b, h, kv, page_size, d, bt.shape[1], float(scale))
+    shape = (b, h, kv, page_size, d, bt.shape[1], float(scale),
+             int(window or 0))
     if quant:
         ks = k_scales.float().contiguous()
         vs = v_scales.float().contiguous()
         _build.check_cuda(q, ks, vs)
         _build.launch(
             "paged_attention_quant", "apex_paged_attention_quant",
-            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P),
+            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, P),
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             ks.data_ptr(), vs.data_ptr(), bt.data_ptr(), ln.data_ptr(),
             out.data_ptr(), *shape, _build.dtype_code(q),
@@ -150,8 +157,9 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
             _build.stream_of(q))
     else:
         _build.launch(
-            "paged_attention", "apex_paged_attention",
-            (P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
+            "paged_attention" if window is None else "paged_attention_window",
+            "apex_paged_attention",
+            (P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P),
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             bt.data_ptr(), ln.data_ptr(), out.data_ptr(), *shape,
             _build.dtype_code(q), _build.stream_of(q))
@@ -177,7 +185,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         scale = 1.0 / (k_pages.shape[3] ** 0.5)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
-                                         lengths, scale=scale,
+                                         lengths, scale=scale, window=window,
                                          k_scales=k_scales, v_scales=v_scales)
     return _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
-                         k_scales, v_scales)
+                         window, k_scales, v_scales)

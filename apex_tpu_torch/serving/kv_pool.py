@@ -2,8 +2,8 @@
 stack (unshared), full-precision or quantized.
 
 Counterpart of ``apex_tpu/serving/kv_pool.py`` (``init_paged_cache``,
-``alloc_slot``, ``release_slot``, ``free_slot``, ``prefill_into_pages``,
-``pages_for``, ``free_page_count``, ``page_bytes``,
+``alloc_slot``, ``release_slot``, ``free_slot``, ``drop_slot_pages``,
+``prefill_into_pages``, ``pages_for``, ``free_page_count``, ``page_bytes``,
 ``max_slots_for_pool_bytes``). Layout::
 
     pcache = {
@@ -190,6 +190,27 @@ def free_slot(cache, slot: int):
     its length reached) back onto the free stack."""
     keep = torch.zeros((cache["block_tables"].shape[1],), dtype=torch.bool)
     return release_slot(cache, slot, keep)
+
+
+def drop_slot_pages(cache, slot: int, upto: int):
+    """Free the pages behind slot ``slot``'s leading ``upto`` table entries
+    that are not already null, pushing them onto the free stack in table
+    order, and null those entries: the sliding-window page eviction. Once
+    all of a page's positions lie below the attention band's floor, no later
+    decode step of the slot reads it (the band only moves forward).
+    Repeated calls with a growing ``upto`` free each page once.
+    ``alloc_pages`` is left as it is: it bounds the slot's row, and
+    ``release_slot`` skips the nulled entries at retirement. The caller
+    drops only private pages wholly below the band."""
+    row = cache["block_tables"][slot].cpu()
+    droppable = (torch.arange(row.shape[0]) < int(upto)) & (row != 0)
+    pages = row[droppable]
+    top = cache["free_top"]
+    cache["free_stack"][top:top + pages.shape[0]] = pages
+    cache["free_top"] = top + pages.shape[0]
+    row[droppable] = 0
+    cache["block_tables"][slot] = row.to(cache["block_tables"].device)
+    return cache
 
 
 def prefill_into_pages(cache, slot: int, contig_layers, s0: int):

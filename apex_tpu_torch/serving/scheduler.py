@@ -17,10 +17,15 @@ whole demand, ``pages_for(prompt + max_new_tokens)``, head-of-line.
 
 ``kv_dtype="int8"`` or ``"fp8"`` serves over a quantized pool (int8 or
 fp8 e4m3 pages with per-(page, kv head) scales); a model built with a
-weight policy serves quantized block linears. Greedy outputs are
-token-identical to per-request lock-step ``generate`` of the same model
-(over a quantized pool, prefill never reads the pool, so first tokens
-match the full-precision pool's).
+weight policy serves quantized block linears. A model whose config sets
+``sliding_window`` (Mistral-style Llama) serves windowed: its paged decode
+is banded to the window, and at every chunk boundary each active slot's
+pages that fell wholly below the band return to the free stack
+(``kv_pool.drop_slot_pages``, as the reference frontend's
+``_drop_window_pages``), so a windowed slot holds O(window) live pages.
+Greedy outputs are token-identical to per-request lock-step ``generate`` of
+the same model (over a quantized pool, prefill never reads the pool, so
+first tokens match the full-precision pool's).
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ class PagedDecodeEngine:
     ``run(requests)`` drains the queue and returns ``(outputs, stats)``:
     ``outputs[i]`` is request ``i``'s generated tokens (up to and including
     its first EOS) and ``stats`` counts ``decode_steps``, ``admitted``,
-    ``retired`` and ``generated_tokens``.
+    ``retired``, ``generated_tokens`` and ``window_dropped_pages``.
     """
 
     def __init__(self, model, *, num_slots: int, page_size: int = 16,
@@ -94,9 +99,10 @@ class PagedDecodeEngine:
             raise _not_ported("speculative decode", "queue A item 8")
         if prefill_chunk is not None:
             raise _not_ported("chunked prefill", "queue A item 8")
-        if getattr(cfg, "sliding_window", None) is not None:
-            raise _not_ported("sliding-window paged serving",
-                              "queue B item 7")
+        # a config exposing sliding_window promises that its model's paged
+        # branch bands paged_attention to the window: the engine frees
+        # pages below the band, which an unbanded read would then reach
+        self.window = getattr(cfg, "sliding_window", None)
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -190,10 +196,12 @@ class PagedDecodeEngine:
         active: dict[int, tuple[int, list]] = {}   # slot -> (request, toks)
         outputs: list = [None] * len(requests)
         stats = {"decode_steps": 0, "admitted": 0, "retired": 0,
-                 "generated_tokens": 0}
+                 "generated_tokens": 0, "window_dropped_pages": 0}
+        dropped: dict[int, int] = {}    # slot -> leading entries dropped
 
         def retire(slot):
             i, toks = active.pop(slot)
+            dropped.pop(slot, None)
             kv_pool.free_slot(self.cache, slot)
             outputs[i] = np.asarray(toks, np.int32)
             stats["retired"] += 1
@@ -204,7 +212,24 @@ class PagedDecodeEngine:
                      and toks[-1] == self.eos_token_id)
                     or len(toks) >= requests[i].max_new_tokens)
 
+        def drop_window_pages():
+            """Free each active slot's table entries wholly below the band
+            of its next query position ``nxt`` (the device length: prompt
+            plus every decode step run): entry ``j`` is dead once
+            ``(j + 1) * page_size - 1 <= nxt - window``."""
+            ps = self.page_size
+            for slot, (i, toks) in active.items():
+                nxt = prompts[i].shape[0] + len(toks) - 1
+                upto = max((nxt + 1 - self.window) // ps, 0)
+                if upto > dropped.get(slot, 0):
+                    kv_pool.drop_slot_pages(self.cache, slot, upto)
+                    stats["window_dropped_pages"] += \
+                        upto - dropped.get(slot, 0)
+                    dropped[slot] = upto
+
         while pending or active:
+            if self.window is not None:
+                drop_window_pages()
             while pending:
                 vacant = [s for s in range(n_slots) if s not in active]
                 i = pending[0]

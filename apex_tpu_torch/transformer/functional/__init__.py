@@ -1,0 +1,7 @@
+"""Functional building blocks of the port (the counterpart of
+``apex_tpu/transformer/functional``)."""
+
+from apex_tpu_torch.transformer.functional.fused_rope import (
+    fused_apply_rotary_pos_emb, fused_apply_rotary_pos_emb_cached)
+
+__all__ = ["fused_apply_rotary_pos_emb", "fused_apply_rotary_pos_emb_cached"]

@@ -67,13 +67,14 @@ class _Linear(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """LeCun-normal weight (std ``1/sqrt(fan_in)``, the reference's
-        default init family), zero bias. A quantized weight keeps its
-        placeholders."""
+        default init family), zero bias, drawn on ``generator``'s device. A
+        quantized weight keeps its placeholders."""
         with torch.no_grad():
             if not self.quantize:
                 std = self.weight.shape[1] ** -0.5
                 w = torch.randn(self.weight.shape, generator=generator,
-                                dtype=torch.float32) * std
+                                dtype=torch.float32,
+                                device=generator.device) * std
                 self.weight.copy_(w)
             if self.bias is not None:
                 self.bias.zero_()
@@ -120,9 +121,11 @@ class VocabParallelEmbedding(nn.Module):
             num_embeddings, embedding_dim, dtype=params_dtype, device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
+        """normal(0.02), drawn on ``generator``'s device."""
         with torch.no_grad():
             self.weight.copy_(torch.randn(self.weight.shape,
-                                          generator=generator) * 0.02)
+                                          generator=generator,
+                                          device=generator.device) * 0.02)
 
     def forward(self, input_ids):
         ids = input_ids.long().clamp(0, self.weight.shape[0] - 1)

@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s four paths at full width with seeded random
+Drives ``apex_tpu_torch``'s five paths at full width with seeded random
 weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (into ``apex_tpu_torch/_build/``): GPT-2-small greedy paged decode through
 ``PagedDecodeEngine``; the same decode with quantized weights
 (``GPTModel(gpt2_small_config(weight_policy=...))``,
 ``quantize_model_params``) and a quantized page pool
-(``PagedDecodeEngine(..., kv_dtype=)``); GPT-2-small training steps
-(``GPTModel``, ``gpt_loss``, ``loss.backward()``, ``FusedAdam.step()``);
-and BERT-Large pretraining steps (``BertForPreTraining``,
-``bert_pretrain_loss_fn``, ``loss.backward()``, ``FusedLAMB.step()``).
+(``PagedDecodeEngine(..., kv_dtype=)``); Mistral-7B (GQA, sliding window
+4096) greedy paged decode through ``LlamaModel(mistral_7b_config())`` and
+the same engine; GPT-2-small training steps (``GPTModel``, ``gpt_loss``,
+``loss.backward()``, ``FusedAdam.step()``); and BERT-Large pretraining
+steps (``BertForPreTraining``, ``bert_pretrain_loss_fn``,
+``loss.backward()``, ``FusedLAMB.step()``).
 Phases, one JSON line each, ``t_s`` giving the seconds since the start:
 
 1. ``device``: the card, its power limit, the kernels' build time and
@@ -40,7 +42,15 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    cache (a decode step streams 48 weights), against cuBLAS on the
    dequantized weight; a row alone must equal the same row in the batch,
    bit for bit. The quantized paged kernel with int8 and fp8 pools at the
-   paged row's shape, beside the unquantized kernel's time there.
+   paged row's shape, beside the unquantized kernel's time there. The
+   Mistral-7B rows, timed as the quantized ones: the RMS branch of the
+   LayerNorm forward at width 4096 over a decode step's 8 rows and 4224
+   prefill rows (library ``F.rms_norm``); the windowed flash forward at
+   1 x 32 x S x 128 over 8 kv heads, window 4096, S = 4224 and 6016
+   (library ``scaled_dot_product_attention`` with the band as a boolean
+   mask); the windowed paged decode, unquantized and over int8 and fp8
+   pools, at 8 slots, 32 heads over 8 kv heads, d = 128, page 16, lengths
+   spread over 0..6100 with the entries below each band nulled.
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
@@ -55,11 +65,26 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    dequantized, within the bound of each value's quantization step of the
    contiguous prefill K/V. Each run must have launched its kernels.
 4. ``engine_bf16``: the same workload in bf16, a warm run then two timed
-   runs: generated tokens per second. ``engine_quant_bf16``: the same for
+   runs: generated tokens per second, and (first timed run) host and
+   synchronized ms per decode step. ``engine_quant_bf16``: the same for
    ``w8_kv8`` (int8 weights, int8 pool) and ``w4_kv8`` (int4 group 128,
    int8 pool), with launches per kernel, block-linear weight bytes per
    decode step against bf16, a page's bytes against a bf16 page, and the
    slots a fixed pool budget admits.
+   ``mistral_fp32`` (the bar): Mistral-7B at full width,
+   ``MISTRAL_FP32_LAYERS`` deep, fp32 parameters and pool, window 4096;
+   two long requests (prompts of 5,000 and 6,000 tokens, budgets of 64:
+   their prefill runs the band, their decode crosses the window) and six
+   short ones (32..128 tokens, seed 1), 8 slots, page 16, an explicit pool
+   of 1024 pages: every request token-identical to lock-step ``generate``
+   (else the first diverging step and its logit gap are printed and the
+   phase fails), pages dropped below the band, the pool drained, and only
+   the RMS, windowed-flash and windowed-paged kernel branches launched.
+   ``mistral_bf16`` (the speed run): all 32 layers in bf16 (14.5 GB of
+   weights), the two long requests and the 24-request workload's shape: a
+   short warm run, then one timed run: generated tokens/s, decode steps,
+   host and synchronized ms per decode step, admission seconds, peak
+   memory, ``window_dropped_pages``.
 5. ``train_fp32``: GPT-2-small, fp32, one batch of 2 x 256 tokens, on the
    card (kernels) and on the CPU (twins) from the same seeded weights: the
    losses agree to 1e-4 relative, every parameter has a gradient on the
@@ -88,10 +113,11 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    phase's own peak memory (above what earlier phases keep live), the
    launches of each kernel per step (asserted), and a falling finite loss.
 9. ``engine_bf16_profile``, ``engine_quant_bf16_profile``,
-   ``kernel_device_ms``, ``train_bf16_profile`` and
-   ``bert_bf16_profile``: one more bf16 engine run (and one of each
-   quantized configuration, with each kernel's device ms and launches) under
-   ``torch.profiler`` (device busy and idle share, the top device kernels),
+   ``mistral_bf16_profile``, ``kernel_device_ms``, ``train_bf16_profile``
+   and ``bert_bf16_profile``: one more bf16 engine run (and one of each
+   quantized configuration, with each kernel's device ms and launches, and
+   one Mistral-7B run), the host's ops untraced, under ``torch.profiler``
+   (device busy and idle share, the top device kernels),
    each kernel's device time per call at the shapes of phase 2, the timed
    bf16 engine run once more, and last one profiled step of each training
    path. Last, so that no profiler state can touch the times of phases
@@ -99,9 +125,10 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
 
 Then the per-kernel summary line (serving kernels with the launches of the
 timed engine run, the quantized serving kernels with those of the timed
-``w8_kv8`` or ``w4_kv8`` run, GPT training kernels with those of its timed
-run, the BERT kernels with those of the timed BERT run; every path's count
-beside it) and, last, ``{"ok": true, "device": ...}``.
+``w8_kv8`` or ``w4_kv8`` run, the windowed kernel branches with those of
+the timed ``mistral_bf16`` run, GPT training kernels with those of its
+timed run, the BERT kernels with those of the timed BERT run; every path's
+count beside it) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises, so the run exits non-zero without the last line. With
 no CUDA device, or without the ``apex_tpu_torch`` package beside it, it
 exits non-zero at once. Imports nothing of JAX.
@@ -175,8 +202,31 @@ QUANT_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 QUANT_ROWS = (NUM_SLOTS, 128)
 L2_BYTES = 50 * 2 ** 20
 
+# the Mistral-7B serving slice (mistral_7b_config: 32 query heads over 8 kv
+# heads, head_dim 128, window 4096): the kernel rows' shapes (a decode
+# step's and a long prefill's rows for RMSNorm; a prefill whose band floor
+# passes many key tiles for flash; slot lengths below, at and past the
+# window for paged decode), and the engine workload's two long requests,
+# whose prefill runs the band and whose decode crosses the window
+MISTRAL_WINDOW, MISTRAL_HIDDEN = 4096, 4096
+MISTRAL_HEADS, MISTRAL_KV_HEADS, MISTRAL_HEAD_DIM = 32, 8, 128
+RMS_ROWS = (NUM_SLOTS, 4224)
+FLASH_WINDOW_SEQS = (4224, 6016)
+PAGED_WINDOW_LENGTHS = (0, 1, 100, 4095, 4096, 4097, 5000, 6100)
+BIG_ITERS = 10            # calls per timing of the windowed flash rows
+MISTRAL_LONG = ((5000, 64), (6000, 64))     # (prompt tokens, budget)
+MISTRAL_SHORT_FP32 = 6
+MISTRAL_FP32_LAYERS = 4
+MISTRAL_VOCAB = 32000
+# the pool, passed explicitly (the default sizes for 32768 positions): the
+# two long requests and eight short ones fit at once
+MISTRAL_POOL = dict(num_pages=1024, max_pages_per_seq=384)
+
 #: the kernels of the serving path and of the two training paths
 SERVING_KERNELS = ("layer_norm_fwd", "flash_fwd", "paged_attention")
+#: the kernel branches of the windowed Mistral serving path
+MISTRAL_KERNELS = ("rms_norm_fwd", "flash_fwd_window",
+                   "paged_attention_window")
 #: the kernel each weight kind and each pool runs on the serving path
 DEQUANT_KERNEL = {"int8": "dequant_matmul", "fp8": "dequant_matmul",
                   "int4": "dequant_matmul_w4"}
@@ -209,7 +259,10 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "lamb_phase2": "lamb_phase2_kernel",
                   "dequant_matmul": "dequant_matmul_kernel",
                   "dequant_matmul_w4": "dequant_matmul_w4_kernel",
-                  "paged_attention_quant": "paged_decode_quant_kernel"}
+                  "paged_attention_quant": "paged_decode_quant_kernel",
+                  "rms_norm_fwd": "layer_norm_fwd_kernel",
+                  "flash_fwd_window": "flash_fwd_kernel",
+                  "paged_attention_window": "paged_decode_kernel"}
 
 
 def ptxas_registers() -> dict:
@@ -239,11 +292,14 @@ def ptxas_registers() -> dict:
             if m and entry:
                 name = next((n for n in names if n in entry), entry)
                 bf16 = "<bf16>" if "nv_bfloat16" in entry else ""
+                # the RMS instantiation of the LayerNorm forward
+                rms = "<rms>" if (name == "layer_norm_fwd_kernel"
+                                  and "Lb1E" in entry) else ""
                 # the e4m3 instantiations of the quantized kernels
                 fp8 = "<e4m3>" if ("fp8_e4m3" in entry or (
                     "dequant_matmul_kernel" in entry and "Li1E" in entry)) \
                     else ""
-                regs[name + bf16 + fp8] = int(m.group(1))
+                regs[name + bf16 + fp8 + rms] = int(m.group(1))
                 entry = None
     return regs
 
@@ -1120,6 +1176,201 @@ def check_paged_quant(gen, dev):
     return out
 
 
+def check_rms_norm(gen, dev):
+    """The RMS branch of the LayerNorm forward kernel at Mistral-7B's width,
+    eps 1e-5: a decode step's rows and a long prefill's. Kernel, twin and
+    ``F.rms_norm`` (the library) are timed by ``queued_ms``."""
+    import torch
+    import torch.nn.functional as F
+
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+
+    out = []
+    cols, eps = MISTRAL_HIDDEN, 1e-5
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in RMS_ROWS:
+            x = (torch.randn(rows, cols, generator=gen) * 2 + 0.5).to(dev,
+                                                                      dtype)
+            w = (torch.rand(cols, generator=gen) + 0.5).to(dev)
+            y, mean, rstd = ln.rms_norm_fwd(x, w, eps)
+            torch.cuda.synchronize()
+            ry, _, rstd_ref = ln.rms_norm_fwd_reference(x, w, eps)
+            dn = str(dtype).split(".")[1]
+            err = compare("rms_norm_fwd", y, ry, dn)
+            compare("rms_norm_fwd rstd", rstd, rstd_ref, "float32")
+            if (mean != 0).any():
+                raise AssertionError("rms_norm_fwd: mean must be exactly 0")
+            nbytes = 2 * rows * cols * x.element_size() + cols * 4 \
+                + 2 * rows * 4
+            bms, by = bound_ms(nbytes, 4 * rows * cols, dn)
+            kernel = partial(ln.rms_norm_fwd, x, w, eps)
+            lib = getattr(F, "rms_norm", None)
+            out.append((dict(
+                name="rms_norm_fwd", dtype=dn, shape=[rows, cols], eps=eps,
+                path="mistral", max_abs_err=err, ms=queued_ms(kernel),
+                plain_ms=queued_ms(partial(ln.rms_norm_fwd_reference, x, w,
+                                           eps)),
+                library_ms=None if lib is None else queued_ms(
+                    partial(lib, x, (cols,), w.to(dtype), eps)),
+                library="F.rms_norm", bound_ms=bms, bound_by=by), kernel))
+    return out
+
+
+def band_pairs(s: int, window: int) -> int:
+    """Visible (query, key) pairs of one head of a causal band of
+    ``window`` keys over ``s`` positions."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def check_flash_window(gen, dev):
+    """The windowed flash forward at Mistral-7B's prefill shapes: 1 x 32 x S
+    x 128 queries over 8 kv heads, window 4096, at S = 4224 and 6016 (the
+    band floor passes 4 and 60 key tiles of the last query tile). The
+    library call is ``scaled_dot_product_attention`` with the band as an
+    explicit boolean mask and K/V expanded to the 32 heads. All timed by
+    ``queued_ms`` over ``BIG_ITERS`` calls."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+
+    out = []
+    h, hkv, d, w = MISTRAL_HEADS, MISTRAL_KV_HEADS, MISTRAL_HEAD_DIM, \
+        MISTRAL_WINDOW
+    masking = fa.Masking(causal=True, window=w)
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in FLASH_WINDOW_SEQS:
+            q = torch.randn(1, h, s, d, generator=gen).to(dev, dtype)
+            k, v = (torch.randn(1, hkv, s, d, generator=gen).to(dev, dtype)
+                    for _ in range(2))
+            scale = d ** -0.5
+            o, lse = fa.flash_attention_with_lse(q, k, v, causal=True,
+                                                 window=w)
+            torch.cuda.synchronize()
+            ro, rlse = fa.flash_attention_reference(q, k, v, scale=scale,
+                                                    masking=masking)
+            dn = str(dtype).split(".")[1]
+            err = compare("flash_fwd_window", o, ro, dn)
+            compare("flash_fwd_window lse", lse, rlse, "float32")
+            del ro, rlse
+            elt = q.element_size()
+            nbytes = (2 * h + 2 * hkv) * s * d * elt + 4 * h * s
+            bms, by = bound_ms(nbytes, 4 * h * band_pairs(s, w) * d, dn)
+            kernel = partial(fa.flash_attention_with_lse, q, k, v,
+                             causal=True, window=w)
+            pos = torch.arange(s, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - w)
+            ke, ve = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+            out.append((dict(
+                name="flash_fwd_window", dtype=dn, shape=[1, h, s, d],
+                kv_heads=hkv, window=w, path="mistral", max_abs_err=err,
+                ms=queued_ms(kernel, BIG_ITERS),
+                plain_ms=queued_ms(partial(fa.flash_attention_reference, q,
+                                           k, v, scale=scale,
+                                           masking=masking), BIG_ITERS),
+                library_ms=queued_ms(partial(
+                    F.scaled_dot_product_attention, q, ke, ve,
+                    attn_mask=band), BIG_ITERS),
+                library="scaled_dot_product_attention, boolean band mask, "
+                        "K/V expanded to 32 heads",
+                bound_ms=bms, bound_by=by), kernel))
+    return out
+
+
+def windowed_tables(gen, dev, lengths, page_size: int, window: int):
+    """``(block tables, max pages, pool pages)`` over a shuffled pool for
+    slots of ``lengths``: entries past a slot's length, and those wholly
+    below its band, hold the null page 0, as ``drop_slot_pages`` leaves
+    them."""
+    import torch
+
+    slots = len(lengths)
+    maxp = -(-max(lengths) // page_size)
+    num_pages = 1 + slots * maxp
+    perm = torch.randperm(num_pages - 1, generator=gen) + 1
+    bt = torch.zeros(slots, maxp, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        live = -(-n // page_size)
+        bt[i, :live] = perm[i * maxp:i * maxp + live]
+        bt[i, :max(n - window, 0) // page_size] = 0
+    return bt.to(dev), maxp, num_pages
+
+
+def check_paged_window(gen, dev):
+    """Windowed paged decode at Mistral-7B's shapes: 8 slots, 32 heads over
+    8 kv heads, d = 128, page 16, window 4096, lengths spread over 0..6100
+    with the entries below each band nulled; the unquantized kernel
+    (``paged_attention_window``) and the quantized one over int8 and fp8
+    pools, with the unquantized windowed kernel's time beside the latter.
+    All timed by ``queued_ms``."""
+    import torch
+
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    quant = importlib.import_module("apex_tpu_torch.ops.quant")
+
+    out = []
+    slots, h, kv, d, ps, w = NUM_SLOTS, MISTRAL_HEADS, MISTRAL_KV_HEADS, \
+        MISTRAL_HEAD_DIM, PAGE_SIZE, MISTRAL_WINDOW
+    lengths = list(PAGED_WINDOW_LENGTHS)
+    bt, maxp, num_pages = windowed_tables(gen, dev, lengths, ps, w)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    n_pos = sum(min(n, w) for n in lengths)       # positions each head reads
+    live_pages = sum(-(-n // ps) - max(n - w, 0) // ps for n in lengths)
+    shape = [slots, h, ps, d, maxp]
+
+    def row(name, dtype, kp, vp, page_elt, scales=None, **extra):
+        q = torch.randn(slots, h, 1, d, generator=gen).to(dev, dtype)
+        kw = dict(window=w)
+        if scales is not None:
+            kw.update(k_scales=scales[0], v_scales=scales[1])
+        o = pa.paged_attention(q, kp, vp, bt, ln, **kw)
+        torch.cuda.synchronize()
+        dn = str(dtype).split(".")[1]
+        err = compare(name, o, pa.paged_attention_reference(
+            q, kp, vp, bt, ln, **kw), dn)
+        if (o[0] != 0).any():
+            raise AssertionError(f"{name}: a zero-length slot must output "
+                                 f"exactly 0")
+        elt = q.element_size()
+        nbytes = (2 * n_pos * kv * d * page_elt + 2 * slots * h * d * elt
+                  + slots * maxp * 4 + slots * 4)
+        if scales is not None:
+            nbytes += 2 * live_pages * kv * 4
+        bms, by = bound_ms(nbytes, 4 * n_pos * h * d, dn)
+        kernel = partial(pa.paged_attention, q, kp, vp, bt, ln, **kw)
+        if scales is not None:
+            deq = [(p.float() * sc[:, :, None, None]).to(dtype)
+                   for p, sc in ((kp, scales[0]), (vp, scales[1]))]
+            extra["unquantized_ms"] = queued_ms(partial(
+                pa.paged_attention, q, *deq, bt, ln, window=w))
+        return (dict(
+            name=name, dtype=dn, shape=shape, kv_heads=kv, window=w,
+            lengths=lengths, path="mistral", max_abs_err=err,
+            ms=queued_ms(kernel),
+            plain_ms=queued_ms(partial(pa.paged_attention_reference, q, kp,
+                                       vp, bt, ln, **kw)),
+            library_ms=None, bound_ms=bms, bound_by=by, **extra), kernel)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        kp, vp = (torch.randn(num_pages, kv, ps, d, generator=gen)
+                  .to(dev, dtype) for _ in range(2))
+        out.append(row("paged_attention_window", dtype, kp, vp,
+                       kp.element_size()))
+    for kv_name in ("int8", "fp8"):
+        qdt, qmax = quant.resolve_kv_dtype(kv_name)
+        pools = [quant.kv_quantize(
+            torch.randn(num_pages, kv, ps, d, generator=gen).to(dev) * 2,
+            qdt, qmax, axes=(2, 3)) for _ in range(2)]
+        (kp, ks), (vp, vs) = ((p, sc[:, :, 0, 0].contiguous())
+                              for p, sc in pools)
+        for dtype in (torch.float32, torch.bfloat16):
+            out.append(row("paged_attention_quant", dtype, kp, vp, 1,
+                           scales=(ks, vs), kind=kv_name))
+    return out
+
+
 # --- phases 3 and 4: the engine --------------------------------------------
 
 
@@ -1144,18 +1395,52 @@ def lockstep_steps(new_tokens, fifo: bool = False):
                for g in range(0, len(order), NUM_SLOTS))
 
 
+def time_engine_steps(engine, into: dict) -> None:
+    """Wrap ``engine``'s admission and decode chunk to add their seconds to
+    ``into``: ``admit_s`` (an admission ends in a read of its first token),
+    ``chunk_host_s`` (the host issuing a chunk's steps, up to its return)
+    and ``chunk_s`` (the same chunk through a synchronize, which the
+    engine's own read of the chunk's tokens would wait for next)."""
+    import torch
+
+    admit, chunk = engine._admit, engine._decode_chunk
+    into.update(admit_s=0.0, admissions=0, chunk_host_s=0.0, chunk_s=0.0)
+
+    def timed_admit(*args):
+        t0 = time.perf_counter()
+        out = admit(*args)
+        into["admit_s"] += time.perf_counter() - t0
+        into["admissions"] += 1
+        return out
+
+    def timed_chunk(*args):
+        t0 = time.perf_counter()
+        out = chunk(*args)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        into["chunk_host_s"] += t1 - t0
+        into["chunk_s"] += time.perf_counter() - t0
+        return out
+
+    engine._admit, engine._decode_chunk = timed_admit, timed_chunk
+
+
 def run_engine(model, prompts, new_tokens, kernels=SERVING_KERNELS,
-               kv_dtype=None):
+               kv_dtype=None, step_times=None, **engine_kw):
     """One engine run over the workload, the launch counts set to 0 just
     before it and read just after; it fails if a kernel of ``kernels`` was
-    not launched or the pool leaked."""
+    not launched or the pool leaked. ``engine_kw`` sizes the pool;
+    ``step_times``, a dict, receives ``time_engine_steps``' sums."""
     import torch
 
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.serving import PagedDecodeEngine, Request
 
     engine = PagedDecodeEngine(model, num_slots=NUM_SLOTS,
-                               page_size=PAGE_SIZE, kv_dtype=kv_dtype)
+                               page_size=PAGE_SIZE, kv_dtype=kv_dtype,
+                               **engine_kw)
+    if step_times is not None:
+        time_engine_steps(engine, step_times)
     reqs = [Request(p, n) for p, n in zip(prompts, new_tokens)]
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -1391,6 +1676,156 @@ def profile_quant(runs) -> None:
                           top_device=[dict(name=k[:120], ms=t, count=c)
                                       for k, (t, c) in top])
     emit("engine_quant_bf16_profile", runs=out)
+
+
+# --- the Mistral-7B serving phases -----------------------------------------
+
+
+def mistral_workload(n_short: int):
+    """The two long requests (prompts of 5,000 and 6,000 tokens, budgets of
+    64) first, then ``n_short`` requests with prompts and budgets uniform in
+    32..128 tokens (numpy seed 1, ids below the vocabulary's 32,000)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    prompt_lens = rng.integers(32, 129, n_short)
+    new_tokens = rng.integers(32, 129, n_short)
+    short = [rng.integers(0, MISTRAL_VOCAB, int(n)).astype(np.int32)
+             for n in prompt_lens]
+    long = [rng.integers(0, MISTRAL_VOCAB, n).astype(np.int32)
+            for n, _ in MISTRAL_LONG]
+    return (long + short,
+            [b for _, b in MISTRAL_LONG] + [int(n) for n in new_tokens])
+
+
+def build_mistral(dtype, layers=None):
+    """Mistral-7B at full width, all its layers or ``layers`` deep,
+    parameters and compute in ``dtype``, seeded random weights drawn on the
+    card."""
+    import torch
+
+    from apex_tpu_torch.models import LlamaModel, mistral_7b_config
+
+    depth = {} if layers is None else dict(num_layers=layers)
+    cfg = mistral_7b_config(dtype=dtype, param_dtype=dtype, **depth)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    return LlamaModel(cfg, device=DEV, generator=gen).eval()
+
+
+def mistral_facts(model) -> dict:
+    cfg = model.config
+    from apex_tpu_torch.serving import kv_pool
+
+    return dict(layers=cfg.num_layers, hidden=cfg.hidden_size,
+                heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.head_dim, window=cfg.sliding_window,
+                parameters=sum(p.numel() for p in model.parameters()),
+                weight_bytes=sum(p.numel() * p.element_size()
+                                 for p in model.parameters()),
+                page_bytes=kv_pool.page_bytes(cfg, PAGE_SIZE),
+                num_slots=NUM_SLOTS, page_size=PAGE_SIZE, **MISTRAL_POOL)
+
+
+def check_mistral_run(stats, launches, phase: str) -> None:
+    """The windowed path's bars on one engine run: pages dropped below the
+    band, and only the windowed branches of the attention kernels and the
+    RMS branch of the norm launched (``run_engine`` has held the pool)."""
+    if stats["window_dropped_pages"] <= 0:
+        raise AssertionError(f"{phase}: no page was dropped below the band")
+    stray = {k: launches[k] for k in ("layer_norm_fwd", "flash_fwd",
+                                      "paged_attention") if launches[k]}
+    if stray:
+        raise AssertionError(f"{phase}: unwindowed kernels launched {stray}")
+
+
+def divergence(model, prompt, got, want) -> dict:
+    """Where the engine's tokens first leave lock-step ``generate``'s, with
+    the lock-step logits there (a no-cache forward of the prompt and the
+    tokens before): the two tokens' logits and the top-2 gap."""
+    import numpy as np
+    import torch
+
+    n = min(len(got), len(want))
+    step = next((i for i in range(n) if got[i] != want[i]), n)
+    ids = torch.from_numpy(np.concatenate([prompt, want[:step]]))[None]
+    with torch.no_grad():
+        logits = model(ids.to(DEV))[0, -1].float()
+    top = logits.topk(2).values
+    out = dict(step=int(step), lengths=[len(got), len(want)],
+               top2_logit_gap=(top[0] - top[1]).item())
+    for label, toks in (("engine", got), ("lockstep", want)):
+        if step < len(toks):
+            out[f"{label}_token"] = int(toks[step])
+            out[f"{label}_logit"] = logits[int(toks[step])].item()
+    return out
+
+
+def mistral_fp32() -> None:
+    """The bar: Mistral-7B at full width, ``MISTRAL_FP32_LAYERS`` deep, fp32
+    parameters and pool, window 4096; the two long requests and
+    ``MISTRAL_SHORT_FP32`` short ones through the engine, each
+    token-identical to lock-step ``generate`` on the card."""
+    import torch
+
+    from apex_tpu_torch.models import generate
+
+    live = phase_memory_start()
+    model = build_mistral(torch.float32, MISTRAL_FP32_LAYERS)
+    prompts, new_tokens = mistral_workload(MISTRAL_SHORT_FP32)
+    outs, stats, elapsed, launches = run_engine(
+        model, prompts, new_tokens, kernels=MISTRAL_KERNELS, **MISTRAL_POOL)
+    check_mistral_run(stats, launches, "mistral_fp32")
+    diverged = {}
+    for i, (p, n, o) in enumerate(zip(prompts, new_tokens, outs)):
+        ref = generate(model, torch.from_numpy(p)[None].to(DEV), n)
+        ref = ref[0, p.shape[0]:].cpu().numpy()
+        if o.shape != ref.shape or (o != ref).any():
+            diverged[i] = divergence(model, p, o, ref)
+    facts = mistral_facts(model)
+    emit("mistral_fp32", requests=len(prompts),
+         prompt_tokens=[int(p.shape[0]) for p in prompts],
+         token_identical=not diverged, diverged=diverged,
+         launches=launches, seconds=elapsed, **stats, **facts,
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live)
+         / 2 ** 30)
+    if diverged:
+        raise AssertionError(f"mistral_fp32: engine tokens differ from "
+                             f"lock-step generate: {diverged}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def mistral_bf16(smi):
+    """The speed run: Mistral-7B at full width and all 32 layers, bf16
+    parameters and compute (14.5 GB of weights), the GPT workload's 24
+    requests plus the two long ones: a warm run over the first 8 requests
+    at 16 tokens each, then one timed run. Returns the model, the timed
+    run and its launches."""
+    import torch
+
+    live = phase_memory_start()
+    model = build_mistral(torch.bfloat16)
+    prompts, new_tokens = mistral_workload(N_REQUESTS)
+    run = partial(run_engine, model, prompts, new_tokens,
+                  kernels=MISTRAL_KERNELS, **MISTRAL_POOL)
+    run_engine(model, prompts[:NUM_SLOTS],
+               [min(n, 16) for n in new_tokens[:NUM_SLOTS]],
+               kernels=MISTRAL_KERNELS, **MISTRAL_POOL)          # warm
+    steps = {}
+    outs, stats, elapsed, launches = run(step_times=steps)
+    check_mistral_run(stats, launches, "mistral_bf16")
+    n_steps = stats["decode_steps"]
+    emit("mistral_bf16", requests=len(prompts),
+         tokens_per_s=stats["generated_tokens"] / elapsed, seconds=elapsed,
+         host_ms_per_decode_step=steps["chunk_host_s"] / n_steps * 1e3,
+         synced_ms_per_decode_step=steps["chunk_s"] / n_steps * 1e3,
+         admission_s=steps["admit_s"], admissions=steps["admissions"],
+         lockstep_steps=lockstep_steps(new_tokens),
+         launches=launches, **stats, **mistral_facts(model),
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live)
+         / 2 ** 30, earlier_phases_live_gib=live / 2 ** 30,
+         nvidia_smi=smi, card_after=card_state())
+    return model, run, launches
 
 
 # --- phases 5 and 6: training ----------------------------------------------
@@ -1709,10 +2144,10 @@ def bert_bf16(smi):
     return step, launches
 
 
-def profile_phase(phase: str, fn) -> None:
+def profile_phase(phase: str, fn, cpu: bool = True) -> None:
     """One run of ``fn`` under the profiler: device busy and idle share and
-    the top device items."""
-    wall, acts = device_profile(fn)
+    the top device items (``cpu=False``: the host's ops untraced)."""
+    wall, acts = device_profile(fn, cpu=cpu)
     busy = sum(t for t, _ in acts.values())
     top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:15]
     emit(phase, wall_s=wall, device_busy_s=busy / 1e3,
@@ -1753,7 +2188,8 @@ def main() -> int:
               + check_flash_bwd(gen, DEV) + check_adam(gen, DEV)
               + check_flash_bert(gen, DEV) + check_xentropy(gen, DEV)
               + check_lamb(gen, DEV) + check_dequant(gen, DEV)
-              + check_paged_quant(gen, DEV))
+              + check_paged_quant(gen, DEV) + check_rms_norm(gen, DEV)
+              + check_flash_window(gen, DEV) + check_paged_window(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, card_before=card_before,
          card_after=card_state(), results=rows)
@@ -1779,17 +2215,25 @@ def main() -> int:
 
     model = build_model(torch.bfloat16)
     run_engine(model, prompts, new_tokens)                 # warm
-    timed = [run_engine(model, prompts, new_tokens) for _ in range(2)]
+    steps = {}
+    timed = [run_engine(model, prompts, new_tokens, step_times=st)
+             for st in (steps, None)]
     _, stats, elapsed, launches = timed[0]
     emit("engine_bf16", requests=N_REQUESTS, num_slots=NUM_SLOTS,
          page_size=PAGE_SIZE, layers=model.config.num_layers,
          tokens_per_s=stats["generated_tokens"] / elapsed, seconds=elapsed,
+         host_ms_per_decode_step=steps["chunk_host_s"]
+         / stats["decode_steps"] * 1e3,
+         synced_ms_per_decode_step=steps["chunk_s"]
+         / stats["decode_steps"] * 1e3,
          repeat_tokens_per_s=stats["generated_tokens"] / timed[1][2],
          lockstep_steps=lockstep_steps(new_tokens),
          lockstep_steps_fifo=lockstep_steps(new_tokens, fifo=True),
          launches=launches, nvidia_smi=smi, card_after=card_state(),
          **stats)
     quant_runs = engine_quant_bf16(model, prompts, new_tokens, smi)
+    mistral_fp32()
+    mistral_model, mistral_run, mistral_launches = mistral_bf16(smi)
 
     train_fp32()
     train_step, train_launches = train_bf16(smi)
@@ -1800,11 +2244,14 @@ def main() -> int:
     # above: one more run of the same workload, then each kernel alone at
     # the shapes of phase 2
     profile_phase("engine_bf16_profile",
-                  partial(run_engine, model, prompts, new_tokens))
+                  partial(run_engine, model, prompts, new_tokens), cpu=False)
     profile_quant(quant_runs)
+    profile_phase("mistral_bf16_profile", mistral_run, cpu=False)
+    del mistral_model, mistral_run
+    torch.cuda.empty_cache()
     results = []
     for row, fn in checks:
-        if row.get("path") == "quant_serving":
+        if row.get("path") in ("quant_serving", "mistral"):
             continue                  # timed by queued_ms already
         ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
         results.append(dict(name=row["name"], dtype=row["dtype"],
@@ -1841,8 +2288,17 @@ def main() -> int:
     main_shape.update({"dequant_matmul": [NUM_SLOTS, *QUANT_SHAPES[2]],
                        "dequant_matmul_w4": [NUM_SLOTS, *QUANT_SHAPES[2]]})
     main_kind = {"dequant_matmul": "int8", "paged_attention_quant": "int8"}
+    # the windowed kernels: a decode step's rows for RMSNorm, the prefill
+    # of 4224 tokens for flash, the 8-slot pool for paged decode, bf16; the
+    # quantized paged kernel keeps its GPT-2 serving row and gains its
+    # windowed one
+    main_shape.update({
+        "rms_norm_fwd": [NUM_SLOTS, MISTRAL_HIDDEN],
+        "flash_fwd_window": [1, MISTRAL_HEADS, FLASH_WINDOW_SEQS[0],
+                             MISTRAL_HEAD_DIM],
+        "paged_attention_quant": [NUM_SLOTS, 12, PAGE_SIZE, 64, 64]})
     by_path = {"serving": launches, "gpt_train": train_launches,
-               "bert_train": bert_launches,
+               "bert_train": bert_launches, "mistral": mistral_launches,
                **{label: run[1] for label, run in quant_runs.items()}}
     quant_path = {"dequant_matmul": "w8_kv8", "dequant_matmul_w4": "w4_kv8",
                   "paged_attention_quant": "w8_kv8"}
@@ -1852,7 +2308,8 @@ def main() -> int:
     for name, (src, replaces) in _build.KERNELS.items():
         path = ("serving" if name in SERVING_KERNELS else "gpt_train"
                 if name in TRAIN_KERNELS else quant_path[name]
-                if name in QUANT_KERNELS else "bert_train")
+                if name in QUANT_KERNELS else "mistral"
+                if name in MISTRAL_KERNELS else "bert_train")
         row = next(r for r in rows if r["name"] == name
                    and r["dtype"] == ("float32" if name in FP32_KERNELS
                                       else "bfloat16")
@@ -1871,8 +2328,17 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             **{k: row[k] for k in ("kind", "shape", "unquantized_ms",
-                                   "library") if k in row and path in
-               quant_path.values()})
+                                   "library", "kv_heads", "window")
+               if k in row and path in (*quant_path.values(), "mistral")})
+        if name == "paged_attention_quant":
+            win = next(r for r in rows if r["name"] == name
+                       and r.get("path") == "mistral"
+                       and r["dtype"] == "bfloat16" and r["kind"] == "int8")
+            entry["mistral_window"] = dict(
+                shape=win["shape"], kv_heads=win["kv_heads"],
+                window=win["window"], dtype="bfloat16", kind="int8",
+                unquantized_ms=win["unquantized_ms"],
+                **{k: win[k] for k in timing})
         if path != "bert_train" and name in BERT_KERNELS:
             bert = next(r for r in rows if r["name"] == name
                         and r.get("path") == "bert"

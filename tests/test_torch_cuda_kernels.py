@@ -14,6 +14,7 @@ from functools import partial
 import pytest
 import torch
 
+from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.flash_attention import (Masking, flash_attention,
                                                 flash_attention_bwd,
@@ -24,7 +25,9 @@ from apex_tpu_torch.ops.flash_attention import (Masking, flash_attention,
 from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                            layer_norm_bwd_reference,
                                            layer_norm_fwd,
-                                           layer_norm_fwd_reference)
+                                           layer_norm_fwd_reference,
+                                           rms_norm, rms_norm_fwd,
+                                           rms_norm_fwd_reference)
 from apex_tpu_torch.ops.optim_kernels import (adam_update,
                                               adam_update_reference,
                                               lamb_hyperparams, lamb_phase1,
@@ -471,4 +474,136 @@ def test_paged_quant_kernel_matches_twin(cuda, dtype, kv_dtype):
     assert _build.launches["paged_attention_quant"] == before + 1
     _close(got, paged_attention_reference(*args, k_scales=ks, v_scales=vs),
            dtype)
+    assert (got[0] == 0).all()
+
+
+# --- the Mistral-7B serving slice: RMSNorm, windowed flash and paged ------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [8, 37, 1030])
+def test_rms_norm_kernel_matches_twin(cuda, dtype, rows):
+    """Mistral-7B's width 4096 at a decode step's 8 rows and prefill rows;
+    mean must be exactly 0."""
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(rows, 4096, generator=g) * 2 + 0.5).to(cuda, dtype)
+    w = (torch.rand(4096, generator=g) + 0.5).to(cuda)
+    before = dict(_build.launches)
+    got = rms_norm_fwd(x, w, 1e-5)
+    assert _build.launches["rms_norm_fwd"] == before["rms_norm_fwd"] + 1
+    assert _build.launches["layer_norm_fwd"] == before["layer_norm_fwd"]
+    want = rms_norm_fwd_reference(x, w, 1e-5)
+    _close(got[0], want[0], dtype)
+    assert (got[1] == 0).all()
+    _close(got[2], want[2], torch.float32)
+    assert torch.equal(rms_norm(x, w), got[0])
+
+
+def test_rms_norm_refuses_autograd_on_the_card(cuda):
+    """A CUDA input or weight that requires grad raises (ROADMAP B10)
+    rather than returning a result that autograd cannot go back through;
+    under no_grad the kernel runs."""
+    x = torch.randn(4, 4096, device=cuda)
+    w = torch.ones(4096, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        rms_norm(x, w)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        FusedRMSNorm(4096, device=cuda)(x)
+    before = _build.launches["rms_norm_fwd"]
+    with torch.no_grad():
+        y = FusedRMSNorm(4096, device=cuda)(x)
+    assert _build.launches["rms_norm_fwd"] == before + 1
+    _close(y, rms_norm_fwd_reference(x, w, 1e-5)[0], torch.float32)
+
+
+WINDOW_CASES = [
+    # (sq, sk, h, hkv, d, window): Mistral's d = 128 and 4 q heads per kv
+    # head; a band narrower than a key tile, one that starts mid-tile, a
+    # window of 1 (the diagonal alone), and q_len < kv_len
+    (200, 200, 8, 2, 128, 40),
+    (300, 300, 4, 1, 128, 100),
+    (70, 70, 4, 4, 64, 1),
+    (48, 160, 8, 2, 128, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,sk,h,hkv,d,window", WINDOW_CASES)
+def test_windowed_flash_kernel_matches_twin(cuda, dtype, sq, sk, h, hkv, d,
+                                            window):
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn(2, h, sq, d, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(2, hkv, sk, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    before = dict(_build.launches)
+    o, lse = flash_attention_with_lse(q, k, v, causal=True, window=window)
+    assert (_build.launches["flash_fwd_window"]
+            == before["flash_fwd_window"] + 1)
+    assert _build.launches["flash_fwd"] == before["flash_fwd"]
+    masking = Masking(causal=True, window=window)
+    ro, rlse = flash_attention_reference(q, k, v, scale=d ** -0.5,
+                                         masking=masking)
+    _close(o, ro, dtype)
+    _close(lse, rlse, torch.float32)
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=window),
+                       o)
+
+
+def test_windowed_flash_refuses_autograd_on_the_card(cuda):
+    q, k, v = (torch.randn(1, 2, 16, 64, device=cuda, requires_grad=True)
+               for _ in range(3))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        flash_attention(q, k, v, causal=True, window=4)
+    with torch.no_grad():
+        flash_attention(q, k, v, causal=True, window=4)
+
+
+def _windowed_pool(g, lengths, window, ps, kv, d, maxp, dtype, cuda,
+                   kv_dtype=None):
+    """A random pool whose slots' table entries below the band are nulled
+    (to page 0) as ``drop_slot_pages`` leaves them, with page 0 poisoned so
+    that a read of it would show."""
+    slots = len(lengths)
+    perm = torch.randperm(slots * maxp, generator=g) + 1
+    bt = torch.zeros(slots, maxp, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        live = -(-n // ps)
+        bt[i, :live] = perm[i * maxp:i * maxp + live]
+        bt[i, :max(n - window, 0) // ps] = 0          # dropped pages
+    pages = [torch.randn(1 + slots * maxp, kv, ps, d, generator=g) * 2
+             for _ in range(2)]
+    for p in pages:
+        p[0] = 1e4
+    if kv_dtype is None:
+        return [p.to(cuda, dtype) for p in pages], None, bt.to(cuda)
+    qmax = 127.0 if kv_dtype == torch.int8 else 448.0
+    quant = [kv_quantize(p, kv_dtype, qmax, axes=(2, 3)) for p in pages]
+    return ([p.to(cuda) for p, _ in quant],
+            [s[:, :, 0, 0].to(cuda) for _, s in quant], bt.to(cuda))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv_dtype", [None, torch.int8, torch.float8_e4m3fn])
+def test_windowed_paged_kernels_match_twin(cuda, dtype, kv_dtype):
+    """Mistral's d = 128 and rep 4, window 100 over page 16: lengths below,
+    at and past the window, a band floor inside a page and on a page edge,
+    leading entries nulled to a poisoned page 0."""
+    g = torch.Generator().manual_seed(7)
+    window, ps, kv, d, maxp = 100, 16, 2, 128, 40
+    lengths = [0, 1, 99, 100, 101, 116, 117, 333, 640]
+    (kp, vp), scales, bt = _windowed_pool(g, lengths, window, ps, kv, d,
+                                          maxp, dtype, cuda, kv_dtype)
+    q = torch.randn(len(lengths), 4 * kv, 1, d, generator=g).to(cuda, dtype)
+    args = (q, kp, vp, bt, torch.tensor(lengths, dtype=torch.int32,
+                                        device=cuda))
+    kw = dict(window=window)
+    if scales is not None:
+        kw.update(k_scales=scales[0], v_scales=scales[1])
+    name = "paged_attention_window" if kv_dtype is None else \
+        "paged_attention_quant"
+    before = dict(_build.launches)
+    got = paged_attention(*args, **kw)
+    assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 1
+    _close(got, paged_attention_reference(*args, **kw), dtype)
     assert (got[0] == 0).all()

@@ -87,13 +87,14 @@ def test_flash_cross_length_causal_offset_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(causal=False, window=4),
-    dict(causal=True, window=4),
-    dict(causal=True, dropout_rate=0.1, window=4),
+    dict(causal=False, bias=torch.zeros(1, 1, 8, 8)),
+    dict(causal=True, window=4, bias=torch.zeros(1, 1, 8, 8)),
+    dict(causal=True, dropout_rate=0.1, window=4,
+         bias=torch.zeros(1, 1, 8, 8)),
 ])
 def test_unported_flash_options_raise(kwargs):
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, 4, 4))
-    with pytest.raises(NotImplementedError, match="no bias, window"):
+    with pytest.raises(NotImplementedError, match="no bias"):
         flash_attention(q, k, v, **kwargs)
 
 
@@ -104,8 +105,8 @@ def test_flash_bias_and_segments_raise():
         flash_attention(q, k, v, torch.zeros(1, 1, 8, 8), causal=True)
     with pytest.raises(ValueError, match="segment ids"):
         flash_attention(q, k, v, segment_ids=torch.zeros(2, 7), causal=True)
-    with pytest.raises(NotImplementedError):
-        flash_attention_with_lse(q, k, v, causal=True, window=2)
+    with pytest.raises(NotImplementedError, match="causal_offset"):
+        flash_attention_with_lse(q, k, v, causal=True, causal_offset=2)
 
 
 def test_gqa_heads_must_divide():

@@ -183,7 +183,7 @@ def test_fused_layer_norm_module_gets_param_grads_without_bias():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(memory_efficient=True), "memory_efficient"),
-    (dict(rms=True), "RMSNorm"),
+    (dict(rms=True, memory_efficient=True), "RMSNorm"),
 ])
 def test_unported_layer_norm_modes_raise(kw, match):
     x, w, b = _inputs(3)

@@ -83,15 +83,17 @@ def test_paged_never_reads_dead_pages():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(window=4), "window"),
+    (dict(window=4, s=2), "window"),          # a windowed s>1 query block
     (dict(k_scales=torch.ones(17, 2), v_scales=torch.ones(17, 2)),
      "quantized"),
 ])
 def test_unported_paged_options_raise(kw, match):
+    kw = dict(kw)
+    s = kw.pop("s", 1)
     q, kp, vp, bt, ln = (torch.from_numpy(a) for a in
                          _case(4, 2, 8, [3, 4, 5, 6]))
     with pytest.raises(NotImplementedError, match=match):
-        paged_attention(q, kp, vp, bt, ln, **kw)
+        paged_attention(q.repeat(1, 1, s, 1), kp, vp, bt, ln, **kw)
 
 
 def test_multi_token_query_block_raises():

@@ -41,6 +41,9 @@ def test_scan_covers_the_port():
     files = _port_files()
     assert len(files) >= 15
     assert ROOT / "apex_tpu_torch" / "serving" / "scheduler.py" in files
+    for new in (("models", "llama.py"),
+                ("transformer", "functional", "fused_rope.py")):
+        assert ROOT.joinpath("apex_tpu_torch", *new) in files
 
 
 @pytest.mark.parametrize("path", _port_files(),
