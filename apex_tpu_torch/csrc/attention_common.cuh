@@ -49,7 +49,7 @@ struct AttnMask {
   uint32_t seed;
   uint32_t threshold;  // min(int(rate * 2^32), 2^32 - 1), from the host
   float keep_scale;    // 1 / (1 - rate) in fp32, from the host
-  int window;          // sliding window in keys, 0 = none (forward only)
+  int window;          // sliding window in keys, 0 = none
 
   __device__ __forceinline__ bool visible(int b, int sq, int sk, int row, int key) const {
     if (causal && key > row + (sk - sq)) return false;
@@ -64,6 +64,14 @@ struct AttnMask {
     if (window <= 0) return 0;
     const int lo = max(0, row0 + (sk - sq) - (window - 1));
     return lo / tile * tile;
+  }
+
+  // One past the last row that sees a key <= key_last: under a window the
+  // row whose band floor is key_last, else sq. The band only moves forward
+  // with the row, so no later row sees a key <= key_last.
+  __device__ __forceinline__ int last_row(int sq, int sk, int key_last) const {
+    if (window <= 0) return sq;
+    return max(0, min(sq, key_last - (sk - sq) + window));
   }
 
   // keep_scale where the pair is kept, 0 where it is dropped, 1 without dropout

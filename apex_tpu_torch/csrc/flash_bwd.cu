@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels apex_tpu/ops/flash_attention.py::_dq_kernel and
 // ::_dkdv_kernel (the two pallas_calls in _fa_bwd_impl), causal or not, with
-// segment ids and attention dropout; no bias, window or causal_offset. q, do
+// segment ids, attention dropout and a causal sliding window at the default
+// diagonal; no bias or causal_offset. q, do
 // and dq are [B, H, Sq, D]; k, v, dk and dv are [B, Hkv, Sk, D] with kv head
 // h / (H / Hkv); lse and delta = sum(do * o) are fp32 [B, H, Sq]. AttnMask
 // (attention_common.cuh) gives the visible pairs and the forward's keep
@@ -21,20 +22,32 @@
 //    holds dims c, c + 32, ...). The block streams the causal key range in
 //    tiles of 32 keys (k and v as fp32 in shared memory); lane j scores key j
 //    against the row (q.k and do.v), and the warp folds ds_j * k_j into dq
-//    through shuffles.
+//    through shuffles. Under a window the key range starts at the band
+//    floor of the block's first row, rounded down to a key tile
+//    (AttnMask::first_key, as the forward), the reference's band-restricted
+//    k grid for dq (_fa_bwd_impl).
 //  - flash_bwd_dkdv_kernel: one block of 8 warps per (32 keys, kv head,
 //    batch). Each warp owns 4 keys and keeps their dk and dv in registers.
 //    The block loops over the Hkv group's H / Hkv query heads and, for each,
-//    over the tiles of 32 query rows that can see its keys; lane i scores
-//    query i, and the warp folds p_i * do_i into dv and ds_i * q_i into dk.
+//    over the tiles of 32 query rows that can see its keys: under causal
+//    from the row that sees the block's first key, under a window up to the
+//    last row whose band still reaches the block's last key
+//    (AttnMask::last_row), the reference's band-restricted q grid for
+//    dk/dv. Lane i scores query i, and the warp folds p_i * do_i into dv
+//    and ds_i * q_i into dk.
 //    So the reference's per-q-head partials summed into the kv head
 //    (_fa_bwd_impl's GQA epilogue) are summed here, in registers.
 // Tiles that are read by lane index use a row stride of D + 1 floats, so the
 // 32 lanes hit 32 banks; tiles read by all lanes at once (broadcast) use D.
+// AttnMask::visible masks each row's own band edges inside a tile. So under
+// a window both kernels do O(S * window) work, not O(S^2). At D = 128 a
+// block takes ~64 KB of shared memory, above the 48 KB static limit: the
+// launch opts in with cudaFuncSetAttribute.
 //
-// What bounds it on the H100: operations. At S = 1024, D = 64 the two
-// kernels do ~14 D FLOPs per visible (query, key) pair against ~6 D input
-// and output elements per row. This first version does them as fp32 FMAs on
+// What bounds it on the H100: operations. At S = 1024, D = 64 (and at
+// Mistral-7B's S = 8192, D = 128, window 4096) the two kernels do ~14 D
+// FLOPs per visible (query, key) pair against ~6 D input and output
+// elements per row. This first version does them as fp32 FMAs on
 // the CUDA cores (67 TFLOP/s peak) with an operand from shared memory for
 // each, so it sits far from the tensor cores' bf16 bound; mma.sync / wgmma
 // tiles are the next step.
@@ -107,9 +120,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int c4 = 0; c4 < kDims; ++c4) acc[rr][c4] = 0.f;
   }
 
-  // the last key any row of this block may see, exclusive
+  // the last key any row of this block may see, exclusive, and the first
+  // key tile its first row may see (0 without a window)
   const int k_end = mask.causal ? max(0, min(sk, q0 + nq + sk - sq)) : sk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+  const int k_begin = mask.first_key(sq, sk, q0, kTile);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
     const int nk = min(kTile, k_end - k0);
     __syncthreads();  // previous tile consumed (and qs, dos visible)
     load_rows<T>(ks, ld, kb + (long)k0 * d, kTile, nk, d);
@@ -186,14 +201,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c4 = 0; c4 < kDims; ++c4) dk_acc[kk][c4] = dv_acc[kk][c4] = 0.f;
 
-  // under causal, rows before q_begin see none of this block's keys
+  // under causal, rows before q_begin see none of this block's keys; under
+  // a window, rows from q_end on see none either
   const int q_begin = mask.causal ? max(0, k0 - (sk - sq)) : 0;
+  const int q_end = mask.last_row(sq, sk, k0 + nk - 1);
   for (int g = 0; g < rep; ++g) {
     const int h = hk * rep + g;  // the query head: its index keys the dropout hash
     const uint32_t bh = static_cast<uint32_t>(b * heads + h);
     const long hrow0 = (long)(b * heads + h) * sq;
-    for (int q0 = q_begin; q0 < sq; q0 += kTile) {
-      const int nq = min(kTile, sq - q0);
+    for (int q0 = q_begin; q0 < q_end; q0 += kTile) {
+      const int nq = min(kTile, q_end - q0);
       __syncthreads();  // previous tile consumed (and ks, vs visible)
       load_rows<T>(qs, ld, q + (hrow0 + q0) * d, kTile, nq, d);
       load_rows<T>(dos, ld, dout + (hrow0 + q0) * d, kTile, nq, d);
@@ -295,18 +312,19 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed, threshold and
-// keep_scale are read only when dropout is set (the forward's values).
+// keep_scale are read only when dropout is set (the forward's values);
+// window 0 = none (the wrapper passes one only with causal).
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, const void* q_seg,
                                  const void* kv_seg, int causal, int dropout, unsigned seed,
-                                 unsigned threshold, float keep_scale, int batch, int heads,
-                                 int kv_heads, int sq, int sk, int d, float scale, int dtype,
-                                 void* stream) {
+                                 unsigned threshold, float keep_scale, int window, int batch,
+                                 int heads, int kv_heads, int sq, int sk, int d, float scale,
+                                 int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
-                      dropout, seed, threshold, keep_scale};
+                      dropout, seed, threshold, keep_scale, window};
   cudaError_t err =
       dtype == APEX_BF16
           ? launch_dq<__nv_bfloat16>(q, k, v, dout, l, dl, dq, mask, batch, heads, kv_heads, sq,
@@ -320,13 +338,14 @@ extern "C" int apex_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dk, void* dv, const void* q_seg, const void* kv_seg,
                                    int causal, int dropout, unsigned seed, unsigned threshold,
-                                   float keep_scale, int batch, int heads, int kv_heads, int sq,
-                                   int sk, int d, float scale, int dtype, void* stream) {
+                                   float keep_scale, int window, int batch, int heads,
+                                   int kv_heads, int sq, int sk, int d, float scale, int dtype,
+                                   void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
-                      dropout, seed, threshold, keep_scale};
+                      dropout, seed, threshold, keep_scale, window};
   cudaError_t err =
       dtype == APEX_BF16
           ? launch_dkdv<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, mask, batch, heads,

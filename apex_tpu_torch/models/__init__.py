@@ -10,7 +10,8 @@ from apex_tpu_torch.models.gpt import (GPTConfig, GPTModel,
                                        gpt_loss, gpt_tiny_config,
                                        lm_token_loss)
 from apex_tpu_torch.models.llama import (LlamaConfig, LlamaDecoderBlock,
-                                         LlamaModel, llama_tiny_config,
+                                         LlamaModel, llama_loss,
+                                         llama_tiny_config,
                                          mistral_7b_config)
 from apex_tpu_torch.models.quantize import (WeightPrecisionPolicy,
                                             assert_quantized_loaded,
@@ -25,5 +26,6 @@ __all__ = ["BertConfig", "BertForPreTraining", "BertLayer",
            "bert_pretrain_loss",
            "bert_pretrain_loss_fn", "bert_tiny_config", "generate",
            "gpt2_small_config", "gpt_loss", "gpt_tiny_config",
-           "llama_tiny_config", "lm_token_loss", "mistral_7b_config",
+           "llama_loss", "llama_tiny_config", "lm_token_loss",
+           "mistral_7b_config",
            "quantize_model_params", "quantize_params_like", "synthetic_batch"]

@@ -1,9 +1,10 @@
 """Llama-family decoder (RMSNorm + RoPE + SwiGLU + GQA, optional sliding
-window) at tensor-parallel size 1, for serving.
+window) at tensor-parallel size 1, for serving and training.
 
 Counterpart of ``apex_tpu/models/llama.py`` (``LlamaConfig``,
 ``llama_tiny_config``, ``_rope_freqs``, ``_rope_cos_sin``,
-``LlamaDecoderBlock``, ``LlamaModel``) in its three attention paths:
+``LlamaDecoderBlock``, ``LlamaModel``, ``llama_loss``) in its three
+attention paths:
 
 - no cache: causal flash attention over the whole sequence, banded under
   ``sliding_window``;
@@ -22,9 +23,13 @@ LM head returns logits in ``dtype``. The blocks' five linears take the
 weight policy (``weight_policy``/``quantize_int8``) through the quantized
 tp=1 linears; embeddings, norms and the head stay in ``param_dtype``.
 
-Inference only in this port: the RMSNorm and windowed-flash backward
-kernels are not ported, and the kernel wrappers raise under autograd on the
-card. Fields this slice does not carry raise ``NotImplementedError``.
+Training goes through ``llama_loss`` on the no-cache forward: the RMSNorm
+and (windowed) flash kernels are ``autograd.Function``s whose backward is a
+kernel on the card; RoPE, SwiGLU and the linears are plain differentiable
+torch. ``remat`` recomputes each decoder block in the backward
+(``torch.utils.checkpoint``, as the reference's ``nn.remat``), so the
+forward kernels of a block launch twice per step. Fields this slice does
+not carry raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,12 +40,14 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.models.generation import (advance_cache, cached_attention,
                                               check_chunk_bounds, is_paged,
                                               is_static_prefill, layer_cache,
                                               update_layer_cache,
                                               update_paged_layer_cache)
+from apex_tpu_torch.models.gpt import lm_token_loss
 from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.paged_attention import paged_attention
@@ -124,8 +131,6 @@ def _refuse_unported(cfg: LlamaConfig) -> None:
         (cfg.rolling_cache, "rolling_cache (the ring-buffer KV cache; the "
          "paged pool drops pages below the window instead)",
          "queue A item 8: the rest of Llama serving"),
-        (cfg.remat, "remat (per-layer rematerialization)",
-         "queue A item 11: remat"),
     ]
     for configured, what, item in unported:
         if configured:
@@ -294,8 +299,11 @@ class LlamaModel(nn.Module):
             t0 = check_chunk_bounds(cache, s, cfg.max_position_embeddings)
             cos_, sin_ = _rope_cos_sin(cfg, s, t0, dev)
         new_layers = []
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.layers):
-            if cache is None:
+            if remat:
+                x = checkpoint(blk, x, cos_, sin_, use_reentrant=False)
+            elif cache is None:
                 x = blk(x, cos_, sin_)
             else:
                 x, lc = blk(x, cos_, sin_, cache=layer_cache(cache, i))
@@ -306,3 +314,11 @@ class LlamaModel(nn.Module):
         if cache is None:
             return logits
         return logits, advance_cache(cache, new_layers, s)
+
+
+def llama_loss(model: LlamaModel, input_ids: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token loss of ``model`` on ``input_ids`` (the no-cache
+    forward), as ``apex_tpu.models.llama.llama_loss`` at tp=1 and no
+    experts."""
+    return lm_token_loss(model(input_ids), labels)

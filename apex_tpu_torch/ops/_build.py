@@ -11,11 +11,13 @@ is never loaded. All sources build at once, one ``nvcc`` process each,
 started together.
 
 A kernel branch that a main path must be shown to take has a name of its
-own over the same source and symbol: ``rms_norm_fwd`` is the LayerNorm
-kernel with its ``rms`` flag, ``flash_fwd_window`` the flash forward under a
-sliding window, ``paged_attention_window`` the unquantized paged decode
-under one (a windowed call over a quantized pool counts as
-``paged_attention_quant``).
+own over the same source and symbol: ``rms_norm_fwd`` and ``rms_norm_bwd``
+are the LayerNorm kernels with their ``rms`` flag,
+``layer_norm_bwd_from_y`` the LayerNorm backward of ``memory_efficient``
+(either norm), ``flash_fwd_window``, ``flash_bwd_dq_window`` and
+``flash_bwd_dkdv_window`` the flash kernels under a sliding window,
+``paged_attention_window`` the unquantized paged decode under one (a
+windowed call over a quantized pool counts as ``paged_attention_quant``).
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on a non-zero code. A failed build raises too: a CUDA
@@ -72,6 +74,13 @@ KERNELS = {
                          "apex_tpu/ops/flash_attention.py:308"),
     "paged_attention_window": ("paged_attention.cu",
                                "apex_tpu/ops/paged_attention.py:65"),
+    "rms_norm_bwd": ("layer_norm_bwd.cu", "apex_tpu/ops/layer_norm.py:134"),
+    "layer_norm_bwd_from_y": ("layer_norm_bwd.cu",
+                              "apex_tpu/ops/layer_norm.py:134"),
+    "flash_bwd_dq_window": ("flash_bwd.cu",
+                            "apex_tpu/ops/flash_attention.py:526"),
+    "flash_bwd_dkdv_window": ("flash_bwd.cu",
+                              "apex_tpu/ops/flash_attention.py:572"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`

@@ -5,10 +5,9 @@ and their plain PyTorch twins.
 Counterpart of ``apex_tpu/ops/flash_attention.py`` (``_fwd_kernel``,
 ``_dq_kernel``, ``_dkdv_kernel``, ``_fa_bwd_impl``, ``flash_attention``,
 ``flash_attention_with_lse``, ``mha_reference``), causal or not, with
-``segment_ids``/``kv_segment_ids``, attention dropout and, in the forward,
-a causal sliding window at the default diagonal; no bias, no
-``causal_offset``, and no window in the backward kernels. Layout as in the
-reference: q ``[B, H, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` with ``Hkv``
+``segment_ids``/``kv_segment_ids``, attention dropout and a causal sliding
+window at the default diagonal; no bias and no ``causal_offset``. Layout as
+in the reference: q ``[B, H, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` with ``Hkv``
 dividing ``H`` (GQA reads kv head ``h // (H / Hkv)``, never repeated in the
 kernels). A :class:`Masking` says which (query, key) pairs a row sees: under
 ``causal`` row ``r`` sees keys ``j <= r + (Sk - Sq)``; under a ``window``
@@ -27,7 +26,10 @@ regenerates the same mask. Nothing is stored.
 ``flash_attention`` and ``flash_attention_with_lse`` are differentiable
 through ``_FlashAttentionFunction``: it saves ``q, k, v, o, lse`` and its
 backward is the FA-2 recompute of the reference (an LSE cotangent folds
-into ``delta``, as ``_flash_with_lse_bwd`` does).
+into ``delta``, as ``_flash_with_lse_bwd`` does). Under a window each
+kernel walks only the band, as the reference's band-restricted grids do,
+and counts under a launch name of its own (``flash_fwd_window``,
+``flash_bwd_dq_window``, ``flash_bwd_dkdv_window``).
 
 A tensor on the CPU takes the twins; a CUDA tensor always takes the kernels.
 """
@@ -47,10 +49,6 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _UNSUPPORTED = ("flash attention in this port takes no bias or "
                 "causal_offset (ROADMAP queue B item 8: the rest of the flash "
                 "surface; item 9 for its backward)")
-_WINDOW_BWD = ("the flash backward kernels take no window yet (ROADMAP "
-               "queue B item 9: the window, bias and causal_offset "
-               "backward): call a windowed flash_attention under "
-               "torch.no_grad() or on inputs that do not require grad")
 
 _M32 = 0xFFFFFFFF
 
@@ -175,8 +173,8 @@ class Masking:
 
     def kernel_args(self, device):
         """The C arguments ``(q_seg, kv_seg, causal, dropout, seed,
-        threshold, keep_scale)`` and the segment tensors to keep alive (the
-        forward passes the window after them)."""
+        threshold, keep_scale)`` and the segment tensors to keep alive (each
+        kernel takes the window after them)."""
         segs = []
         if self.segment_ids is not None:
             segs = [t.to(device=device, dtype=torch.int32).contiguous()
@@ -322,8 +320,6 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, scale: float,
 
 
 def _bwd_operands(q, k, v, do, lse, delta, masking):
-    if masking.window is not None:
-        raise NotImplementedError(_WINDOW_BWD)
     d = q.shape[3]
     if d > 128:
         raise NotImplementedError(f"flash kernel takes head_dim <= 128, "
@@ -339,7 +335,11 @@ def _bwd_operands(q, k, v, do, lse, delta, masking):
     _build.check_cuda(*ops, *segs)
     b, h, sq, d = q.shape
     args = (b, h, k.shape[1], sq, k.shape[2], d)
-    return ops, mask_args, segs, args
+    return ops, (*mask_args, int(masking.window or 0)), segs, args
+
+
+def _bwd_name(kernel: str, masking: Masking) -> str:
+    return kernel if masking.window is None else f"{kernel}_window"
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
@@ -355,8 +355,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
     if dq.numel() == 0 or args[4] == 0:
         return dq.zero_()
     P, I, F = _build.P, _build.I, _build.F
-    _build.launch("flash_bwd_dq", "apex_flash_bwd_dq",
-                  (P,) * 7 + _MASK_ARGTYPES + (I,) * 6 + (F, I, P),
+    _build.launch(_bwd_name("flash_bwd_dq", masking), "apex_flash_bwd_dq",
+                  (P,) * 7 + _MASK_ARGTYPES + (I,) * 7 + (F, I, P),
                   *(t.data_ptr() for t in ops), dq.data_ptr(), *mask_args,
                   *args, float(scale), _build.dtype_code(dq),
                   _build.stream_of(dq))
@@ -376,8 +376,9 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, scale: float,
     if dk.numel() == 0 or args[3] == 0:
         return dk.zero_(), dv.zero_()
     P, I, F = _build.P, _build.I, _build.F
-    _build.launch("flash_bwd_dkdv", "apex_flash_bwd_dkdv",
-                  (P,) * 8 + _MASK_ARGTYPES + (I,) * 6 + (F, I, P),
+    _build.launch(_bwd_name("flash_bwd_dkdv", masking),
+                  "apex_flash_bwd_dkdv",
+                  (P,) * 8 + _MASK_ARGTYPES + (I,) * 7 + (F, I, P),
                   *(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(),
                   *mask_args, *args, float(scale), _build.dtype_code(dk),
                   _build.stream_of(dk))
@@ -423,10 +424,6 @@ class _FlashAttentionFunction(torch.autograd.Function):
 def _attend(q, k, v, scale, masking):
     _check_shapes(q, k, v)
     masking.check(q, k)
-    if (masking.window is not None and q.device.type != "cpu"
-            and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q, k, v))):
-        raise NotImplementedError(_WINDOW_BWD)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     return _FlashAttentionFunction.apply(q, k, v, float(scale), masking)
@@ -439,9 +436,9 @@ def flash_attention_with_lse(q, k, v, *, scale: Optional[float] = None,
                              dropout_rate: float = 0.0,
                              dropout_seed: int = 0):
     """``(o, lse)``: the kernel on a CUDA tensor, the twin on a CPU one;
-    differentiable in q, k and v through both outputs (without a window on
-    the card). The keep mask is drawn at global positions from row and
-    column 0; ``causal_offset`` raises."""
+    differentiable in q, k and v through both outputs. The keep mask is
+    drawn at global positions from row and column 0; ``causal_offset``
+    raises."""
     if causal_offset is not None:
         raise NotImplementedError(_UNSUPPORTED)
     return _attend(q, k, v, scale, Masking(

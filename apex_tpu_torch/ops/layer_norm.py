@@ -1,18 +1,21 @@
-"""LayerNorm and RMSNorm forward, LayerNorm backward: the Hopper kernels
+"""LayerNorm and RMSNorm, forward and backward: the Hopper kernels
 ``csrc/layer_norm_fwd.cu`` and ``csrc/layer_norm_bwd.cu`` and their plain
 PyTorch twins.
 
 Counterpart of ``apex_tpu/ops/layer_norm.py`` (``_ln_fwd_kernel``,
-``_ln_bwd_kernel``, ``_fused_norm``, ``layer_norm``, ``rms_norm``) for
-affine LayerNorm that saves x for the backward (the reference's default,
-``memory_efficient=False``), and for RMSNorm's forward (``rms=True``: mean
-0, ``var = mean(x^2)``, ``y = x * rstd * w``). Semantics: fp32 statistics
-whatever x's dtype, fp32 weight and bias over an fp32 or bf16 x (the
-reference's "mixed" variants), output in x's dtype; the backward returns dx
-in dy's dtype and fp32 dgamma/dbeta summed over all rows. ``layer_norm`` is
+``_ln_bwd_kernel``, ``_fused_norm``, ``layer_norm``, ``rms_norm``) in all
+its branches: affine or not, LayerNorm or RMSNorm (``rms=True``: mean 0,
+``var = mean(x^2)``, ``y = x * rstd * w``), and ``memory_efficient``
+(the forward saves its output y instead of x; the backward recovers xhat as
+``(y - b) / w``). Semantics: fp32 statistics whatever x's dtype, fp32
+weight and bias over an fp32 or bf16 x (the reference's "mixed" variants),
+output in x's dtype; the backward returns dx in dy's dtype and fp32
+dgamma/dbeta summed over all rows. ``layer_norm`` and ``rms_norm`` are
 differentiable through ``_FusedLayerNormFunction``, whose backward is the
-backward kernel. ``rms_norm`` has no backward kernel yet: on the card it
-raises where autograd would need one.
+backward kernel through one wrapper, ``layer_norm_bwd``, over one twin. Each
+branch a main path must be shown to take has its own launch name:
+``layer_norm_bwd`` (LayerNorm, saved x), ``rms_norm_bwd`` (RMSNorm, saved
+x), ``layer_norm_bwd_from_y`` (``memory_efficient``, either norm).
 
 A tensor on the CPU takes the twins; a CUDA tensor always takes the kernels.
 """
@@ -25,8 +28,14 @@ import torch
 
 from apex_tpu_torch.ops import _build
 
-_B10 = ("is not ported yet (ROADMAP queue B item 10: the RMSNorm backward "
-        "and memory_efficient LayerNorm)")
+
+def _check_params(cols: int, weight, bias) -> None:
+    """A weight or bias must be one value per column: the kernels read
+    ``cols`` of each, and would read past a shorter one."""
+    for label, t in (("weight", weight), ("bias", bias)):
+        if t is not None and tuple(t.shape) != (cols,):
+            raise ValueError(f"{label} of shape {tuple(t.shape)} does not "
+                             f"fit the normalized width {cols}")
 
 
 def layer_norm_fwd_reference(x2d: torch.Tensor, weight=None, bias=None,
@@ -85,6 +94,7 @@ def layer_norm_fwd(x2d: torch.Tensor, weight=None, bias=None,
                    eps: float = 1e-5):
     """``(y, mean, rstd)`` for a 2-D ``x``: the kernel on a CUDA tensor, the
     twin on a CPU one."""
+    _check_params(x2d.shape[-1], weight, bias)
     if x2d.device.type == "cpu":
         return layer_norm_fwd_reference(x2d, weight, bias, eps)
     return _norm_fwd_kernel("layer_norm_fwd", x2d, weight, bias, eps, False)
@@ -93,124 +103,159 @@ def layer_norm_fwd(x2d: torch.Tensor, weight=None, bias=None,
 def rms_norm_fwd(x2d: torch.Tensor, weight=None, eps: float = 1e-5):
     """RMSNorm's ``(y, mean, rstd)`` for a 2-D ``x``: the kernel's RMS branch
     on a CUDA tensor, the twin on a CPU one."""
+    _check_params(x2d.shape[-1], weight, None)
     if x2d.device.type == "cpu":
         return rms_norm_fwd_reference(x2d, weight, eps)
     return _norm_fwd_kernel("rms_norm_fwd", x2d, weight, None, eps, True)
 
 
-def layer_norm_bwd_reference(dy2d: torch.Tensor, x2d: torch.Tensor,
-                             mean: torch.Tensor, rstd: torch.Tensor,
-                             weight=None):
-    """Plain twin of the backward kernel: ``(dx, dw, db)`` for 2-D ``dy`` and
-    ``x`` and the forward's fp32 ``(rows, 1)`` ``mean``/``rstd``. fp32 math;
-    ``dx`` in dy's dtype; ``dw``/``db`` fp32, summed over all rows (None
-    without a weight)."""
+def layer_norm_bwd_reference(dy2d: torch.Tensor, src2d: torch.Tensor,
+                             mean: Optional[torch.Tensor],
+                             rstd: torch.Tensor, weight=None, bias=None,
+                             rms: bool = False, from_y: bool = False):
+    """Plain twin of the backward kernel in every branch: ``(dx, dw, db)``
+    for 2-D ``dy`` and ``src`` and the forward's fp32 ``(rows, 1)``
+    ``mean``/``rstd``. ``src`` is x, and xhat is ``(x - mean) * rstd``
+    (``x * rstd`` under ``rms``, where ``mean`` is not read); under
+    ``from_y`` it is the forward's output y, and xhat is ``(y - b) / w``
+    (``y`` without a weight; ``bias`` is read only here). fp32 math, ``dx``
+    in dy's dtype, ``dw = sum(dy * xhat)`` and ``db = sum(dy)`` fp32 over
+    all rows; both None without a weight, and ``db`` None under ``rms``."""
     dy = dy2d.float()
-    xhat = (x2d.float() - mean) * rstd
+    src = src2d.float()
+    if from_y:
+        xhat = src
+        if weight is not None:
+            shift = bias.float() if bias is not None else 0.0
+            xhat = (src - shift) / weight.float()
+    else:
+        xhat = src * rstd if rms else (src - mean) * rstd
     wdy = dy * weight.float() if weight is not None else dy
     c1 = (xhat * wdy).mean(dim=-1, keepdim=True)
-    c2 = wdy.mean(dim=-1, keepdim=True)
+    c2 = 0.0 if rms else wdy.mean(dim=-1, keepdim=True)
     dx = ((wdy - xhat * c1 - c2) * rstd).to(dy2d.dtype)
     if weight is None:
         return dx, None, None
-    return dx, (dy * xhat).sum(dim=0), dy.sum(dim=0)
+    return dx, (dy * xhat).sum(dim=0), None if rms else dy.sum(dim=0)
 
 
-def layer_norm_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
-                   rstd: torch.Tensor, weight=None):
-    """``(dx, dw, db)``: the kernel on a CUDA tensor, the twin on a CPU
-    one."""
-    if dy2d.device.type == "cpu":
-        return layer_norm_bwd_reference(dy2d, x2d, mean, rstd, weight)
-    rows, cols = x2d.shape
+def _norm_bwd_kernel(dy2d, src2d, mean, rstd, weight, bias, rms: bool,
+                     from_y: bool):
+    rows, cols = src2d.shape
     if tuple(dy2d.shape) != (rows, cols):
         raise ValueError(f"dy {tuple(dy2d.shape)} != x {(rows, cols)}")
-    if dy2d.dtype != x2d.dtype:
-        raise TypeError(f"dy and x dtypes differ: {dy2d.dtype}, {x2d.dtype}")
-    dy2d, x2d = dy2d.contiguous(), x2d.contiguous()
-    mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
+    if dy2d.dtype != src2d.dtype:
+        raise TypeError(f"dy and x dtypes differ: {dy2d.dtype}, "
+                        f"{src2d.dtype}")
+    name = ("layer_norm_bwd_from_y" if from_y
+            else "rms_norm_bwd" if rms else "layer_norm_bwd")
+    dy2d, src2d = dy2d.contiguous(), src2d.contiguous()
+    rstd = rstd.float().contiguous()
+    mean = mean.float().contiguous() if not (rms or from_y) else None
     w = weight.float().contiguous() if weight is not None else None
+    b = bias.float().contiguous() if (bias is not None and from_y) else None
     P, I = _build.P, _build.I
     dx = torch.empty_like(dy2d)
     dw = db = part = None
     if w is not None:
         dw = torch.empty(cols, dtype=torch.float32, device=dy2d.device)
-        db = torch.empty(cols, dtype=torch.float32, device=dy2d.device)
+        if not rms:
+            db = torch.empty(cols, dtype=torch.float32, device=dy2d.device)
         # the kernel's tile layout decides the dgamma/dbeta scratch size
-        n_part = _build.query("layer_norm_bwd",
-                              "apex_layer_norm_bwd_scratch_floats", (I, I),
-                              _build.L, rows, cols)
+        n_part = _build.query(name, "apex_layer_norm_bwd_scratch_floats",
+                              (I, I), _build.L, rows, cols)
         part = torch.empty(n_part, dtype=torch.float32, device=dy2d.device)
-    _build.check_cuda(*[t for t in (dy2d, x2d, mean, rstd, w)
+    _build.check_cuda(*[t for t in (dy2d, src2d, mean, rstd, w, b)
                         if t is not None])
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
     _build.launch(
-        "layer_norm_bwd", "apex_layer_norm_bwd",
-        (P, P, P, P, P, P, P, P, P, I, I, I, P),
-        dy2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        ptr(w), dx.data_ptr(), ptr(dw), ptr(db), ptr(part), rows, cols,
-        _build.dtype_code(dy2d), _build.stream_of(dy2d))
+        name, "apex_layer_norm_bwd",
+        (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+        dy2d.data_ptr(), src2d.data_ptr(), ptr(mean), rstd.data_ptr(),
+        ptr(w), ptr(b), dx.data_ptr(), ptr(dw), ptr(db), ptr(part), rows,
+        cols, int(rms), int(from_y), _build.dtype_code(dy2d),
+        _build.stream_of(dy2d))
     return dx, dw, db
 
 
+def layer_norm_bwd(dy2d: torch.Tensor, src2d: torch.Tensor,
+                   mean: Optional[torch.Tensor], rstd: torch.Tensor,
+                   weight=None, bias=None, rms: bool = False,
+                   from_y: bool = False):
+    """``(dx, dw, db)`` of :func:`layer_norm_bwd_reference`'s branches: the
+    kernel on a CUDA tensor, the twin on a CPU one. The kernel launches
+    under its branch's name: ``layer_norm_bwd`` (LayerNorm, saved x),
+    ``rms_norm_bwd`` (``rms``, saved x) or ``layer_norm_bwd_from_y``
+    (``from_y``, either norm)."""
+    _check_params(src2d.shape[-1], weight, bias)
+    if dy2d.device.type == "cpu":
+        return layer_norm_bwd_reference(dy2d, src2d, mean, rstd, weight,
+                                        bias, rms, from_y)
+    return _norm_bwd_kernel(dy2d, src2d, mean, rstd, weight, bias, rms,
+                            from_y)
+
+
 class _FusedLayerNormFunction(torch.autograd.Function):
-    """Autograd over the two kernels. Saves ``x2d, mean, rstd`` (and the
-    weight) as the reference's ``_fused_norm_fwd`` does."""
+    """Autograd over the norm kernels, LayerNorm or (``rms``) RMSNorm.
+    Saves what the reference's ``_norm_impl`` saves: ``x2d``, ``mean``
+    (None under ``rms``) and ``rstd``, or under ``memory_efficient`` the
+    output ``y`` and ``rstd``, whose backward recovers xhat from ``y``;
+    and the weight and bias."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, rms, memory_efficient):
         cols = x.shape[-1]
         x2d = x.reshape(-1, cols)
-        y, mean, rstd = layer_norm_fwd(x2d, weight, bias, eps)
-        ctx.save_for_backward(x2d, mean, rstd, weight)
+        if rms:
+            y, mean, rstd = rms_norm_fwd(x2d, weight, eps)
+        else:
+            y, mean, rstd = layer_norm_fwd(x2d, weight, bias, eps)
+        if memory_efficient:
+            ctx.save_for_backward(y, None, rstd, weight, bias)
+        else:
+            ctx.save_for_backward(x2d, None if rms else mean, rstd, weight,
+                                  None)
+        ctx.rms, ctx.memory_efficient = rms, memory_efficient
         ctx.has_bias = bias is not None
         return y.reshape(x.shape)
 
     @staticmethod
     def backward(ctx, dy):
-        x2d, mean, rstd, weight = ctx.saved_tensors
-        dx, dw, db = layer_norm_bwd(dy.reshape(x2d.shape), x2d, mean, rstd,
-                                    weight)
+        src, mean, rstd, weight, bias = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(dy.reshape(src.shape), src, mean, rstd,
+                                    weight, bias, ctx.rms,
+                                    ctx.memory_efficient)
         if weight is not None:
             dw = dw.to(weight.dtype)
             db = db.to(weight.dtype) if ctx.has_bias else None
-        return dx.reshape(dy.shape), dw, db, None
+        return dx.reshape(dy.shape), dw, db, None, None, None
 
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
                memory_efficient: bool = False, rms: bool = False):
     """Fused LayerNorm over the last dimension, differentiable in x, weight
-    and bias."""
-    if memory_efficient:
-        raise NotImplementedError(f"layer_norm(memory_efficient=True) {_B10}")
+    and bias. ``memory_efficient`` saves the output instead of x, and the
+    backward recovers xhat from it (precise only with a weight well away
+    from 0, as the reference warns); ``rms`` is :func:`rms_norm`."""
     if rms:
         if bias is not None:
             raise ValueError("RMSNorm takes no bias")
-        return rms_norm(x, weight, eps)
+        return rms_norm(x, weight, eps, memory_efficient)
     if weight is None and bias is not None:
         raise ValueError("layer_norm: bias requires weight (the reference "
                          "API has no bias-only variant)")
-    return _FusedLayerNormFunction.apply(x, weight, bias, float(eps))
+    return _FusedLayerNormFunction.apply(x, weight, bias, float(eps), False,
+                                         bool(memory_efficient))
 
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
              eps: float = 1e-5, memory_efficient: bool = False):
     """Fused RMSNorm over the last dimension (the reference's ``rms_norm``),
-    output in x's dtype. Forward only on the card: where autograd would
-    need the backward kernel (a CUDA input or weight that requires grad,
-    with grad enabled) it raises, naming ROADMAP B10; on the CPU the twin's
-    plain ops are differentiable."""
-    if memory_efficient:
-        raise NotImplementedError(f"rms_norm(memory_efficient=True) {_B10}")
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, weight))
-    if needs_grad and x.device.type != "cpu":
-        raise NotImplementedError(
-            f"the RMSNorm backward {_B10}: call rms_norm under "
-            f"torch.no_grad() or on inputs that do not require grad")
-    cols = x.shape[-1]
-    return rms_norm_fwd(x.reshape(-1, cols), weight, eps)[0].reshape(x.shape)
+    output in x's dtype, differentiable in x and weight through the RMS
+    branches of the forward and backward kernels."""
+    return _FusedLayerNormFunction.apply(x, weight, None, float(eps), True,
+                                         bool(memory_efficient))

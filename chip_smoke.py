@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s five paths at full width with seeded random
+Drives ``apex_tpu_torch``'s six paths at full width with seeded random
 weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (into ``apex_tpu_torch/_build/``): GPT-2-small greedy paged decode through
 ``PagedDecodeEngine``; the same decode with quantized weights
@@ -12,9 +12,11 @@ weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (``PagedDecodeEngine(..., kv_dtype=)``); Mistral-7B (GQA, sliding window
 4096) greedy paged decode through ``LlamaModel(mistral_7b_config())`` and
 the same engine; GPT-2-small training steps (``GPTModel``, ``gpt_loss``,
-``loss.backward()``, ``FusedAdam.step()``); and BERT-Large pretraining
+``loss.backward()``, ``FusedAdam.step()``); BERT-Large pretraining
 steps (``BertForPreTraining``, ``bert_pretrain_loss_fn``,
-``loss.backward()``, ``FusedLAMB.step()``).
+``loss.backward()``, ``FusedLAMB.step()``); and Mistral-7B training steps
+(``LlamaModel(mistral_7b_config(num_layers=4))``, ``llama_loss``,
+``loss.backward()``, ``FusedAdam.step()``).
 Phases, one JSON line each, ``t_s`` giving the seconds since the start:
 
 1. ``device``: the card, its power limit, the kernels' build time and
@@ -50,7 +52,17 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    (library ``scaled_dot_product_attention`` with the band as a boolean
    mask); the windowed paged decode, unquantized and over int8 and fp8
    pools, at 8 slots, 32 heads over 8 kv heads, d = 128, page 16, lengths
-   spread over 0..6100 with the entries below each band nulled.
+   spread over 0..6100 with the entries below each band nulled. The
+   Mistral-7B training rows, timed the same way: the RMS branch of the
+   LayerNorm backward at width 4096 over a training step's 8192 rows and a
+   ragged 77 (fp32, bf16; library: the backward of ``F.rms_norm``); its
+   ``memory_efficient`` branch (x-hat from the saved y) for RMSNorm and for
+   LayerNorm with a bias at 8192 x 4096 bf16 (the backward of
+   ``F.rms_norm`` / ``F.layer_norm``); the windowed flash backward, dq and
+   dk/dv, at 1 x 32 x S x 128 over 8 kv heads, window 4096 at S = 4224 and
+   6016 and window 256 at S = 1024, with an LSE cotangent, fp32 and bf16
+   (the backward of ``scaled_dot_product_attention`` with the band as a
+   boolean mask), bound by operations over the band's visible pairs.
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
@@ -112,22 +124,41 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    ms, tokens/s, FLOPs per step by ``bench.py``'s formula and MFU, the
    phase's own peak memory (above what earlier phases keep live), the
    launches of each kernel per step (asserted), and a falling finite loss.
-9. ``engine_bf16_profile``, ``engine_quant_bf16_profile``,
+9. ``mistral_train_fp32``: Mistral-7B at full width, 2 layers, window cut
+   to 128, B = 1, S = 512, fp32, card against CPU from the same seeded
+   weights: the loss and every gradient (atol 1e-4 / rtol 1e-3), two
+   ``FusedAdam`` steps and a third forward (losses within 1e-4 relative),
+   every kernel branch of the path launched and no unwindowed or non-RMS
+   kernel; then the same model with every norm ``memory_efficient``: loss
+   and every gradient again, and exactly 2L + 1 launches of the
+   ``layer_norm_bwd_from_y`` branch on the card.
+   ``mistral_train_bf16``: ``mistral_7b_config(num_layers=4)`` at its real
+   window of 4096, B = 1, S = 8192 (two windows), bf16 over fp32
+   parameters, ``FusedAdam(lr=1e-4, weight_decay=0.01)`` with the norms
+   excluded: 2 warm steps, then 3 timed steps. Step ms, tokens/s, FLOPs
+   per step (formula in the line) and MFU, peak memory above the earlier
+   phases', launches per step asserted (RMSNorm forward and backward 2L +
+   1, the three windowed flash kernels L, Adam 1, the unwindowed kernels
+   0), and a falling finite loss.
+10. ``engine_bf16_profile``, ``engine_quant_bf16_profile``,
    ``mistral_bf16_profile``, ``kernel_device_ms``, ``train_bf16_profile``
-   and ``bert_bf16_profile``: one more bf16 engine run (and one of each
+   ``bert_bf16_profile`` and ``mistral_train_bf16_profile``: one more bf16
+   engine run (and one of each
    quantized configuration, with each kernel's device ms and launches, and
    one Mistral-7B run), the host's ops untraced, under ``torch.profiler``
    (device busy and idle share, the top device kernels),
    each kernel's device time per call at the shapes of phase 2, the timed
    bf16 engine run once more, and last one profiled step of each training
    path. Last, so that no profiler state can touch the times of phases
-   2-8.
+   2-9.
 
 Then the per-kernel summary line (serving kernels with the launches of the
 timed engine run, the quantized serving kernels with those of the timed
 ``w8_kv8`` or ``w4_kv8`` run, the windowed kernel branches with those of
 the timed ``mistral_bf16`` run, GPT training kernels with those of its
-timed run, the BERT kernels with those of the timed BERT run; every path's
+timed run, the BERT kernels with those of the timed BERT run, the Mistral
+training branches with those of its timed run (the ``memory_efficient``
+branch with those of its run in ``mistral_train_fp32``); every path's
 count beside it) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises, so the run exits non-zero without the last line. With
 no CUDA device, or without the ``apex_tpu_torch`` package beside it, it
@@ -170,6 +201,13 @@ XENT_DX_TOL = {"float32": (1e-8, 1e-4), "bfloat16": (1e-8, 1e-2)}
 # in every run); the sums reach ~3e7, so their rows also report the largest
 # relative error
 SEGMENT_SUM_TOL = (1e-3, 1e-6)
+# the Mistral rows also cut the atol to RMS_ATOL of the twin's RMS: at
+# window 4096 a softmax row spreads over ~4096 keys, so most entries of o,
+# dq, dk and dv lie near 1e-2, about TOL's bf16 atol, where a missing key
+# tile would pass. Kernel and twin round one fp32 result each, so they
+# differ by about one ulp (bf16: 2^-7 |x|, inside rtol), and the atol only
+# has to cover entries that round near 0.
+RMS_ATOL = 1e-2
 # the Adam row is checked at a step where every term is seen: the update
 # is ~ADAM_LR and the decoupled decay ADAM_LR * ADAM_WD * |p| ~ 1e-4|p|,
 # both far above UPDATE_TOL's atol, which is two fp32 ulps of |p| ~ 4-8
@@ -222,6 +260,20 @@ MISTRAL_VOCAB = 32000
 # two long requests and eight short ones fit at once
 MISTRAL_POOL = dict(num_pages=1024, max_pages_per_seq=384)
 
+# the Mistral-7B training slice: the norms' backward at a training step's
+# 8192 rows and at a ragged few; the windowed flash backward at the windowed
+# forward rows' shapes, at the training step's own (8192 tokens, two
+# windows) and at a window that cuts most pairs ((S, window)); the
+# card-against-CPU phase at full width, its depth, window and length cut so
+# that the CPU side runs in seconds; the timed phase at two windows of
+# tokens, its depth cut to fit the card beside the earlier phases
+MISTRAL_TRAIN_LAYERS, MISTRAL_TRAIN_BATCH, MISTRAL_TRAIN_SEQ = 4, 1, 8192
+NORM_BWD_ROWS = (MISTRAL_TRAIN_SEQ, 77)
+FLASH_BWD_WINDOW_CASES = ((4224, MISTRAL_WINDOW), (6016, MISTRAL_WINDOW),
+                          (MISTRAL_TRAIN_SEQ, MISTRAL_WINDOW), (1024, 256))
+MISTRAL_TRAIN_FP32 = dict(layers=2, window=128, batch=1, seq=512)
+MISTRAL_TRAIN_WARM, MISTRAL_TRAIN_TIMED = 2, 3
+
 #: the kernels of the serving path and of the two training paths
 SERVING_KERNELS = ("layer_norm_fwd", "flash_fwd", "paged_attention")
 #: the kernel branches of the windowed Mistral serving path
@@ -238,6 +290,16 @@ BERT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
                 "layer_norm_fwd", "layer_norm_bwd", "xentropy_fwd",
                 "xentropy_bwd", "segment_stats", "lamb_phase1",
                 "lamb_phase2")
+#: the kernel branches of the Mistral-7B training path (windowed flash and
+#: RMSNorm, both directions, and Adam), and those this slice added
+MISTRAL_TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd_window",
+                         "flash_bwd_dq_window", "flash_bwd_dkdv_window",
+                         "adam")
+MISTRAL_TRAIN_NEW = ("rms_norm_bwd", "layer_norm_bwd_from_y",
+                     "flash_bwd_dq_window", "flash_bwd_dkdv_window")
+#: the unwindowed and non-RMS kernels, which the Mistral paths must not launch
+UNWINDOWED = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+              "flash_bwd_dkdv")
 #: kernels whose buffers are fp32 on the path (the summary's dtype)
 FP32_KERNELS = ("adam", "xentropy_fwd", "xentropy_bwd", "segment_stats",
                 "lamb_phase1", "lamb_phase2")
@@ -262,7 +324,11 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "paged_attention_quant": "paged_decode_quant_kernel",
                   "rms_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_fwd_window": "flash_fwd_kernel",
-                  "paged_attention_window": "paged_decode_kernel"}
+                  "paged_attention_window": "paged_decode_kernel",
+                  "rms_norm_bwd": "layer_norm_bwd_dx_kernel",
+                  "layer_norm_bwd_from_y": "layer_norm_bwd_dx_kernel",
+                  "flash_bwd_dq_window": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkdv_window": "flash_bwd_dkdv_kernel"}
 
 
 def ptxas_registers() -> dict:
@@ -292,9 +358,14 @@ def ptxas_registers() -> dict:
             if m and entry:
                 name = next((n for n in names if n in entry), entry)
                 bf16 = "<bf16>" if "nv_bfloat16" in entry else ""
-                # the RMS instantiation of the LayerNorm forward
+                # the RMS instantiation of the LayerNorm forward, and the
+                # RMS and from_y instantiations of its backward
                 rms = "<rms>" if (name == "layer_norm_fwd_kernel"
                                   and "Lb1E" in entry) else ""
+                flags = re.search(r"Lb([01])ELb([01])E", entry)
+                if name == "layer_norm_bwd_dx_kernel" and flags:
+                    rms = ("<rms>" if flags.group(1) == "1" else "") + (
+                        "<from_y>" if flags.group(2) == "1" else "")
                 # the e4m3 instantiations of the quantized kernels
                 fp8 = "<e4m3>" if ("fp8_e4m3" in entry or (
                     "dequant_matmul_kernel" in entry and "Li1E" in entry)) \
@@ -436,11 +507,21 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name: str, got, want, dtype: str, tol=None) -> float:
+def rms_of(t) -> float:
+    return t.float().pow(2).mean().sqrt().item()
+
+
+def compare(name: str, got, want, dtype: str, tol=None,
+            rms_atol: bool = False) -> float:
+    """max |got - want|, or AssertionError past ``atol + rtol |want|``
+    (``tol``, else ``TOL[dtype]``); ``rms_atol``: the atol no larger than
+    ``RMS_ATOL * rms_of(want)``."""
     import torch
 
     atol, rtol = tol if tol is not None else TOL[dtype]
     got, want = got.float(), want.float()
+    if rms_atol:
+        atol = min(atol, RMS_ATOL * rms_of(want))
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - want).abs()
@@ -1178,7 +1259,8 @@ def check_paged_quant(gen, dev):
 
 def check_rms_norm(gen, dev):
     """The RMS branch of the LayerNorm forward kernel at Mistral-7B's width,
-    eps 1e-5: a decode step's rows and a long prefill's. Kernel, twin and
+    eps 1e-5: a decode step's rows, a long prefill's and a training step's
+    (``path`` "mistral_train"). Kernel, twin and
     ``F.rms_norm`` (the library) are timed by ``queued_ms``."""
     import torch
     import torch.nn.functional as F
@@ -1188,7 +1270,7 @@ def check_rms_norm(gen, dev):
     out = []
     cols, eps = MISTRAL_HIDDEN, 1e-5
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in RMS_ROWS:
+        for rows in (*RMS_ROWS, MISTRAL_TRAIN_SEQ):
             x = (torch.randn(rows, cols, generator=gen) * 2 + 0.5).to(dev,
                                                                       dtype)
             w = (torch.rand(cols, generator=gen) + 0.5).to(dev)
@@ -1196,7 +1278,7 @@ def check_rms_norm(gen, dev):
             torch.cuda.synchronize()
             ry, _, rstd_ref = ln.rms_norm_fwd_reference(x, w, eps)
             dn = str(dtype).split(".")[1]
-            err = compare("rms_norm_fwd", y, ry, dn)
+            err = compare("rms_norm_fwd", y, ry, dn, rms_atol=True)
             compare("rms_norm_fwd rstd", rstd, rstd_ref, "float32")
             if (mean != 0).any():
                 raise AssertionError("rms_norm_fwd: mean must be exactly 0")
@@ -1207,7 +1289,8 @@ def check_rms_norm(gen, dev):
             lib = getattr(F, "rms_norm", None)
             out.append((dict(
                 name="rms_norm_fwd", dtype=dn, shape=[rows, cols], eps=eps,
-                path="mistral", max_abs_err=err, ms=queued_ms(kernel),
+                path="mistral" if rows in RMS_ROWS else "mistral_train",
+                max_abs_err=err, out_rms=rms_of(ry), ms=queued_ms(kernel),
                 plain_ms=queued_ms(partial(ln.rms_norm_fwd_reference, x, w,
                                            eps)),
                 library_ms=None if lib is None else queued_ms(
@@ -1226,7 +1309,8 @@ def band_pairs(s: int, window: int) -> int:
 def check_flash_window(gen, dev):
     """The windowed flash forward at Mistral-7B's prefill shapes: 1 x 32 x S
     x 128 queries over 8 kv heads, window 4096, at S = 4224 and 6016 (the
-    band floor passes 4 and 60 key tiles of the last query tile). The
+    band floor passes 4 and 60 key tiles of the last query tile), and at a
+    training step's S = 8192 (``path`` "mistral_train"). The
     library call is ``scaled_dot_product_attention`` with the band as an
     explicit boolean mask and K/V expanded to the 32 heads. All timed by
     ``queued_ms`` over ``BIG_ITERS`` calls."""
@@ -1240,7 +1324,7 @@ def check_flash_window(gen, dev):
         MISTRAL_WINDOW
     masking = fa.Masking(causal=True, window=w)
     for dtype in (torch.float32, torch.bfloat16):
-        for s in FLASH_WINDOW_SEQS:
+        for s in (*FLASH_WINDOW_SEQS, MISTRAL_TRAIN_SEQ):
             q = torch.randn(1, h, s, d, generator=gen).to(dev, dtype)
             k, v = (torch.randn(1, hkv, s, d, generator=gen).to(dev, dtype)
                     for _ in range(2))
@@ -1251,8 +1335,9 @@ def check_flash_window(gen, dev):
             ro, rlse = fa.flash_attention_reference(q, k, v, scale=scale,
                                                     masking=masking)
             dn = str(dtype).split(".")[1]
-            err = compare("flash_fwd_window", o, ro, dn)
+            err = compare("flash_fwd_window", o, ro, dn, rms_atol=True)
             compare("flash_fwd_window lse", lse, rlse, "float32")
+            o_rms = rms_of(ro)
             del ro, rlse
             elt = q.element_size()
             nbytes = (2 * h + 2 * hkv) * s * d * elt + 4 * h * s
@@ -1265,7 +1350,9 @@ def check_flash_window(gen, dev):
             ke, ve = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
             out.append((dict(
                 name="flash_fwd_window", dtype=dn, shape=[1, h, s, d],
-                kv_heads=hkv, window=w, path="mistral", max_abs_err=err,
+                kv_heads=hkv, window=w,
+                path="mistral" if s in FLASH_WINDOW_SEQS else "mistral_train",
+                max_abs_err=err, out_rms=o_rms,
                 ms=queued_ms(kernel, BIG_ITERS),
                 plain_ms=queued_ms(partial(fa.flash_attention_reference, q,
                                            k, v, scale=scale,
@@ -1368,6 +1455,163 @@ def check_paged_window(gen, dev):
         for dtype in (torch.float32, torch.bfloat16):
             out.append(row("paged_attention_quant", dtype, kp, vp, 1,
                            scales=(ks, vs), kind=kv_name))
+    return out
+
+
+def check_norm_bwd_mistral(gen, dev):
+    """The backward kernel's new branches at Mistral-7B's width 4096, eps
+    1e-5: the RMS branch (saved x) over a training step's 8192 rows and a
+    ragged 77, fp32 and bf16; the ``memory_efficient`` branch (x-hat from
+    the saved y) for RMSNorm and for LayerNorm with a bias, bf16, 8192
+    rows. The weight stays in [0.5, 1.5), so (y - b) / w is well
+    conditioned. Library: the backward of ``F.rms_norm`` /
+    ``F.layer_norm``. All timed by ``queued_ms``."""
+    import torch
+    import torch.nn.functional as F
+
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+
+    out = []
+    cols, eps = MISTRAL_HIDDEN, 1e-5
+    cases = [("rms_norm_bwd", "rms", dtype, rows)
+             for dtype in (torch.float32, torch.bfloat16)
+             for rows in NORM_BWD_ROWS]
+    cases += [("layer_norm_bwd_from_y", kind, torch.bfloat16,
+               NORM_BWD_ROWS[0]) for kind in ("rms", "layer_norm")]
+    for name, kind, dtype, rows in cases:
+        rms = kind == "rms"
+        x = (torch.randn(rows, cols, generator=gen) * 2 + 0.5).to(dev, dtype)
+        dy = torch.randn(rows, cols, generator=gen).to(dev, dtype)
+        w = (torch.rand(cols, generator=gen) + 0.5).to(dev)
+        b = None if rms else torch.randn(cols, generator=gen).to(dev)
+        if rms:
+            y, _, rstd = ln.rms_norm_fwd_reference(x, w, eps)
+        else:
+            y, _, rstd = ln.layer_norm_fwd_reference(x, w, b, eps)
+        from_y = name == "layer_norm_bwd_from_y"
+        args = (dy, y if from_y else x, None, rstd, w, b, rms, from_y)
+        kernel = partial(ln.layer_norm_bwd, *args)
+        plain = partial(ln.layer_norm_bwd_reference, *args)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        dn = str(dtype).split(".")[1]
+        err = max([compare(f"{name} dx", got[0], want[0], dn,
+                           rms_atol=True),
+                   compare(f"{name} dgamma", got[1], want[1], dn, SUM_TOL)]
+                  + ([compare(f"{name} dbeta", got[2], want[2], dn,
+                              SUM_TOL)] if b is not None else []))
+        elt = x.element_size()
+        # read dy, x (or y), rstd, w (and b); write dx, dgamma (and dbeta)
+        n_vec = 2 if rms else 4
+        nbytes = 3 * rows * cols * elt + rows * 4 + n_vec * cols * 4
+        bms, by = bound_ms(nbytes, 12 * rows * cols, dn)
+        xl = x.detach().requires_grad_()
+        wl = w.to(dtype).requires_grad_()
+        if rms:
+            yl = F.rms_norm(xl, (cols,), wl, eps)
+            leaves, lib = (xl, wl), "backward of F.rms_norm"
+        else:
+            bl = b.to(dtype).requires_grad_()
+            yl = F.layer_norm(xl, (cols,), wl, bl, eps)
+            leaves, lib = (xl, wl, bl), "backward of F.layer_norm"
+        out.append((dict(
+            name=name, dtype=dn, shape=[rows, cols], kind=kind, eps=eps,
+            path="mistral_train", max_abs_err=err, out_rms=rms_of(want[0]),
+            ms=queued_ms(kernel),
+            plain_ms=queued_ms(plain),
+            library_ms=queued_ms(partial(torch.autograd.grad, yl, leaves,
+                                         dy, retain_graph=True)),
+            library=lib, bound_ms=bms, bound_by=by), kernel))
+        del yl, leaves, got, want
+    return out
+
+
+def check_flash_bwd_window(gen, dev):
+    """The windowed flash backward (dq; dk and dv) at Mistral-7B's heads: 1
+    x 32 x S x 128 queries over 8 kv heads, window 4096 at S = 4224 and 6016
+    (the windowed forward rows' shapes) and at a training step's 8192, and
+    window 256 at S = 1024, where the band cuts most pairs; with an LSE
+    cotangent, as a training step's ``flash_attention_with_lse`` may give.
+    The library call is the backward
+    of ``scaled_dot_product_attention`` with the band as a boolean mask and
+    K/V expanded (dq, dk and dv together). Timed by ``queued_ms`` over
+    ``BIG_ITERS`` calls."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+
+    out = []
+    h, hkv, d = MISTRAL_HEADS, MISTRAL_KV_HEADS, MISTRAL_HEAD_DIM
+    scale = d ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        for s, w in FLASH_BWD_WINDOW_CASES:
+            masking = fa.Masking(causal=True, window=w)
+            q, do = (torch.randn(1, h, s, d, generator=gen).to(dev, dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(1, hkv, s, d, generator=gen).to(dev, dtype)
+                    for _ in range(2))
+            o, lse = fa.flash_attention_reference(q, k, v, scale=scale,
+                                                  masking=masking)
+            dlse = torch.randn(1, h, s, generator=gen).to(dev)
+            delta = fa.flash_bwd_delta(o, do, dlse)
+            args = (q, k, v, do, lse, delta)
+            kw = dict(scale=scale, masking=masking)
+            dq = fa.flash_bwd_dq(*args, **kw)
+            dk, dv = fa.flash_bwd_dkdv(*args, **kw)
+            torch.cuda.synchronize()
+            dn = str(dtype).split(".")[1]
+            rdq = fa.flash_bwd_dq_reference(*args, **kw)
+            err_dq = compare("flash_bwd_dq_window", dq, rdq, dn,
+                             rms_atol=True)
+            rdk, rdv = fa.flash_bwd_dkdv_reference(*args, **kw)
+            err_dkdv = max(compare("flash_bwd_dkdv_window dk", dk, rdk, dn,
+                                   rms_atol=True),
+                           compare("flash_bwd_dkdv_window dv", dv, rdv, dn,
+                                   rms_atol=True))
+            absmax = {"flash_bwd_dq_window": dq.abs().max().item(),
+                      "flash_bwd_dkdv_window": max(dk.abs().max().item(),
+                                                   dv.abs().max().item())}
+            out_rms = {"flash_bwd_dq_window": [rms_of(rdq)],
+                       "flash_bwd_dkdv_window": [rms_of(rdk), rms_of(rdv)]}
+            del rdq, rdk, rdv
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            pos = torch.arange(s, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - w)
+            ol = F.scaled_dot_product_attention(
+                ql, kl.repeat_interleave(h // hkv, dim=1),
+                vl.repeat_interleave(h // hkv, dim=1), attn_mask=band)
+            library_ms = queued_ms(partial(torch.autograd.grad, ol,
+                                           (ql, kl, vl), do,
+                                           retain_graph=True), BIG_ITERS)
+            del ol, ql, kl, vl
+            elt = q.element_size()
+            pairs = h * band_pairs(s, w)        # visible (query, key) pairs
+            inputs = (2 * h + 2 * hkv) * s * d * elt + 2 * h * s * 4
+            for name, err, fn, plain, out_bytes, flops in (
+                    ("flash_bwd_dq_window", err_dq, fa.flash_bwd_dq,
+                     fa.flash_bwd_dq_reference, h * s * d * elt,
+                     6 * pairs * d),
+                    ("flash_bwd_dkdv_window", err_dkdv, fa.flash_bwd_dkdv,
+                     fa.flash_bwd_dkdv_reference, 2 * hkv * s * d * elt,
+                     8 * pairs * d)):
+                bms, by = bound_ms(inputs + out_bytes, flops, dn)
+                kernel = partial(fn, *args, **kw)
+                out.append((dict(
+                    name=name, dtype=dn, shape=[1, h, s, d], kv_heads=hkv,
+                    window=w, path="mistral_train", max_abs_err=err,
+                    out_absmax=absmax[name], out_rms=out_rms[name],
+                    visible_pairs=pairs,
+                    ms=queued_ms(kernel, BIG_ITERS),
+                    plain_ms=queued_ms(partial(plain, *args, **kw),
+                                       BIG_ITERS),
+                    library_ms=library_ms,
+                    library="backward of scaled_dot_product_attention, "
+                            "boolean band mask, K/V expanded to 32 heads: "
+                            "dq, dk and dv together",
+                    bound_ms=bms, bound_by=by), kernel))
     return out
 
 
@@ -1843,10 +2087,10 @@ def train_batch(cfg, batch: int, seq: int, dev):
     return ids.to(dev), torch.roll(ids, -1, dims=1).to(dev)
 
 
-def make_optimizer(model):
+def make_optimizer(model, lr: float = TRAIN_LR):
     from apex_tpu_torch.optimizers import FusedAdam
 
-    return FusedAdam(model.named_parameters(), lr=TRAIN_LR,
+    return FusedAdam(model.named_parameters(), lr=lr,
                      weight_decay=TRAIN_WD, exclude_from_weight_decay=no_decay)
 
 
@@ -2144,6 +2388,272 @@ def bert_bf16(smi):
     return step, launches
 
 
+# --- the Mistral-7B training phases ----------------------------------------
+
+
+def mistral_train_flops(cfg, batch: int, seq: int) -> float:
+    """FLOPs of one training step: 6 x the matmul parameters (q, kv, o,
+    SwiGLU's gate/up and down per layer, the untied head; embeddings'
+    gathers and norms not) per token, plus the windowed attention, 3 x
+    (forward) 2 products x 2 FLOPs x d per visible pair of each head."""
+    e, f, layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    e_kv = cfg.num_kv_heads * cfg.head_dim
+    matmul_params = layers * (2 * e * e + 2 * e * e_kv + 3 * e * f) \
+        + cfg.vocab_size * e
+    pairs = band_pairs(seq, cfg.sliding_window or seq)
+    return (6 * matmul_params * batch * seq
+            + 12 * layers * batch * cfg.num_heads * pairs * cfg.head_dim)
+
+
+def check_mistral_train_launches(launches, phase: str, want) -> None:
+    """The windowed path's bar on a training run: every kernel of ``want``
+    launched, and no unwindowed or non-RMS kernel."""
+    idle = [k for k in want if launches[k] == 0]
+    stray = {k: launches[k] for k in UNWINDOWED if launches[k]}
+    if idle or stray:
+        raise AssertionError(f"{phase}: no launch of {idle}; unwindowed "
+                             f"kernels launched {stray}")
+
+
+def grad_bars(phase: str, card_grads, cpu_grads) -> dict:
+    """Every gradient of the card against the CPU's, each tensor at atol =
+    min(1e-4, 1e-3 max|g|) and rtol 1e-3, so that the bar stays below the
+    tensor's own entries when they are small (a mean over few tokens at
+    full width). Returns {name: [max |g| on the CPU, max |card - CPU|]}."""
+    missing = [n for n, g in card_grads.items() if g is None]
+    if missing:
+        raise AssertionError(f"{phase}: no gradient on the card for "
+                             f"{missing}")
+    out = {}
+    for n, g in card_grads.items():
+        want = cpu_grads[n]
+        gmax = want.abs().max().item()
+        out[n] = [gmax, compare(f"{phase} grad {n}", g.cpu(), want,
+                                "float32", (min(1e-4, 1e-3 * gmax), 1e-3))]
+    return out
+
+
+def mistral_train_fp32():
+    """Card against CPU: Mistral-7B at full width, depth, window and length
+    cut (``MISTRAL_TRAIN_FP32``), fp32, the same seeded weights on both
+    sides, at ``train_fp32``'s learning rate: the loss and every gradient,
+    a FusedAdam step on each side; with every norm ``memory_efficient``,
+    the loss and every gradient; with the default norms, the loss and every
+    gradient again, a second step, and the loss.
+    The losses are held as the fp64 cross-entropy of each side's fp32
+    logits: two steps memorize the batch (per-token losses down to ~3e-5),
+    where the fp32 ``log_softmax`` of the loss itself rounds differently on
+    the CPU and the card (``losses_card``/``losses_cpu``, reported).
+    Returns the card's launches of the memory_efficient run (those of the
+    default runs are in the phase's line)."""
+    import torch
+
+    from apex_tpu_torch.models import (LlamaModel, llama_loss,
+                                       mistral_7b_config)
+    from apex_tpu_torch.normalization import FusedRMSNorm
+    from apex_tpu_torch.ops import _build
+
+    c, lr = MISTRAL_TRAIN_FP32, TRAIN_LR
+    cfg = mistral_7b_config(num_layers=c["layers"], sliding_window=c["window"],
+                            dtype=torch.float32, param_dtype=torch.float32)
+    cpu = LlamaModel(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(SEED))
+    card = LlamaModel(cfg, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(SEED))
+    card.load_state_dict(cpu.state_dict())
+    sides = {side: (model, *train_batch(cfg, c["batch"], c["seq"], dev))
+             for side, model, dev in (("card", card, DEV), ("cpu", cpu,
+                                                            "cpu"))}
+    logits = {}
+    for side, (model, _, _) in sides.items():
+        model.register_forward_hook(
+            lambda m, i, o, side=side: logits.__setitem__(side, o.detach()))
+
+    def ce64(side):
+        """The fp64 cross-entropy of the side's last logits."""
+        labels = sides[side][2].long()
+        logp = torch.log_softmax(logits[side].double(), dim=-1)
+        return -logp.gather(-1, labels[..., None])[..., 0].mean().item()
+
+    def forward(backward: bool = True):
+        """Loss (fp32, the program's) and fp64 cross-entropy on both sides
+        and, with ``backward``, their gradients; the launch counts after
+        the card's side, which runs first. Fails if the fp64
+        cross-entropies differ by more than 1e-4 relative."""
+        losses, ces, grads = {}, {}, {}
+        for side, (model, ids, labels) in sides.items():
+            with torch.set_grad_enabled(backward):
+                loss = llama_loss(model, ids, labels)
+            if backward:
+                loss.backward()
+                grads[side] = {n: p.grad for n, p in model.named_parameters()}
+            losses[side], ces[side] = loss.item(), ce64(side)
+            if side == "card":
+                torch.cuda.synchronize()
+                card_launches = dict(_build.launches)
+        if abs(ces["card"] - ces["cpu"]) > 1e-4 * abs(ces["cpu"]):
+            raise AssertionError(f"mistral_train_fp32: losses differ: "
+                                 f"{ces} (fp64 of the logits), {losses}")
+        return losses, ces, grads, card_launches
+
+    def set_memory_efficient(on: bool):
+        for model, _, _ in sides.values():
+            for m in model.modules():
+                if isinstance(m, FusedRMSNorm):
+                    m.memory_efficient = on
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    losses, ces, grads, _ = forward()
+    bars = grad_bars("mistral_train_fp32", grads["card"], grads["cpu"])
+    losses, ces = ({side: [x[side]] for side in sides} for x in (losses, ces))
+    opts = {side: make_optimizer(model, lr)  # keeps the grads
+            for side, (model, _, _) in sides.items()}
+    for opt in opts.values():
+        opt.step()
+        opt.zero_grad()
+    launches = dict(_build.launches)
+
+    # the same parameters with the norms memory_efficient: x-hat from the
+    # saved y, the norm weights one Adam step away from 1
+    set_memory_efficient(True)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    me_losses, me_ces, grads, me_launches = forward()
+    me_bars = grad_bars("mistral_train_fp32 memory_efficient",
+                        grads["card"], grads["cpu"])
+    norms = 2 * cfg.num_layers + 1
+    if (me_launches["layer_norm_bwd_from_y"] != norms
+            or me_launches["rms_norm_bwd"]):
+        raise AssertionError(f"mistral_train_fp32: memory_efficient "
+                             f"launches {me_launches}, want "
+                             f"layer_norm_bwd_from_y {norms}, rms_norm_bwd "
+                             f"0")
+    check_mistral_train_launches(
+        me_launches, "mistral_train_fp32 memory_efficient",
+        ("rms_norm_fwd", "layer_norm_bwd_from_y", "flash_fwd_window",
+         "flash_bwd_dq_window", "flash_bwd_dkdv_window"))
+    set_memory_efficient(False)
+    for opt in opts.values():
+        opt.zero_grad()
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    loss1, ce1, grads, _ = forward()
+    bars_1 = grad_bars("mistral_train_fp32 step 1", grads["card"],
+                       grads["cpu"])
+    for opt in opts.values():
+        opt.step()
+    loss2, ce2, _, _ = forward(backward=False)
+    for side in sides:
+        losses[side] += [loss1[side], loss2[side]]
+        ces[side] += [ce1[side], ce2[side]]
+    torch.cuda.synchronize()
+    launches = {k: n + _build.launches[k] for k, n in launches.items()}
+    check_mistral_train_launches(launches, "mistral_train_fp32",
+                                 MISTRAL_TRAIN_KERNELS)
+    if launches["layer_norm_bwd_from_y"]:
+        raise AssertionError("mistral_train_fp32: the memory_efficient "
+                             "backward launched on the default path")
+
+    def summary(b):
+        return dict(min_max_abs_grad=min(g for g, _ in b.values()),
+                    max_abs_err=max(e for _, e in b.values()))
+
+    emit("mistral_train_fp32", batch=c["batch"], seq=c["seq"],
+         layers=cfg.num_layers, window=cfg.sliding_window,
+         hidden=cfg.hidden_size, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, lr=lr,
+         parameters=sum(p.numel() for p in card.parameters()),
+         ce64_card=ces["card"], ce64_cpu=ces["cpu"],
+         losses_card=losses["card"], losses_cpu=losses["cpu"],
+         grad_bar="atol = min(1e-4, 1e-3 max|g|) per tensor, rtol 1e-3",
+         grads=bars, grads_summary=summary(bars),
+         grads_step1_summary=summary(bars_1),
+         params_with_grad=len(bars), launches=launches,
+         memory_efficient_ce64=me_ces, memory_efficient_losses=me_losses,
+         memory_efficient_grads_summary=summary(me_bars),
+         memory_efficient_launches=me_launches)
+    del sides, opts, card, cpu, logits
+    torch.cuda.empty_cache()
+    return me_launches
+
+
+def mistral_train_bf16(smi):
+    """Mistral-7B at full width, ``MISTRAL_TRAIN_LAYERS`` deep, window 4096,
+    B x S = 1 x 8192, bf16 compute over fp32 parameters,
+    ``FusedAdam(lr=1e-4, weight_decay=0.01)`` with the norms excluded: warm
+    steps, then timed steps, with exact launches per step. Returns the step
+    and the timed steps' launches."""
+    import torch
+
+    from apex_tpu_torch.models import (LlamaModel, llama_loss,
+                                       mistral_7b_config)
+    from apex_tpu_torch.ops import _build
+
+    live = phase_memory_start()
+    cfg = mistral_7b_config(num_layers=MISTRAL_TRAIN_LAYERS)
+    model = LlamaModel(cfg, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(SEED))
+    opt = make_optimizer(model)
+    b, s = MISTRAL_TRAIN_BATCH, MISTRAL_TRAIN_SEQ
+    ids, labels = train_batch(cfg, b, s, DEV)
+
+    def step():
+        opt.zero_grad()
+        loss = llama_loss(model, ids, labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [step() for _ in range(MISTRAL_TRAIN_WARM)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(MISTRAL_TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    with torch.no_grad():
+        final = llama_loss(model, ids, labels).item()
+    losses = [x.item() for x in losses]
+    layers, norms = cfg.num_layers, 2 * cfg.num_layers + 1
+    want = {"rms_norm_fwd": norms, "rms_norm_bwd": norms,
+            "flash_fwd_window": layers, "flash_bwd_dq_window": layers,
+            "flash_bwd_dkdv_window": layers, "adam": 1,
+            **{k: 0 for k in UNWINDOWED}, "layer_norm_bwd_from_y": 0}
+    per_step = {k: launches[k] / MISTRAL_TRAIN_TIMED for k in want}
+    wrong = {k: n for k, n in per_step.items() if n != want[k]}
+    if wrong:
+        raise AssertionError(f"mistral_train_bf16: launches per step "
+                             f"{wrong}, want {want}")
+    if not all(map(math.isfinite, losses + [final])) or not final < losses[0]:
+        raise AssertionError(f"mistral_train_bf16: loss not finite and "
+                             f"falling: {losses} then {final}")
+    step_s = elapsed / MISTRAL_TRAIN_TIMED
+    flops = mistral_train_flops(cfg, b, s)
+    emit("mistral_train_bf16", batch=b, seq=s, layers=layers,
+         layers_published=32, window=cfg.sliding_window,
+         hidden=cfg.hidden_size, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads,
+         parameters=sum(p.numel() for p in model.parameters()),
+         timed_steps=MISTRAL_TRAIN_TIMED, step_ms=step_s * 1e3,
+         tokens_per_s=b * s / step_s, flops_per_step=flops,
+         attention_flops_per_step=12 * layers * b * cfg.num_heads
+         * band_pairs(s, cfg.sliding_window) * cfg.head_dim,
+         flops_formula="6 * (L (2 e^2 + 2 e e_kv + 3 e f) + V e) * B * S "
+                       "+ 12 L * B H pairs(S, w) * d, pairs = w (w + 1) / 2 "
+                       "+ (S - w) w",
+         mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+         bound_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3,
+         peak_flops=PEAK_FLOPS["bfloat16"], losses=losses,
+         loss_after=final, launches_per_step=per_step, launches=launches,
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live)
+         / 2 ** 30, earlier_phases_live_gib=live / 2 ** 30,
+         nvidia_smi=smi, card_after=card_state())
+    return step, launches
+
+
 def profile_phase(phase: str, fn, cpu: bool = True) -> None:
     """One run of ``fn`` under the profiler: device busy and idle share and
     the top device items (``cpu=False``: the host's ops untraced)."""
@@ -2189,9 +2699,12 @@ def main() -> int:
               + check_flash_bert(gen, DEV) + check_xentropy(gen, DEV)
               + check_lamb(gen, DEV) + check_dequant(gen, DEV)
               + check_paged_quant(gen, DEV) + check_rms_norm(gen, DEV)
-              + check_flash_window(gen, DEV) + check_paged_window(gen, DEV))
+              + check_flash_window(gen, DEV) + check_paged_window(gen, DEV)
+              + check_norm_bwd_mistral(gen, DEV)
+              + check_flash_bwd_window(gen, DEV))
     rows = [row for row, _ in checks]
-    emit("kernels", tolerances=TOL, card_before=card_before,
+    emit("kernels", tolerances=TOL, rms_atol=RMS_ATOL,
+         card_before=card_before,
          card_after=card_state(), results=rows)
 
     prompts, new_tokens = workload()
@@ -2239,6 +2752,8 @@ def main() -> int:
     train_step, train_launches = train_bf16(smi)
     bert_fp32()
     bert_step, bert_launches = bert_bf16(smi)
+    me_launches = mistral_train_fp32()
+    mistral_train_step, mistral_train_launches = mistral_train_bf16(smi)
 
     # where the time goes, last, so that no profiler state touches the times
     # above: one more run of the same workload, then each kernel alone at
@@ -2251,7 +2766,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     results = []
     for row, fn in checks:
-        if row.get("path") in ("quant_serving", "mistral"):
+        if row.get("path") in ("quant_serving", "mistral", "mistral_train"):
             continue                  # timed by queued_ms already
         ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
         results.append(dict(name=row["name"], dtype=row["dtype"],
@@ -2265,6 +2780,7 @@ def main() -> int:
          tokens_per_s=stats_after["generated_tokens"] / elapsed_after)
     profile_phase("train_bf16_profile", train_step)
     profile_phase("bert_bf16_profile", bert_step)
+    profile_phase("mistral_train_bf16_profile", mistral_train_step)
 
     # summary: each serving kernel at the serving path's bf16 shapes (decode
     # rows for the norm, a 128-token prefill for flash, the 8-slot pool for
@@ -2297,9 +2813,24 @@ def main() -> int:
         "flash_fwd_window": [1, MISTRAL_HEADS, FLASH_WINDOW_SEQS[0],
                              MISTRAL_HEAD_DIM],
         "paged_attention_quant": [NUM_SLOTS, 12, PAGE_SIZE, 64, 64]})
+    # the Mistral training kernels at a training step's shapes, bf16: 8192
+    # rows for the norms (the memory_efficient branch's RMSNorm row), 8192
+    # tokens at window 4096 for the flash backward; the windowed forward
+    # kernels also carry, under "mistral_train", their rows at these shapes
+    train_shape = {"rms_norm_fwd": [MISTRAL_TRAIN_SEQ, MISTRAL_HIDDEN],
+                   "flash_fwd_window": [1, MISTRAL_HEADS, MISTRAL_TRAIN_SEQ,
+                                        MISTRAL_HEAD_DIM]}
+    main_shape.update({
+        "rms_norm_bwd": [NORM_BWD_ROWS[0], MISTRAL_HIDDEN],
+        "layer_norm_bwd_from_y": [NORM_BWD_ROWS[0], MISTRAL_HIDDEN],
+        "flash_bwd_dq_window": train_shape["flash_fwd_window"],
+        "flash_bwd_dkdv_window": train_shape["flash_fwd_window"]})
+    main_kind.update({"rms_norm_bwd": "rms", "layer_norm_bwd_from_y": "rms"})
     by_path = {"serving": launches, "gpt_train": train_launches,
                "bert_train": bert_launches, "mistral": mistral_launches,
-               **{label: run[1] for label, run in quant_runs.items()}}
+               **{label: run[1] for label, run in quant_runs.items()},
+               "mistral_train": mistral_train_launches,
+               "mistral_train_memory_efficient": me_launches}
     quant_path = {"dequant_matmul": "w8_kv8", "dequant_matmul_w4": "w4_kv8",
                   "paged_attention_quant": "w8_kv8"}
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2309,7 +2840,10 @@ def main() -> int:
         path = ("serving" if name in SERVING_KERNELS else "gpt_train"
                 if name in TRAIN_KERNELS else quant_path[name]
                 if name in QUANT_KERNELS else "mistral"
-                if name in MISTRAL_KERNELS else "bert_train")
+                if name in MISTRAL_KERNELS else
+                "mistral_train_memory_efficient"
+                if name == "layer_norm_bwd_from_y" else "mistral_train"
+                if name in MISTRAL_TRAIN_NEW else "bert_train")
         row = next(r for r in rows if r["name"] == name
                    and r["dtype"] == ("float32" if name in FP32_KERNELS
                                       else "bfloat16")
@@ -2328,8 +2862,10 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             **{k: row[k] for k in ("kind", "shape", "unquantized_ms",
-                                   "library", "kv_heads", "window")
-               if k in row and path in (*quant_path.values(), "mistral")})
+                                   "library", "kv_heads", "window",
+                                   "out_rms")
+               if k in row and (path in (*quant_path.values(), "mistral")
+                                or name in MISTRAL_TRAIN_NEW)})
         if name == "paged_attention_quant":
             win = next(r for r in rows if r["name"] == name
                        and r.get("path") == "mistral"
@@ -2339,6 +2875,15 @@ def main() -> int:
                 window=win["window"], dtype="bfloat16", kind="int8",
                 unquantized_ms=win["unquantized_ms"],
                 **{k: win[k] for k in timing})
+        if name in train_shape:
+            tr = next(r for r in rows if r["name"] == name
+                      and r.get("path") == "mistral_train"
+                      and r["dtype"] == "bfloat16"
+                      and r["shape"] == train_shape[name])
+            entry["mistral_train"] = dict(
+                shape=tr["shape"], dtype="bfloat16", out_rms=tr["out_rms"],
+                launches=mistral_train_launches[name],
+                **{k: tr[k] for k in timing})
         if path != "bert_train" and name in BERT_KERNELS:
             bert = next(r for r in rows if r["name"] == name
                         and r.get("path") == "bert"

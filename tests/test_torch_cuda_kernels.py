@@ -500,20 +500,31 @@ def test_rms_norm_kernel_matches_twin(cuda, dtype, rows):
 
 
 def test_rms_norm_refuses_autograd_on_the_card(cuda):
-    """A CUDA input or weight that requires grad raises (ROADMAP B10)
-    rather than returning a result that autograd cannot go back through;
-    under no_grad the kernel runs."""
-    x = torch.randn(4, 4096, device=cuda)
-    w = torch.ones(4096, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        rms_norm(x, w)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FusedRMSNorm(4096, device=cuda)(x)
-    before = _build.launches["rms_norm_fwd"]
+    """ROADMAP B10 is closed: a CUDA input or weight that requires grad
+    goes forward and backward through the RMS branches of the two kernels
+    (one launch each, the unfused LayerNorm kernels none) and matches the
+    twins. What the kernels still refuse is a dtype they do not take."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(4, 5, 4096, generator=g).to(cuda).requires_grad_()
+    mod = FusedRMSNorm(4096, device=cuda)
     with torch.no_grad():
-        y = FusedRMSNorm(4096, device=cuda)(x)
-    assert _build.launches["rms_norm_fwd"] == before + 1
-    _close(y, rms_norm_fwd_reference(x, w, 1e-5)[0], torch.float32)
+        mod.weight.copy_(torch.rand(4096, generator=g) + 0.5)
+    dy = torch.randn(4, 5, 4096, generator=g).to(cuda)
+    before = dict(_build.launches)
+    mod(x).backward(dy)
+    for name in ("rms_norm_fwd", "rms_norm_bwd"):
+        assert _build.launches[name] == before[name] + 1
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "layer_norm_bwd_from_y"):
+        assert _build.launches[name] == before[name]
+    x2d = x.detach().reshape(-1, 4096)
+    _, _, rstd = rms_norm_fwd_reference(x2d, mod.weight.detach(), 1e-5)
+    rdx, rdw, _ = layer_norm_bwd_reference(dy.reshape(-1, 4096), x2d, None,
+                                           rstd, mod.weight.detach(),
+                                           rms=True)
+    _close(x.grad.reshape(-1, 4096), rdx, torch.float32)
+    torch.testing.assert_close(mod.weight.grad, rdw, atol=1e-3, rtol=1e-4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rms_norm(x.detach().half(), mod.weight)
 
 
 WINDOW_CASES = [
@@ -550,12 +561,24 @@ def test_windowed_flash_kernel_matches_twin(cuda, dtype, sq, sk, h, hkv, d,
 
 
 def test_windowed_flash_refuses_autograd_on_the_card(cuda):
+    """ROADMAP B9's window is ported: a windowed call under autograd runs
+    the windowed forward and both windowed backward kernels, never the
+    unwindowed ones. What the flash surface still refuses is a bias and a
+    ``causal_offset`` (items 8 and 9)."""
     q, k, v = (torch.randn(1, 2, 16, 64, device=cuda, requires_grad=True)
                for _ in range(3))
+    before = dict(_build.launches)
+    flash_attention(q, k, v, causal=True, window=4).sum().backward()
+    for name in ("flash_fwd_window", "flash_bwd_dq_window",
+                 "flash_bwd_dkdv_window"):
+        assert _build.launches[name] == before[name] + 1
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        assert _build.launches[name] == before[name]
     with pytest.raises(NotImplementedError, match="item 9"):
-        flash_attention(q, k, v, causal=True, window=4)
-    with torch.no_grad():
-        flash_attention(q, k, v, causal=True, window=4)
+        flash_attention(q, k, v, torch.zeros(1, 2, 16, 16, device=cuda),
+                        causal=True, window=4)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        flash_attention_with_lse(q, k, v, causal=True, causal_offset=0)
 
 
 def _windowed_pool(g, lengths, window, ps, kv, d, maxp, dtype, cuda,
@@ -607,3 +630,125 @@ def test_windowed_paged_kernels_match_twin(cuda, dtype, kv_dtype):
     assert sum(_build.launches.values()) == sum(before.values()) + 1
     _close(got, paged_attention_reference(*args, **kw), dtype)
     assert (got[0] == 0).all()
+
+
+# --- the training slice of Mistral-7B: RMSNorm and memory_efficient
+# backward, the windowed flash backward ---------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [37, 1000])
+@pytest.mark.parametrize("affine", [True, False])
+def test_rms_norm_bwd_kernel_matches_twin(cuda, dtype, rows, affine):
+    """The RMS branch at Mistral's width 4096, ragged row tiles; dgamma sums
+    ``rows`` fp32 products in another order (atol 1e-3 / rtol 1e-4), and
+    is the same bits from run to run."""
+    g = torch.Generator().manual_seed(9)
+    x = (torch.randn(rows, 4096, generator=g) * 2 + 0.5).to(cuda, dtype)
+    dy = torch.randn(rows, 4096, generator=g).to(cuda, dtype)
+    w = (torch.rand(4096, generator=g) + 0.5).to(cuda) if affine else None
+    _, _, rstd = rms_norm_fwd_reference(x, w)
+    before = dict(_build.launches)
+    dx, dw, db = layer_norm_bwd(dy, x, None, rstd, w, rms=True)
+    assert _build.launches["rms_norm_bwd"] == before["rms_norm_bwd"] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 1
+    rdx, rdw, _ = layer_norm_bwd_reference(dy, x, None, rstd, w, rms=True)
+    assert dx.dtype == dtype and db is None
+    _close(dx, rdx, dtype)
+    if not affine:
+        assert dw is None
+        return
+    assert dw.dtype == torch.float32
+    torch.testing.assert_close(dw, rdw, atol=1e-3, rtol=1e-4)
+    assert torch.equal(layer_norm_bwd(dy, x, None, rstd, w, rms=True)[1],
+                       dw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rms,bias", [(False, True), (False, False),
+                                      (True, False)])
+def test_layer_norm_bwd_from_y_kernel_matches_twin(cuda, dtype, rms, bias):
+    """The memory_efficient branch: xhat from the saved y (and bias), for
+    LayerNorm with and without a bias and for RMSNorm, at 300 x 4096; the
+    weight kept in [0.5, 1.5) so that (y - b) / w stays well conditioned."""
+    g = torch.Generator().manual_seed(10)
+    x = (torch.randn(300, 4096, generator=g) * 2 + 0.5).to(cuda, dtype)
+    dy = torch.randn(300, 4096, generator=g).to(cuda, dtype)
+    w = (torch.rand(4096, generator=g) + 0.5).to(cuda)
+    b = torch.randn(4096, generator=g).to(cuda) if bias else None
+    if rms:
+        y, _, rstd = rms_norm_fwd_reference(x, w)
+    else:
+        y, _, rstd = layer_norm_fwd_reference(x, w, b)
+    before = dict(_build.launches)
+    dx, dw, db = layer_norm_bwd(dy, y, None, rstd, w, b, rms=rms,
+                                from_y=True)
+    name = "layer_norm_bwd_from_y"
+    assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 1
+    rdx, rdw, rdb = layer_norm_bwd_reference(dy, y, None, rstd, w, b, rms,
+                                             from_y=True)
+    _close(dx, rdx, dtype)
+    torch.testing.assert_close(dw, rdw, atol=1e-3, rtol=1e-4)
+    assert (db is None) == (rdb is None) == rms
+    if db is not None:
+        torch.testing.assert_close(db, rdb, atol=1e-3, rtol=1e-4)
+
+
+def test_memory_efficient_autograd_takes_the_from_y_kernel(cuda):
+    """``memory_efficient`` under autograd, LayerNorm and RMSNorm: the
+    forward kernel, then the from_y backward, and no saved-x backward."""
+    g = torch.Generator().manual_seed(11)
+    for rms in (False, True):
+        x = torch.randn(6, 1024, generator=g).to(cuda).requires_grad_()
+        w = (torch.rand(1024, generator=g) + 0.5).to(cuda).requires_grad_()
+        b = None if rms else torch.randn(1024, generator=g).to(cuda)
+        if b is not None:
+            b.requires_grad_()
+        before = dict(_build.launches)
+        layer_norm(x, w, b, rms=rms, memory_efficient=True).sum().backward()
+        fwd = "rms_norm_fwd" if rms else "layer_norm_fwd"
+        assert _build.launches[fwd] == before[fwd] + 1
+        assert (_build.launches["layer_norm_bwd_from_y"]
+                == before["layer_norm_bwd_from_y"] + 1)
+        assert _build.launches["layer_norm_bwd"] == before["layer_norm_bwd"]
+        assert _build.launches["rms_norm_bwd"] == before["rms_norm_bwd"]
+        assert x.grad is not None and w.grad is not None
+        assert b is None or b.grad is not None
+
+
+WINDOW_BWD_CASES = [
+    # (sq, h, hkv, d, window): Mistral's d = 128 over rep 4; a band
+    # narrower than a tile, one that starts mid-tile, the diagonal alone,
+    # and a window as long as the sequence (plain causal)
+    (200, 8, 2, 128, 40),
+    (300, 4, 1, 128, 100),
+    (70, 4, 4, 64, 1),
+    (96, 4, 2, 128, 96),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,h,hkv,d,window", WINDOW_BWD_CASES)
+def test_windowed_flash_bwd_kernels_match_twin(cuda, dtype, s, h, hkv, d,
+                                               window):
+    g = torch.Generator().manual_seed(12)
+    q, do = (torch.randn(2, h, s, d, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, hkv, s, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    masking = Masking(causal=True, window=window)
+    scale = d ** -0.5
+    o, lse = flash_attention_reference(q, k, v, scale=scale, masking=masking)
+    dlse = torch.randn(2, h, s, generator=g).to(cuda)
+    before = dict(_build.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, scale=scale, dlse=dlse,
+                              masking=masking)
+    for name in ("flash_bwd_dq_window", "flash_bwd_dkdv_window"):
+        assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 2
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, scale=scale,
+                                         dlse=dlse, masking=masking)
+    for a, r in zip(got, want):
+        assert a.dtype == dtype
+        _bwd_close(a, r, dtype)

@@ -83,8 +83,14 @@ def test_fused_rms_norm_module_matches_flax():
 
 
 def test_rms_norm_memory_efficient_raises():
-    with pytest.raises(NotImplementedError, match="memory_efficient"):
-        rms_norm(torch.ones(2, 8), memory_efficient=True)
+    """What ``rms_norm`` still refuses, memory_efficient or not: a weight
+    that is not one value per column (the kernels would read past it). The
+    memory_efficient backward itself is ported
+    (``tests/test_torch_norm_bwd.py``)."""
+    with pytest.raises(ValueError, match="does not fit"):
+        rms_norm(torch.ones(2, 8), torch.ones(4), memory_efficient=True)
+    with pytest.raises(ValueError, match="does not fit"):
+        rms_norm(torch.ones(2, 8), torch.ones(2, 8))
 
 
 @pytest.mark.parametrize("hn2", [16, 8])       # full and partial rotary
