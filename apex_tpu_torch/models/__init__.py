@@ -4,7 +4,8 @@ from apex_tpu_torch.models.bert import (BertConfig, BertForPreTraining,
                                         bert_pretrain_loss,
                                         bert_pretrain_loss_fn,
                                         bert_tiny_config, synthetic_batch)
-from apex_tpu_torch.models.generation import generate
+from apex_tpu_torch.models.generation import (generate,
+                                              speculative_generate)
 from apex_tpu_torch.models.gpt import (GPTConfig, GPTModel,
                                        ParallelDecoderBlock, gpt2_small_config,
                                        gpt_loss, gpt_tiny_config,
@@ -28,4 +29,5 @@ __all__ = ["BertConfig", "BertForPreTraining", "BertLayer",
            "gpt2_small_config", "gpt_loss", "gpt_tiny_config",
            "llama_loss", "llama_tiny_config", "lm_token_loss",
            "mistral_7b_config",
-           "quantize_model_params", "quantize_params_like", "synthetic_batch"]
+           "quantize_model_params", "quantize_params_like",
+           "speculative_generate", "synthetic_batch"]

@@ -6,8 +6,9 @@ slices run: the contiguous cache (``init_cache``, ``layer_cache``,
 ``cached_attention``, banded under a sliding window; the reference's
 rolling cache is not ported), the paged-cache write (``is_paged``,
 ``update_paged_layer_cache``, with the quantized pool's requantize-on-grow
-append), the greedy token and greedy lock-step ``generate`` — the
-token-identity oracle of the serving engine.
+append), the greedy token, greedy lock-step ``generate`` — the
+token-identity oracle of the serving engine — and greedy lock-step
+``speculative_generate`` with its ``rollback_cache``.
 
 Cache structure, as in the reference::
 
@@ -286,3 +287,79 @@ def generate(model, prompt_ids, max_new_tokens: int, *,
         out.append(nxt)
         tok = nxt
     return torch.cat([prompt_ids, torch.stack(out, dim=1)], dim=1)
+
+
+# --- speculative decoding ----------------------------------------------------
+
+
+def rollback_cache(cache, new_len):
+    """Rewind a cache to ``new_len`` tokens. O(1): entries past the length
+    are invisible to ``cached_attention``'s absolute-position mask and are
+    overwritten by the next chunk write, so rejection rollback is the
+    length assignment alone."""
+    return dict(cache, len=new_len)
+
+
+@torch.no_grad()
+def speculative_generate(model, draft_model, prompt_ids, max_new_tokens: int,
+                         *, k: int = 4):
+    """Greedy speculative decoding over contiguous caches: the DRAFT model
+    proposes ``k - 1`` tokens per round, the target verifies them in ONE
+    ``k``-token chunk and accepts the longest prefix matching its own
+    argmax; rejected positions roll both caches back. The output is the
+    target's greedy decode for any draft (exactly so where the ``s = k``
+    verify and the ``s = 1`` step agree numerically, as in fp32). Batched
+    rows accept the minimum match count over the batch; the round's bonus
+    token (the target's argmax after the accepted prefix) keeps every
+    round's progress >= 1 token per row. Greedy only; EOS rows are not
+    stopped early. Returns ``(batch, prompt_len + max_new_tokens)`` int32
+    ids, prompt included."""
+    cfg = model.config
+    device = model.device
+    prompt_ids = torch.as_tensor(prompt_ids, device=device).to(torch.int32)
+    b, s0 = prompt_ids.shape
+    total = s0 + int(max_new_tokens)
+    if k < 2:
+        raise ValueError("k must be >= 2 (k-1 draft proposals per round)")
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    for c in (cfg, draft_model.config):
+        # + k: the last round's verify chunk may span positions past the
+        # final token before the rollback discards them
+        if total + k > c.max_position_embeddings:
+            raise ValueError(
+                f"prompt ({s0}) + max_new_tokens ({max_new_tokens}) + "
+                f"k ({k}) speculative slack exceeds "
+                f"max_position_embeddings={c.max_position_embeddings}")
+    t_cache = init_cache(cfg, b, total + k, device=device)
+    d_cache = init_cache(draft_model.config, b, total + k, device=device)
+    logits, t_cache = model(prompt_ids, cache=t_cache)
+    _, d_cache = draft_model(prompt_ids, cache=d_cache)
+
+    produced = []
+    n_out = 0
+    next_tok = _greedy_token(logits[:, -1])
+    while n_out < max_new_tokens:
+        x_t, tok, ins = next_tok, next_tok, []
+        # k draft steps from x_t: the k-th only advances the draft cache,
+        # so a fully accepted round leaves it consistent
+        for _ in range(k):
+            ins.append(tok)
+            lg, d_cache = draft_model(tok[:, None], cache=d_cache)
+            tok = _greedy_token(lg[:, 0])
+        props = torch.stack(ins[1:], dim=1)                 # (b, k - 1)
+        chunk = torch.cat([x_t[:, None], props], dim=1)
+        lg, t_cache = model(chunk, cache=t_cache)
+        preds = _greedy_token(lg)                           # (b, k)
+        # leading matches of the proposals against the target's argmax,
+        # the minimum over rows
+        match = (props == preds[:, :-1]).to(torch.int32)
+        m = int(torch.cumprod(match, dim=1).sum(dim=1).min())
+        produced.append(torch.cat([x_t[:, None], props[:, :m]], dim=1))
+        n_out += m + 1
+        new_len = t_cache["len"] - (k - (m + 1))    # back to t + 1 + m
+        t_cache = rollback_cache(t_cache, new_len)
+        d_cache = rollback_cache(d_cache, new_len)
+        next_tok = preds[:, m]
+    gen = torch.cat(produced, dim=1)[:, :max_new_tokens]
+    return torch.cat([prompt_ids, gen], dim=1)

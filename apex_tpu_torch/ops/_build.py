@@ -17,7 +17,10 @@ are the LayerNorm kernels with their ``rms`` flag,
 (either norm), ``flash_fwd_window``, ``flash_bwd_dq_window`` and
 ``flash_bwd_dkdv_window`` the flash kernels under a sliding window,
 ``paged_attention_window`` the unquantized paged decode under one (a
-windowed call over a quantized pool counts as ``paged_attention_quant``).
+windowed call over a quantized pool counts as ``paged_attention_quant``),
+and ``paged_attention_block``, ``paged_attention_window_block`` and
+``paged_attention_quant_block`` the same three paged branches at ``s > 1``
+query positions per slot (a speculative verify, a chunked-prefill piece).
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on a non-zero code. A failed build raises too: a CUDA
@@ -81,6 +84,12 @@ KERNELS = {
                             "apex_tpu/ops/flash_attention.py:526"),
     "flash_bwd_dkdv_window": ("flash_bwd.cu",
                               "apex_tpu/ops/flash_attention.py:572"),
+    "paged_attention_block": ("paged_attention.cu",
+                              "apex_tpu/ops/paged_attention.py:65"),
+    "paged_attention_window_block": ("paged_attention.cu",
+                                     "apex_tpu/ops/paged_attention.py:65"),
+    "paged_attention_quant_block": ("paged_attention.cu",
+                                    "apex_tpu/ops/paged_attention.py:108"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`

@@ -1,24 +1,33 @@
-"""Paged-attention decode: the Hopper kernels of ``csrc/paged_attention.cu``
-and their plain PyTorch twin.
+"""Paged attention over the KV page pool: the Hopper kernels of
+``csrc/paged_attention.cu`` and their plain PyTorch twin.
 
 Counterpart of ``apex_tpu/ops/paged_attention.py`` (``_paged_kernel``,
-``paged_attention``, ``paged_attention_reference``) at ``s = 1``, with or
-without a sliding window, in both its branches: an fp32 or bf16 pool (kernel
-``paged_attention``), and a quantized pool of int8 or fp8 e4m3 pages with
-fp32 per-(page, kv head) scales ``k_scales``/``v_scales`` (kernel
-``paged_attention_quant``), where the true K of page ``p``, head ``h`` is
-``k_pages[p, h].float() * k_scales[p, h]``. The pool is ``(num_pages,
-kv_heads, page_size, head_dim)`` and is read through the int32 ``(batch,
-max_pages)`` block table; slot ``b``'s query sits at position
-``lengths[b] - 1`` and sees every position below ``lengths[b]``; under a
-``window`` ``w`` only the positions ``> lengths[b] - 1 - w`` (the
-reference's band). Entries past a slot's length must hold a valid page id
+``paged_attention``, ``paged_attention_reference``) for query blocks of
+``1 <= s <= page_size`` positions per slot (``s = 1`` is a decode step,
+``s = draft_len + 1`` a speculative verify, ``s = prefill_chunk`` a
+chunked-prefill piece), with or without a sliding window, in both its
+branches: an fp32 or bf16 pool (kernel ``paged_attention``), and a
+quantized pool of int8 or fp8 e4m3 pages with fp32 per-(page, kv head)
+scales ``k_scales``/``v_scales`` (kernel ``paged_attention_quant``), where
+the true K of page ``p``, head ``h`` is ``k_pages[p, h].float() *
+k_scales[p, h]``. The pool is ``(num_pages, kv_heads, page_size,
+head_dim)`` and is read through the int32 ``(batch, max_pages)`` block
+table. Slot ``b``'s ``s`` queries sit at positions ``lengths[b] - s + i``;
+query ``i`` sees every position up to its own and, under a ``window``
+``w``, only the positions ``> lengths[b] - s + i - w`` (the reference's
+per-query band). Entries past a slot's length must hold a valid page id
 (page 0, the pool's null page) and are never read; under a window neither
-are the entries of pages that lie wholly below the band, which the serving
-engine nulls (``kv_pool.drop_slot_pages``). A slot of length 0 outputs
-exactly 0. Decode only: it has no backward, as the reference kernel has no
-VJP, so a call under autograd on an input that requires grad raises on
-either device.
+are the entries of pages that lie wholly below the earliest query's band,
+which the serving engine nulls (``kv_pool.drop_slot_pages``). A query
+with nothing to see (a slot of length 0, or the leading queries of a slot
+shorter than ``s``) outputs exactly 0. It has no backward, as the
+reference kernel has no VJP, so a call under autograd on an input that
+requires grad raises on either device.
+
+Each ``s > 1`` branch counts its launches under a name of its own
+(``paged_attention_block``, ``paged_attention_window_block``,
+``paged_attention_quant_block``), so a run can tell verify and chunk
+launches from decode steps.
 
 A tensor on the CPU takes the twin; a CUDA tensor always takes the kernel.
 """
@@ -56,16 +65,16 @@ def _validate(q, k_pages, v_pages, block_tables, lengths, window, k_scales,
     if q.ndim != 4:
         raise ValueError(f"q must be (batch, heads, s, d), got "
                          f"{tuple(q.shape)}")
-    if q.shape[2] != 1:
-        raise NotImplementedError(
-            f"paged attention takes s=1 decode queries in this port, got "
-            f"s={q.shape[2]} (ROADMAP queue B item 7: s>1 paged attention, "
-            f"windowed or not)")
     if k_pages.shape != v_pages.shape:
         raise ValueError(f"k_pages {tuple(k_pages.shape)} != v_pages "
                          f"{tuple(v_pages.shape)}")
     _, kv, page_size, d = k_pages.shape
-    b, h, _, qd = q.shape
+    b, h, s, qd = q.shape
+    if not 1 <= s <= page_size:
+        raise ValueError(
+            f"paged attention takes query blocks of 1..page_size "
+            f"({page_size}) positions per step, got s={s}; longer "
+            f"chunks must use the contiguous prefill path")
     if qd != d:
         raise ValueError(f"head_dim mismatch: q {qd} vs pages {d}")
     if h % kv != 0:
@@ -85,11 +94,12 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths, *,
     """Plain twin: gather every table entry into a contiguous
     ``(b, kv, max_pages * page_size, d)`` view (dequantized in fp32 with the
     gathered per-page scales when given) and run dense masked GQA attention
-    with fp32 scores, banded to ``pos > qpos - window`` under a window."""
+    with fp32 scores: query ``i`` at ``qpos = lengths[b] - s + i`` sees
+    ``pos <= qpos``, banded to ``pos > qpos - window`` under a window."""
     _validate(q, k_pages, v_pages, block_tables, lengths, window, k_scales,
               v_scales)
     _, kv, page_size, d = k_pages.shape
-    b, h = q.shape[0], q.shape[1]
+    b, h, s_q = q.shape[0], q.shape[1], q.shape[2]
     rep = h // kv
     max_pages = block_tables.shape[1]
     if scale is None:
@@ -103,31 +113,33 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths, *,
         return g.transpose(1, 2).reshape(b, kv, max_pages * page_size, d)
 
     k, v = contig(k_pages, k_scales), contig(v_pages, v_scales)
-    qf = q.reshape(b, kv, rep, 1, d).float()
-    s = torch.einsum("bkrsd,bktd->bkrst", qf, k) * scale
-    pos = torch.arange(max_pages * page_size, device=q.device)[None, :]
-    qpos = lengths.long()[:, None] - 1
-    mask = pos <= qpos                                # (b, T)
+    qf = q.reshape(b, kv, rep, s_q, d).float()
+    sc = torch.einsum("bkrsd,bktd->bkrst", qf, k) * scale
+    pos = torch.arange(max_pages * page_size, device=q.device)[None, None, :]
+    # query i of the block sits at position lengths[b] - s + i
+    qpos = (lengths.long()[:, None, None] - s_q
+            + torch.arange(s_q, device=q.device)[None, :, None])
+    mask = pos <= qpos                                # (b, s, T)
     if window is not None:
         mask = mask & (pos > qpos - window)
-    mask = mask[:, None, None, None, :]
-    s = torch.where(mask, s, float("-inf"))
-    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+    mask = mask[:, None, None, :, :]
+    sc = torch.where(mask, sc, float("-inf"))
+    p = torch.where(mask, torch.softmax(sc, dim=-1), 0.0)
     ctx = torch.einsum("bkrst,bktd->bkrsd", p, v)
-    return ctx.reshape(b, h, 1, d).to(q.dtype)
+    return ctx.reshape(b, h, s_q, d).to(q.dtype)
 
 
 def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
                   window=None, k_scales=None, v_scales=None):
     """Launch ``paged_attention`` (``paged_attention_window`` under a
     window) or, with scales, ``paged_attention_quant`` (q in fp32 or bf16,
-    pages int8 or e4m3)."""
+    pages int8 or e4m3); an ``s > 1`` block counts under the branch's
+    ``_block`` name."""
     _, kv, page_size, d = k_pages.shape
-    b, h = q.shape[0], q.shape[1]
-    if d > 128 or h // kv > 16:
+    b, h, s = q.shape[0], q.shape[1], q.shape[2]
+    if d > 128:
         raise NotImplementedError(
-            f"paged kernel takes head_dim <= 128 and <= 16 query heads per "
-            f"kv head, got d={d}, rep={h // kv}")
+            f"paged kernel takes head_dim <= 128, got d={d}")
     quant = k_scales is not None
     if k_pages.dtype != v_pages.dtype or (
             not quant and q.dtype != k_pages.dtype):
@@ -141,15 +153,16 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
     if b == 0:
         return out
     P, I, F = _build.P, _build.I, _build.F
-    shape = (b, h, kv, page_size, d, bt.shape[1], float(scale),
+    shape = (b, h, kv, s, page_size, d, bt.shape[1], float(scale),
              int(window or 0))
+    block = "_block" if s > 1 else ""
     if quant:
         ks = k_scales.float().contiguous()
         vs = v_scales.float().contiguous()
         _build.check_cuda(q, ks, vs)
         _build.launch(
-            "paged_attention_quant", "apex_paged_attention_quant",
-            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, P),
+            "paged_attention_quant" + block, "apex_paged_attention_quant",
+            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P),
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             ks.data_ptr(), vs.data_ptr(), bt.data_ptr(), ln.data_ptr(),
             out.data_ptr(), *shape, _build.dtype_code(q),
@@ -157,9 +170,10 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
             _build.stream_of(q))
     else:
         _build.launch(
-            "paged_attention" if window is None else "paged_attention_window",
+            ("paged_attention" if window is None
+             else "paged_attention_window") + block,
             "apex_paged_attention",
-            (P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P),
+            (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P),
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             bt.data_ptr(), ln.data_ptr(), out.data_ptr(), *shape,
             _build.dtype_code(q), _build.stream_of(q))
@@ -170,9 +184,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     scale: Optional[float] = None,
                     window: Optional[int] = None,
                     k_scales=None, v_scales=None):
-    """Decode GQA attention over a paged KV pool (a quantized one with
-    ``k_scales``/``v_scales``). Returns ``(batch, heads, 1, head_dim)`` in
-    q's dtype."""
+    """GQA attention of ``s`` queries per slot over a paged KV pool (a
+    quantized one with ``k_scales``/``v_scales``). Returns ``(batch, heads,
+    s, head_dim)`` in q's dtype."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_pages, v_pages)):
         raise RuntimeError(

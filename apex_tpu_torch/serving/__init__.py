@@ -1,5 +1,6 @@
 """Paged-KV continuous-batching serving (greedy, single GPU), over a
-full-precision or a quantized page pool."""
+full-precision or a quantized page pool, with in-engine speculative decode
+and chunked prefill."""
 
 from apex_tpu_torch.serving.kv_pool import (alloc_slot, drop_slot_pages,
                                             free_page_count, free_slot,

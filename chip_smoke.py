@@ -14,9 +14,12 @@ weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 the same engine; GPT-2-small training steps (``GPTModel``, ``gpt_loss``,
 ``loss.backward()``, ``FusedAdam.step()``); BERT-Large pretraining
 steps (``BertForPreTraining``, ``bert_pretrain_loss_fn``,
-``loss.backward()``, ``FusedLAMB.step()``); and Mistral-7B training steps
+``loss.backward()``, ``FusedLAMB.step()``); Mistral-7B training steps
 (``LlamaModel(mistral_7b_config(num_layers=4))``, ``llama_loss``,
-``loss.backward()``, ``FusedAdam.step()``).
+``loss.backward()``, ``FusedAdam.step()``); and GPT-2-small's speculative
+decode and chunked prefill (``PagedDecodeEngine(draft_model=...,
+draft_len=3)``, ``PagedDecodeEngine(prefill_chunk=16)``,
+``speculative_generate``), which run the paged kernel's s > 1 branches.
 Phases, one JSON line each, ``t_s`` giving the seconds since the start:
 
 1. ``device``: the card, its power limit, the kernels' build time and
@@ -62,7 +65,13 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    dk/dv, at 1 x 32 x S x 128 over 8 kv heads, window 4096 at S = 4224 and
    6016 and window 256 at S = 1024, with an LSE cotangent, fp32 and bf16
    (the backward of ``scaled_dot_product_attention`` with the band as a
-   boolean mask), bound by operations over the band's visible pairs.
+   boolean mask), bound by operations over the band's visible pairs. The
+   s > 1 rows (``check_paged_block``, by ``queued_ms``): the paged kernel's
+   query blocks at GPT-2-small's pool (8 slots, 12 heads, d = 64, page 16,
+   lengths 0..1024) at s = 4 and 16, fp32 and bf16, over the fp pool and
+   over int8 and fp8 pools, and windowed at Mistral-7B's shapes at s = 16,
+   each held within ``RMS_ATOL`` of its twin's RMS; the rows before a short
+   slot's start must be exactly 0.
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
@@ -76,6 +85,20 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    gated); after one admission into each quantized pool, its pages,
    dequantized, within the bound of each value's quantization step of the
    contiguous prefill K/V. Each run must have launched its kernels.
+   ``spec_fp32``: the workload through two speculative engines,
+   ``draft_len = 3``: the self-draft (mean acceptance above 1) and an
+   unrelated 2-layer draft of GPT-2-small's width (seed 2), each
+   token-identical to ``engine_fp32``'s outputs request for request (else
+   the first diverging position and its fp64 logit margin are printed and
+   the phase fails), its ``paged_attention_block`` launches its verify
+   rounds x 12 layers, both pools drained, and none of the s > 1 branches
+   launched by ``engine_fp32``; then lock-step ``speculative_generate``
+   (k = 4, the unrelated draft) on two prompts against the same outputs.
+   ``chunked_fp32``: the reference bench's chunked-prefill A/B
+   (``tpu_decode_bench.py:814-826``: numpy seed 4, one 512-token prompt and
+   24 of 24 tokens, 32 new tokens each) through monolithic and chunked
+   admission (``prefill_chunk = 16``), token-identical, the chunk path
+   engaged, and its ``paged_attention_block`` launches the pieces x 12.
 4. ``engine_bf16``: the same workload in bf16, a warm run then two timed
    runs: generated tokens per second, and (first timed run) host and
    synchronized ms per decode step. ``engine_quant_bf16``: the same for
@@ -83,6 +106,14 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    int8 pool), with launches per kernel, block-linear weight bytes per
    decode step against bf16, a page's bytes against a bf16 page, and the
    slots a fixed pool budget admits.
+   ``spec_bf16``: the self-draft engine over the workload in bf16, a warm
+   and a timed run: tokens/s beside ``engine_bf16``'s, verify rounds, mean
+   acceptance, host and synchronized ms per round, and the share of
+   requests whose tokens match ``engine_bf16``'s (recorded, not a bar:
+   bf16 near-ties). ``chunked_bf16``: the chunked-prefill A/B in bf16,
+   monolithic, chunked and chunked over an int8 pool, each a warm and a
+   timed run: tokens/s, the TTFT p50 and p95 of the 24 short requests
+   (and of all), the share of matching requests, the s > 1 launches.
    ``mistral_fp32`` (the bar): Mistral-7B at full width,
    ``MISTRAL_FP32_LAYERS`` deep, fp32 parameters and pool, window 4096;
    two long requests (prompts of 5,000 and 6,000 tokens, budgets of 64:
@@ -140,7 +171,9 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    phases', launches per step asserted (RMSNorm forward and backward 2L +
    1, the three windowed flash kernels L, Adam 1, the unwindowed kernels
    0), and a falling finite loss.
-10. ``engine_bf16_profile``, ``engine_quant_bf16_profile``,
+10. ``engine_bf16_profile``, ``spec_bf16_round_profile`` (one
+   speculative round, not a run, traced with the host's ops),
+   ``engine_quant_bf16_profile``,
    ``mistral_bf16_profile``, ``kernel_device_ms``, ``train_bf16_profile``
    ``bert_bf16_profile`` and ``mistral_train_bf16_profile``: one more bf16
    engine run (and one of each
@@ -158,8 +191,11 @@ timed engine run, the quantized serving kernels with those of the timed
 the timed ``mistral_bf16`` run, GPT training kernels with those of its
 timed run, the BERT kernels with those of the timed BERT run, the Mistral
 training branches with those of its timed run (the ``memory_efficient``
-branch with those of its run in ``mistral_train_fp32``); every path's
-count beside it) and, last, ``{"ok": true, "device": ...}``.
+branch with those of its run in ``mistral_train_fp32``), the s > 1 paged
+branches with those of the timed ``spec_bf16`` run (the s = 16 row beside,
+with the chunked run's) and of the timed int8-pool chunked run; the
+windowed block has no engine path, as the reference refuses both modes
+for windowed models, and reads 0; every path's count beside it) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises, so the run exits non-zero without the last line. With
 no CUDA device, or without the ``apex_tpu_torch`` package beside it, it
 exits non-zero at once. Imports nothing of JAX.
@@ -274,8 +310,28 @@ FLASH_BWD_WINDOW_CASES = ((4224, MISTRAL_WINDOW), (6016, MISTRAL_WINDOW),
 MISTRAL_TRAIN_FP32 = dict(layers=2, window=128, batch=1, seq=512)
 MISTRAL_TRAIN_WARM, MISTRAL_TRAIN_TIMED = 2, 3
 
+# the s > 1 query blocks: the verify of draft_len = 3 proposals (s = 4) and
+# a chunk of one page (s = 16); the spec phases' unrelated draft (GPT-2-small
+# width, 2 layers, its own seed); the reference bench's chunked-prefill A/B
+# (tpu_decode_bench.py:814-826: one 512-token prompt and 3 x 8 prompts of
+# 24 tokens, 32 new tokens each, numpy seed 4, prefill_chunk = page_size);
+# the spec round the round profile catches
+SPEC_DRAFT_LEN, BLOCK_S = 3, (4, 16)
+SPEC_DRAFT_LAYERS, SPEC_DRAFT_SEED = 2, SEED + 1
+CHUNK_SEED, CHUNK_LONG, CHUNK_SHORT, CHUNK_NEW = 4, 512, 24, 32
+CHUNK_N_SHORT = 3 * NUM_SLOTS
+PROFILE_ROUND = 10
+
 #: the kernels of the serving path and of the two training paths
 SERVING_KERNELS = ("layer_norm_fwd", "flash_fwd", "paged_attention")
+#: the kernels of the speculative and chunked-prefill paths, and the s > 1
+#: branches of the paged kernel
+SPEC_KERNELS = SERVING_KERNELS + ("paged_attention_block",)
+CHUNK_KERNELS = ("layer_norm_fwd", "paged_attention", "paged_attention_block")
+CHUNK_KV8_KERNELS = ("layer_norm_fwd", "paged_attention_quant",
+                     "paged_attention_quant_block")
+BLOCK_KERNELS = ("paged_attention_block", "paged_attention_window_block",
+                 "paged_attention_quant_block")
 #: the kernel branches of the windowed Mistral serving path
 MISTRAL_KERNELS = ("rms_norm_fwd", "flash_fwd_window",
                    "paged_attention_window")
@@ -328,7 +384,10 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "rms_norm_bwd": "layer_norm_bwd_dx_kernel",
                   "layer_norm_bwd_from_y": "layer_norm_bwd_dx_kernel",
                   "flash_bwd_dq_window": "flash_bwd_dq_kernel",
-                  "flash_bwd_dkdv_window": "flash_bwd_dkdv_kernel"}
+                  "flash_bwd_dkdv_window": "flash_bwd_dkdv_kernel",
+                  "paged_attention_block": "paged_decode_kernel",
+                  "paged_attention_window_block": "paged_decode_kernel",
+                  "paged_attention_quant_block": "paged_decode_quant_kernel"}
 
 
 def ptxas_registers() -> dict:
@@ -1458,6 +1517,110 @@ def check_paged_window(gen, dev):
     return out
 
 
+def check_paged_block(gen, dev):
+    """The s > 1 query blocks of the paged kernel against the twin, all by
+    ``queued_ms``: GPT-2-small's decode pool (8 slots, 12 heads, d = 64,
+    page 16, lengths up to 1024) at s = 4 (a ``draft_len = 3`` verify) and
+    s = 16 (a chunk), fp32 and bf16, over the fp pool and over int8 and fp8
+    pools; the windowed branch at Mistral-7B's shapes (32 heads over 8 kv
+    heads, d = 128, window 4096, lengths up to 6100, the entries below each
+    slot's earliest query's band nulled) at s = 16: 64 rows per kv head,
+    four row groups. Every row's atol is cut to ``RMS_ATOL`` of the twin's
+    RMS, so a missed page shows in bf16 too. A slot shorter than s must
+    output exactly 0 on its leading rows. Bound: the bytes of the positions
+    the blocks read, q, out, the tables (and a quantized pool's scales);
+    FLOPs 4 h d over every (query, visible position) pair."""
+    import torch
+
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    quant = importlib.import_module("apex_tpu_torch.ops.quant")
+
+    out = []
+    slots, ps = NUM_SLOTS, PAGE_SIZE
+
+    def row(name, q, kp, vp, bt, lengths, page_elt, window=None,
+            scales=None, **extra):
+        b, h, s, d = q.shape
+        kv, maxp = kp.shape[1], bt.shape[1]
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = {} if window is None else dict(window=window)
+        if scales is not None:
+            kw.update(k_scales=scales[0], v_scales=scales[1])
+        o = pa.paged_attention(q, kp, vp, bt, ln, **kw)
+        torch.cuda.synchronize()
+        dn = str(q.dtype).split(".")[1]
+        want = pa.paged_attention_reference(q, kp, vp, bt, ln, **kw)
+        err = compare(name, o, want, dn, rms_atol=True)
+        for i, n in enumerate(lengths):
+            if n < s and (o[i, :, :s - n] != 0).any():
+                raise AssertionError(f"{name}: the rows before slot {i}'s "
+                                     f"start must output exactly 0")
+        w = window or 1 << 40
+        pairs = sum(max(0, min(n - s + i + 1, w)) for n in lengths
+                    for i in range(s))
+        floors = [max(n - s - w + 1, 0) for n in lengths]
+        read = sum(n - f for n, f in zip(lengths, floors))
+        pages = sum(-(-n // ps) - f // ps for n, f in zip(lengths, floors))
+        nbytes = (2 * read * kv * d * page_elt + 2 * q.numel()
+                  * q.element_size() + bt.numel() * 4 + b * 4)
+        if scales is not None:
+            nbytes += 2 * pages * kv * 4
+        bms, by = bound_ms(nbytes, 4 * h * d * pairs, dn)
+        kernel = partial(pa.paged_attention, q, kp, vp, bt, ln, **kw)
+        return (dict(
+            name=name, dtype=dn, shape=[b, h, s, ps, d, maxp], s=s,
+            kv_heads=kv, window=window, lengths=list(lengths),
+            path="spec_chunked", max_abs_err=err, out_rms=rms_of(want),
+            ms=queued_ms(kernel),
+            plain_ms=queued_ms(partial(pa.paged_attention_reference, q, kp,
+                                       vp, bt, ln, **kw)),
+            library_ms=None, library="none: no single PyTorch call",
+            bound_ms=bms, bound_by=by, **extra), kernel)
+
+    # GPT-2-small's decode pool
+    h, d, maxp = 12, 64, 64
+    lengths = [0, 1, 16, 17, 100, 255, 1000, maxp * ps]
+    num_pages = 1 + slots * maxp
+    perm = torch.randperm(num_pages - 1, generator=gen) + 1
+    bt = torch.zeros(slots, maxp, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        bt[i, :-(-n // ps)] = perm[i * maxp:i * maxp - (-n // ps)]
+    bt = bt.to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        kp, vp = (torch.randn(num_pages, h, ps, d, generator=gen)
+                  .to(dev, dtype) for _ in range(2))
+        for s in BLOCK_S:
+            q = torch.randn(slots, h, s, d, generator=gen).to(dev, dtype)
+            out.append(row("paged_attention_block", q, kp, vp, bt, lengths,
+                           kp.element_size()))
+    for kv_name in ("int8", "fp8"):
+        qdt, qmax = quant.resolve_kv_dtype(kv_name)
+        pools = [quant.kv_quantize(
+            torch.randn(num_pages, h, ps, d, generator=gen).to(dev) * 2, qdt,
+            qmax, axes=(2, 3)) for _ in range(2)]
+        (kp, ks), (vp, vs) = ((p, sc[:, :, 0, 0].contiguous())
+                              for p, sc in pools)
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in BLOCK_S:
+                q = torch.randn(slots, h, s, d, generator=gen).to(dev, dtype)
+                out.append(row("paged_attention_quant_block", q, kp, vp, bt,
+                               lengths, 1, scales=(ks, vs), kind=kv_name))
+    # Mistral-7B's windowed pool: the entries below each slot's earliest
+    # query's floor, lengths - s - window + 1, nulled
+    s, w = BLOCK_S[1], MISTRAL_WINDOW
+    lengths = list(PAGED_WINDOW_LENGTHS)
+    bt, maxp, num_pages = windowed_tables(gen, dev, lengths, ps, w + s - 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        kp, vp = (torch.randn(num_pages, MISTRAL_KV_HEADS, ps,
+                              MISTRAL_HEAD_DIM, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+        q = torch.randn(slots, MISTRAL_HEADS, s, MISTRAL_HEAD_DIM,
+                        generator=gen).to(dev, dtype)
+        out.append(row("paged_attention_window_block", q, kp, vp, bt,
+                       lengths, kp.element_size(), window=w))
+    return out
+
+
 def check_norm_bwd_mistral(gen, dev):
     """The backward kernel's new branches at Mistral-7B's width 4096, eps
     1e-5: the RMS branch (saved x) over a training step's 8192 rows and a
@@ -1640,14 +1803,16 @@ def lockstep_steps(new_tokens, fifo: bool = False):
 
 
 def time_engine_steps(engine, into: dict) -> None:
-    """Wrap ``engine``'s admission and decode chunk to add their seconds to
-    ``into``: ``admit_s`` (an admission ends in a read of its first token),
+    """Wrap ``engine``'s admission and decode chunk (its speculative round
+    chunk, for a speculative engine) to add their seconds to ``into``:
+    ``admit_s`` (an admission ends in a read of its first token),
     ``chunk_host_s`` (the host issuing a chunk's steps, up to its return)
     and ``chunk_s`` (the same chunk through a synchronize, which the
     engine's own read of the chunk's tokens would wait for next)."""
     import torch
 
-    admit, chunk = engine._admit, engine._decode_chunk
+    name = "_spec_chunk" if engine.draft_len else "_decode_chunk"
+    admit, chunk = engine._admit, getattr(engine, name)
     into.update(admit_s=0.0, admissions=0, chunk_host_s=0.0, chunk_s=0.0)
 
     def timed_admit(*args):
@@ -1666,15 +1831,18 @@ def time_engine_steps(engine, into: dict) -> None:
         into["chunk_s"] += time.perf_counter() - t0
         return out
 
-    engine._admit, engine._decode_chunk = timed_admit, timed_chunk
+    engine._admit = timed_admit
+    setattr(engine, name, timed_chunk)
 
 
-def run_engine(model, prompts, new_tokens, kernels=SERVING_KERNELS,
-               kv_dtype=None, step_times=None, **engine_kw):
+def drive_engine(model, prompts, new_tokens, kernels=SERVING_KERNELS,
+                 kv_dtype=None, step_times=None, **engine_kw):
     """One engine run over the workload, the launch counts set to 0 just
     before it and read just after; it fails if a kernel of ``kernels`` was
-    not launched or the pool leaked. ``engine_kw`` sizes the pool;
-    ``step_times``, a dict, receives ``time_engine_steps``' sums."""
+    not launched or a pool (the draft pool too) leaked. ``engine_kw`` sizes
+    the pool or sets the engine's mode; ``step_times``, a dict, receives
+    ``time_engine_steps``' sums. Returns ``(engine, outputs, stats,
+    seconds, launches)``."""
     import torch
 
     from apex_tpu_torch.ops import _build
@@ -1696,11 +1864,15 @@ def run_engine(model, prompts, new_tokens, kernels=SERVING_KERNELS,
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"the engine run launched no {missing} kernel")
-    free = engine.cache["free_top"]
-    usable = engine.cache["layers"][0]["k_pages"].shape[0] - 1
-    if free != usable:
-        raise AssertionError(f"pool leaked: {free} free of {usable} pages")
-    return outs, stats, elapsed, launches
+    for pool in (engine.cache, engine.draft_cache):
+        if pool is None:
+            continue
+        free = pool["free_top"]
+        usable = pool["layers"][0]["k_pages"].shape[0] - 1
+        if free != usable:
+            raise AssertionError(f"pool leaked: {free} free of {usable} "
+                                 f"pages")
+    return engine, outs, stats, elapsed, launches
 
 
 def build_model(dtype):
@@ -1820,8 +1992,8 @@ def engine_quant_fp32(model, prompts, new_tokens, fp_outs):
     results = {}
     for label, kind in (("w8", "int8"), ("w4", "int4")):
         qmodel = build_quant_model(model, kind)
-        outs, stats, elapsed, launches = run_engine(
-            qmodel, prompts, new_tokens, kernels=quant_kernels(kind))
+        outs, stats, elapsed, launches = drive_engine(
+            qmodel, prompts, new_tokens, kernels=quant_kernels(kind))[1:]
         for i, (p, n, o) in enumerate(zip(prompts, new_tokens, outs)):
             ref = generate(qmodel, torch.from_numpy(p)[None].to(DEV), n)
             ref = ref[0, p.shape[0]:].cpu().numpy()
@@ -1834,9 +2006,9 @@ def engine_quant_fp32(model, prompts, new_tokens, fp_outs):
         del qmodel
     for label, kv_dtype in (("kv8", "int8"), ("kv_fp8", "fp8")):
         bound = pool_error(model, prompts[0], new_tokens[0], kv_dtype)
-        outs, stats, elapsed, launches = run_engine(
+        outs, stats, elapsed, launches = drive_engine(
             model, prompts, new_tokens, kernels=quant_kernels(None, kv_dtype),
-            kv_dtype=kv_dtype)
+            kv_dtype=kv_dtype)[1:]
         firsts = [int(o[0]) == int(r[0]) for o, r in zip(outs, fp_outs)]
         if not all(firsts):
             bad = [i for i, f in enumerate(firsts) if not f]
@@ -1868,10 +2040,10 @@ def engine_quant_bf16(model, prompts, new_tokens, smi):
     runs, results = {}, {}
     for label, kind in (("w8_kv8", "int8"), ("w4_kv8", "int4")):
         qmodel = build_quant_model(model, kind)
-        run = partial(run_engine, qmodel, prompts, new_tokens,
+        run = partial(drive_engine, qmodel, prompts, new_tokens,
                       kernels=quant_kernels(kind, "int8"), kv_dtype="int8")
         run()                                                # warm
-        timed = [run() for _ in range(2)]
+        timed = [run()[1:] for _ in range(2)]
         _, stats, elapsed, launches = timed[0]
         wbytes = block_linear_bytes(qmodel)
         results[label] = dict(
@@ -1920,6 +2092,276 @@ def profile_quant(runs) -> None:
                           top_device=[dict(name=k[:120], ms=t, count=c)
                                       for k, (t, c) in top])
     emit("engine_quant_bf16_profile", runs=out)
+
+
+# --- the speculative-decode and chunked-prefill phases ----------------------
+
+
+def block_launches(launches) -> dict:
+    return {k: launches[k] for k in BLOCK_KERNELS}
+
+
+def fp64_divergence(model, prompt, got, want) -> dict:
+    """Where ``got`` first leaves ``want`` (the reference tokens), with the
+    fp64 logits there: the final norm's fp32 output at the last position
+    of a no-cache forward of the prompt and the reference tokens before,
+    times the tied embedding in fp64; the two tokens' logits and the fp64
+    top-2 margin."""
+    import numpy as np
+    import torch
+
+    n = min(len(got), len(want))
+    step = next((i for i in range(n) if got[i] != want[i]), n)
+    ids = torch.from_numpy(np.concatenate([prompt, want[:step]]))[None]
+    hidden = {}
+    hook = model.final_norm.register_forward_hook(
+        lambda _m, _a, o: hidden.update(x=o))
+    try:
+        with torch.no_grad():
+            model(ids.to(DEV))
+    finally:
+        hook.remove()
+    logits = (hidden["x"][0, -1].double()
+              @ model.word_embeddings.weight.double().T)
+    top = logits.topk(2).values
+    out = dict(step=int(step), lengths=[len(got), len(want)],
+               fp64_top2_margin=(top[0] - top[1]).item())
+    for label, toks in (("got", got), ("want", want)):
+        if step < len(toks):
+            out[f"{label}_token"] = int(toks[step])
+            out[f"{label}_fp64_logit"] = logits[int(toks[step])].item()
+    return out
+
+
+def diverged_requests(model, prompts, outs, want) -> dict:
+    return {i: fp64_divergence(model, p, o, r)
+            for i, (p, o, r) in enumerate(zip(prompts, outs, want))
+            if o.shape != r.shape or (o != r).any()}
+
+
+def build_draft(dtype):
+    """The unrelated draft: GPT-2-small's width, ``SPEC_DRAFT_LAYERS``
+    layers, weights from its own seed."""
+    import torch
+
+    from apex_tpu_torch.models import GPTModel, gpt2_small_config
+
+    return GPTModel(gpt2_small_config(dtype=dtype,
+                                      num_layers=SPEC_DRAFT_LAYERS),
+                    device=DEV, generator=torch.Generator().manual_seed(
+                        SPEC_DRAFT_SEED)).eval()
+
+
+def chunked_workload(vocab: int):
+    """The reference bench's chunked-prefill A/B at full size
+    (tpu_decode_bench.py:814-826): one long prompt, then the short ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(CHUNK_SEED)
+    prompts = [rng.integers(0, vocab, CHUNK_LONG).astype(np.int32)]
+    prompts += [rng.integers(0, vocab, CHUNK_SHORT).astype(np.int32)
+                for _ in range(CHUNK_N_SHORT)]
+    return prompts, [CHUNK_NEW] * len(prompts)
+
+
+def spec_fp32(model, prompts, new_tokens, fp_outs, fp_launches):
+    """Two speculative engines over ``engine_fp32``'s workload, each
+    token-identical to its outputs request for request: the self-draft at
+    ``draft_len = 3`` (as the reference bench; mean acceptance must exceed
+    1) and the unrelated 2-layer draft (rejections and rollbacks). Each
+    run's ``paged_attention_block`` launches must be its verify rounds x
+    layers, and ``engine_fp32`` must have launched no s > 1 branch. Then
+    lock-step ``speculative_generate`` (k = 4, the unrelated draft) on two
+    prompts against the same outputs."""
+    import torch
+
+    from apex_tpu_torch.models import speculative_generate
+
+    if any(block_launches(fp_launches).values()):
+        raise AssertionError(f"engine_fp32 launched an s > 1 branch: "
+                             f"{block_launches(fp_launches)}")
+    draft = build_draft(torch.float32)
+    layers = model.config.num_layers
+    runs, diverged = {}, {}
+    for label, dm in (("self_draft", model), ("unrelated_draft", draft)):
+        _, outs, stats, elapsed, launches = drive_engine(
+            model, prompts, new_tokens, kernels=SPEC_KERNELS, draft_model=dm,
+            draft_len=SPEC_DRAFT_LEN)
+        diverged[label] = diverged_requests(model, prompts, outs, fp_outs)
+        rounds = stats["decode_steps"]               # one verify a round
+        if launches["paged_attention_block"] != rounds * layers:
+            raise AssertionError(
+                f"spec_fp32 {label}: {launches['paged_attention_block']} "
+                f"s > 1 launches for {rounds} verify rounds x {layers}")
+        runs[label] = dict(draft_layers=dm.config.num_layers,
+                           token_identical=not diverged[label],
+                           diverged=diverged[label], verify_rounds=rounds,
+                           launches=launches, seconds=elapsed, **stats)
+    if runs["self_draft"]["mean_acceptance_len"] <= 1.0:
+        raise AssertionError("spec_fp32: the self-draft's mean acceptance "
+                             "is not above 1")
+    lockstep = {}
+    for i in range(2):
+        p = torch.from_numpy(prompts[i])[None].to(DEV)
+        got = speculative_generate(model, draft, p, new_tokens[i], k=4)
+        got = got[0, prompts[i].shape[0]:].cpu().numpy()
+        lockstep[i] = bool((got == fp_outs[i]).all())
+        if not lockstep[i]:
+            diverged[f"speculative_generate_{i}"] = fp64_divergence(
+                model, prompts[i], got, fp_outs[i])
+    emit("spec_fp32", requests=len(prompts), num_slots=NUM_SLOTS,
+         page_size=PAGE_SIZE, layers=layers, draft_len=SPEC_DRAFT_LEN,
+         runs=runs, speculative_generate_identical=lockstep,
+         engine_fp32_block_launches=block_launches(fp_launches))
+    if any(diverged.values()):
+        raise AssertionError(f"spec_fp32: tokens differ from engine_fp32's: "
+                             f"{diverged}")
+
+
+def chunked_fp32(model):
+    """The chunked-prefill A/B workload through monolithic and chunked
+    admission (``prefill_chunk = page_size``), fp32: token-identical request
+    for request; the chunk path engaged (a chunked admission, more pieces
+    than admissions) and its ``paged_attention_block`` launches are the
+    pieces x layers."""
+    prompts, new_tokens = chunked_workload(model.config.vocab_size)
+    _, mono, mono_stats, mono_s, _ = drive_engine(model, prompts, new_tokens)
+    _, outs, stats, elapsed, launches = drive_engine(
+        model, prompts, new_tokens, kernels=CHUNK_KERNELS,
+        prefill_chunk=PAGE_SIZE)
+    diverged = diverged_requests(model, prompts, outs, mono)
+    emit("chunked_fp32", requests=len(prompts), num_slots=NUM_SLOTS,
+         page_size=PAGE_SIZE, prefill_chunk=PAGE_SIZE,
+         layers=model.config.num_layers, long_prompt=CHUNK_LONG,
+         short_prompt=CHUNK_SHORT, token_identical=not diverged,
+         diverged=diverged, launches=launches, seconds=elapsed,
+         monolithic_seconds=mono_s,
+         monolithic_decode_steps=mono_stats["decode_steps"], **stats)
+    if diverged:
+        raise AssertionError(f"chunked_fp32: chunked tokens differ from "
+                             f"monolithic admission's: {diverged}")
+    if not stats["prefill_chunks"] > stats["chunked_prefills"] >= 1:
+        raise AssertionError(f"chunked_fp32: the chunk path did not engage "
+                             f"({stats['chunked_prefills']} chunked "
+                             f"admissions, {stats['prefill_chunks']} pieces)")
+    want = stats["prefill_chunks"] * model.config.num_layers
+    if launches["paged_attention_block"] != want:
+        raise AssertionError(f"chunked_fp32: {launches} s > 1 launches for "
+                             f"{stats['prefill_chunks']} pieces")
+
+
+def same_share(outs, want) -> float:
+    return sum(bool((o.shape == r.shape) and (o == r).all())
+               for o, r in zip(outs, want)) / len(want)
+
+
+def spec_bf16(model, prompts, new_tokens, bf16_run, smi):
+    """The self-draft speculative engine (``draft_len = 3``) over the bf16
+    workload, a warm run then a timed one: tokens/s beside ``engine_bf16``'s,
+    verify rounds, acceptance, host and synchronized ms per round, and the
+    share of requests whose tokens match ``engine_bf16``'s (recorded, not a
+    bar: bf16 near-ties). Returns the timed run's launches."""
+    outs_ref, stats_ref, elapsed_ref = bf16_run
+    kw = dict(kernels=SPEC_KERNELS, draft_model=model,
+              draft_len=SPEC_DRAFT_LEN)
+    drive_engine(model, prompts, new_tokens, **kw)               # warm
+    steps = {}
+    _, outs, stats, elapsed, launches = drive_engine(
+        model, prompts, new_tokens, step_times=steps, **kw)
+    rounds = stats["decode_steps"]
+    emit("spec_bf16", requests=len(prompts), num_slots=NUM_SLOTS,
+         page_size=PAGE_SIZE, draft_len=SPEC_DRAFT_LEN, self_draft=True,
+         tokens_per_s=stats["generated_tokens"] / elapsed, seconds=elapsed,
+         engine_bf16_tokens_per_s=stats_ref["generated_tokens"] / elapsed_ref,
+         engine_bf16_decode_steps=stats_ref["decode_steps"],
+         host_ms_per_round=steps["chunk_host_s"] / rounds * 1e3,
+         synced_ms_per_round=steps["chunk_s"] / rounds * 1e3,
+         same_tokens_as_engine_bf16=same_share(outs, outs_ref),
+         launches=launches, nvidia_smi=smi, card_after=card_state(),
+         **stats)
+    return launches
+
+
+def chunked_bf16(model, smi):
+    """The chunked-prefill A/B in bf16: monolithic and chunked admission,
+    each a warm run then a timed one (tokens/s, decode steps, the TTFT p50
+    and p95 of the 24 short requests and of all), the share of requests
+    whose tokens match, and the same chunked run over an int8 pool (its
+    pieces through ``paged_attention_quant_block``). Returns the timed
+    chunked runs' launches, fp and int8 pool."""
+    import numpy as np
+
+    prompts, new_tokens = chunked_workload(model.config.vocab_size)
+    layers = model.config.num_layers
+    runs, outs, launches = {}, {}, {}
+    for label, kw in (("monolithic", {}),
+                      ("chunked", dict(kernels=CHUNK_KERNELS,
+                                       prefill_chunk=PAGE_SIZE)),
+                      ("chunked_kv8", dict(kernels=CHUNK_KV8_KERNELS,
+                                           prefill_chunk=PAGE_SIZE,
+                                           kv_dtype="int8"))):
+        drive_engine(model, prompts, new_tokens, **kw)           # warm
+        engine, outs[label], stats, elapsed, launches[label] = drive_engine(
+            model, prompts, new_tokens, **kw)
+        short = engine.ttft_ms[1:]
+        runs[label] = dict(
+            tokens_per_s=stats["generated_tokens"] / elapsed,
+            seconds=elapsed,
+            short_ttft_ms_p50=float(np.percentile(short, 50)),
+            short_ttft_ms_p95=float(np.percentile(short, 95)),
+            long_ttft_ms=engine.ttft_ms[0],
+            block_launches=block_launches(launches[label]), **stats)
+        if "prefill_chunk" in kw:
+            name = ("paged_attention_quant_block" if "kv_dtype" in kw
+                    else "paged_attention_block")
+            if launches[label][name] != stats["prefill_chunks"] * layers:
+                raise AssertionError(f"chunked_bf16 {label}: "
+                                     f"{launches[label][name]} {name} "
+                                     f"launches for "
+                                     f"{stats['prefill_chunks']} pieces")
+    emit("chunked_bf16", requests=len(prompts), num_slots=NUM_SLOTS,
+         page_size=PAGE_SIZE, prefill_chunk=PAGE_SIZE, long_prompt=CHUNK_LONG,
+         short_prompt=CHUNK_SHORT, runs=runs,
+         same_tokens_chunked_vs_monolithic=same_share(outs["chunked"],
+                                                      outs["monolithic"]),
+         same_tokens_kv8_vs_monolithic=same_share(outs["chunked_kv8"],
+                                                  outs["monolithic"]),
+         nvidia_smi=smi, card_after=card_state())
+    return launches["chunked"], launches["chunked_kv8"]
+
+
+def profile_spec_round(model, prompts, new_tokens) -> None:
+    """One speculative round, not a whole run, under the profiler: the
+    self-draft engine over the first 8 requests, round ``PROFILE_ROUND``
+    (every slot busy) traced with the host's ops; its wall ms, device busy
+    and idle share and the top device items."""
+    from apex_tpu_torch.serving import PagedDecodeEngine, Request
+
+    engine = PagedDecodeEngine(model, num_slots=NUM_SLOTS,
+                               page_size=PAGE_SIZE, draft_model=model,
+                               draft_len=SPEC_DRAFT_LEN)
+    spec_round, calls, traced = engine._spec_chunk, [0], {}
+
+    def one_round(*args):
+        calls[0] += 1
+        if calls[0] != PROFILE_ROUND:
+            return spec_round(*args)
+        result = []
+        traced["wall"], traced["acts"] = device_profile(
+            lambda: result.append(spec_round(*args)))
+        return result[0]
+
+    engine._spec_chunk = one_round
+    engine.run([Request(p, n) for p, n in zip(prompts[:NUM_SLOTS],
+                                              new_tokens[:NUM_SLOTS])])
+    wall, acts = traced["wall"], traced["acts"]
+    busy = sum(t for t, _ in acts.values())
+    top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:15]
+    emit("spec_bf16_round_profile", round=PROFILE_ROUND,
+         draft_len=SPEC_DRAFT_LEN, wall_ms=wall * 1e3, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / 1e3 / wall,
+         top_device=[dict(name=k[:120], ms=t, count=c)
+                     for k, (t, c) in top])
 
 
 # --- the Mistral-7B serving phases -----------------------------------------
@@ -1973,7 +2415,7 @@ def mistral_facts(model) -> dict:
 def check_mistral_run(stats, launches, phase: str) -> None:
     """The windowed path's bars on one engine run: pages dropped below the
     band, and only the windowed branches of the attention kernels and the
-    RMS branch of the norm launched (``run_engine`` has held the pool)."""
+    RMS branch of the norm launched (``drive_engine`` has held the pool)."""
     if stats["window_dropped_pages"] <= 0:
         raise AssertionError(f"{phase}: no page was dropped below the band")
     stray = {k: launches[k] for k in ("layer_norm_fwd", "flash_fwd",
@@ -2016,8 +2458,9 @@ def mistral_fp32() -> None:
     live = phase_memory_start()
     model = build_mistral(torch.float32, MISTRAL_FP32_LAYERS)
     prompts, new_tokens = mistral_workload(MISTRAL_SHORT_FP32)
-    outs, stats, elapsed, launches = run_engine(
-        model, prompts, new_tokens, kernels=MISTRAL_KERNELS, **MISTRAL_POOL)
+    outs, stats, elapsed, launches = drive_engine(
+        model, prompts, new_tokens, kernels=MISTRAL_KERNELS,
+        **MISTRAL_POOL)[1:]
     check_mistral_run(stats, launches, "mistral_fp32")
     diverged = {}
     for i, (p, n, o) in enumerate(zip(prompts, new_tokens, outs)):
@@ -2050,13 +2493,13 @@ def mistral_bf16(smi):
     live = phase_memory_start()
     model = build_mistral(torch.bfloat16)
     prompts, new_tokens = mistral_workload(N_REQUESTS)
-    run = partial(run_engine, model, prompts, new_tokens,
+    run = partial(drive_engine, model, prompts, new_tokens,
                   kernels=MISTRAL_KERNELS, **MISTRAL_POOL)
-    run_engine(model, prompts[:NUM_SLOTS],
+    drive_engine(model, prompts[:NUM_SLOTS],
                [min(n, 16) for n in new_tokens[:NUM_SLOTS]],
                kernels=MISTRAL_KERNELS, **MISTRAL_POOL)          # warm
     steps = {}
-    outs, stats, elapsed, launches = run(step_times=steps)
+    outs, stats, elapsed, launches = run(step_times=steps)[1:]
     check_mistral_run(stats, launches, "mistral_bf16")
     n_steps = stats["decode_steps"]
     emit("mistral_bf16", requests=len(prompts),
@@ -2701,7 +3144,8 @@ def main() -> int:
               + check_paged_quant(gen, DEV) + check_rms_norm(gen, DEV)
               + check_flash_window(gen, DEV) + check_paged_window(gen, DEV)
               + check_norm_bwd_mistral(gen, DEV)
-              + check_flash_bwd_window(gen, DEV))
+              + check_flash_bwd_window(gen, DEV)
+              + check_paged_block(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, rms_atol=RMS_ATOL,
          card_before=card_before,
@@ -2711,7 +3155,8 @@ def main() -> int:
     from apex_tpu_torch.models import generate
 
     model = build_model(torch.float32)
-    outs, stats, elapsed, launches32 = run_engine(model, prompts, new_tokens)
+    outs, stats, elapsed, launches32 = drive_engine(model, prompts,
+                                                    new_tokens)[1:]
     for i, (p, n, o) in enumerate(zip(prompts, new_tokens, outs)):
         ref = generate(model, torch.from_numpy(p)[None].to(DEV), n)
         ref = ref[0, p.shape[0]:].cpu().numpy()
@@ -2723,13 +3168,15 @@ def main() -> int:
          token_identical=True, launches=launches32, **stats,
          seconds=elapsed)
     engine_quant_fp32(model, prompts, new_tokens, outs)
+    spec_fp32(model, prompts, new_tokens, outs, launches32)
+    chunked_fp32(model)
     del model
     torch.cuda.empty_cache()
 
     model = build_model(torch.bfloat16)
-    run_engine(model, prompts, new_tokens)                 # warm
+    drive_engine(model, prompts, new_tokens)               # warm
     steps = {}
-    timed = [run_engine(model, prompts, new_tokens, step_times=st)
+    timed = [drive_engine(model, prompts, new_tokens, step_times=st)[1:]
              for st in (steps, None)]
     _, stats, elapsed, launches = timed[0]
     emit("engine_bf16", requests=N_REQUESTS, num_slots=NUM_SLOTS,
@@ -2744,6 +3191,9 @@ def main() -> int:
          lockstep_steps_fifo=lockstep_steps(new_tokens, fifo=True),
          launches=launches, nvidia_smi=smi, card_after=card_state(),
          **stats)
+    spec_launches = spec_bf16(model, prompts, new_tokens,
+                              (timed[0][0], stats, elapsed), smi)
+    chunk_launches, chunk_kv8_launches = chunked_bf16(model, smi)
     quant_runs = engine_quant_bf16(model, prompts, new_tokens, smi)
     mistral_fp32()
     mistral_model, mistral_run, mistral_launches = mistral_bf16(smi)
@@ -2759,14 +3209,17 @@ def main() -> int:
     # above: one more run of the same workload, then each kernel alone at
     # the shapes of phase 2
     profile_phase("engine_bf16_profile",
-                  partial(run_engine, model, prompts, new_tokens), cpu=False)
+                  partial(drive_engine, model, prompts, new_tokens),
+                  cpu=False)
+    profile_spec_round(model, prompts, new_tokens)
     profile_quant(quant_runs)
     profile_phase("mistral_bf16_profile", mistral_run, cpu=False)
     del mistral_model, mistral_run
     torch.cuda.empty_cache()
     results = []
     for row, fn in checks:
-        if row.get("path") in ("quant_serving", "mistral", "mistral_train"):
+        if row.get("path") in ("quant_serving", "mistral", "mistral_train",
+                               "spec_chunked"):
             continue                  # timed by queued_ms already
         ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
         results.append(dict(name=row["name"], dtype=row["dtype"],
@@ -2775,7 +3228,8 @@ def main() -> int:
     emit("kernel_device_ms", card_before=card_state(), reps=20,
          results=results)
     # the same timed run once more, after the profiler: its slowdown, if any
-    _, stats_after, elapsed_after, _ = run_engine(model, prompts, new_tokens)
+    _, stats_after, elapsed_after, _ = drive_engine(model, prompts,
+                                                    new_tokens)[1:]
     emit("engine_bf16_after_profile",
          tokens_per_s=stats_after["generated_tokens"] / elapsed_after)
     profile_phase("train_bf16_profile", train_step)
@@ -2826,18 +3280,37 @@ def main() -> int:
         "flash_bwd_dq_window": train_shape["flash_fwd_window"],
         "flash_bwd_dkdv_window": train_shape["flash_fwd_window"]})
     main_kind.update({"rms_norm_bwd": "rms", "layer_norm_bwd_from_y": "rms"})
+    # the s > 1 branches over GPT-2-small's 8-slot pool, bf16, each at the
+    # s of the run that launches it: the fp block at a draft_len = 3 verify
+    # (s = 4), the quantized one at the int8-pool chunked run's pieces (s =
+    # 16); the fp row also carries, under "chunk", its s = 16 row with the
+    # chunked run's launches
+    main_shape.update({
+        "paged_attention_block": [NUM_SLOTS, 12, BLOCK_S[0], PAGE_SIZE, 64,
+                                  64],
+        "paged_attention_quant_block": [NUM_SLOTS, 12, BLOCK_S[1], PAGE_SIZE,
+                                        64, 64]})
+    main_kind["paged_attention_quant_block"] = "int8"
     by_path = {"serving": launches, "gpt_train": train_launches,
                "bert_train": bert_launches, "mistral": mistral_launches,
                **{label: run[1] for label, run in quant_runs.items()},
                "mistral_train": mistral_train_launches,
-               "mistral_train_memory_efficient": me_launches}
+               "mistral_train_memory_efficient": me_launches,
+               "spec": spec_launches, "chunked": chunk_launches,
+               "chunked_kv8": chunk_kv8_launches}
+    # the windowed block has no engine path (the reference refuses both
+    # modes for windowed models), so its launches read 0
+    block_path = {"paged_attention_block": "spec",
+                  "paged_attention_window_block": "spec",
+                  "paged_attention_quant_block": "chunked_kv8"}
     quant_path = {"dequant_matmul": "w8_kv8", "dequant_matmul_w4": "w4_kv8",
                   "paged_attention_quant": "w8_kv8"}
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     summary = []
     for name, (src, replaces) in _build.KERNELS.items():
-        path = ("serving" if name in SERVING_KERNELS else "gpt_train"
+        path = (block_path[name] if name in BLOCK_KERNELS
+                else "serving" if name in SERVING_KERNELS else "gpt_train"
                 if name in TRAIN_KERNELS else quant_path[name]
                 if name in QUANT_KERNELS else "mistral"
                 if name in MISTRAL_KERNELS else
@@ -2863,9 +3336,16 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             **{k: row[k] for k in ("kind", "shape", "unquantized_ms",
                                    "library", "kv_heads", "window",
-                                   "out_rms")
+                                   "out_rms", "s")
                if k in row and (path in (*quant_path.values(), "mistral")
-                                or name in MISTRAL_TRAIN_NEW)})
+                                or name in MISTRAL_TRAIN_NEW
+                                or name in BLOCK_KERNELS)})
+        if name == "paged_attention_block":
+            ck = next(r for r in rows if r["name"] == name
+                      and r["dtype"] == "bfloat16" and r["s"] == BLOCK_S[1])
+            entry["chunk"] = dict(shape=ck["shape"], s=ck["s"],
+                                  launches=chunk_launches[name],
+                                  **{k: ck[k] for k in timing})
         if name == "paged_attention_quant":
             win = next(r for r in rows if r["name"] == name
                        and r.get("path") == "mistral"

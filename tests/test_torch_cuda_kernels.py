@@ -632,6 +632,69 @@ def test_windowed_paged_kernels_match_twin(cuda, dtype, kv_dtype):
     assert (got[0] == 0).all()
 
 
+# --- the s > 1 query blocks: speculative verify and chunked prefill -------
+
+
+def _block_pool(g, lengths, s, window, ps, kv, d, maxp, dtype, cuda,
+                kv_dtype=None):
+    """``_windowed_pool`` for a block of ``s`` queries: the entries wholly
+    below each slot's EARLIEST query's band floor (``lengths - s - window +
+    1``) are nulled to the poisoned page 0; none without a window."""
+    nulled = 1 << 30 if window is None else window + s - 1
+    return _windowed_pool(g, lengths, nulled, ps, kv, d, maxp, dtype, cuda,
+                          kv_dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("branch", ["fp", "window", "int8", "fp8",
+                                    "int8_window"])
+@pytest.mark.parametrize("s,rep", [(2, 1), (4, 1), (16, 1), (4, 4),
+                                   (16, 4), (5, 7)])
+def test_paged_block_kernels_match_twin(cuda, dtype, branch, s, rep):
+    """The s > 1 branches of the paged kernel against the twin: GPT-2's
+    head_dim 64 at rep 1, Mistral's 128 at rep 4 (64 rows at s = 16: four
+    row groups) and a ragged 35 rows; lengths shorter than s (their leading
+    rows exactly 0), on page edges and past the window; page 0 poisoned.
+    Each call counts once under its ``_block`` name and no s = 1 name."""
+    g = torch.Generator().manual_seed(11 + s + rep)
+    window = 40 if "window" in branch else None
+    kv_dtype = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
+                "int8_window": torch.int8}.get(branch)
+    ps, kv, maxp = 16, 2, 12
+    d = 64 if rep == 1 else 128
+    lengths = [0, 1, s - 1, s, 16, 17, 41, 57, 100, 191]
+    (kp, vp), scales, bt = _block_pool(g, lengths, s, window, ps, kv, d,
+                                       maxp, dtype, cuda, kv_dtype)
+    q = torch.randn(len(lengths), rep * kv, s, d, generator=g).to(cuda,
+                                                                  dtype)
+    args = (q, kp, vp, bt, torch.tensor(lengths, dtype=torch.int32,
+                                        device=cuda))
+    kw = {} if window is None else dict(window=window)
+    if scales is not None:
+        kw.update(k_scales=scales[0], v_scales=scales[1])
+    name = ("paged_attention_quant_block" if kv_dtype is not None
+            else "paged_attention_window_block" if window
+            else "paged_attention_block")
+    before = dict(_build.launches)
+    got = paged_attention(*args, **kw)
+    assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 1
+    torch.cuda.synchronize()
+    _close(got, paged_attention_reference(*args, **kw), dtype)
+    for i, n in enumerate(lengths):
+        if n < s:                      # rows before the sequence start
+            assert (got[i, :, :s - n] == 0).all()
+
+
+def test_paged_block_longer_than_a_page_raises(cuda):
+    q = torch.randn(2, 4, 9, 64, device=cuda)
+    kp = torch.randn(5, 4, 8, 64, device=cuda)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    ln = torch.tensor([9, 3], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1..page_size"):
+        paged_attention(q, kp, kp, bt, ln)
+
+
 # --- the training slice of Mistral-7B: RMSNorm and memory_efficient
 # backward, the windowed flash backward ---------------------------------
 

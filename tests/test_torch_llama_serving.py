@@ -10,8 +10,11 @@ lock-step ``generate``; the engine must have dropped pages below the band (``win
 0``) and the pool must drain back to ``num_pages - 1`` free pages with
 every table row null. ``drop_slot_pages`` against the reference's: the
 same allocs and drops leave the same block tables and free stacks, and a
-page frees once. The engine still refuses the prefix cache, chunked
-prefill and speculative decode for a windowed model. fp32.
+page frees once. Over int8 and fp8 pools the engine is token-identical to
+JAX's engine over the same pool, with the same 8 pages dropped. The engine
+still refuses the prefix cache, and refuses
+chunked prefill and speculative decode for a windowed model with the
+reference's ``ValueError``. fp32.
 """
 
 import jax
@@ -57,13 +60,13 @@ def setup():
     assert jax_stats["window_dropped_pages"] > 0
     lockstep = [generate(tm, torch.from_numpy(p)[None], n)[0, len(p):]
                 .numpy() for p, n in work]
-    return tm.eval(), work, jax_outs, lockstep
+    return tm.eval(), work, jax_outs, lockstep, (jm, variables)
 
 
 @pytest.mark.parametrize("sync_every", [1, 2])
 def test_windowed_engine_token_identical_to_jax_engine_and_lockstep(
         setup, sync_every):
-    tm, work, jax_outs, lockstep = setup
+    tm, work, jax_outs, lockstep, _ = setup
     eng = PagedDecodeEngine(tm, num_slots=SLOTS, page_size=PS,
                             sync_every=sync_every)
     outs, stats = eng.run([Request(p, n) for p, n in work])
@@ -76,6 +79,29 @@ def test_windowed_engine_token_identical_to_jax_engine_and_lockstep(
     assert sorted(eng.cache["free_stack"].tolist()) == list(range(num_pages))
     assert (eng.cache["block_tables"] == 0).all()
     assert stats["admitted"] == stats["retired"] == len(work)
+
+
+@pytest.mark.parametrize("sync_every", [1, 2])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_windowed_engine_over_a_quantized_pool_matches_jax(setup, kv_dtype,
+                                                           sync_every):
+    """The windowed engine over an int8 and an fp8 pool: token-identical
+    to JAX's engine over the same pool at the same ``sync_every``, with the
+    same 8 pages dropped below the band on both sides."""
+    tm, work = setup[0], setup[1]
+    jm, variables = setup[4]
+    kw = dict(num_slots=SLOTS, page_size=PS, sync_every=sync_every,
+              kv_dtype=kv_dtype)
+    jax_outs, jax_stats = JaxEngine(jm, variables, **kw).run(
+        [JaxRequest(p, n) for p, n in work])
+    eng = PagedDecodeEngine(tm, **kw)
+    outs, stats = eng.run([Request(p, n) for p, n in work])
+    for i, (o, j) in enumerate(zip(outs, jax_outs)):
+        np.testing.assert_array_equal(o, np.asarray(j), err_msg=f"req {i}")
+    assert stats["window_dropped_pages"] == \
+        jax_stats["window_dropped_pages"] == 8
+    assert stats["decode_steps"] == jax_stats["decode_steps"]
+    assert free_page_count(eng.cache) == eng.cache["free_stack"].shape[0] - 1
 
 
 def test_windowed_engine_drops_pages_as_the_band_passes(setup):
@@ -137,12 +163,19 @@ def test_drop_slot_pages_matches_jax_pool():
     assert sorted(tc["free_stack"][:13].tolist()) == list(range(1, 14))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(prefix_cache=True), "prefix cache"),
-    (dict(prefill_chunk=4), "chunked prefill"),
-    (dict(draft_len=2), "speculative"),
+@pytest.mark.parametrize("kw,exc,match", [
+    pytest.param(dict(prefix_cache=True), NotImplementedError,
+                 "prefix cache", id="kw0-prefix cache"),
+    # the reference's ValueErrors: neither mode composes with the window
+    pytest.param(dict(prefill_chunk=4), ValueError, "sliding-window",
+                 id="kw1-chunked prefill"),
+    pytest.param(dict(draft_len=2, draft=True), ValueError,
+                 "sliding-window", id="kw2-speculative"),
 ])
-def test_windowed_engine_refuses_what_the_reference_refuses(setup, kw,
+def test_windowed_engine_refuses_what_the_reference_refuses(setup, kw, exc,
                                                             match):
-    with pytest.raises(NotImplementedError, match=match):
+    kw = dict(kw)
+    if kw.pop("draft", False):
+        kw["draft_model"] = setup[0]
+    with pytest.raises(exc, match=match):
         PagedDecodeEngine(setup[0], num_slots=2, page_size=PS, **kw)

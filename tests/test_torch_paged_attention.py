@@ -82,22 +82,42 @@ def test_paged_never_reads_dead_pages():
     torch.testing.assert_close(poisoned, clean, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(window=4, s=2), "window"),          # a windowed s>1 query block
-    (dict(k_scales=torch.ones(17, 2), v_scales=torch.ones(17, 2)),
-     "quantized"),
+@pytest.mark.parametrize("kw,exc,match", [
+    # a windowed query block longer than a page: the reference's limit
+    pytest.param(dict(window=4, s=9), ValueError, "1..page_size",
+                 id="kw0-window"),
+    pytest.param(dict(k_scales=torch.ones(17, 2),
+                      v_scales=torch.ones(17, 2)),
+                 NotImplementedError, "quantized", id="kw1-quantized"),
 ])
-def test_unported_paged_options_raise(kw, match):
+def test_unported_paged_options_raise(kw, exc, match):
+    """What the paged kernel refuses: a query block of more than
+    ``page_size`` positions (the reference's ``ValueError``, windowed or
+    not) and scales over full-precision pages."""
     kw = dict(kw)
     s = kw.pop("s", 1)
     q, kp, vp, bt, ln = (torch.from_numpy(a) for a in
                          _case(4, 2, 8, [3, 4, 5, 6]))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         paged_attention(q.repeat(1, 1, s, 1), kp, vp, bt, ln, **kw)
+    with pytest.raises(exc, match=match):
+        paged_attention_reference(q.repeat(1, 1, s, 1), kp, vp, bt, ln,
+                                  **kw)
 
 
 def test_multi_token_query_block_raises():
-    q, kp, vp, bt, ln = (torch.from_numpy(a) for a in
-                         _case(4, 2, 8, [3, 4, 5, 6]))
-    with pytest.raises(NotImplementedError, match="s=1"):
-        paged_attention(q.repeat(1, 1, 2, 1), kp, vp, bt, ln)
+    """``s > page_size`` raises the reference's ``ValueError`` on both
+    sides; ``s = 2`` runs and matches JAX's kernel."""
+    q, kp, vp, bt, ln = _case(4, 2, 8, [3, 4, 5, 6])
+    q2 = np.concatenate([q, -q], axis=2)
+    want = np.asarray(jax_paged(*(jnp.asarray(a) for a in
+                                  (q2, kp, vp, bt, ln))))
+    got = paged_attention(*(torch.from_numpy(a) for a in
+                            (q2, kp, vp, bt, ln))).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    q9 = np.repeat(q, 9, axis=2)
+    with pytest.raises(ValueError, match="1..page_size"):
+        jax_paged(*(jnp.asarray(a) for a in (q9, kp, vp, bt, ln)))
+    with pytest.raises(ValueError, match="1..page_size"):
+        paged_attention(*(torch.from_numpy(a) for a in
+                          (q9, kp, vp, bt, ln)))

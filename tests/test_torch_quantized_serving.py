@@ -186,14 +186,25 @@ def test_quantized_pool_first_tokens_match_fp_pool(models, kv_dtype):
     assert [int(o[0]) for o in got] == [int(o[0]) for o in ref]
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(kv_dtype="int8", prefix_cache=True), "prefix cache"),
-    (dict(kv_dtype="int8", draft_kv_dtype="fp8"), "draft"),
-    (dict(kv_dtype="int8", draft_len=2), "speculative"),
-    (dict(kv_dtype="int8", prefill_chunk=4), "chunked prefill"),
+@pytest.mark.parametrize("kw,exc,match", [
+    pytest.param(dict(kv_dtype="int8", prefix_cache=True),
+                 NotImplementedError, "prefix cache",
+                 id="kw0-prefix cache"),
+    # over a quantized pool the speculative and chunked modes run; what
+    # they refuse is the reference's ValueErrors
+    pytest.param(dict(kv_dtype="int8", draft_kv_dtype="fp8", draft_len=2,
+                      draft=True), ValueError, "kv-dtype-mismatch",
+                 id="kw1-draft"),
+    pytest.param(dict(kv_dtype="int8", draft_len=8, draft=True),
+                 ValueError, "query-block limit", id="kw2-speculative"),
+    pytest.param(dict(kv_dtype="int8", prefill_chunk=9), ValueError,
+                 "1..page_size", id="kw3-chunked prefill"),
 ])
-def test_unported_quantized_modes_raise(models, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_quantized_modes_raise(models, kw, exc, match):
+    kw = dict(kw)
+    if kw.pop("draft", False):
+        kw["draft_model"] = models["int8"][2]
+    with pytest.raises(exc, match=match):
         PagedDecodeEngine(models["int8"][2], num_slots=2, page_size=PS, **kw)
 
 

@@ -4,8 +4,11 @@ A mixed-length request set (6 requests, prompts 3-20 tokens, budgets 4-12,
 3 slots, page 8) through the JAX engine once and through the port's engine
 at ``sync_every`` 1 and 3: outputs must be token-identical, request by
 request, to the JAX engine and to the port's lock-step ``generate``; the
-pool must drain back to ``num_pages - 1`` free pages; and the engine must
-take fewer decode steps than lock-step padding. fp32 tiny GPT.
+pool must drain back to ``num_pages - 1`` free pages; the engine must take
+as many decode steps as JAX's engine at the same ``sync_every`` (both run
+the reference pump's order, where a finished slot's successor joins one
+chunk late), and at ``sync_every`` 1 fewer than lock-step padding. fp32
+tiny GPT.
 """
 
 import jax
@@ -49,13 +52,23 @@ def setup():
         [JaxRequest(p, n) for p, n in work])
     lockstep = [generate(tm, torch.from_numpy(p)[None], n)[0, len(p):]
                 .numpy() for p, n in work]
-    return tm.eval(), work, jax_outs, lockstep
+    return tm.eval(), work, jax_outs, lockstep, (jm, variables)
+
+
+@pytest.fixture(scope="module")
+def jax_steps(setup):
+    """JAX's engine's decode steps on the workload, by ``sync_every``."""
+    work, (jm, variables) = setup[1], setup[4]
+    return {se: JaxEngine(jm, variables, num_slots=SLOTS, page_size=PS,
+                          sync_every=se).run(
+        [JaxRequest(p, n) for p, n in work])[1]["decode_steps"]
+        for se in (1, 3)}
 
 
 @pytest.mark.parametrize("sync_every", [1, 3])
-def test_engine_token_identical_to_jax_engine_and_lockstep(setup,
+def test_engine_token_identical_to_jax_engine_and_lockstep(setup, jax_steps,
                                                            sync_every):
-    tm, work, jax_outs, lockstep = setup
+    tm, work, jax_outs, lockstep, _ = setup
     eng = PagedDecodeEngine(tm, num_slots=SLOTS, page_size=PS,
                             sync_every=sync_every)
     outs, stats = eng.run([Request(p, n) for p, n in work])
@@ -70,11 +83,13 @@ def test_engine_token_identical_to_jax_engine_and_lockstep(setup,
     budgets = sorted((n for _, n in work), reverse=True)
     lock_steps = sum(max(budgets[g:g + SLOTS])
                      for g in range(0, len(budgets), SLOTS))
-    assert stats["decode_steps"] < lock_steps
+    assert stats["decode_steps"] == jax_steps[sync_every]
+    if sync_every == 1:
+        assert stats["decode_steps"] < lock_steps
 
 
 def test_eos_retires_early_and_matches_lockstep(setup):
-    tm, work, _, lockstep = setup
+    tm, work, _, lockstep, _ = setup
     eos = int(lockstep[0][2])       # a token request 0 emits mid-stream
     eng = PagedDecodeEngine(tm, num_slots=2, page_size=PS,
                             eos_token_id=eos)
@@ -90,7 +105,7 @@ def test_eos_retires_early_and_matches_lockstep(setup):
 
 def test_small_pool_defers_admission_head_of_line(setup):
     """A pool holding ~one request at a time still drains correctly."""
-    tm, work, _, lockstep = setup
+    tm, work, _, lockstep, _ = setup
     eng = PagedDecodeEngine(tm, num_slots=SLOTS, page_size=PS, num_pages=5)
     outs, stats = eng.run([Request(p, n) for p, n in work])
     for o, ref in zip(outs, lockstep):
@@ -99,7 +114,7 @@ def test_small_pool_defers_admission_head_of_line(setup):
 
 
 def test_generate_paged_rectangular_matches_generate(setup):
-    tm, _, _, _ = setup
+    tm = setup[0]
     ids = np.random.default_rng(4).integers(0, 128, (3, 6)).astype(np.int32)
     out = generate_paged(tm, torch.from_numpy(ids), 7, num_slots=2,
                          page_size=PS)
@@ -142,16 +157,47 @@ def test_prompt_bucket_matches(s0):
     assert prompt_bucket(s0, 8, 128) == jax_prompt_bucket(s0, 8, 128)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(prefix_cache=True), "prefix cache"),
-    (dict(draft_kv_dtype="int8"), "quantized"),
-    (dict(draft_len=2), "speculative"),
-    (dict(prefill_chunk=4), "chunked prefill"),
-    (dict(temperature=0.7), "sampled"),
+@pytest.mark.parametrize("kw,exc,match", [
+    pytest.param(dict(prefix_cache=True), NotImplementedError,
+                 "prefix cache", id="kw0-prefix cache"),
+    # the reference's refusals of the speculative and chunked modes
+    pytest.param(dict(draft_kv_dtype="int8", draft_len=2, draft=True),
+                 ValueError, "kv-dtype-mismatch", id="kw1-quantized"),
+    pytest.param(dict(draft_len=8, draft=True), ValueError,
+                 "query-block limit", id="kw2-speculative"),
+    pytest.param(dict(prefill_chunk=9), ValueError, "1..page_size",
+                 id="kw3-chunked prefill"),
+    pytest.param(dict(temperature=0.7), NotImplementedError, "sampled",
+                 id="kw4-sampled"),
 ])
-def test_unported_engine_modes_raise_at_construction(setup, kw, match):
+def test_unported_engine_modes_raise_at_construction(setup, kw, exc, match):
+    """What the engine refuses when built: the unported prefix cache and
+    sampled decode (``NotImplementedError``), and the reference's
+    ``ValueError``s for a draft pool of another kv dtype, a draft block
+    longer than a page and a prefill chunk outside ``1..page_size``."""
     tm = setup[0]
-    with pytest.raises(NotImplementedError, match=match):
+    kw = dict(kw)
+    if kw.pop("draft", False):
+        kw["draft_model"] = tm
+    with pytest.raises(exc, match=match):
+        PagedDecodeEngine(tm, num_slots=2, page_size=PS, **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(draft_len=2), "needs a draft_model"),
+    (dict(draft_len=2, draft=True, temperature=0.5), "greedy-only"),
+    (dict(draft_len=2, draft=True, prefix_cache=True), "prefix_cache"),
+    (dict(draft_len=2, draft=True, prefill_chunk=4), "mutually exclusive"),
+    (dict(draft_len=-1), "draft_len must be >= 0"),
+    (dict(prefill_chunk=0), "1..page_size"),
+])
+def test_spec_and_chunked_refusals_match_the_reference(setup, kw, match):
+    """The rest of the reference's construction checks, by its messages."""
+    tm = setup[0]
+    kw = dict(kw)
+    if kw.pop("draft", False):
+        kw["draft_model"] = tm
+    with pytest.raises(ValueError, match=match):
         PagedDecodeEngine(tm, num_slots=2, page_size=PS, **kw)
 
 
