@@ -4,7 +4,8 @@
 returns — as plain numpy arrays, e.g. ``jax.tree.map(np.asarray,
 variables)`` — onto the state dict of ``apex_tpu_torch.models.GPTModel``;
 ``bert_params_from_flax`` does the same for ``BertForPreTraining`` and
-``llama_params_from_flax`` for ``LlamaModel``. All sides keep the
+``llama_params_from_flax`` for ``LlamaModel`` and ``t5_params_from_flax``
+for ``T5Model``. All sides keep the
 reference's weight layouts (GPT's and Llama's ``(out, in)`` linears, BERT's
 ``(in, out)`` ``x @ W``), so every tensor maps one to one; only the names
 change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes numpy, so it
@@ -105,6 +106,40 @@ def llama_params_from_flax(variables) -> dict:
         else:
             raise KeyError(f"flax leaf {path!r} has no counterpart in the "
                            f"port's LlamaModel")
+        sd[name] = _tensor(leaf)
+    return sd
+
+
+#: T5Model's leaves outside the blocks, flax paths (``lm_head`` untied only)
+_T5_TOP = ("shared/weight", "enc_rel_bias/rel_attn_bias",
+           "dec_rel_bias/rel_attn_bias", "enc_final_norm/weight",
+           "dec_final_norm/weight", "lm_head/weight")
+#: the leaves of one encoder block ``enc_i`` and one decoder block ``dec_i``
+_T5_ENC = ("attn_norm/weight", "self_attn/qkv/weight",
+           "self_attn/out/weight", "ffn_norm/weight", "ffn/wi/weight",
+           "ffn/wo/weight")
+_T5_DEC = _T5_ENC + ("cross_norm/weight", "cross_attn/q/weight",
+                     "cross_attn/kv/weight", "cross_attn/out/weight")
+
+
+def t5_params_from_flax(variables) -> dict:
+    """``{flax params}`` (or ``{"params": ...}``) of the reference's
+    ``T5Model`` -> torch state dict: ``enc_i``/``dec_i`` map to
+    ``enc_blocks.i``/``dec_blocks.i``, the rest keep their names. A leaf the
+    port has no place for raises ``KeyError``."""
+    params = variables.get("params", variables)
+    sd = {}
+    for path, leaf in _flat_paths(params):
+        head, _, rest = path.partition("/")
+        side, _, idx = head.partition("_")
+        leaves = {"enc": _T5_ENC, "dec": _T5_DEC}.get(side, ())
+        if idx.isdigit() and rest in leaves:
+            name = f"{side}_blocks.{idx}.{rest.replace('/', '.')}"
+        elif path in _T5_TOP:
+            name = path.replace("/", ".")
+        else:
+            raise KeyError(f"flax leaf {path!r} has no counterpart in the "
+                           f"port's T5Model")
         sd[name] = _tensor(leaf)
     return sd
 

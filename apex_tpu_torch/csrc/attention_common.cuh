@@ -1,6 +1,6 @@
 // Online-softmax row state shared by the flash prefill and paged decode
 // kernels, and the masking (causal, sliding window, segment ids, dropout)
-// the three flash kernels share.
+// and additive bias the three flash kernels share.
 //
 // One warp owns one query row at a time. A key tile of up to 32 keys sits in
 // shared memory as fp32 rows of stride `ld`; lane j scores key j against the
@@ -36,11 +36,16 @@ __device__ __forceinline__ uint32_t dropout_hash(uint32_t seed, uint32_t bh, uin
   return x;
 }
 
-// Which (query row, key) pairs a row sees, and the dropout factor of a pair.
-// Rows index Sq and keys Sk of one batch entry b; under `causal` a row sees
-// keys <= row + (Sk - Sq), under a sliding window (with causal) only keys
-// >= row + (Sk - Sq) - (window - 1), under segment ids only keys of its own
-// segment.
+// Which (query row, key) pairs a row sees, the dropout factor of a pair and
+// its additive bias. Rows index Sq and keys Sk of one batch entry b; under
+// `causal` a row sees keys <= row + (Sk - Sq), under a sliding window (with
+// causal) only keys >= row + (Sk - Sq) - (window - 1), under segment ids
+// only keys of its own segment. The bias is any tensor that broadcasts to
+// [B, H, Sq, Sk] (H the query heads), read in place through four element
+// strides, 0 on a broadcast dimension, so a (1, H, Sq, Sk) table serves
+// every batch entry and is never expanded in memory. It shifts the scores
+// only: a pair the masks hide stays hidden whatever its bias, as in the
+// reference (_fwd_kernel adds it before _mask_block).
 struct AttnMask {
   const int* q_seg;   // int32 [B, Sq], or null: no segments
   const int* kv_seg;  // int32 [B, Sk]
@@ -50,6 +55,9 @@ struct AttnMask {
   uint32_t threshold;  // min(int(rate * 2^32), 2^32 - 1), from the host
   float keep_scale;    // 1 / (1 - rate) in fp32, from the host
   int window;          // sliding window in keys, 0 = none
+  const void* bias;    // the additive bias, or null: none
+  int bias_bf16;       // its dtype: 1 bf16, 0 fp32
+  long long bias_sb, bias_sh, bias_sq, bias_sk;  // element strides of b, h, row, key
 
   __device__ __forceinline__ bool visible(int b, int sq, int sk, int row, int key) const {
     if (causal && key > row + (sk - sq)) return false;
@@ -72,6 +80,21 @@ struct AttnMask {
   __device__ __forceinline__ int last_row(int sq, int sk, int key_last) const {
     if (window <= 0) return sq;
     return max(0, min(sq, key_last - (sk - sq) + window));
+  }
+
+  // the bias of (b, query head h, row, key) as fp32; 0 without a bias
+  __device__ __forceinline__ float bias_at(int b, int h, int row, int key) const {
+    if (bias == nullptr) return 0.f;
+    const long long i = b * bias_sb + h * bias_sh + row * bias_sq + key * bias_sk;
+    return bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[i])
+                     : static_cast<const float*>(bias)[i];
+  }
+
+  // the score of a pair: scale * (q . k), then its bias added, each rounded
+  // once as the reference's fp32 `s * scale + bias` (no fused multiply-add)
+  __device__ __forceinline__ float score(float dot, float scale, int b, int h, int row,
+                                         int key) const {
+    return __fadd_rn(__fmul_rn(dot, scale), bias_at(b, h, row, key));
   }
 
   // keep_scale where the pair is kept, 0 where it is dropped, 1 without dropout
@@ -103,18 +126,20 @@ __device__ __forceinline__ void row_init(RowState& st) {
 }
 
 // Fold the tile's keys into the row: `valid` says whether this lane's key is
-// visible to the row, `keep` is its dropout factor (AttnMask::keep). The
+// visible to the row, `bias` is its additive bias (AttnMask::bias_at; 0
+// leaves the score scale * dot bit for bit), `keep` is its dropout factor
+// (AttnMask::keep). The
 // denominator l sums the undropped probabilities; only the PV product sees
 // p * keep, as in the reference. Warp-uniform control flow throughout.
 __device__ __forceinline__ void row_fold(RowState& st, const float* qrow, const float* ks,
                                          const float* vs, int d, bool valid, float scale,
-                                         int lane, float keep) {
+                                         int lane, float keep, float bias = 0.f) {
   float s = -INFINITY;
   if (valid) {
     const float* krow = ks + lane * kTileStride;
     float dot = 0.f;
     for (int i = 0; i < d; ++i) dot = fmaf(qrow[i], krow[i], dot);
-    s = dot * scale;
+    s = __fadd_rn(__fmul_rn(dot, scale), bias);
   }
   const float tmax = warp_max(s);
   if (tmax == -INFINITY) return;  // no visible key in this tile

@@ -2,17 +2,21 @@
 //
 // Replaces the TPU kernels apex_tpu/ops/flash_attention.py::_dq_kernel and
 // ::_dkdv_kernel (the two pallas_calls in _fa_bwd_impl), causal or not, with
-// segment ids, attention dropout and a causal sliding window at the default
-// diagonal; no bias or causal_offset. q, do
+// an additive bias, segment ids, attention dropout and a causal sliding
+// window at the default diagonal; no causal_offset. q, do
 // and dq are [B, H, Sq, D]; k, v, dk and dv are [B, Hkv, Sk, D] with kv head
 // h / (H / Hkv); lse and delta = sum(do * o) are fp32 [B, H, Sq]. AttnMask
 // (attention_common.cuh) gives the visible pairs and the forward's keep
 // factor K (1 without dropout, regenerated from the seed at the global
-// position with bh = b * H + h of the QUERY head). With P = exp(scale *
-// q k^T - lse) on the visible pairs:
+// position with bh = b * H + h of the QUERY head) and the additive bias B
+// (AttnMask::bias_at, read in place through its broadcast strides, as
+// _recompute_p:514-515 adds it). With P = exp(scale * q k^T + B - lse) on
+// the visible pairs:
 //   dv = (P K)^T do,  dp = do v^T,  ds = P * (dp K - delta) * scale,
 //   dq = ds k,        dk = ds^T q.
-// fp32 accumulation throughout, I/O in the input dtype (fp32 or bf16).
+// fp32 accumulation throughout, I/O in the input dtype (fp32 or bf16). The
+// bias gets no gradient here: the reference does not differentiate it
+// (_flash_bwd returns zeros for it), and neither does the wrapper.
 //
 // Design. The TPU kernels carry dq (resp. dk/dv) in VMEM scratch across a
 // sequential grid axis over k-blocks (resp. q-blocks). Here that axis is a
@@ -139,7 +143,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       if (valid) {
         float s, dp;
         dot2(qs + r * d, ks + lane * ld, dos + r * d, vs + lane * ld, d, s, dp);
-        const float p = expf(s * scale - row_lse[rr]);
+        const float p = expf(mask.score(s, scale, b, h, q0 + r, k0 + lane) - row_lse[rr]);
         ds = p * (dp * mask.keep(bh, q0 + r, k0 + lane) - row_delta[rr]) * scale;
       }
       // kept rolled: unrolled, this loop took the kernel to 255 registers a
@@ -229,7 +233,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (valid) {
           float s, dp;
           dot2(ks + j * d, qs + lane * ld, vs + j * d, dos + lane * ld, d, s, dp);
-          const float pr = expf(s * scale - ls[lane]);
+          const float pr = expf(mask.score(s, scale, b, h, q0 + lane, k0 + j) - ls[lane]);
           const float keep = mask.keep(bh, q0 + lane, k0 + j);
           p = pr * keep;  // dv takes the dropped probability
           ds = pr * (dp * keep - dl[lane]) * scale;
@@ -313,18 +317,22 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
 
 // q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed, threshold and
 // keep_scale are read only when dropout is set (the forward's values);
-// window 0 = none (the wrapper passes one only with causal).
+// window 0 = none (the wrapper passes one only with causal); bias as the
+// forward's (apex_flash_fwd).
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, const void* q_seg,
                                  const void* kv_seg, int causal, int dropout, unsigned seed,
-                                 unsigned threshold, float keep_scale, int window, int batch,
-                                 int heads, int kv_heads, int sq, int sk, int d, float scale,
-                                 int dtype, void* stream) {
+                                 unsigned threshold, float keep_scale, int window,
+                                 const void* bias, int bias_bf16, long long bias_sb,
+                                 long long bias_sh, long long bias_sq, long long bias_sk,
+                                 int batch, int heads, int kv_heads, int sq, int sk, int d,
+                                 float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
-                      dropout, seed, threshold, keep_scale, window};
+                      dropout, seed, threshold, keep_scale, window, bias, bias_bf16, bias_sb,
+                      bias_sh, bias_sq, bias_sk};
   cudaError_t err =
       dtype == APEX_BF16
           ? launch_dq<__nv_bfloat16>(q, k, v, dout, l, dl, dq, mask, batch, heads, kv_heads, sq,
@@ -338,14 +346,17 @@ extern "C" int apex_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dk, void* dv, const void* q_seg, const void* kv_seg,
                                    int causal, int dropout, unsigned seed, unsigned threshold,
-                                   float keep_scale, int window, int batch, int heads,
+                                   float keep_scale, int window, const void* bias,
+                                   int bias_bf16, long long bias_sb, long long bias_sh,
+                                   long long bias_sq, long long bias_sk, int batch, int heads,
                                    int kv_heads, int sq, int sk, int d, float scale, int dtype,
                                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
-                      dropout, seed, threshold, keep_scale, window};
+                      dropout, seed, threshold, keep_scale, window, bias, bias_bf16, bias_sb,
+                      bias_sh, bias_sq, bias_sk};
   cudaError_t err =
       dtype == APEX_BF16
           ? launch_dkdv<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, mask, batch, heads,

@@ -2,12 +2,13 @@
 // training forward.
 //
 // Replaces the TPU kernel apex_tpu/ops/flash_attention.py::_fwd_kernel
-// (pallas_call in _fa_fwd), causal or not, with segment ids, attention
-// dropout and a causal sliding window at the default diagonal; no bias, no
-// causal_offset. q is [B, H, Sq, D], k and v are [B, Hkv, Sk, D] with the kv
-// head read as h / (H / Hkv), never repeated. AttnMask
-// (attention_common.cuh) says which keys a row sees and regenerates the
-// reference's dropout keep mask at global positions.
+// (pallas_call in _fa_fwd), causal or not, with an additive bias, segment
+// ids, attention dropout and a causal sliding window at the default
+// diagonal; no causal_offset. q is [B, H, Sq, D], k and v are [B, Hkv, Sk,
+// D] with the kv head read as h / (H / Hkv), never repeated. AttnMask
+// (attention_common.cuh) says which keys a row sees, adds the bias to each
+// score (s = scale * q.k + bias, as _fwd_kernel:339-343) and regenerates
+// the reference's dropout keep mask at global positions.
 //
 // Design: one block of 4 warps per (query tile of 16 rows, head, batch). The
 // block walks the key range (under causal only up to the tile's last
@@ -17,15 +18,20 @@
 // (attention_common.cuh). Nothing crosses blocks, so the TPU kernel's
 // sequential k-grid axis becomes the loop inside the block, and its
 // band-restricted k grid under a window (_fa_fwd) becomes the loop's start:
-// a windowed prefill costs O(S * window), not O(S^2).
+// a windowed prefill costs O(S * window), not O(S^2). The bias is read in
+// place, lane j reading key j's entry of its row (contiguous for a bias
+// whose last stride is 1), only for visible pairs; a broadcast bias, T5's
+// (1, H, S, S) relative-position table, is never expanded in memory.
 //
 // What bounds it on the H100: at these lengths (S <= 1024, D = 64; and
 // Mistral-7B's windowed prefill, S up to 6000, D = 128, window 4096) the
 // work is ~4*D FLOPs per visible (query, key) pair against ~4*S*D elements
 // of I/O per head, so it is bound by operations; this first version does
 // them as fp32 FMAs on the CUDA cores (67 TFLOP/s peak) rather than on the
-// tensor cores (989 TFLOP/s bf16), so it sits far from that bound. Moving
-// QK^T and PV onto mma.sync / wgmma is the next step.
+// tensor cores (989 TFLOP/s bf16), so it sits far from that bound. A bias
+// adds one read per visible pair (Sq * Sk per (b, h) it serves), which
+// does not change that. Moving QK^T and PV onto mma.sync / wgmma is the
+// next step.
 
 #include "attention_common.cuh"
 
@@ -81,7 +87,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int key = k0 + lane;
       const bool valid = lane < nk && mask.visible(b, sq, sk, q0 + r, key);
       const float keep = valid ? mask.keep(bh, q0 + r, key) : 0.f;
-      row_fold(st[rr], qs[r], ks, vs, d, valid, scale, lane, keep);
+      const float bias = valid ? mask.bias_at(b, h, q0 + r, key) : 0.f;
+      row_fold(st[rr], qs[r], ks, vs, d, valid, scale, lane, keep, bias);
     }
   }
 
@@ -109,16 +116,20 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed, threshold and
 // keep_scale are read only when dropout is set; window 0 = none (the
-// wrapper passes one only with causal).
+// wrapper passes one only with causal); bias: null, or fp32 / bf16
+// (bias_bf16) read at b * sb + h * sh + row * sq + key * sk (AttnMask).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               const void* q_seg, const void* kv_seg, int causal, int dropout,
                               unsigned seed, unsigned threshold, float keep_scale, int window,
+                              const void* bias, int bias_bf16, long long bias_sb,
+                              long long bias_sh, long long bias_sq, long long bias_sk,
                               int batch, int heads, int kv_heads, int sq, int sk, int d,
                               float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
-                      dropout, seed, threshold, keep_scale, window};
+                      dropout, seed, threshold, keep_scale, window, bias, bias_bf16, bias_sb,
+                      bias_sh, bias_sq, bias_sk};
   if (dtype == APEX_BF16)
     launch<__nv_bfloat16>(q, k, v, o, l, mask, batch, heads, kv_heads, sq, sk, d, scale, s);
   else

@@ -18,6 +18,11 @@ from apex_tpu_torch.models.quantize import (WeightPrecisionPolicy,
                                             assert_quantized_loaded,
                                             quantize_model_params,
                                             quantize_params_like)
+from apex_tpu_torch.models.t5 import (T5Config, T5DecoderBlock,
+                                      T5EncoderBlock, T5Model,
+                                      T5RelativeBias,
+                                      relative_position_bucket, t5_generate,
+                                      t5_loss, t5_tiny_config)
 
 __all__ = ["BertConfig", "BertForPreTraining", "BertLayer",
            "BertSelfAttention", "GPTConfig", "GPTModel", "LlamaConfig",
@@ -30,4 +35,7 @@ __all__ = ["BertConfig", "BertForPreTraining", "BertLayer",
            "llama_loss", "llama_tiny_config", "lm_token_loss",
            "mistral_7b_config",
            "quantize_model_params", "quantize_params_like",
-           "speculative_generate", "synthetic_batch"]
+           "speculative_generate", "synthetic_batch", "T5Config",
+           "T5DecoderBlock", "T5EncoderBlock", "T5Model", "T5RelativeBias",
+           "relative_position_bucket", "t5_generate", "t5_loss",
+           "t5_tiny_config"]

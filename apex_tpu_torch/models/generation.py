@@ -3,12 +3,12 @@
 Counterpart of ``apex_tpu/models/generation.py``, in the pieces the serving
 slices run: the contiguous cache (``init_cache``, ``layer_cache``,
 ``is_static_prefill``, ``update_layer_cache``, ``advance_cache``,
-``cached_attention``, banded under a sliding window; the reference's
-rolling cache is not ported), the paged-cache write (``is_paged``,
-``update_paged_layer_cache``, with the quantized pool's requantize-on-grow
-append), the greedy token, greedy lock-step ``generate`` — the
-token-identity oracle of the serving engine — and greedy lock-step
-``speculative_generate`` with its ``rollback_cache``.
+``cached_attention``, banded under a sliding window and with an additive
+bias; the reference's rolling cache is not ported), the paged-cache write
+(``is_paged``, ``update_paged_layer_cache``, with the quantized pool's
+requantize-on-grow append), the greedy token, greedy lock-step
+``generate`` — the token-identity oracle of the serving engine — and
+greedy lock-step ``speculative_generate`` with its ``rollback_cache``.
 
 Cache structure, as in the reference::
 
@@ -208,14 +208,16 @@ def advance_cache(cache, new_layers, s: int):
     return out
 
 
-def cached_attention(q, lc, *, window: Optional[int] = None,
+def cached_attention(q, lc, *, window: Optional[int] = None, bias=None,
                      scale: Optional[float] = None):
     """Masked dot-product attention of a ``(b, h, s, d)`` chunk at absolute
     positions ``[len, len + s)`` against the whole contiguous buffer: key
     ``j`` is visible to the query at position ``p`` iff ``j <= p`` and,
     under a ``window``, ``j > p - window``. GQA against the unexpanded kv
-    heads; fp32 scores and accumulation. Plain torch, as the reference's is
-    plain jnp."""
+    heads; fp32 scores and accumulation. ``bias`` (broadcastable to ``(b,
+    h, s, T)``, T5's relative-position bias) adds to the scaled scores
+    before masking, the cached analog of the flash kernel's additive bias.
+    Plain torch, as the reference's is plain jnp."""
     k, v, t0 = lc["k"], lc["v"], lc["len"]
     b, h, s, d = q.shape
     kv, t_max = k.shape[1], k.shape[2]
@@ -228,6 +230,9 @@ def cached_attention(q, lc, *, window: Optional[int] = None,
     qf = q.reshape(b, kv, rep, s, d).float()
     scores = torch.einsum("bkrsd,bktd->bkrst", qf, k.float())
     scores = scores * (scale if scale is not None else d ** -0.5)
+    if bias is not None:
+        bb = bias.float().expand(b, h, s, t_max)
+        scores = scores + bb.reshape(b, kv, rep, s, t_max)
     scores = torch.where(mask, scores, float("-inf"))
     p = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bkrst,bktd->bkrsd", p, v.float())

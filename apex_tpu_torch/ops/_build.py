@@ -20,7 +20,10 @@ are the LayerNorm kernels with their ``rms`` flag,
 windowed call over a quantized pool counts as ``paged_attention_quant``),
 and ``paged_attention_block``, ``paged_attention_window_block`` and
 ``paged_attention_quant_block`` the same three paged branches at ``s > 1``
-query positions per slot (a speculative verify, a chunked-prefill piece).
+query positions per slot (a speculative verify, a chunked-prefill piece);
+each flash kernel's branch with an additive bias counts under its name
+with ``_bias`` after it (``flash_fwd_bias``, ``flash_fwd_window_bias``,
+``flash_bwd_dq_bias``, ...).
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on a non-zero code. A failed build raises too: a CUDA
@@ -90,6 +93,17 @@ KERNELS = {
                                      "apex_tpu/ops/paged_attention.py:65"),
     "paged_attention_quant_block": ("paged_attention.cu",
                                     "apex_tpu/ops/paged_attention.py:108"),
+    "flash_fwd_bias": ("flash_fwd.cu", "apex_tpu/ops/flash_attention.py:308"),
+    "flash_fwd_window_bias": ("flash_fwd.cu",
+                              "apex_tpu/ops/flash_attention.py:308"),
+    "flash_bwd_dq_bias": ("flash_bwd.cu",
+                          "apex_tpu/ops/flash_attention.py:526"),
+    "flash_bwd_dq_window_bias": ("flash_bwd.cu",
+                                 "apex_tpu/ops/flash_attention.py:526"),
+    "flash_bwd_dkdv_bias": ("flash_bwd.cu",
+                            "apex_tpu/ops/flash_attention.py:572"),
+    "flash_bwd_dkdv_window_bias": ("flash_bwd.cu",
+                                   "apex_tpu/ops/flash_attention.py:572"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`

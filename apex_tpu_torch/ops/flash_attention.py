@@ -4,16 +4,25 @@ and their plain PyTorch twins.
 
 Counterpart of ``apex_tpu/ops/flash_attention.py`` (``_fwd_kernel``,
 ``_dq_kernel``, ``_dkdv_kernel``, ``_fa_bwd_impl``, ``flash_attention``,
-``flash_attention_with_lse``, ``mha_reference``), causal or not, with
-``segment_ids``/``kv_segment_ids``, attention dropout and a causal sliding
-window at the default diagonal; no bias and no ``causal_offset``. Layout as
-in the reference: q ``[B, H, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` with ``Hkv``
+``flash_attention_with_lse``, ``mha_reference``), causal or not, with an
+additive ``bias``, ``segment_ids``/``kv_segment_ids``, attention dropout and
+a causal sliding window at the default diagonal; no ``causal_offset``
+(ring attention's). Layout as in the reference: q ``[B, H, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` with ``Hkv``
 dividing ``H`` (GQA reads kv head ``h // (H / Hkv)``, never repeated in the
 kernels). A :class:`Masking` says which (query, key) pairs a row sees: under
 ``causal`` row ``r`` sees keys ``j <= r + (Sk - Sq)``; under a ``window``
 ``w`` (causal only) also ``j >= r + (Sk - Sq) - (w - 1)``; under segment
 ids only keys of its own segment. A row that sees no key outputs 0. The
 forward returns O in q's dtype and the fp32 log-sum-exp.
+
+The bias is any tensor, in q's dtype or fp32, that broadcasts to ``[B, H,
+Sq, Sk]`` (T5's ``(1, H, S, S)`` relative-position table, a ``(B, 1, 1,
+Sk)`` padding mask, a full ``(B, H, Sq, Sk)``): each visible score becomes
+``scale * q . k + bias`` in fp32, before the masks, as the reference's
+``_fwd_kernel`` and ``_recompute_p`` add it. The kernels read it in place
+through the strides of ``bias.expand(B, H, Sq, Sk)``, 0 on a broadcast
+dimension; it is never expanded in memory. As in the reference it is not
+differentiated: its gradient is zeros.
 
 Dropout is the reference's counter-based keep mask, exactly: each global
 position ``(seed, b * H + h, row, col)`` (H the query heads) hashes through
@@ -29,7 +38,9 @@ backward is the FA-2 recompute of the reference (an LSE cotangent folds
 into ``delta``, as ``_flash_with_lse_bwd`` does). Under a window each
 kernel walks only the band, as the reference's band-restricted grids do,
 and counts under a launch name of its own (``flash_fwd_window``,
-``flash_bwd_dq_window``, ``flash_bwd_dkdv_window``).
+``flash_bwd_dq_window``, ``flash_bwd_dkdv_window``); with a bias each
+counts under its name with ``_bias`` after it (``flash_fwd_bias``,
+``flash_fwd_window_bias``, ...).
 
 A tensor on the CPU takes the twins; a CUDA tensor always takes the kernels.
 """
@@ -46,9 +57,9 @@ from apex_tpu_torch.ops import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-_UNSUPPORTED = ("flash attention in this port takes no bias or "
-                "causal_offset (ROADMAP queue B item 8: the rest of the flash "
-                "surface; item 9 for its backward)")
+_UNSUPPORTED = ("flash attention in this port takes no causal_offset, "
+                "ring attention's global positions (ROADMAP queue B item 8; "
+                "item 9 for its backward)")
 
 _M32 = 0xFFFFFFFF
 
@@ -69,6 +80,49 @@ def _check_shapes(q, k, v):
         raise ValueError(f"batch/head_dim mismatch: q {tuple(q.shape)} vs "
                          f"k {tuple(k.shape)}")
     return _gqa_rep(q.shape[1], k.shape[1])
+
+
+def _check_bias(bias, q, k) -> None:
+    """A bias must broadcast to ``[B, H, Sq, Sk]``, lie on q's device and be
+    in q's dtype or fp32."""
+    if bias is None:
+        return
+    full = (q.shape[0], q.shape[1], q.shape[2], k.shape[2])
+    if bias.ndim > 4 or any(n not in (1, m) for n, m in
+                            zip(bias.shape[::-1], full[::-1])):
+        raise ValueError(f"bias {tuple(bias.shape)} does not broadcast to "
+                         f"[B, H, Sq, Sk] = {full}")
+    if bias.dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"bias must be in q's dtype ({q.dtype}) or float32, "
+                        f"got {bias.dtype}")
+    if bias.device != q.device:
+        raise ValueError(f"bias on {bias.device}, q on {q.device}")
+
+
+def _add_bias(s: torch.Tensor, bias) -> torch.Tensor:
+    """fp32 scores plus the bias read as fp32 (broadcast)."""
+    return s if bias is None else s + bias.float()
+
+
+def _bias_args(bias, q, k):
+    """The C arguments ``(bias, bias_bf16, sb, sh, sq, sk)``: the pointer
+    and the element strides of ``bias.expand(B, H, Sq, Sk)`` (0 on a
+    broadcast dimension), or a null pointer."""
+    if bias is None:
+        return (None, 0, 0, 0, 0, 0)
+    full = bias.expand(q.shape[0], q.shape[1], q.shape[2], k.shape[2])
+    return (bias.data_ptr(), int(bias.dtype == torch.bfloat16),
+            *full.stride())
+
+
+_BIAS_ARGTYPES = (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_longlong,) * 4
+
+
+def launch_name(kernel: str, masking, bias) -> str:
+    """The launch name of a flash kernel's branch: ``_window`` under a
+    window, then ``_bias`` with a bias."""
+    return (kernel + ("" if masking.window is None else "_window")
+            + ("" if bias is None else "_bias"))
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -192,15 +246,16 @@ _MASK_ARGTYPES = (_build.P, _build.P, _build.I, _build.I, ctypes.c_uint,
 
 
 def flash_attention_reference(q, k, v, *, scale: float,
-                              masking: Masking = CAUSAL):
-    """Plain twin: dense attention with fp32 scores, invisible pairs'
-    probabilities exactly 0, a row that sees no key output 0 (its LSE the
-    mask value, as the reference's), and dropout applied to the normalised
-    probabilities before the PV product."""
+                              masking: Masking = CAUSAL, bias=None):
+    """Plain twin: dense attention with fp32 scores ``scale * q . k +
+    bias``, invisible pairs' probabilities exactly 0, a row that sees no
+    key output 0 (its LSE the mask value, as the reference's), and dropout
+    applied to the normalised probabilities before the PV product."""
     rep = _check_shapes(q, k, v)
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    s = _add_bias(torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale,
+                  bias)
     mask = masking.visible(q.shape[2], k.shape[2], q.device)
     s = torch.where(mask, s, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
@@ -217,7 +272,8 @@ def flash_attention_reference(q, k, v, *, scale: float,
     return o.to(q.dtype), lse
 
 
-def _flash_fwd_kernel(q, k, v, scale: float, masking: Masking = CAUSAL):
+def _flash_fwd_kernel(q, k, v, scale: float, masking: Masking = CAUSAL,
+                      bias=None):
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if d > 128:
@@ -229,29 +285,31 @@ def _flash_fwd_kernel(q, k, v, scale: float, masking: Masking = CAUSAL):
                         f"{v.dtype}")
     mask_args, segs = masking.kernel_args(q.device)
     _build.check_cuda(q, k, v, *segs)
+    _check_bias(bias, q, k)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
         return o, lse
     P, I, F = _build.P, _build.I, _build.F
-    window = masking.window
     _build.launch(
-        "flash_fwd" if window is None else "flash_fwd_window",
-        "apex_flash_fwd",
-        (P, P, P, P, P) + _MASK_ARGTYPES + (I,) * 7 + (F, I, P),
+        launch_name("flash_fwd", masking, bias), "apex_flash_fwd",
+        (P, P, P, P, P) + _MASK_ARGTYPES + (I,) + _BIAS_ARGTYPES + (I,) * 6
+        + (F, I, P),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *mask_args, int(window or 0), b, h, hkv, sq, sk, d,
-        float(scale), _build.dtype_code(q), _build.stream_of(q))
+        lse.data_ptr(), *mask_args, int(masking.window or 0),
+        *_bias_args(bias, q, k), b, h, hkv, sq, sk, d, float(scale),
+        _build.dtype_code(q), _build.stream_of(q))
     return o, lse
 
 
-def flash_fwd(q, k, v, *, scale: float, masking: Masking = CAUSAL):
+def flash_fwd(q, k, v, *, scale: float, masking: Masking = CAUSAL,
+              bias=None):
     """``(o, lse)``: the kernel on a CUDA tensor, the twin on a CPU one."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale=scale,
-                                         masking=masking)
-    return _flash_fwd_kernel(q, k, v, scale, masking)
+                                         masking=masking, bias=bias)
+    return _flash_fwd_kernel(q, k, v, scale, masking, bias)
 
 
 def flash_bwd_delta(o, do, dlse=None) -> torch.Tensor:
@@ -262,14 +320,16 @@ def flash_bwd_delta(o, do, dlse=None) -> torch.Tensor:
     return delta if dlse is None else delta - dlse.float()
 
 
-def _bwd_p_ds(q, k, v, do, lse, delta, scale, masking):
+def _bwd_p_ds(q, k, v, do, lse, delta, scale, masking, bias):
     """The recompute both backward twins share: fp32 ``(p * keep, ds)``
     over the visible pairs, with k and v repeated over each GQA group:
-    ``ds = p (dp keep - delta) scale`` with the undropped ``p``."""
+    ``p = exp(scale q . k + bias - lse)``, ``ds = p (dp keep - delta)
+    scale`` with the undropped ``p``."""
     rep = _check_shapes(q, k, v)
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    s = _add_bias(torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale,
+                  bias)
     mask = masking.visible(q.shape[2], k.shape[2], q.device)
     p = torch.exp(torch.where(mask, s - lse.float()[..., None],
                               float("-inf")))
@@ -285,20 +345,20 @@ def _bwd_p_ds(q, k, v, do, lse, delta, scale, masking):
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, scale: float,
-                           masking: Masking = CAUSAL):
+                           masking: Masking = CAUSAL, bias=None):
     """Plain twin of the dq kernel: ``dq = ds k`` with ``P = exp(scale q
-    k^T - lse)`` on the visible pairs and ``ds = P (do v^T keep - delta)
-    scale``; fp32 math, dq in q's dtype."""
-    _, ds, kf = _bwd_p_ds(q, k, v, do, lse, delta, scale, masking)
+    k^T + bias - lse)`` on the visible pairs and ``ds = P (do v^T keep -
+    delta) scale``; fp32 math, dq in q's dtype."""
+    _, ds, kf = _bwd_p_ds(q, k, v, do, lse, delta, scale, masking, bias)
     return torch.einsum("bhqk,bhkd->bhqd", ds, kf).to(q.dtype)
 
 
 def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, *, scale: float,
-                             masking: Masking = CAUSAL):
+                             masking: Masking = CAUSAL, bias=None):
     """Plain twin of the dk/dv kernel: ``dv = (P keep)^T do`` and ``dk =
     ds^T q``, each GQA group's per-q-head sums added into its kv head; fp32
     math, dk/dv in k's/v's dtype."""
-    p, ds, _ = _bwd_p_ds(q, k, v, do, lse, delta, scale, masking)
+    p, ds, _ = _bwd_p_ds(q, k, v, do, lse, delta, scale, masking, bias)
     b, h, _, d = q.shape
     kv_heads, kv_len = k.shape[1], k.shape[2]
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
@@ -310,16 +370,17 @@ def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, *, scale: float,
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, *, scale: float,
-                                  dlse=None, masking: Masking = CAUSAL):
+                                  dlse=None, masking: Masking = CAUSAL,
+                                  bias=None):
     """Plain twin of the whole backward: ``(dq, dk, dv)`` by the FA-2
     recompute of ``_fa_bwd_impl`` (``delta = sum(do * o)``, less ``dlse``)."""
     delta = flash_bwd_delta(o, do, dlse)
-    kw = dict(scale=scale, masking=masking)
+    kw = dict(scale=scale, masking=masking, bias=bias)
     return (flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
             *flash_bwd_dkdv_reference(q, k, v, do, lse, delta, **kw))
 
 
-def _bwd_operands(q, k, v, do, lse, delta, masking):
+def _bwd_operands(q, k, v, do, lse, delta, masking, bias):
     d = q.shape[3]
     if d > 128:
         raise NotImplementedError(f"flash kernel takes head_dim <= 128, "
@@ -333,30 +394,31 @@ def _bwd_operands(q, k, v, do, lse, delta, masking):
     ops += [lse.float().contiguous(), delta.float().contiguous()]
     mask_args, segs = masking.kernel_args(q.device)
     _build.check_cuda(*ops, *segs)
+    _check_bias(bias, q, k)
     b, h, sq, d = q.shape
     args = (b, h, k.shape[1], sq, k.shape[2], d)
-    return ops, (*mask_args, int(masking.window or 0)), segs, args
+    return ops, (*mask_args, int(masking.window or 0),
+                 *_bias_args(bias, q, k)), segs, args
 
 
-def _bwd_name(kernel: str, masking: Masking) -> str:
-    return kernel if masking.window is None else f"{kernel}_window"
+_BWD_ARGTYPES = _MASK_ARGTYPES + (_build.I,) + _BIAS_ARGTYPES \
+    + (_build.I,) * 6 + (_build.F, _build.I, _build.P)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
-                 masking: Masking = CAUSAL):
+                 masking: Masking = CAUSAL, bias=None):
     """dq: the kernel on a CUDA tensor, the twin on a CPU one."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale=scale,
-                                      masking=masking)
+                                      masking=masking, bias=bias)
     ops, mask_args, _segs, args = _bwd_operands(q, k, v, do, lse, delta,
-                                                masking)
+                                                masking, bias)
     dq = torch.empty_like(ops[0])
     if dq.numel() == 0 or args[4] == 0:
         return dq.zero_()
-    P, I, F = _build.P, _build.I, _build.F
-    _build.launch(_bwd_name("flash_bwd_dq", masking), "apex_flash_bwd_dq",
-                  (P,) * 7 + _MASK_ARGTYPES + (I,) * 7 + (F, I, P),
+    _build.launch(launch_name("flash_bwd_dq", masking, bias),
+                  "apex_flash_bwd_dq", (_build.P,) * 7 + _BWD_ARGTYPES,
                   *(t.data_ptr() for t in ops), dq.data_ptr(), *mask_args,
                   *args, float(scale), _build.dtype_code(dq),
                   _build.stream_of(dq))
@@ -364,21 +426,20 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, *, scale: float,
-                   masking: Masking = CAUSAL):
+                   masking: Masking = CAUSAL, bias=None):
     """``(dk, dv)``: the kernel on a CUDA tensor, the twin on a CPU one."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
-                                        scale=scale, masking=masking)
+                                        scale=scale, masking=masking,
+                                        bias=bias)
     ops, mask_args, _segs, args = _bwd_operands(q, k, v, do, lse, delta,
-                                                masking)
+                                                masking, bias)
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
     if dk.numel() == 0 or args[3] == 0:
         return dk.zero_(), dv.zero_()
-    P, I, F = _build.P, _build.I, _build.F
-    _build.launch(_bwd_name("flash_bwd_dkdv", masking),
-                  "apex_flash_bwd_dkdv",
-                  (P,) * 8 + _MASK_ARGTYPES + (I,) * 7 + (F, I, P),
+    _build.launch(launch_name("flash_bwd_dkdv", masking, bias),
+                  "apex_flash_bwd_dkdv", (_build.P,) * 8 + _BWD_ARGTYPES,
                   *(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(),
                   *mask_args, *args, float(scale), _build.dtype_code(dk),
                   _build.stream_of(dk))
@@ -386,25 +447,28 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, scale: float,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, dlse=None,
-                        masking: Masking = CAUSAL):
+                        masking: Masking = CAUSAL, bias=None):
     """``(dq, dk, dv)``: the two kernels on a CUDA tensor, the twins on a
     CPU one."""
     delta = flash_bwd_delta(o, do, dlse)
-    kw = dict(scale=scale, masking=masking)
+    kw = dict(scale=scale, masking=masking, bias=bias)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     return (dq, *flash_bwd_dkdv(q, k, v, do, lse, delta, **kw))
 
 
 class _FlashAttentionFunction(torch.autograd.Function):
-    """Autograd over the kernels: ``(o, lse)``; saves ``q, k, v, o, lse`` as
-    the reference's ``_flash_fwd`` does (the masking rides on ``ctx``). On
-    the card the backward always launches the backward kernels."""
+    """Autograd over the kernels: ``(o, lse)``; saves ``q, k, v, bias, o,
+    lse`` as the reference's ``_flash_fwd`` does (the masking rides on
+    ``ctx``). On the card the backward always launches the backward
+    kernels. The bias's gradient is zeros, as the reference's
+    ``_flash_bwd`` returns: the bias is not differentiated."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, masking):
+    def forward(ctx, q, k, v, bias, scale, masking):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_fwd(q, k, v, scale=scale, masking=masking)
-        ctx.save_for_backward(q, k, v, o, lse)
+        bias = None if bias is None else bias.detach()
+        o, lse = flash_fwd(q, k, v, scale=scale, masking=masking, bias=bias)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.scale = scale
         ctx.masking = masking
         ctx.set_materialize_grads(False)
@@ -412,21 +476,24 @@ class _FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, bias, o, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          scale=ctx.scale, dlse=dlse,
-                                         masking=ctx.masking)
-        return dq, dk, dv, None, None
+                                         masking=ctx.masking, bias=bias)
+        dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dbias, None, None
 
 
-def _attend(q, k, v, scale, masking):
+def _attend(q, k, v, scale, masking, bias=None):
     _check_shapes(q, k, v)
     masking.check(q, k)
+    _check_bias(bias, q, k)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    return _FlashAttentionFunction.apply(q, k, v, float(scale), masking)
+    return _FlashAttentionFunction.apply(q, k, v, bias, float(scale),
+                                         masking)
 
 
 def flash_attention_with_lse(q, k, v, *, scale: Optional[float] = None,
@@ -450,30 +517,31 @@ def flash_attention(q, k, v, bias=None, segment_ids=None,
                     kv_segment_ids=None, *, causal: bool = False,
                     scale: Optional[float] = None, dropout_rate: float = 0.0,
                     dropout_seed: int = 0, window: Optional[int] = None):
-    """Flash attention ``softmax(scale * q @ k^T [masked]) @ v`` with the
-    reference's signature. ``kv_segment_ids`` defaults to ``segment_ids``
-    (self attention); ``window`` requires ``causal``; ``bias`` raises
-    ``NotImplementedError``."""
-    if bias is not None:
-        raise NotImplementedError(_UNSUPPORTED)
+    """Flash attention ``softmax(scale * q @ k^T + bias [masked]) @ v``
+    with the reference's signature. ``bias`` broadcasts to ``[B, H, Sq,
+    Sk]`` and gets a zero gradient; ``kv_segment_ids`` defaults to
+    ``segment_ids`` (self attention); ``window`` requires ``causal``."""
     if segment_ids is not None and kv_segment_ids is None:
         kv_segment_ids = segment_ids
     return _attend(q, k, v, scale, Masking(
         causal=bool(causal), segment_ids=segment_ids,
         kv_segment_ids=kv_segment_ids, dropout_rate=float(dropout_rate),
-        dropout_seed=int(dropout_seed), window=window))[0]
+        dropout_seed=int(dropout_seed), window=window), bias)[0]
 
 
-def mha_reference(q, k, v, segment_ids=None, kv_segment_ids=None, *,
-                  causal: bool = True, scale: Optional[float] = None):
-    """The unfused ground truth (the twin's O), as ``mha_reference`` is in
-    the reference; no dropout (the reference's raises on it too)."""
+def mha_reference(q, k, v, bias=None, segment_ids=None, kv_segment_ids=None,
+                  *, causal: bool = False, scale: Optional[float] = None,
+                  window: Optional[int] = None):
+    """The unfused ground truth (the twin's O), with the reference's
+    ``mha_reference`` signature and defaults (non-causal; ``bias`` added to
+    the scaled scores); no dropout (the reference's raises on it too)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if segment_ids is not None and kv_segment_ids is None:
         kv_segment_ids = segment_ids
     masking = Masking(causal=causal, segment_ids=segment_ids,
-                      kv_segment_ids=kv_segment_ids)
+                      kv_segment_ids=kv_segment_ids, window=window)
     masking.check(q, k)
-    return flash_attention_reference(q, k, v, scale=scale,
-                                     masking=masking)[0]
+    _check_bias(bias, q, k)
+    return flash_attention_reference(q, k, v, scale=scale, masking=masking,
+                                     bias=bias)[0]

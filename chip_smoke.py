@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s six paths at full width with seeded random
+Drives ``apex_tpu_torch``'s eight paths at full width with seeded random
 weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (into ``apex_tpu_torch/_build/``): GPT-2-small greedy paged decode through
 ``PagedDecodeEngine``; the same decode with quantized weights
@@ -19,8 +19,11 @@ steps (``BertForPreTraining``, ``bert_pretrain_loss_fn``,
 ``loss.backward()``, ``FusedAdam.step()``); and GPT-2-small's speculative
 decode and chunked prefill (``PagedDecodeEngine(draft_model=...,
 draft_len=3)``, ``PagedDecodeEngine(prefill_chunk=16)``,
-``speculative_generate``), which run the paged kernel's s > 1 branches.
-Phases, one JSON line each, ``t_s`` giving the seconds since the start:
+``speculative_generate``), which run the paged kernel's s > 1 branches;
+and t5-small, served (``T5Model(T5Config())``, ``t5_generate``) and trained
+(``t5_loss``, ``loss.backward()``, ``FusedAdam.step()``), which run the
+flash kernels' additive-bias branches. Phases, one JSON line each,
+``t_s`` giving the seconds since the start:
 
 1. ``device``: the card, its power limit, the kernels' build time and
    registers per thread (from the ptxas reports). The
@@ -71,7 +74,16 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    lengths 0..1024) at s = 4 and 16, fp32 and bf16, over the fp pool and
    over int8 and fp8 pools, and windowed at Mistral-7B's shapes at s = 16,
    each held within ``RMS_ATOL`` of its twin's RMS; the rows before a short
-   slot's start must be exactly 0.
+   slot's start must be exactly 0. The T5 rows (``check_flash_bias``, by
+   ``queued_ms``, fp32 and bf16, within ``RMS_ATOL`` of the twin's RMS):
+   the bias branch of the flash forward at the encoder's 8 x 8 x 512 x 64
+   (serving) and 128 x 8 x 512 x 64 and the decoder's causal 128 x 8 x 114
+   x 64 (training), each with a (1, 8, S, S) table in q's dtype at scale
+   1.0, and of dq and dk/dv at the two training shapes; T5's
+   cross-attention without a bias at Sq = 1 and 114 against Sk = 512; the
+   windowed bias branches at 1 x 8 x 1024 x 64, window 256; the library
+   call ``scaled_dot_product_attention`` with the bias as a float mask and
+   its backward.
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
@@ -171,18 +183,42 @@ Phases, one JSON line each, ``t_s`` giving the seconds since the start:
    phases', launches per step asserted (RMSNorm forward and backward 2L +
    1, the three windowed flash kernels L, Adam 1, the unwindowed kernels
    0), and a falling finite loss.
+   The T5 phases run between ``bert_bf16`` and ``mistral_train_fp32``
+   (the Mistral step stays live for its profile, and T5's 128 x 512 batch
+   fits before it): ``t5_fp32`` (the bar): t5-small at full width in fp32,
+   ``t5_generate``
+   of 64 tokens for 8 requests of 512 encoder tokens, token-identical to
+   the greedy teacher-forced re-derivation on the card (else each
+   diverging row's fp64 margin is printed and the phase fails), exact
+   launches (the encoder's L ``flash_fwd_bias``), the bucket tables equal
+   to the CPU's, the encoder output and first step's logits within
+   ``T5_FLOOR_FACTOR`` times the CPU's own rounding floor of the port on
+   the CPU. ``t5_bf16``:
+   the same requests in bf16, 128 tokens: tokens/s, encode ms, host and
+   synchronized ms per decode step, launches, peak memory.
+   ``t5_train_fp32``: card against CPU at 2 x 512 inputs and 114 targets:
+   the fp64 cross-entropies within 1e-4 relative, every gradient (plus 4 x
+   the CPU's own rounding floor per tensor), both relative-bias tables'
+   gradients exactly 0 on both sides, two FusedAdam steps, the CPU's on
+   the card's gradients, the parameters after each within
+   ``UPDATE_TOL``. ``t5_train_bf16``: the T5 paper's 128 x 512 inputs and
+   114 targets, bf16 over fp32, FusedAdam(lr=1e-4, weight_decay=0.01): step ms,
+   tokens/s, FLOPs (formula in the line) and MFU, launches per step
+   asserted, a falling finite loss.
 10. ``engine_bf16_profile``, ``spec_bf16_round_profile`` (one
    speculative round, not a run, traced with the host's ops),
    ``engine_quant_bf16_profile``,
    ``mistral_bf16_profile``, ``kernel_device_ms``, ``train_bf16_profile``
-   ``bert_bf16_profile`` and ``mistral_train_bf16_profile``: one more bf16
-   engine run (and one of each
+   ``bert_bf16_profile``, ``mistral_train_bf16_profile``,
+   ``t5_bf16_profile`` and ``t5_train_bf16_profile``: one more bf16
+   engine run (and a short run, the first 8 requests at 16 tokens, of each
    quantized configuration, with each kernel's device ms and launches, and
-   one Mistral-7B run), the host's ops untraced, under ``torch.profiler``
+   of Mistral-7B), the host's ops untraced, under ``torch.profiler``
    (device busy and idle share, the top device kernels),
    each kernel's device time per call at the shapes of phase 2, the timed
-   bf16 engine run once more, and last one profiled step of each training
-   path. Last, so that no profiler state can touch the times of phases
+   bf16 engine run once more, one profiled step of each training path,
+   and last one ``t5_generate`` (host untraced) and one T5 training
+   step. Last, so that no profiler state can touch the times of phases
    2-9.
 
 Then the per-kernel summary line (serving kernels with the launches of the
@@ -195,7 +231,9 @@ branch with those of its run in ``mistral_train_fp32``), the s > 1 paged
 branches with those of the timed ``spec_bf16`` run (the s = 16 row beside,
 with the chunked run's) and of the timed int8-pool chunked run; the
 windowed block has no engine path, as the reference refuses both modes
-for windowed models, and reads 0; every path's count beside it) and, last, ``{"ok": true, "device": ...}``.
+for windowed models, and reads 0; the flash bias branches with the T5
+runs' launches, the windowed ones reading 0; every path's count beside
+it) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises, so the run exits non-zero without the last line. With
 no CUDA device, or without the ``apex_tpu_torch`` package beside it, it
 exits non-zero at once. Imports nothing of JAX.
@@ -321,6 +359,11 @@ SPEC_DRAFT_LAYERS, SPEC_DRAFT_SEED = 2, SEED + 1
 CHUNK_SEED, CHUNK_LONG, CHUNK_SHORT, CHUNK_NEW = 4, 512, 24, 32
 CHUNK_N_SHORT = 3 * NUM_SLOTS
 PROFILE_ROUND = 10
+# the untraced quantized and Mistral-7B engine profiles run the first
+# NUM_SLOTS requests of their workload (Mistral's two long ones among
+# them) with budgets capped at PROFILE_BUDGET tokens: a run of each
+# workload under the profiler took 108-146 s
+PROFILE_BUDGET = 16
 
 #: the kernels of the serving path and of the two training paths
 SERVING_KERNELS = ("layer_norm_fwd", "flash_fwd", "paged_attention")
@@ -356,6 +399,38 @@ MISTRAL_TRAIN_NEW = ("rms_norm_bwd", "layer_norm_bwd_from_y",
 #: the unwindowed and non-RMS kernels, which the Mistral paths must not launch
 UNWINDOWED = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkdv")
+#: the T5 slice: t5-small at full width (T5Config(): vocab 32128, d_model
+#: 512, d_ff 2048, 6 + 6 layers, 8 heads of 64, 32 buckets to distance 128);
+#: serving 8 requests of 512 encoder tokens (numpy seed T5_SEED), 64 new
+#: tokens each in fp32 (the bar) and 128 in bf16; training the T5 paper's
+#: span-corruption batch, 128 x 512 inputs and 114 targets, in bf16 over
+#: fp32, and card against CPU at 2 x 512 and 114 in fp32
+T5_SEED, T5_BATCH, T5_ENC_SEQ, T5_NEW_FP32, T5_NEW_BF16 = 5, 8, 512, 64, 128
+T5_TRAIN_BATCH, T5_TRAIN_ENC, T5_TRAIN_DEC = 128, 512, 114
+T5_TRAIN_FP32_BATCH, T5_TRAIN_WARM, T5_TRAIN_TIMED = 2, 2, 5
+T5_HEADS, T5_HEAD_DIM = 8, 64
+# the windowed bias branch's one row, (S, window): no T5 path runs it
+T5_WINDOW_CASE = (1024, 256)
+# card against CPU in fp32, held to T5_FLOOR_FACTOR times the CPU's own
+# floor: the change of the same outputs on the CPU when every parameter
+# moves by relative noise of 2^-24 (one rounding; ``perturbed``). At
+# t5-small's random init (LeCun q and k at scale 1.0: scores of std ~8;
+# relu gates) six layers amplify rounding: on an H100 machine's CPU one
+# rounding of every parameter moved the unit-RMS encoder output by 2.2e-4
+# and a training gradient by 0.7% (median over tensors, relative Frobenius
+# norm; 1.5% at worst), so most card gradients break the per-entry bar
+# atol min(1e-4, 1e-3 max|g|), rtol 1e-3 that the other card-against-CPU
+# phases hold (``t5_fp32``, ``t5_train_fp32`` report both)
+T5_FLOOR_FACTOR = 4.0
+#: the bias branches of the three flash kernels, and the kernels a T5
+#: training step launches
+BIAS_KERNELS = ("flash_fwd_bias", "flash_fwd_window_bias",
+                "flash_bwd_dq_bias", "flash_bwd_dq_window_bias",
+                "flash_bwd_dkdv_bias", "flash_bwd_dkdv_window_bias")
+T5_TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
+                    "flash_fwd_bias", "flash_bwd_dq", "flash_bwd_dq_bias",
+                    "flash_bwd_dkdv", "flash_bwd_dkdv_bias", "adam")
+
 #: kernels whose buffers are fp32 on the path (the summary's dtype)
 FP32_KERNELS = ("adam", "xentropy_fwd", "xentropy_bwd", "segment_stats",
                 "lamb_phase1", "lamb_phase2")
@@ -387,7 +462,13 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_bwd_dkdv_window": "flash_bwd_dkdv_kernel",
                   "paged_attention_block": "paged_decode_kernel",
                   "paged_attention_window_block": "paged_decode_kernel",
-                  "paged_attention_quant_block": "paged_decode_quant_kernel"}
+                  "paged_attention_quant_block": "paged_decode_quant_kernel",
+                  "flash_fwd_bias": "flash_fwd_kernel",
+                  "flash_fwd_window_bias": "flash_fwd_kernel",
+                  "flash_bwd_dq_bias": "flash_bwd_dq_kernel",
+                  "flash_bwd_dq_window_bias": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkdv_bias": "flash_bwd_dkdv_kernel",
+                  "flash_bwd_dkdv_window_bias": "flash_bwd_dkdv_kernel"}
 
 
 def ptxas_registers() -> dict:
@@ -1778,6 +1859,165 @@ def check_flash_bwd_window(gen, dev):
     return out
 
 
+def bias_rows_cases():
+    """``(path, use, batch, Sq, Sk, causal, window, with bias)`` of the T5
+    rows: the encoder's self-attention at serving's 8 x 512 and training's
+    128 x 512, the decoder's at training's 128 x 114 (causal), the
+    cross-attention (no bias) at decode's Sq = 1 and training's 114, both
+    against Sk = 512, and the windowed branch (no T5 path runs it) at 1 x
+    1024, window 256. Serving (``path`` "t5") runs the forward only; the
+    other rows hold the backward kernels too."""
+    b, bt, se, sd = T5_BATCH, T5_TRAIN_BATCH, T5_ENC_SEQ, T5_TRAIN_DEC
+    return [("t5", "encoder self-attention", b, se, se, False, None, True),
+            ("t5_train", "encoder self-attention", bt, se, se, False, None,
+             True),
+            ("t5_train", "decoder self-attention", bt, sd, sd, True, None,
+             True),
+            ("t5", "decode cross-attention", b, 1, se, False, None, False),
+            ("t5_train", "cross-attention", bt, sd, se, False, None, False),
+            ("window_bias", "windowed, no T5 path", 1, T5_WINDOW_CASE[0],
+             T5_WINDOW_CASE[0], True, T5_WINDOW_CASE[1], True)]
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """Visible (query, key) pairs of one head at the default diagonal."""
+    if window is not None:
+        return band_pairs(sk, window) if sq == sk else sq * min(sk, window)
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(sk, r + off + 1) for r in range(sq))
+
+
+def check_flash_bias(gen, dev):
+    """The bias branch of the three flash kernels at T5's shapes
+    (``bias_rows_cases``), fp32 and bf16, each held against its twin at
+    ``RMS_ATOL`` of the twin's RMS: the bias a ``(1, 8, Sq, Sk)`` table
+    serving the whole batch, in q's dtype, as T5 passes it; q drawn at std
+    d^-0.5 and every call at ``scale=1.0`` (T5 folds 1/sqrt(d) into its
+    init). The rows without a bias hold T5's cross-attention shapes, which
+    no earlier row ran. Timed by ``queued_ms``; the bound counts the
+    bias's own bytes once (the one table serves every batch entry; at
+    4 MiB it stays in the L2 cache) and one add per visible pair; the
+    library call is ``scaled_dot_product_attention`` with the bias as a
+    float ``attn_mask`` (a causal -inf triangle, or the band, folded into
+    it; no mask where there is neither bias nor hidden pair, so that the
+    library may take its flash backend) and, for the backward rows, its
+    backward (dq, dk and dv together)."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+
+    out = []
+    h, d = T5_HEADS, T5_HEAD_DIM
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for path, use, b, sq, sk, causal, window, with_bias in \
+                bias_rows_cases():
+            masking = fa.Masking(causal=causal, window=window)
+            q = (torch.randn(b, h, sq, d, generator=gen) * d ** -0.5).to(
+                dev, dtype)
+            k, v, do = (torch.randn(b, h, n, d, generator=gen).to(dev, dtype)
+                        for n in (sk, sk, sq))
+            bias = (torch.randn(1, h, sq, sk, generator=gen).to(dev, dtype)
+                    if with_bias else None)
+            kw = dict(scale=1.0, masking=masking, bias=bias)
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+            fwd_name = fa.launch_name("flash_fwd", masking, bias)
+            dq_name = fa.launch_name("flash_bwd_dq", masking, bias)
+            dkdv_name = fa.launch_name("flash_bwd_dkdv", masking, bias)
+            errs = {fwd_name: compare(fwd_name, o, ro, dn, rms_atol=True)}
+            compare(f"{fwd_name} lse", lse, rlse, "float32")
+            out_rms = {fwd_name: [rms_of(ro)]}
+            delta = fa.flash_bwd_delta(ro, do)
+            args = (q, k, v, do, rlse, delta)
+            del ro, o, lse
+            if path != "t5":
+                dq = fa.flash_bwd_dq(*args, **kw)
+                dk, dv = fa.flash_bwd_dkdv(*args, **kw)
+                torch.cuda.synchronize()
+                rdq = fa.flash_bwd_dq_reference(*args, **kw)
+                rdk, rdv = fa.flash_bwd_dkdv_reference(*args, **kw)
+                errs[dq_name] = compare(dq_name, dq, rdq, dn, rms_atol=True)
+                errs[dkdv_name] = max(
+                    compare(f"{dkdv_name} dk", dk, rdk, dn, rms_atol=True),
+                    compare(f"{dkdv_name} dv", dv, rdv, dn, rms_atol=True))
+                out_rms.update({dq_name: [rms_of(rdq)],
+                                dkdv_name: [rms_of(rdk), rms_of(rdv)]})
+                del dq, dk, dv, rdq, rdk, rdv
+            # the library call: the bias as a float mask, the causal
+            # triangle or the band folded in as -inf
+            rows = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+            cols = torch.arange(sk, device=dev)[None, :]
+            hidden = torch.zeros(sq, sk, dtype=torch.bool, device=dev)
+            if causal:
+                hidden = cols > rows
+            if window is not None:
+                hidden = hidden | (cols <= rows - window)
+            lib_mask = bias
+            if hidden.any():
+                lib_mask = (torch.zeros(1, h, sq, sk, dtype=dtype,
+                                        device=dev) if bias is None
+                            else bias).masked_fill(hidden, float("-inf"))
+            lib_fwd = partial(F.scaled_dot_product_attention, q, k, v,
+                              attn_mask=lib_mask, scale=1.0)
+            iters = BIG_ITERS if b * sq * sk > 2 ** 24 else 50
+            library = {fwd_name: queued_ms(lib_fwd, iters)}
+            if path != "t5":
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                ol = F.scaled_dot_product_attention(ql, kl, vl,
+                                                    attn_mask=lib_mask,
+                                                    scale=1.0)
+                library[dq_name] = library[dkdv_name] = queued_ms(partial(
+                    torch.autograd.grad, ol, (ql, kl, vl), do,
+                    retain_graph=True), iters)
+                del ol, ql, kl, vl
+            elt = q.element_size()
+            pairs = b * h * visible_pairs(sq, sk, causal, window)
+            bias_bytes = (0 if bias is None
+                          else bias.numel() * bias.element_size())
+            q_bytes, kv_bytes = b * h * sq * d * elt, b * h * sk * d * elt
+            row_stats = b * h * sq * 4                 # lse or delta, fp32
+            shape_fields = dict(shape=[b, h, sq, d], sk=sk, causal=causal,
+                                window=window, path=path, use=use,
+                                bias_shape=None if bias is None
+                                else list(bias.shape),
+                                visible_pairs=pairs)
+            for name, fn, plain, nbytes, flops in (
+                    (fwd_name, fa.flash_fwd, fa.flash_attention_reference,
+                     2 * q_bytes + 2 * kv_bytes + row_stats + bias_bytes,
+                     4 * pairs * d + pairs),
+                    (dq_name, fa.flash_bwd_dq, fa.flash_bwd_dq_reference,
+                     3 * q_bytes + 2 * kv_bytes + 2 * row_stats
+                     + bias_bytes, 6 * pairs * d + pairs),
+                    (dkdv_name, fa.flash_bwd_dkdv,
+                     fa.flash_bwd_dkdv_reference,
+                     2 * q_bytes + 4 * kv_bytes + 2 * row_stats
+                     + bias_bytes, 8 * pairs * d + pairs)):
+                if name not in errs:
+                    continue
+                call = (q, k, v) if name == fwd_name else args
+                bms, by = bound_ms(nbytes, flops, dn)
+                kernel = partial(fn, *call, **kw)
+                out.append((dict(
+                    name=name, dtype=dn, **shape_fields,
+                    max_abs_err=errs[name], out_rms=out_rms[name],
+                    ms=queued_ms(kernel, iters),
+                    plain_ms=queued_ms(partial(plain, *call, **kw), iters),
+                    library_ms=library[name],
+                    library="scaled_dot_product_attention, "
+                            + ("no attn_mask" if lib_mask is None else
+                               "the bias as a float attn_mask with the "
+                               "hidden pairs -inf")
+                            + ("" if name == fwd_name else
+                               "; its backward: dq, dk and dv together"),
+                    bound_ms=bms, bound_by=by), kernel))
+    return out
+
+
 # --- phases 3 and 4: the engine --------------------------------------------
 
 
@@ -2071,12 +2311,23 @@ def engine_quant_bf16(model, prompts, new_tokens, smi):
     return runs
 
 
+def short_run(run):
+    """``run`` (a ``partial`` of ``drive_engine``) over its first
+    ``NUM_SLOTS`` requests, budgets capped at ``PROFILE_BUDGET`` tokens: the
+    run the engine profiles trace."""
+    prompts, new_tokens = run.args[1:3]
+    return partial(run.func, run.args[0], prompts[:NUM_SLOTS],
+                   [min(n, PROFILE_BUDGET) for n in new_tokens[:NUM_SLOTS]],
+                   *run.args[3:], **run.keywords)
+
+
 def profile_quant(runs) -> None:
-    """One profiled run of each quantized bf16 configuration: device busy
-    and idle share, each quantized kernel's device ms and launches."""
+    """One profiled short run (``short_run``) of each quantized bf16
+    configuration: device busy and idle share, each quantized kernel's
+    device ms and launches seen, beside the timed full run's launches."""
     out = {}
     for label, (run, launches, _) in runs.items():
-        wall, acts = device_profile(run, cpu=False)
+        wall, acts = device_profile(short_run(run), cpu=False)
         busy = sum(t for t, _ in acts.values())
         kernels = {}
         for name in QUANT_KERNELS:
@@ -2084,14 +2335,15 @@ def profile_quant(runs) -> None:
                     if KERNEL_SYMBOLS[name] in k]
             kernels[name] = dict(device_ms=sum(t for t, _ in hits),
                                  launches_seen=sum(c for _, c in hits),
-                                 launches=launches[name])
+                                 timed_run_launches=launches[name])
         top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:10]
         out[label] = dict(wall_s=wall, device_busy_s=busy / 1e3,
                           device_idle_share=1.0 - busy / 1e3 / wall,
                           kernels=kernels,
                           top_device=[dict(name=k[:120], ms=t, count=c)
                                       for k, (t, c) in top])
-    emit("engine_quant_bf16_profile", runs=out)
+    emit("engine_quant_bf16_profile", requests=NUM_SLOTS,
+         budget_cap=PROFILE_BUDGET, runs=out)
 
 
 # --- the speculative-decode and chunked-prefill phases ----------------------
@@ -3097,13 +3349,579 @@ def mistral_train_bf16(smi):
     return step, launches
 
 
-def profile_phase(phase: str, fn, cpu: bool = True) -> None:
+# --- the T5 slice: t5-small served and trained -----------------------------
+
+
+def build_t5(dtype, device=None):
+    """t5-small (the JAX package's own ``T5Config()``) at full width, its
+    parameters in fp32 and its compute in ``dtype``, seeded random weights
+    drawn on ``device`` (the card by default)."""
+    import torch
+
+    from apex_tpu_torch.models import T5Config, T5Model
+
+    device = device or DEV
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return T5Model(T5Config(dtype=dtype, param_dtype=torch.float32),
+                   device=device, generator=gen)
+
+
+def t5_requests(vocab: int):
+    """``T5_BATCH`` encoder inputs of ``T5_ENC_SEQ`` tokens, uniform over
+    the vocabulary (numpy seed ``T5_SEED``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(T5_SEED)
+    return torch.from_numpy(rng.integers(0, vocab, (T5_BATCH, T5_ENC_SEQ))
+                            .astype(np.int32))
+
+
+def t5_generate_launches(cfg, new_tokens: int) -> dict:
+    """Exact launches of one ``t5_generate``: the encoder's L biased
+    self-attentions and 2L + 1 norms; each of the ``new_tokens`` decode
+    calls (the start token's, then the steps) L cross-attentions and 3L +
+    1 norms (the decoder's self-attention is the dense cached path)."""
+    layers = cfg.num_layers
+    want = {k: 0 for k in KERNEL_SYMBOLS}
+    want.update(flash_fwd_bias=layers, flash_fwd=layers * new_tokens,
+                rms_norm_fwd=2 * layers + 1 + (3 * layers + 1) * new_tokens)
+    return want
+
+
+def t5_train_launches(cfg) -> dict:
+    """Exact launches of one T5 training step: every norm forward and
+    backward, the encoder's and decoder's biased self-attentions and the
+    cross-attentions, forward, dq and dk/dv, and one Adam."""
+    layers = cfg.num_layers
+    norms = 5 * layers + 2
+    want = {k: 0 for k in KERNEL_SYMBOLS}
+    want.update(rms_norm_fwd=norms, rms_norm_bwd=norms,
+                flash_fwd_bias=2 * layers, flash_bwd_dq_bias=2 * layers,
+                flash_bwd_dkdv_bias=2 * layers, flash_fwd=layers,
+                flash_bwd_dq=layers, flash_bwd_dkdv=layers, adam=1)
+    return want
+
+
+def check_launches(phase: str, launches, want, per: float = 1.0) -> None:
+    got = {k: launches[k] / per for k in want}
+    wrong = {k: n for k, n in got.items() if n != want[k]}
+    if wrong:
+        raise AssertionError(f"{phase}: launches {wrong}, want "
+                             f"{ {k: want[k] for k in wrong} }")
+
+
+def t5_divergence(model, enc, got, want) -> dict:
+    """Where ``got`` first leaves ``want`` (one row's tokens), with the
+    fp64 logits there: the decoder's final-norm fp32 output at that
+    position of a teacher-forced forward of the start token and ``want``
+    before it, times the head in fp64; the two tokens' logits and the fp64
+    top-2 margin."""
+    import numpy as np
+    import torch
+
+    cfg = model.config
+    n = min(len(got), len(want))
+    step = next((i for i in range(n) if got[i] != want[i]), n)
+    ids = np.concatenate([[cfg.decoder_start_token_id], want[:step]])
+    hidden = {}
+    hook = model.dec_final_norm.register_forward_hook(
+        lambda _m, _a, o: hidden.update(x=o))
+    try:
+        with torch.no_grad():
+            model.decode(torch.from_numpy(ids.astype(np.int32))[None].to(DEV),
+                         enc[None])
+    finally:
+        hook.remove()
+    x = hidden["x"][0, -1].double()
+    head = model.shared.weight if model.lm_head is None \
+        else model.lm_head.weight
+    if model.lm_head is None:
+        x = x * cfg.d_model ** -0.5
+    logits = x @ head.double().T
+    top = logits.topk(2).values
+    out = dict(step=int(step), fp64_top2_margin=(top[0] - top[1]).item())
+    for label, toks in (("got", got), ("want", want)):
+        if step < len(toks):
+            out[f"{label}_token"] = int(toks[step])
+            out[f"{label}_fp64_logit"] = logits[int(toks[step])].item()
+    return out
+
+
+def t5_fp32():
+    """The serving bar: t5-small at full width in fp32 on the card,
+    ``t5_generate`` of ``T5_NEW_FP32`` tokens for ``T5_BATCH`` requests of
+    ``T5_ENC_SEQ`` tokens, token-identical to the greedy teacher-forced
+    re-derivation on the card (the contract of
+    ``tests/test_t5_model.py:119-136``: one fixed-shape teacher-forced
+    decode per position, its argmax written into the next); else each
+    diverging row's fp64 margin is printed and the phase fails. The launches
+    are exact; the bucket tables the card computes equal the CPU's exactly;
+    the encoder output and the first step's logits agree with the port on
+    the CPU within ``T5_FLOOR_FACTOR`` times the CPU's floor (the largest
+    change one rounding of every parameter makes there)."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch.models import t5_generate
+    from apex_tpu_torch.models.generation import init_cache
+    from apex_tpu_torch.ops import _build
+
+    model = build_t5(torch.float32)
+    cfg, n_new = model.config, T5_NEW_FP32
+    enc_ids = t5_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    toks = t5_generate(model, enc_ids.to(DEV), n_new)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    check_launches("t5_fp32", launches, t5_generate_launches(cfg, n_new))
+    toks = toks.cpu().numpy()
+
+    with torch.no_grad():
+        enc = model.encode(enc_ids.to(DEV))
+        dec = torch.full((T5_BATCH, n_new + 1), cfg.decoder_start_token_id,
+                         dtype=torch.int32, device=DEV)
+        for t in range(1, n_new + 1):
+            dec[:, t] = model.decode(dec, enc)[:, t - 1].float().argmax(-1)
+    want = dec[:, 1:].cpu().numpy()
+    diverged = {i: t5_divergence(model, enc[i], toks[i], want[i])
+                for i in range(T5_BATCH) if (toks[i] != want[i]).any()}
+    if diverged:
+        emit("t5_fp32_divergence", rows=diverged)
+        raise AssertionError(f"t5_fp32: t5_generate differs from the "
+                             f"teacher-forced re-derivation in rows "
+                             f"{sorted(diverged)}")
+
+    # the card against the port on the CPU: the bucket tables, exactly;
+    # the encoder output and the first step's logits
+    cpu = build_t5(torch.float32, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    buckets = {}
+    for name, n in (("enc_rel_bias", T5_ENC_SEQ), ("dec_rel_bias",
+                                                   n_new + 1)):
+        pos = torch.arange(n)
+        card_b = getattr(model, name).buckets(pos.to(DEV), pos.to(DEV))
+        cpu_b = getattr(cpu, name).buckets(pos, pos)
+        if not torch.equal(card_b.cpu(), cpu_b):
+            bad = int((card_b.cpu() != cpu_b).sum())
+            raise AssertionError(f"t5_fp32: {name} buckets differ from the "
+                                 f"CPU's at {bad} pairs")
+        buckets[name] = dict(pairs=n * n, distinct=int(cpu_b.unique().numel()))
+    start = torch.full((T5_BATCH, 1), cfg.decoder_start_token_id,
+                       dtype=torch.int32)
+
+    def encode_first(m, dev):
+        """The encoder output and the start token's logits, on ``dev``."""
+        with torch.no_grad():
+            e = m.encode(enc_ids.to(dev))
+            first, _ = m.decode(start.to(dev), e,
+                                init_cache(cfg, T5_BATCH, 2, device=dev))
+        return e.cpu(), first.cpu()
+
+    enc_cpu, first_cpu = encode_first(cpu, "cpu")
+    enc_card, first_card = encode_first(model, DEV)
+    with perturbed(cpu, SEED):
+        enc_floor, first_floor = encode_first(cpu, "cpu")
+    bars = {}
+    for label, got, want, floor in (
+            ("encoder output", enc_card, enc_cpu, enc_floor),
+            ("first-step logits", first_card, first_cpu, first_floor)):
+        err = (got - want).abs().max().item()
+        floor = (floor - want).abs().max().item()
+        bars[label] = dict(max_abs_err=err, cpu_floor=floor,
+                           ratio=err / floor if floor else None)
+        if not torch.isfinite(got).all() or err > T5_FLOOR_FACTOR * floor:
+            raise AssertionError(f"t5_fp32: the card's {label} differ from "
+                                 f"the CPU's by {err:.3e}, over "
+                                 f"{T5_FLOOR_FACTOR} x the CPU's floor "
+                                 f"{floor:.3e}")
+    if not (first_card.argmax(-1) == first_cpu.argmax(-1)).all():
+        raise AssertionError("t5_fp32: first tokens differ from the CPU's")
+    emit("t5_fp32", requests=T5_BATCH, encoder_tokens=T5_ENC_SEQ,
+         new_tokens=n_new, layers=cfg.num_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size,
+         parameters=sum(p.numel() for p in model.parameters()),
+         token_identical=True, seconds=seconds, launches=launches,
+         buckets_equal_cpu=buckets, card_vs_cpu=bars,
+         floor_factor=T5_FLOOR_FACTOR, first_logits_rms=rms_of(first_cpu),
+         distinct_tokens=int(np.unique(toks).size))
+    del model, cpu, enc
+    torch.cuda.empty_cache()
+
+
+def t5_bf16(smi):
+    """The serving speed run: t5-small in bf16 over fp32 parameters,
+    ``t5_generate`` of ``T5_NEW_BF16`` tokens for the same requests: a warm
+    call, the encoder alone timed, then one timed call with exact launches:
+    generated tokens/s, host and synchronized ms per decode step, peak
+    memory. Returns the timed call."""
+    import torch
+
+    from apex_tpu_torch.models import t5_generate
+    from apex_tpu_torch.ops import _build
+
+    live = phase_memory_start()
+    model = build_t5(torch.bfloat16)
+    cfg, n_new = model.config, T5_NEW_BF16
+    enc_ids = t5_requests(cfg.vocab_size).to(DEV)
+    t5_generate(model, enc_ids, 8)                                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.encode(enc_ids)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    toks = t5_generate(model, enc_ids, n_new)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    check_launches("t5_bf16", launches, t5_generate_launches(cfg, n_new))
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("t5_bf16: tokens outside the vocabulary")
+    emit("t5_bf16", requests=T5_BATCH, encoder_tokens=T5_ENC_SEQ,
+         new_tokens=n_new, layers=cfg.num_layers,
+         tokens_per_s=T5_BATCH * n_new / elapsed, seconds=elapsed,
+         encode_ms=encode_s * 1e3,
+         host_ms_per_decode_step=host_s / n_new * 1e3,
+         synced_ms_per_decode_step=elapsed / n_new * 1e3,
+         launches=launches,
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live)
+         / 2 ** 30, earlier_phases_live_gib=live / 2 ** 30,
+         nvidia_smi=smi, card_after=card_state())
+    return partial(t5_generate, model, enc_ids, n_new), launches
+
+
+def t5_batch(cfg, batch: int, dev):
+    """Span-corruption-shaped ids (numpy seed ``T5_SEED``):
+    ``T5_TRAIN_ENC`` input and ``T5_TRAIN_DEC`` target tokens a row, the
+    labels the targets shifted left."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(T5_SEED + 1)
+    enc = rng.integers(0, cfg.vocab_size, (batch, T5_TRAIN_ENC))
+    dec = rng.integers(0, cfg.vocab_size, (batch, T5_TRAIN_DEC))
+    enc, dec = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                for a in (enc, dec))
+    return enc, dec, torch.roll(dec, -1, dims=1)
+
+
+def t5_train_flops(cfg, batch: int, s_enc: int, s_dec: int) -> float:
+    """FLOPs of one T5 training step: 6 x the matmul parameters each token
+    passes (encoder layer 4 e i + f e w, decoder layer 6 e i + f e w on its
+    own tokens and 2 e i, the cross K/V, on the encoder's; the tied head V e;
+    w = 2 for relu, 3 for gated-gelu; i = H d), plus attention, 12 d per
+    visible pair (4 d forward, 8 d backward) over the encoder's S_enc^2,
+    the decoder's causal S_dec (S_dec + 1) / 2 and the cross S_dec S_enc
+    pairs of each head."""
+    e, f, layers = cfg.d_model, cfg.d_ff, cfg.num_layers
+    i = cfg.num_heads * cfg.head_dim
+    w = 3 if cfg.ff_act == "gated-gelu" else 2
+    enc_layer, dec_layer = 4 * e * i + w * e * f, 6 * e * i + w * e * f
+    linear = (s_enc * layers * (enc_layer + 2 * e * i)
+              + s_dec * (layers * dec_layer + cfg.vocab_size * e))
+    pairs = s_enc * s_enc + s_dec * (s_dec + 1) // 2 + s_dec * s_enc
+    return float(6 * batch * linear + 12 * batch * cfg.num_heads
+                 * cfg.head_dim * layers * pairs)
+
+
+def perturbed(model, seed: int):
+    """Context: every parameter of ``model`` multiplied in place by 1 +
+    2^-24 noise (one rounding), restored bit for bit after (in place, so
+    an optimizer's views stay)."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        gen = torch.Generator().manual_seed(seed)
+        saved = [p.detach().clone() for p in model.parameters()]
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + 2.0 ** -24 * torch.randn(p.shape, generator=gen))
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, s in zip(model.parameters(), saved):
+                    p.copy_(s)
+    return ctx()
+
+
+def floor_grad_bars(phase: str, card_grads, cpu_grads, floor_grads) -> dict:
+    """Every gradient of the card against the CPU's, in norm: |card - CPU|
+    within the larger of 1e-3 |CPU| (the per-entry bar's rtol) and
+    ``T5_FLOOR_FACTOR`` times the CPU's own floor |CPU' - CPU|, CPU' the
+    CPU's gradient with every parameter moved by one rounding
+    (``floor_grads``), Frobenius norms per tensor; a tensor whose CPU
+    gradient is 0 must be 0 on the card. Per-entry errors are reported:
+    the per-entry bar cannot hold here (``T5_FLOOR_FACTOR``'s note).
+    Returns {name: [|CPU|, |card - CPU|, |CPU' - CPU|, max |card - CPU|,
+    max |g|]}."""
+    import torch
+
+    missing = [n for n, g in card_grads.items() if g is None]
+    if missing:
+        raise AssertionError(f"{phase}: no gradient on the card for "
+                             f"{missing}")
+    out = {}
+    for n, g in card_grads.items():
+        want, got = cpu_grads[n], g.cpu()
+        norm = want.norm().item()
+        err = (got - want).norm().item()
+        floor = (floor_grads[n] - want).norm().item()
+        if (not torch.isfinite(got).all()
+                or err > max(1e-3 * norm, T5_FLOOR_FACTOR * floor)):
+            raise AssertionError(
+                f"{phase} grad {n}: |card - CPU| {err:.3e} over "
+                f"max(1e-3 |CPU| = {1e-3 * norm:.3e}, {T5_FLOOR_FACTOR} x "
+                f"the CPU floor {floor:.3e})")
+        out[n] = [norm, err, floor, (got - want).abs().max().item(),
+                  want.abs().max().item()]
+    return out
+
+
+def t5_train_fp32():
+    """Card against CPU: t5-small at full width, fp32, B = 2, 512 input and
+    114 target tokens, the same seeded weights on both sides: the loss and
+    every gradient (``floor_grad_bars``: in norm, within the larger of 1e-3
+    and ``T5_FLOOR_FACTOR`` times the CPU's own floor per tensor),
+    both relative-bias tables' gradients exactly 0 on both sides, a
+    FusedAdam step on each side on the card's gradients (``step_both``:
+    the parameters after it within ``UPDATE_TOL``), the loss and gradients
+    again, a second step, and the loss. The losses are held as the fp64
+    cross-entropy of each side's fp32 logits within 1e-4 relative; the
+    launches of the card's first forward and backward are exact."""
+    import torch
+
+    from apex_tpu_torch.models import t5_loss
+    from apex_tpu_torch.ops import _build
+
+    card = build_t5(torch.float32)
+    cpu = build_t5(torch.float32, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    cfg = card.config
+    sides = {side: (model, *t5_batch(cfg, T5_TRAIN_FP32_BATCH, dev))
+             for side, model, dev in (("card", card, DEV), ("cpu", cpu,
+                                                            "cpu"))}
+    logits = {}
+    for side, (model, *_rest) in sides.items():
+        model.register_forward_hook(
+            lambda m, i, o, side=side: logits.__setitem__(side, o.detach()))
+    tables = ("enc_rel_bias.rel_attn_bias", "dec_rel_bias.rel_attn_bias")
+
+    def cpu_floor_grads():
+        """The CPU's gradients with every parameter moved by one rounding
+        (``perturbed``); the gradients zeroed in place after (FusedAdam's
+        views stay)."""
+        model, enc, dec, labels = sides["cpu"]
+        params = list(model.parameters())
+        for p in params:
+            if p.grad is not None:
+                p.grad.zero_()
+        with perturbed(model, SEED):
+            t5_loss(model, enc, dec, labels).backward()
+        out = {n: p.grad.detach().clone()
+               for n, p in model.named_parameters()}
+        for p in params:
+            p.grad.zero_()
+        return out
+
+    def forward(backward: bool = True):
+        losses, ces, grads, card_launches = {}, {}, {}, None
+        for side, (model, enc, dec, labels) in sides.items():
+            if side == "card":
+                torch.cuda.synchronize()
+                _build.reset_launches()
+            with torch.set_grad_enabled(backward):
+                loss = t5_loss(model, enc, dec, labels)
+            if backward:
+                loss.backward()
+                grads[side] = {n: p.grad for n, p in model.named_parameters()}
+            logp = torch.log_softmax(logits[side].double(), dim=-1)
+            ces[side] = -logp.gather(-1, labels.long()[..., None])[
+                ..., 0].mean().item()
+            losses[side] = loss.item()
+            if side == "card":
+                torch.cuda.synchronize()
+                card_launches = dict(_build.launches)
+        if abs(ces["card"] - ces["cpu"]) > 1e-4 * abs(ces["cpu"]):
+            raise AssertionError(f"t5_train_fp32: losses differ: {ces} "
+                                 f"(fp64 of the logits), {losses}")
+        if backward:
+            for side in sides:
+                for name in tables:
+                    if grads[side][name] is None or grads[side][name].any():
+                        raise AssertionError(
+                            f"t5_train_fp32: {side} gradient of {name} is "
+                            f"not exactly 0")
+        return losses, ces, grads, card_launches
+
+    floor = cpu_floor_grads()
+    losses, ces, grads, launches = forward()
+    want = t5_train_launches(cfg)
+    want["adam"] = 0
+    check_launches("t5_train_fp32", launches, want)
+    bars = floor_grad_bars("t5_train_fp32", grads["card"], grads["cpu"],
+                           floor)
+    opts = {side: make_optimizer(model)
+            for side, (model, *_rest) in sides.items()}
+
+    def step_both() -> float:
+        """A FusedAdam step on each side, the CPU's on the card's gradients
+        (copied into its FusedAdam views): every parameter after it within
+        ``UPDATE_TOL`` of the card's. Then the card's parameters are copied
+        into the CPU's views, so that the next comparison starts from equal
+        weights: at this init one rounding of the weights moves the
+        gradients by the CPU floor, and a step on each side's own gradients
+        (relu gates that flip) moves them by far more. Returns the largest
+        |card - CPU| after the step."""
+        card_p = dict(sides["card"][0].named_parameters())
+        cpu_p = dict(sides["cpu"][0].named_parameters())
+        with torch.no_grad():
+            for n, p in cpu_p.items():
+                p.grad.copy_(card_p[n].grad.cpu())
+        for opt in opts.values():
+            opt.step()
+        worst = 0.0
+        with torch.no_grad():
+            for n, p in cpu_p.items():
+                got = card_p[n].detach().cpu()
+                diff = (got - p).abs()
+                if (diff > UPDATE_TOL[0] + UPDATE_TOL[1] * p.abs()).any():
+                    raise AssertionError(
+                        f"t5_train_fp32: {n} after the step differs from "
+                        f"the CPU's by {diff.max().item():.3e}")
+                worst = max(worst, diff.max().item())
+                p.copy_(got)
+        return worst
+
+    step_errs = [step_both()]
+    for opt in opts.values():
+        opt.zero_grad()
+    floor = cpu_floor_grads()
+    loss1, ce1, grads, _ = forward()
+    bars_1 = floor_grad_bars("t5_train_fp32 step 1", grads["card"],
+                             grads["cpu"], floor)
+    step_errs.append(step_both())
+    loss2, ce2, _, _ = forward(backward=False)
+
+    def summary(b):
+        """Per tensor, the card's error and the CPU floor relative to the
+        gradient's norm (median and worst), the largest error over its
+        floor, and the tensors whose largest entry error is within the
+        per-entry bar min(1e-4, 1e-3 max|g|) + 1e-3 max|g|."""
+        live = {n: v for n, v in b.items() if v[0] > 0}
+        rel = sorted(e / g for g, e, _, _, _ in live.values())
+        floors = sorted(f / g for g, _, f, _, _ in live.values())
+        return dict(tensors=len(b), zero_tensors=len(b) - len(live),
+                    rel_err_median=rel[len(rel) // 2], rel_err_max=rel[-1],
+                    rel_floor_median=floors[len(floors) // 2],
+                    rel_floor_max=floors[-1],
+                    max_err_over_floor=max(e / f for _, e, f, _, _
+                                           in live.values() if f > 0),
+                    within_entry_bar=sum(
+                        m <= min(1e-4, 1e-3 * gm) + 1e-3 * gm
+                        for _, _, _, m, gm in b.values()))
+
+    emit("t5_train_fp32", batch=T5_TRAIN_FP32_BATCH,
+         encoder_tokens=T5_TRAIN_ENC, decoder_tokens=T5_TRAIN_DEC,
+         layers=cfg.num_layers, lr=TRAIN_LR,
+         parameters=sum(p.numel() for p in card.parameters()),
+         ce64_card=[ces["card"], ce1["card"], ce2["card"]],
+         ce64_cpu=[ces["cpu"], ce1["cpu"], ce2["cpu"]],
+         losses_card=[losses["card"], loss1["card"], loss2["card"]],
+         losses_cpu=[losses["cpu"], loss1["cpu"], loss2["cpu"]],
+         grad_bar="|card - CPU| <= max(1e-3 |CPU|, "
+                  f"{T5_FLOOR_FACTOR} |CPU' - CPU|) per tensor, Frobenius; "
+                  "CPU' = every parameter moved by one rounding",
+         grads_summary=summary(bars), grads_step1_summary=summary(bars_1),
+         rel_bias_grads_zero=list(tables), params_with_grad=len(bars),
+         params_after_step_max_abs_err=step_errs, update_tol=UPDATE_TOL,
+         launches=launches)
+    del sides, opts, card, cpu, logits
+    torch.cuda.empty_cache()
+
+
+def t5_train_bf16(smi):
+    """t5-small at full width, B = ``T5_TRAIN_BATCH`` x 512 inputs and 114
+    targets, bf16 compute over fp32 parameters, ``FusedAdam(lr=1e-4,
+    weight_decay=0.01)`` with norms and biases excluded: warm steps, then
+    timed steps with exact launches per step. Returns the step and the
+    timed steps' launches."""
+    import torch
+
+    from apex_tpu_torch.models import t5_loss
+    from apex_tpu_torch.ops import _build
+
+    live = phase_memory_start()
+    model = build_t5(torch.bfloat16)
+    cfg = model.config
+    opt = make_optimizer(model)
+    b = T5_TRAIN_BATCH
+    enc, dec, labels = t5_batch(cfg, b, DEV)
+
+    def step():
+        opt.zero_grad()
+        loss = t5_loss(model, enc, dec, labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [step() for _ in range(T5_TRAIN_WARM)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(T5_TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    check_launches("t5_train_bf16", launches, t5_train_launches(cfg),
+                   per=T5_TRAIN_TIMED)
+    with torch.no_grad():
+        final = t5_loss(model, enc, dec, labels).item()
+    losses = [x.item() for x in losses]
+    if not all(map(math.isfinite, losses + [final])) or not final < losses[0]:
+        raise AssertionError(f"t5_train_bf16: loss not finite and falling: "
+                             f"{losses} then {final}")
+    step_s = elapsed / T5_TRAIN_TIMED
+    flops = t5_train_flops(cfg, b, T5_TRAIN_ENC, T5_TRAIN_DEC)
+    emit("t5_train_bf16", batch=b, encoder_tokens=T5_TRAIN_ENC,
+         decoder_tokens=T5_TRAIN_DEC, layers=cfg.num_layers,
+         parameters=sum(p.numel() for p in model.parameters()),
+         timed_steps=T5_TRAIN_TIMED, step_ms=step_s * 1e3,
+         tokens_per_s=b * (T5_TRAIN_ENC + T5_TRAIN_DEC) / step_s,
+         target_tokens_per_s=b * T5_TRAIN_DEC / step_s,
+         flops_per_step=flops,
+         flops_formula="6 B (S_enc L (4 e i + w e f + 2 e i) + S_dec (L "
+                       "(6 e i + w e f) + V e)) + 12 B H d L (S_enc^2 + "
+                       "S_dec (S_dec + 1) / 2 + S_dec S_enc), i = H d, "
+                       "w = 2 (relu)",
+         mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+         bound_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3,
+         peak_flops=PEAK_FLOPS["bfloat16"], losses=losses, loss_after=final,
+         launches_per_step={k: launches[k] / T5_TRAIN_TIMED
+                            for k in T5_TRAIN_KERNELS}, launches=launches,
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live)
+         / 2 ** 30, earlier_phases_live_gib=live / 2 ** 30,
+         nvidia_smi=smi, card_after=card_state())
+    return step, launches
+
+
+def profile_phase(phase: str, fn, cpu: bool = True, **fields) -> None:
     """One run of ``fn`` under the profiler: device busy and idle share and
     the top device items (``cpu=False``: the host's ops untraced)."""
     wall, acts = device_profile(fn, cpu=cpu)
     busy = sum(t for t, _ in acts.values())
     top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:15]
-    emit(phase, wall_s=wall, device_busy_s=busy / 1e3,
+    emit(phase, **fields, wall_s=wall, device_busy_s=busy / 1e3,
          device_idle_share=1.0 - busy / 1e3 / wall,
          top_device=[dict(name=k[:120], ms=t, count=c)
                      for k, (t, c) in top])
@@ -3145,7 +3963,7 @@ def main() -> int:
               + check_flash_window(gen, DEV) + check_paged_window(gen, DEV)
               + check_norm_bwd_mistral(gen, DEV)
               + check_flash_bwd_window(gen, DEV)
-              + check_paged_block(gen, DEV))
+              + check_paged_block(gen, DEV) + check_flash_bias(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, rms_atol=RMS_ATOL,
          card_before=card_before,
@@ -3202,6 +4020,13 @@ def main() -> int:
     train_step, train_launches = train_bf16(smi)
     bert_fp32()
     bert_step, bert_launches = bert_bf16(smi)
+    # T5 before the Mistral-7B training phases, whose step (18 GB of
+    # parameters and Adam state) stays live for its profile: the T5 batch
+    # of 128 x 512 fits beside what the earlier phases keep
+    t5_fp32()
+    t5_run, t5_launches = t5_bf16(smi)
+    t5_train_fp32()
+    t5_train_step, t5_train_launches = t5_train_bf16(smi)
     me_launches = mistral_train_fp32()
     mistral_train_step, mistral_train_launches = mistral_train_bf16(smi)
 
@@ -3213,13 +4038,15 @@ def main() -> int:
                   cpu=False)
     profile_spec_round(model, prompts, new_tokens)
     profile_quant(quant_runs)
-    profile_phase("mistral_bf16_profile", mistral_run, cpu=False)
+    profile_phase("mistral_bf16_profile", short_run(mistral_run), cpu=False,
+                  requests=NUM_SLOTS, budget_cap=PROFILE_BUDGET)
     del mistral_model, mistral_run
     torch.cuda.empty_cache()
     results = []
     for row, fn in checks:
         if row.get("path") in ("quant_serving", "mistral", "mistral_train",
-                               "spec_chunked"):
+                               "spec_chunked", "t5", "t5_train",
+                               "window_bias"):
             continue                  # timed by queued_ms already
         ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
         results.append(dict(name=row["name"], dtype=row["dtype"],
@@ -3235,6 +4062,10 @@ def main() -> int:
     profile_phase("train_bf16_profile", train_step)
     profile_phase("bert_bf16_profile", bert_step)
     profile_phase("mistral_train_bf16_profile", mistral_train_step)
+    del mistral_train_step
+    torch.cuda.empty_cache()
+    profile_phase("t5_bf16_profile", t5_run, cpu=False)
+    profile_phase("t5_train_bf16_profile", t5_train_step)
 
     # summary: each serving kernel at the serving path's bf16 shapes (decode
     # rows for the norm, a 128-token prefill for flash, the 8-slot pool for
@@ -3291,13 +4122,32 @@ def main() -> int:
         "paged_attention_quant_block": [NUM_SLOTS, 12, BLOCK_S[1], PAGE_SIZE,
                                         64, 64]})
     main_kind["paged_attention_quant_block"] = "int8"
+    # the bias branches at T5's bf16 shapes: the forward at serving's
+    # encoder (8 x 512, with the t5_generate run's launches), the backward
+    # at training's encoder (128 x 512, with a training step's launches);
+    # each also carries, under "t5_decoder", its row at the decoder's
+    # causal 128 x 114, with the decoder's own launches in the timed
+    # training steps (half the kernel's: each step runs L biased
+    # self-attentions in the encoder and L in the decoder); the windowed
+    # branches at their one row (no T5 path runs them: launches 0).
+    # flash_fwd, flash_bwd_dq and flash_bwd_dkdv
+    # carry, under "t5_cross", T5's cross-attention rows
+    bias_shape = {"flash_fwd_bias": [T5_BATCH, T5_HEADS, T5_ENC_SEQ,
+                                     T5_HEAD_DIM],
+                  "flash_bwd_dq_bias": [T5_TRAIN_BATCH, T5_HEADS,
+                                        T5_TRAIN_ENC, T5_HEAD_DIM],
+                  "flash_bwd_dkdv_bias": [T5_TRAIN_BATCH, T5_HEADS,
+                                          T5_TRAIN_ENC, T5_HEAD_DIM]}
+    main_shape.update(bias_shape)
+    t5_dec_shape = [T5_TRAIN_BATCH, T5_HEADS, T5_TRAIN_DEC, T5_HEAD_DIM]
     by_path = {"serving": launches, "gpt_train": train_launches,
                "bert_train": bert_launches, "mistral": mistral_launches,
                **{label: run[1] for label, run in quant_runs.items()},
                "mistral_train": mistral_train_launches,
                "mistral_train_memory_efficient": me_launches,
                "spec": spec_launches, "chunked": chunk_launches,
-               "chunked_kv8": chunk_kv8_launches}
+               "chunked_kv8": chunk_kv8_launches, "t5": t5_launches,
+               "t5_train": t5_train_launches}
     # the windowed block has no engine path (the reference refuses both
     # modes for windowed models), so its launches read 0
     block_path = {"paged_attention_block": "spec",
@@ -3309,7 +4159,9 @@ def main() -> int:
               "library_ms")
     summary = []
     for name, (src, replaces) in _build.KERNELS.items():
-        path = (block_path[name] if name in BLOCK_KERNELS
+        path = ("t5" if name == "flash_fwd_bias" else "t5_train"
+                if name in BIAS_KERNELS else block_path[name]
+                if name in BLOCK_KERNELS
                 else "serving" if name in SERVING_KERNELS else "gpt_train"
                 if name in TRAIN_KERNELS else quant_path[name]
                 if name in QUANT_KERNELS else "mistral"
@@ -3336,10 +4188,31 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             **{k: row[k] for k in ("kind", "shape", "unquantized_ms",
                                    "library", "kv_heads", "window",
-                                   "out_rms", "s")
+                                   "out_rms", "s", "sk", "causal",
+                                   "bias_shape", "use")
                if k in row and (path in (*quant_path.values(), "mistral")
                                 or name in MISTRAL_TRAIN_NEW
-                                or name in BLOCK_KERNELS)})
+                                or name in BLOCK_KERNELS
+                                or name in BIAS_KERNELS)})
+        if name in bias_shape:
+            dec = next(r for r in rows if r["name"] == name
+                       and r["dtype"] == "bfloat16"
+                       and r["shape"] == t5_dec_shape)
+            entry["t5_decoder"] = dict(
+                shape=dec["shape"], sk=dec["sk"], causal=dec["causal"],
+                bias_shape=dec["bias_shape"], dtype="bfloat16",
+                launches=t5_train_launches[name] // 2,
+                out_rms=dec["out_rms"],
+                **{k: dec[k] for k in timing})
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+            entry["t5_cross"] = [
+                dict(shape=r["shape"], sk=r["sk"], use=r["use"],
+                     dtype="bfloat16", out_rms=r["out_rms"],
+                     launches=by_path[r["path"]][name],
+                     **{k: r[k] for k in timing})
+                for r in rows if r["name"] == name
+                and r.get("path") in ("t5", "t5_train")
+                and r["dtype"] == "bfloat16"]
         if name == "paged_attention_block":
             ck = next(r for r in rows if r["name"] == name
                       and r["dtype"] == "bfloat16" and r["s"] == BLOCK_S[1])

@@ -563,8 +563,8 @@ def test_windowed_flash_kernel_matches_twin(cuda, dtype, sq, sk, h, hkv, d,
 def test_windowed_flash_refuses_autograd_on_the_card(cuda):
     """ROADMAP B9's window is ported: a windowed call under autograd runs
     the windowed forward and both windowed backward kernels, never the
-    unwindowed ones. What the flash surface still refuses is a bias and a
-    ``causal_offset`` (items 8 and 9)."""
+    unwindowed ones; with a bias, their ``_window_bias`` branches. What the
+    flash surface still refuses is a ``causal_offset`` (items 8 and 9)."""
     q, k, v = (torch.randn(1, 2, 16, 64, device=cuda, requires_grad=True)
                for _ in range(3))
     before = dict(_build.launches)
@@ -574,9 +574,13 @@ def test_windowed_flash_refuses_autograd_on_the_card(cuda):
         assert _build.launches[name] == before[name] + 1
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
         assert _build.launches[name] == before[name]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        flash_attention(q, k, v, torch.zeros(1, 2, 16, 16, device=cuda),
-                        causal=True, window=4)
+    before = dict(_build.launches)
+    flash_attention(q, k, v, torch.zeros(1, 2, 16, 16, device=cuda),
+                    causal=True, window=4).sum().backward()
+    for name in ("flash_fwd_window_bias", "flash_bwd_dq_window_bias",
+                 "flash_bwd_dkdv_window_bias"):
+        assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 3
     with pytest.raises(NotImplementedError, match="item 9"):
         flash_attention_with_lse(q, k, v, causal=True, causal_offset=0)
 
@@ -815,3 +819,114 @@ def test_windowed_flash_bwd_kernels_match_twin(cuda, dtype, s, h, hkv, d,
     for a, r in zip(got, want):
         assert a.dtype == dtype
         _bwd_close(a, r, dtype)
+
+
+#: (batch, heads, kv heads, Sq, Sk, head dim, bias shape, causal, window,
+#: segments, dropout rate): T5's encoder and decoder (a (1, H, S, S) table
+#: serving B = 3), its start token (Sq = Sk = 1) and its decode-time
+#: cross-attention shape with a padding bias (Sq = 1 against Sk = 77),
+#: a full bias at Sq != Sk under GQA, a padding mask of -1e9 with segments
+#: and dropout, and a windowed call with a table (the _window_bias names)
+BIAS_CASES = [
+    (3, 8, 8, 77, 77, 64, "table", False, None, False, 0.0),
+    (3, 8, 8, 77, 77, 64, "table", True, None, False, 0.0),
+    (3, 8, 8, 1, 1, 64, "table", True, None, False, 0.0),
+    (3, 8, 8, 1, 77, 64, "padding", False, None, False, 0.0),
+    (2, 8, 2, 40, 97, 128, "full", True, None, False, 0.0),
+    (2, 4, 2, 64, 64, 64, "padding", False, None, True, 0.1),
+    (2, 8, 2, 150, 150, 128, "table", True, 40, False, 0.0),
+]
+
+
+def _bias_for(kind, b, h, sq, sk, g):
+    if kind == "table":
+        return torch.randn(1, h, sq, sk, generator=g)
+    if kind == "full":
+        return torch.randn(b, h, sq, sk, generator=g)
+    keep = torch.arange(sk)[None, :] < torch.randint(
+        sk // 2, sk + 1, (b,), generator=g)[:, None]
+    return torch.where(keep, 0.0, -1e9)[:, None, None, :]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,kind,causal,window,segments,rate",
+                         BIAS_CASES)
+def test_flash_bias_kernels_match_twin(cuda, dtype, b, h, hkv, sq, sk, d,
+                                       kind, causal, window, segments, rate):
+    """The bias branch of the forward and both backward kernels against the
+    twins, a bias in q's dtype read in place through its broadcast strides,
+    each launch counted under its ``_bias`` name (``_window_bias`` with a
+    window) and under no other."""
+    g = torch.Generator().manual_seed(21)
+    q, do = (torch.randn(b, h, sq, d, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, sk, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    bias = _bias_for(kind, b, h, sq, sk, g).to(cuda, dtype)
+    seg = None
+    if segments:
+        seg = (torch.arange(sq)[None, :] < torch.tensor([sq, sq - 9])[:, None]
+               ).int().to(cuda)
+    masking = Masking(causal=causal, window=window, segment_ids=seg,
+                      kv_segment_ids=seg, dropout_rate=rate, dropout_seed=3)
+    scale = d ** -0.5
+    o, lse = flash_attention_reference(q, k, v, scale=scale, masking=masking,
+                                       bias=bias)
+    before = dict(_build.launches)
+    ko, klse = flash_fwd(q, k, v, scale=scale, masking=masking, bias=bias)
+    got = flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                              masking=masking, bias=bias)
+    suffix = "_bias" if window is None else "_window_bias"
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        assert _build.launches[name + suffix] == before[name + suffix] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 3
+    _close(ko, o, dtype)
+    _close(klse, lse, torch.float32)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, scale=scale,
+                                         masking=masking, bias=bias)
+    for a, r in zip(got, want):
+        _bwd_close(a, r, dtype)
+
+
+def test_flash_bias_batch_stride_on_the_card(cuda):
+    """A (1, H, S, S) bias serving B = 3 equals the same bias repeated over
+    the batch, and a non-contiguous fp32 bias under a bf16 q equals its
+    contiguous copy (the kernels read through the strides)."""
+    g = torch.Generator().manual_seed(22)
+    q, k, v = (torch.randn(3, 8, 70, 64, generator=g).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    table = torch.randn(1, 8, 70, 70, generator=g).to(cuda)
+    for bias in (table.repeat(3, 1, 1, 1), table.transpose(2, 3).contiguous()
+                 .transpose(2, 3)):
+        a = flash_fwd(q, k, v, scale=1.0, masking=Masking(causal=False),
+                      bias=table)
+        r = flash_fwd(q, k, v, scale=1.0, masking=Masking(causal=False),
+                      bias=bias)
+        for x, y in zip(a, r):
+            torch.testing.assert_close(x, y, atol=0, rtol=0)
+
+
+def test_flash_bias_autograd_on_the_card(cuda):
+    """Under autograd a bias launches the three ``_bias`` kernels; the
+    bias's gradient is exactly zero, q/k/v's match the twins'."""
+    g = torch.Generator().manual_seed(23)
+    q, k, v = (torch.randn(2, 8, 60, 64, generator=g).to(cuda)
+               .requires_grad_() for _ in range(3))
+    table = torch.randn(1, 8, 60, 60, generator=g).to(cuda).requires_grad_()
+    before = dict(_build.launches)
+    o = flash_attention(q, k, v, table, causal=True, scale=1.0)
+    o.sum().backward()
+    for name in ("flash_fwd_bias", "flash_bwd_dq_bias",
+                 "flash_bwd_dkdv_bias"):
+        assert _build.launches[name] == before[name] + 1
+    assert table.grad is not None and not table.grad.any()
+    masking = Masking(causal=True)
+    ro, rlse = flash_attention_reference(q.detach(), k.detach(), v.detach(),
+                                         scale=1.0, masking=masking,
+                                         bias=table.detach())
+    _close(o, ro, torch.float32)
+    want = flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), ro, rlse, torch.ones_like(ro),
+        scale=1.0, masking=masking, bias=table.detach())
+    for t, r in zip((q, k, v), want):
+        _bwd_close(t.grad, r, torch.float32)

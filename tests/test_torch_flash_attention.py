@@ -64,7 +64,8 @@ def test_flash_attention_matches_jax_kernel_and_reference(h, hkv):
     np.testing.assert_allclose(got, np.asarray(jax_mha(*args, causal=True)),
                                atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(
-        mha_reference(*(torch.from_numpy(a) for a in (q, k, v))).numpy(),
+        mha_reference(*(torch.from_numpy(a) for a in (q, k, v)),
+                      causal=True).numpy(),
         got, atol=0, rtol=0)
 
 
@@ -87,22 +88,27 @@ def test_flash_cross_length_causal_offset_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(causal=False, bias=torch.zeros(1, 1, 8, 8)),
-    dict(causal=True, window=4, bias=torch.zeros(1, 1, 8, 8)),
-    dict(causal=True, dropout_rate=0.1, window=4,
-         bias=torch.zeros(1, 1, 8, 8)),
+    dict(causal=False, causal_offset=2),
+    dict(causal=True, window=4, causal_offset=0),
+    dict(causal=True, dropout_rate=0.1, causal_offset=1),
 ])
 def test_unported_flash_options_raise(kwargs):
+    """What is left of the flash surface, ring attention's: an explicit
+    ``causal_offset``, with or without a window or dropout."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, 4, 4))
-    with pytest.raises(NotImplementedError, match="no bias"):
-        flash_attention(q, k, v, **kwargs)
+    with pytest.raises(NotImplementedError, match="no causal_offset"):
+        flash_attention_with_lse(q, k, v, **kwargs)
 
 
 def test_flash_bias_and_segments_raise():
-    """A bias is not ported; segment ids must fit q and k."""
+    """A bias must broadcast to [B, H, Sq, Sk] and be in q's dtype or fp32;
+    segment ids must fit q and k."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, 4, 4))
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v, torch.zeros(1, 1, 8, 8), causal=True)
+    with pytest.raises(ValueError, match="does not broadcast"):
+        flash_attention(q, k, v, torch.zeros(1, 3, 8, 8), causal=True)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention(q, k, v, torch.zeros(1, 1, 8, 8,
+                                             dtype=torch.float64))
     with pytest.raises(ValueError, match="segment ids"):
         flash_attention(q, k, v, segment_ids=torch.zeros(2, 7), causal=True)
     with pytest.raises(NotImplementedError, match="causal_offset"):
@@ -350,7 +356,8 @@ def test_row_that_sees_no_key_outputs_zero_like_jax():
     assert (lse[:, :, 12:] == mod.DEFAULT_MASK_VALUE).all()
     np.testing.assert_allclose(
         mha_reference(*(torch.from_numpy(a) for a in (q, k, v)),
-                      torch.from_numpy(qs), torch.from_numpy(ks),
+                      segment_ids=torch.from_numpy(qs),
+                      kv_segment_ids=torch.from_numpy(ks),
                       causal=False).numpy(),
         np.asarray(jax_mha(*(jnp.asarray(a) for a in (q, k, v)),
                            segment_ids=jnp.asarray(qs),

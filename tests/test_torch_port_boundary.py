@@ -41,7 +41,7 @@ def test_scan_covers_the_port():
     files = _port_files()
     assert len(files) >= 15
     assert ROOT / "apex_tpu_torch" / "serving" / "scheduler.py" in files
-    for new in (("models", "llama.py"),
+    for new in (("models", "llama.py"), ("models", "t5.py"),
                 ("transformer", "functional", "fused_rope.py")):
         assert ROOT.joinpath("apex_tpu_torch", *new) in files
 
