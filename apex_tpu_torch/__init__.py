@@ -7,15 +7,16 @@ importing the package builds nothing and needs neither ``nvcc`` nor a card.
 
 Subpackages load lazily: ``apex_tpu_torch.serving``, ``.models``,
 ``.ops``, ``.normalization``, ``.optimizers``, ``.transformer``,
-``.contrib``.
+``.contrib``, ``.amp``, ``.parallel``, ``.examples``.
 """
 
 import importlib
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("bridge", "contrib", "models", "normalization", "ops",
-                "optimizers", "serving", "transformer")
+_SUBPACKAGES = ("amp", "bridge", "contrib", "examples", "models",
+                "normalization", "ops", "optimizers", "parallel", "serving",
+                "transformer")
 
 
 def __getattr__(name):

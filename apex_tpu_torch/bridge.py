@@ -4,8 +4,9 @@
 returns — as plain numpy arrays, e.g. ``jax.tree.map(np.asarray,
 variables)`` — onto the state dict of ``apex_tpu_torch.models.GPTModel``;
 ``bert_params_from_flax`` does the same for ``BertForPreTraining`` and
-``llama_params_from_flax`` for ``LlamaModel`` and ``t5_params_from_flax``
-for ``T5Model``. All sides keep the
+``llama_params_from_flax`` for ``LlamaModel``, ``t5_params_from_flax``
+for ``T5Model`` and ``resnet_params_from_flax`` for the ImageNet example's
+``ResNet`` (its convolutions change layout: HWIO to OIHW). All sides keep the
 reference's weight layouts (GPT's and Llama's ``(out, in)`` linears, BERT's
 ``(in, out)`` ``x @ W``), so every tensor maps one to one; only the names
 change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes numpy, so it
@@ -190,4 +191,59 @@ def bert_params_from_flax(variables) -> dict:
     missing = sorted(want - set(sd))
     if missing:
         raise KeyError(f"flax tree lacks {missing}")
+    return sd
+
+
+#: the ImageNet ResNet's flax module names -> the port's: a bottleneck's
+#: unnamed convolutions ``Conv_k``, in call order, and its named modules;
+#: the stem's ``conv1``/``bn1`` and ``fc`` at the top
+_RESNET_BLOCK_CONV = {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
+                      "downsample_conv": "downsample_conv"}
+_RESNET_BLOCK_BN = ("bn1", "bn2", "bn3", "downsample_bn")
+_RESNET_BN_LEAF = {"weight": "weight", "bias": "bias", "mean": "running_mean",
+                   "var": "running_var"}
+
+
+def _resnet_name(path: str) -> str:
+    """A flax ``params`` or ``batch_stats`` path of the ResNet -> the port's
+    state-dict name, or ``KeyError``."""
+    parts = path.split("/")
+    block = parts[0].startswith("stage") and "_block" in parts[0]
+    prefix, rest = (parts[:1], parts[1:]) if block else ([], parts)
+    convs = _RESNET_BLOCK_CONV if block else {"conv1": "conv1"}
+    bns = _RESNET_BLOCK_BN if block else ("bn1",)
+    if len(rest) == 2:
+        mod, leaf = rest
+        if mod in convs and leaf == "kernel":
+            return ".".join(prefix + [convs[mod], "weight"])
+        if mod in bns and leaf in _RESNET_BN_LEAF:
+            return ".".join(prefix + [mod, _RESNET_BN_LEAF[leaf]])
+        if not block and mod == "fc" and leaf in ("kernel", "bias"):
+            return "fc." + ("weight" if leaf == "kernel" else "bias")
+    raise KeyError(f"flax leaf {path!r} has no counterpart in the port's "
+                   f"ResNet")
+
+
+def resnet_params_from_flax(variables) -> dict:
+    """``{"params": ..., "batch_stats": ...}`` of the reference example's
+    ``ResNet`` (``examples/imagenet/main_amp.py``) -> the state dict of
+    ``apex_tpu_torch.examples.imagenet.main_amp.ResNet``: conv kernels HWIO
+    -> OIHW, ``fc``'s ``(in, out)`` -> ``(out, in)``, ``batch_stats``
+    ``mean``/``var`` -> ``running_mean``/``running_var``. Any leaf left
+    unmapped raises ``KeyError``; a tree without ``batch_stats`` maps the
+    parameters alone."""
+    sd = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _flat_paths(variables.get(coll, {})):
+            name = _resnet_name(path)
+            t = _tensor(leaf)
+            if name.endswith("weight") and t.ndim == 4:
+                t = t.permute(3, 2, 0, 1)
+            elif name == "fc.weight":
+                t = t.t()
+            sd[name] = t.contiguous()
+    extra = set(variables) - {"params", "batch_stats"}
+    if extra:
+        raise KeyError(f"flax collections {sorted(extra)} have no "
+                       f"counterpart in the port's ResNet")
     return sd

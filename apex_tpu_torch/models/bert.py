@@ -14,10 +14,10 @@ kernel.
 
 Weights keep the reference's ``(in, out)`` layout and names (``x @ W``), so
 ``bridge.bert_params_from_flax`` maps a flax tree one to one. The compute
-dtype is ``BertConfig.dtype`` (the reference's amp O1 seam
-``resolve_compute_dtype`` reads the same field when amp is off; amp is not
-ported). Hidden dropout (after the embeddings, the attention output and the
-MLP) draws from a ``torch.Generator`` on the model's device, seeded from the
+dtype is ``BertConfig.dtype``, or the amp policy's after
+``amp.initialize`` (``resolve_compute_dtype``, the reference's O1 seam).
+Hidden dropout (after the embeddings, the attention output and the MLP)
+draws from a ``torch.Generator`` on the model's device, seeded from the
 step's dropout seed: it cannot match flax's threefry bits, only their rate
 and scale.
 """
@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
@@ -122,7 +123,7 @@ class BertSelfAttention(nn.Module):
     def forward(self, x, segment_ids, *, deterministic: bool,
                 dropout_seed: int):
         cfg = self.config
-        dt = cfg.dtype
+        dt = resolve_compute_dtype(cfg.dtype)
         e, h, d = cfg.hidden_size, cfg.num_heads, cfg.head_dim
         b, s, _ = x.shape
         qkv = x @ self.qkv_weight.to(dt) + self.qkv_bias.to(dt)
@@ -160,7 +161,7 @@ class BertLayer(nn.Module):
                 dropout_seed: int = 0,
                 generator: Optional[torch.Generator] = None):
         cfg = self.config
-        dt = cfg.dtype
+        dt = resolve_compute_dtype(cfg.dtype)
         drop = not deterministic and cfg.hidden_dropout > 0.0
         attn_out = self.attention(x, segment_ids, deterministic=deterministic,
                                   dropout_seed=dropout_seed)
@@ -241,7 +242,7 @@ class BertForPreTraining(nn.Module):
                 deterministic: bool = True, dropout_seed: int = 0,
                 masked_positions=None):
         cfg = self.config
-        dt = cfg.dtype
+        dt = resolve_compute_dtype(cfg.dtype)
         s = input_ids.shape[1]
         x = self.word_embeddings[input_ids.long()]
         x = x + self.position_embeddings[None, :s]

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.ops.quant import kv_cast, kv_inverse, kv_qmax
 
 
@@ -38,7 +39,8 @@ def init_cache(config, batch: int, max_len: int, *, dtype=None,
     """All-zeros contiguous KV cache for ``batch`` sequences of up to
     ``max_len`` tokens."""
     kv_heads = getattr(config, "num_kv_heads", config.num_heads)
-    dt = dtype if dtype is not None else config.dtype
+    dt = (dtype if dtype is not None
+          else resolve_compute_dtype(config.dtype))
     shape = (batch, kv_heads, max_len, config.head_dim)
     layers = [{"k": torch.zeros(shape, dtype=dt, device=device),
                "v": torch.zeros(shape, dtype=dt, device=device)}

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.models.generation import (advance_cache, cached_attention,
                                               check_chunk_bounds, is_paged,
                                               is_static_prefill, layer_cache,
@@ -111,7 +112,7 @@ class ParallelDecoderBlock(nn.Module):
 
     def forward(self, x, cache=None):
         cfg = self.config
-        dt = cfg.dtype
+        dt = resolve_compute_dtype(cfg.dtype)  # amp O1 seam
         h_heads, d = cfg.num_heads, cfg.head_dim
         b, s, _ = x.shape
 
@@ -191,6 +192,7 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, cache=None):
         cfg = self.config
+        dt = resolve_compute_dtype(cfg.dtype)
         b, s = input_ids.shape
         x = self.word_embeddings(input_ids)
         pos = self.position_embeddings
@@ -208,7 +210,7 @@ class GPTModel(nn.Module):
         else:
             t0 = check_chunk_bounds(cache, s, cfg.max_position_embeddings)
             pos_s = pos[t0:t0 + s][None]
-        x = (x + pos_s).to(cfg.dtype)
+        x = (x + pos_s).to(dt)
         new_layers = []
         for i, blk in enumerate(self.layers):
             if cache is None:
@@ -217,7 +219,7 @@ class GPTModel(nn.Module):
                 x, lc = blk(x, cache=layer_cache(cache, i))
                 new_layers.append(lc)
         x = self.final_norm(x)
-        logits = self.word_embeddings.attend(x.to(cfg.dtype))
+        logits = self.word_embeddings.attend(x.to(dt))
         if cache is None:
             return logits
         return logits, advance_cache(cache, new_layers, s)

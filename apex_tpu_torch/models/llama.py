@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.models.generation import (advance_cache, cached_attention,
                                               check_chunk_bounds, is_paged,
                                               is_static_prefill, layer_cache,
@@ -197,7 +198,8 @@ class LlamaDecoderBlock(nn.Module):
         window = cfg.sliding_window
         b, s, _ = x.shape
 
-        h = self.input_norm(x).to(cfg.dtype)
+        dt = resolve_compute_dtype(cfg.dtype)
+        h = self.input_norm(x).to(dt)
         q = self.q_proj(h)
         k, v = self.kv_proj(h).chunk(2, dim=-1)
 
@@ -228,7 +230,7 @@ class LlamaDecoderBlock(nn.Module):
         ctx = ctx.transpose(1, 2).reshape(b, s, n_h * d)
         x = x + self.o_proj(ctx).to(x.dtype)
 
-        h = self.post_norm(x).to(cfg.dtype)
+        h = self.post_norm(x).to(dt)
         gate, up = self.gate_up_proj(h).chunk(2, dim=-1)
         out = x + self.down_proj(F.silu(gate) * up).to(x.dtype)
         return out if cache is None else (out, cache)
@@ -278,7 +280,8 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, cache=None):
         cfg = self.config
         b, s = input_ids.shape
-        x = self.embed_tokens(input_ids).to(cfg.dtype)
+        dt = resolve_compute_dtype(cfg.dtype)
+        x = self.embed_tokens(input_ids).to(dt)
         dev = x.device
         if cache is None:
             if s > cfg.max_position_embeddings:
@@ -308,7 +311,7 @@ class LlamaModel(nn.Module):
             else:
                 x, lc = blk(x, cos_, sin_, cache=layer_cache(cache, i))
                 new_layers.append(lc)
-        x = self.final_norm(x).to(cfg.dtype)
+        x = self.final_norm(x).to(dt)
         logits = (self.embed_tokens.attend(x) if self.lm_head is None
                   else self.lm_head(x))
         if cache is None:

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.models.generation import (_greedy_token, advance_cache,
                                               cached_attention,
                                               check_chunk_bounds, init_cache,
@@ -277,7 +278,7 @@ class T5EncoderBlock(nn.Module):
         self.ffn = _T5FFN(cfg, device=device)
 
     def forward(self, x, bias):
-        dt = self.config.dtype
+        dt = resolve_compute_dtype(self.config.dtype)
         h = self.attn_norm(x)
         x = x + self.self_attn(h.to(dt), bias).to(x.dtype)
         h = self.ffn_norm(x)
@@ -299,7 +300,7 @@ class T5DecoderBlock(nn.Module):
         self.ffn = _T5FFN(cfg, device=device)
 
     def forward(self, x, enc, bias, cache=None):
-        dt = self.config.dtype
+        dt = resolve_compute_dtype(self.config.dtype)
         h = self.attn_norm(x)
         if cache is None:
             attn = self.self_attn(h.to(dt), bias)
@@ -372,7 +373,7 @@ class T5Model(nn.Module):
 
     def encode(self, encoder_ids):
         cfg = self.config
-        dt = cfg.dtype
+        dt = resolve_compute_dtype(cfg.dtype)
         pos = torch.arange(encoder_ids.shape[1], device=self.device)
         bias = self.enc_rel_bias(pos, pos).to(dt)
         x = self.shared(encoder_ids).to(dt)
@@ -387,7 +388,7 @@ class T5Model(nn.Module):
         with each layer's encoder K/V ``ck``/``cv`` added by the first
         call."""
         cfg = self.config
-        dt = cfg.dtype
+        dt = resolve_compute_dtype(cfg.dtype)
         s = decoder_ids.shape[1]
         x = self.shared(decoder_ids).to(dt)
         if cache is None:

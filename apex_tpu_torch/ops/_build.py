@@ -104,6 +104,9 @@ KERNELS = {
                             "apex_tpu/ops/flash_attention.py:572"),
     "flash_bwd_dkdv_window_bias": ("flash_bwd.cu",
                                    "apex_tpu/ops/flash_attention.py:572"),
+    "sgd": ("sgd.cu", "apex_tpu/ops/optim_kernels.py:272"),
+    "novograd": ("novograd.cu", "apex_tpu/ops/optim_kernels.py:489"),
+    "multi_tensor_scale": ("scale.cu", "apex_tpu/ops/optim_kernels.py:561"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`

@@ -1,20 +1,22 @@
 """Fused optimizer kernels over the flat parameter buffers: the Hopper
-kernels ``csrc/adam.cu``, ``csrc/segment_stats.cu`` and ``csrc/lamb.cu``
-and their plain PyTorch twins.
+kernels ``csrc/adam.cu``, ``csrc/segment_stats.cu``, ``csrc/lamb.cu``,
+``csrc/sgd.cu``, ``csrc/novograd.cu`` and ``csrc/scale.cu`` and their
+plain PyTorch twins.
 
 Counterpart of ``apex_tpu/ops/optim_kernels.py`` (``_adam_kernel`` /
 ``adam_update``, ``_stats_kernel`` / ``segment_stats`` /
 ``global_grad_norm_and_finite``, ``_lamb_phase1_kernel`` and
-``_lamb_phase2_kernel`` / ``lamb_update``). Parameters, gradients and the
+``_lamb_phase2_kernel`` / ``lamb_update``, ``_sgd_kernel`` /
+``sgd_update``, ``_novograd_kernel`` / ``novograd_update``,
+``_scale_kernel`` / ``multi_tensor_scale``). Parameters, gradients and the
 moments are fp32 ``(rows, LANE)`` buffers laid out by ``flat_buffer``; one
 launch updates every parameter. The hyper-parameters travel as small fp32
 tensors on the buffers' device (``adam_hyperparams``,
-``lamb_hyperparams``), as the reference's SMEM rows do, so the step count,
-the grad scale and the skip flag may be device tensors and no host value is
-read. Per-tensor reductions (the gradient norm, LAMB's trust ratios) sum
-each tensor's contiguous rows in a fixed order on the card. The SGD,
-NovoGrad and scale kernels of the reference are not ported yet (ROADMAP
-queue B items 15-17).
+``lamb_hyperparams``, ``sgd_hyperparams``, ``novograd_hyperparams``), as
+the reference's SMEM rows do, so the step count, the grad scale and the
+skip flag may be device tensors and no host value is read. Per-tensor
+reductions (the gradient norm, LAMB's trust ratios, NovoGrad's second
+moments) sum each tensor's contiguous rows in a fixed order on the card.
 
 A tensor on the CPU takes the twin; a CUDA tensor always takes the kernel.
 """
@@ -49,8 +51,18 @@ def adam_hyperparams(*, beta1, beta2, eps, weight_decay, lr, step,
                         f(0.0 if noop is None else noop)])
 
 
+def fp32_scalar(a, device=None) -> torch.Tensor:
+    """A 0-d fp32 tensor on ``device``: a tensor cast and moved, a number
+    written by a fill on the device. ``torch.as_tensor`` of a number on a
+    CUDA device copies it from the host, and that copy waits for the
+    stream: one host sync per hyper-parameter per step."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
+    return torch.full((), float(a), dtype=torch.float32, device=device)
+
+
 def _fp32(device):
-    return lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return lambda a: fp32_scalar(a, device)
 
 
 def _bias_corrections(b1, b2, step, bias_correction: bool, f):
@@ -357,7 +369,232 @@ def lamb_update(g, p, m, v, seg_rows, num_segments: int, *, beta1, beta2,
                          f"({num_segments},)")
     u, m, v, stats = lamb_phase1(hp1, g, p, m, v, seg_rows, wd_seg)
     ratio = lamb_trust_ratio(stats, wd_seg, use_nvlamb)
-    hp2 = torch.stack([torch.as_tensor(lr, dtype=torch.float32,
-                                       device=device), hp1[7]])
+    hp2 = torch.stack([fp32_scalar(lr, device), hp1[7]])
     lamb_phase2(hp2, u, p, ratio, seg_rows)
     return p, m, v
+
+
+# --- SGD ---------------------------------------------------------------------
+
+#: layout of the SGD row, as ``_SGD_HP`` in the reference (no grad scale:
+#: the reference's kernel has no slot for one)
+SGD_HP = ("lr", "momentum", "dampening", "weight_decay", "nesterov", "noop")
+
+
+def sgd_hyperparams(*, lr, momentum=0.0, dampening=0.0, weight_decay=0.0,
+                    nesterov=False, noop=None, step=None,
+                    device=None) -> torch.Tensor:
+    """The ``(6,)`` fp32 row ``SGD_HP`` on ``device``. ``step`` (1-based)
+    applies the reference's first-use rule: dampening 0 at ``step <= 1``,
+    so the momentum buffer starts as the raw gradient."""
+    f = _fp32(device)
+    damp = f(dampening)
+    if step is not None:
+        damp = torch.where(f(step) <= 1.0, f(0.0), damp)
+    return torch.stack([f(lr), f(momentum), damp, f(weight_decay),
+                        f(1.0 if nesterov else 0.0),
+                        f(0.0 if noop is None else noop)])
+
+
+def _uses_momentum(momentum) -> bool:
+    """Static, as the reference's ``use_momentum``: only a literal 0 turns
+    the momentum buffer off (a tensor always keeps it)."""
+    return not (isinstance(momentum, (int, float)) and momentum == 0.0)
+
+
+def sgd_update_reference(g, p, m, *, lr, momentum=0.0, dampening=0.0,
+                         weight_decay=0.0, nesterov=False, noop=None,
+                         step=None):
+    """Plain twin of the SGD kernel: returns new ``(p, m)``.
+    ``g += wd * p``; with momentum ``m = mu m + (1 - damp) g`` and the
+    direction ``nesterov (g + mu m) + (1 - nesterov) m`` (the reference's
+    blend, computed whatever the flag); without, ``m`` stays and the
+    direction is ``g``. ``noop > 0`` returns the inputs' values."""
+    _check_buffers(g, p, m, None, op="sgd_update")
+    hp = sgd_hyperparams(lr=lr, momentum=momentum, dampening=dampening,
+                         weight_decay=weight_decay, nesterov=nesterov,
+                         noop=noop, step=step, device=p.device)
+    lr_, mu, damp, wd, nest, skip = hp.unbind()
+    grad = g + wd * p
+    if _uses_momentum(momentum):
+        m_new = mu * m + (1.0 - damp) * grad
+        d = nest * (grad + mu * m_new) + (1.0 - nest) * m_new
+    else:
+        m_new, d = m, grad
+    noop_ = skip > 0.0
+    return torch.where(noop_, p, p - lr_ * d), torch.where(noop_, m, m_new)
+
+
+def sgd_update(g, p, m, *, lr, momentum=0.0, dampening=0.0,
+               weight_decay=0.0, nesterov=False, noop=None, step=None):
+    """One SGD step over the flat buffers, IN PLACE on ``p`` and ``m``
+    (returned): the kernel on a CUDA tensor, the twin on a CPU one."""
+    kw = dict(lr=lr, momentum=momentum, dampening=dampening,
+              weight_decay=weight_decay, nesterov=nesterov, noop=noop,
+              step=step)
+    if p.device.type == "cpu":
+        for buf, new in zip((p, m), sgd_update_reference(g, p, m, **kw)):
+            buf.copy_(new)
+        return p, m
+    _check_buffers(g, p, m, None, op="sgd_update")
+    hp = sgd_hyperparams(**kw, device=p.device)
+    _build.check_cuda(hp, g, p, m)
+    P, I = _build.P, _build.I
+    _build.launch("sgd", "apex_sgd", (P, P, P, P, I, I, P), hp.data_ptr(),
+                  g.data_ptr(), p.data_ptr(), m.data_ptr(), p.shape[0],
+                  int(_uses_momentum(momentum)), _build.stream_of(p))
+    return p, m
+
+
+# --- NovoGrad ----------------------------------------------------------------
+
+#: layout of the NovoGrad row, as ``_NVG_HP`` in the reference (eps rides
+#: in ``vden`` and is unused by the kernel)
+NOVOGRAD_HP = ("beta1", "beta3", "eps", "weight_decay", "lr", "grad_scale",
+               "noop")
+
+
+def novograd_hyperparams(*, beta1, eps, weight_decay, lr, grad_scale=None,
+                         noop=None, grad_averaging=True,
+                         device=None) -> torch.Tensor:
+    """The ``(7,)`` fp32 row ``NOVOGRAD_HP`` on ``device``: ``beta3 = 1 -
+    beta1`` with grad averaging, else 1."""
+    f = _fp32(device)
+    b1 = f(beta1)
+    beta3 = 1.0 - b1 if grad_averaging else f(1.0)
+    return torch.stack([b1, beta3, f(eps), f(weight_decay), f(lr),
+                        f(1.0 if grad_scale is None else grad_scale),
+                        f(0.0 if noop is None else noop)])
+
+
+def novograd_second_moment(g_sumsq, v_per_tensor, *, beta2, eps, step,
+                           grad_scale=None, init_zero=False):
+    """``(v_new, vden)`` per tensor from the per-tensor ``sum(g^2)``: the
+    reference's first-step rule (``v_1 = |g|^2``, or ``(1 - b2) |g|^2``
+    with ``init_zero``), then the EMA; ``vden = sqrt(v) + eps``. The grad
+    scale enters squared, as in the reference."""
+    f = _fp32(v_per_tensor.device)
+    gs = f(1.0 if grad_scale is None else grad_scale)
+    g_sumsq = g_sumsq * gs * gs
+    b2 = f(beta2)
+    first = (1.0 - b2) * g_sumsq if init_zero else g_sumsq
+    v_new = torch.where(f(step) <= 1.0, first,
+                        b2 * v_per_tensor + (1.0 - b2) * g_sumsq)
+    return v_new, torch.sqrt(v_new) + f(eps)
+
+
+def novograd_apply_reference(hp, g, p, m, vden, seg_rows):
+    """Plain twin of the NovoGrad kernel: new ``(p, m)`` from the row
+    ``NOVOGRAD_HP`` and the per-tensor ``vden`` read through
+    ``seg_rows``."""
+    b1, beta3, _, wd, lr, gs, noop = hp.unbind()
+    den = vden.float()[seg_rows.long()][:, None]
+    gn = (g * gs) / den + wd * p
+    m_new = b1 * m + beta3 * gn
+    skip = noop > 0.0
+    return torch.where(skip, p, p - lr * m_new), torch.where(skip, m, m_new)
+
+
+def novograd_apply(hp, g, p, m, vden, seg_rows):
+    """The NovoGrad kernel, IN PLACE on ``p`` and ``m`` (returned); the
+    twin on a CPU tensor."""
+    _check_buffers(g, p, m, None, op="novograd_update")
+    _check_seg_rows(seg_rows, p.shape[0])
+    if p.device.type == "cpu":
+        for buf, new in zip((p, m), novograd_apply_reference(
+                hp, g, p, m, vden, seg_rows)):
+            buf.copy_(new)
+        return p, m
+    seg = seg_rows.to(device=p.device, dtype=torch.int32).contiguous()
+    vden = vden.to(device=p.device, dtype=torch.float32).contiguous()
+    _build.check_cuda(hp, g, p, m, vden, seg)
+    P, I = _build.P, _build.I
+    _build.launch("novograd", "apex_novograd", (P,) * 6 + (I, P),
+                  hp.data_ptr(), g.data_ptr(), p.data_ptr(), m.data_ptr(),
+                  vden.data_ptr(), seg.data_ptr(), p.shape[0],
+                  _build.stream_of(p))
+    return p, m
+
+
+def _novograd(stats_fn, apply_fn, g, p, m, v_per_tensor, seg_rows,
+              num_segments, *, beta1, beta2, eps, weight_decay, lr, step,
+              grad_scale, noop, grad_averaging, init_zero):
+    if tuple(v_per_tensor.shape) != (num_segments,):
+        raise ValueError(f"v_per_tensor {tuple(v_per_tensor.shape)} != "
+                         f"({num_segments},)")
+    stats = stats_fn(g, seg_rows, num_segments)
+    v_new, vden = novograd_second_moment(
+        stats[STAT_SUMSQ_A], v_per_tensor, beta2=beta2, eps=eps, step=step,
+        grad_scale=grad_scale, init_zero=init_zero)
+    hp = novograd_hyperparams(beta1=beta1, eps=eps, weight_decay=weight_decay,
+                              lr=lr, grad_scale=grad_scale, noop=noop,
+                              grad_averaging=grad_averaging,
+                              device=p.device)
+    p_new, m_new = apply_fn(hp, g, p, m, vden, seg_rows)
+    return p_new, m_new, torch.where(hp[6] > 0.0, v_per_tensor, v_new)
+
+
+def novograd_update_reference(g, p, m, v_per_tensor, seg_rows,
+                              num_segments: int, *, beta1, beta2, eps,
+                              weight_decay, lr, step, grad_scale=None,
+                              noop=None, grad_averaging=True,
+                              init_zero=False):
+    """Plain twin of the whole NovoGrad step: returns new ``(p, m,
+    v_per_tensor)``; the per-tensor second moment keeps its value on
+    ``noop``."""
+    return _novograd(segment_stats_reference, novograd_apply_reference, g, p,
+                     m, v_per_tensor, seg_rows, num_segments, beta1=beta1,
+                     beta2=beta2, eps=eps, weight_decay=weight_decay, lr=lr,
+                     step=step, grad_scale=grad_scale, noop=noop,
+                     grad_averaging=grad_averaging, init_zero=init_zero)
+
+
+def novograd_update(g, p, m, v_per_tensor, seg_rows, num_segments: int, *,
+                    beta1, beta2, eps, weight_decay, lr, step,
+                    grad_scale=None, noop=None, grad_averaging=True,
+                    init_zero=False):
+    """One fused NovoGrad step, IN PLACE on ``p``, ``m`` and the
+    ``(num_segments,)`` ``v_per_tensor`` (returned): the per-tensor
+    ``sum(g^2)`` from the stats kernel, the second moment on the device,
+    then the update kernel; the twins on a CPU tensor."""
+    p, m, v = _novograd(segment_stats, novograd_apply, g, p, m, v_per_tensor,
+                        seg_rows, num_segments, beta1=beta1, beta2=beta2,
+                        eps=eps, weight_decay=weight_decay, lr=lr, step=step,
+                        grad_scale=grad_scale, noop=noop,
+                        grad_averaging=grad_averaging, init_zero=init_zero)
+    v_per_tensor.copy_(v)
+    return p, m, v_per_tensor
+
+
+# --- scale -------------------------------------------------------------------
+
+def _check_scale_input(x):
+    if x.dtype not in _build.COMPUTE_DTYPES or x.ndim != 2 \
+            or x.shape[1] != LANE:
+        raise ValueError(f"multi_tensor_scale: x must be a float32 or "
+                         f"bfloat16 (rows, {LANE}) buffer, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+
+
+def multi_tensor_scale_reference(x, scale):
+    """Plain twin of the scale kernel: ``float32(x) * scale``."""
+    _check_scale_input(x)
+    return x.float() * fp32_scalar(scale, x.device)
+
+
+def multi_tensor_scale(x, scale):
+    """``y = float32(x) * scale`` over a flat ``(rows, LANE)`` buffer of
+    fp32 or bf16, one launch, into a new fp32 buffer: the kernel on a CUDA
+    tensor, the twin on a CPU one. ``scale`` may be a number or a 0-d
+    device tensor (read on the device)."""
+    if x.device.type == "cpu":
+        return multi_tensor_scale_reference(x, scale)
+    _check_scale_input(x)
+    s = fp32_scalar(scale, x.device).reshape(1).contiguous()
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    _build.check_cuda(x, s, y)
+    P, I = _build.P, _build.I
+    _build.launch("multi_tensor_scale", "apex_scale", (P, P, P, I, I, P),
+                  s.data_ptr(), x.data_ptr(), y.data_ptr(), x.shape[0],
+                  _build.dtype_code(x), _build.stream_of(x))
+    return y

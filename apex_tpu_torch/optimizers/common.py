@@ -18,6 +18,14 @@ parameter itself.
 Weight-decay exclusion (apex param groups with decay 0 on biases and norms)
 is a predicate over parameter names, turned into a per-tensor 0/1 mask that
 each step multiplies by the group's current weight decay.
+
+``amp.initialize`` attaches a loss scaler with :meth:`attach_amp_scaler`;
+each step then fuses the reference's unscale and overflow skip
+(``apex_tpu/optimizers/common.py:172-205``) on the device: the stats
+kernel's non-finite count over the flat gradients raises the skip flag, the
+grad scale is divided by the loss scale, and the scaler's state updates,
+with no host read. The model-parallel agreement on the skip waits for
+tensor parallelism (ROADMAP queue A item 10).
 """
 
 from __future__ import annotations
@@ -26,15 +34,12 @@ from typing import Callable, Optional
 
 import torch
 
-from apex_tpu_torch.ops import flat_buffer
-
-_AMP = ("the amp loss scaler path is not ported yet (ROADMAP queue A item "
-        "11: amp/, the scaler and the O0-O3 policy)")
+from apex_tpu_torch.ops import flat_buffer, optim_kernels
 
 
 class FusedOptimizerBase:
-    """Flat-buffer state for FusedAdam and FusedLAMB (and, later,
-    SGD/NovoGrad)."""
+    """Flat-buffer state for FusedAdam, FusedLAMB, FusedSGD and
+    FusedNovoGrad."""
 
     #: names of flat (rows, LANE) fp32 state buffers, e.g. ("m", "v")
     STATE_BUFFERS: tuple = ()
@@ -76,6 +81,11 @@ class FusedOptimizerBase:
                                                  self.spec).values()):
             p.data = view
         self._gather_grads()
+        self._amp_scaler = None
+        #: set by ``amp.initialize`` when several dynamically scaled losses
+        #: share this optimizer: ``step`` then needs the ``noop`` of
+        #: ``amp.unscale_and_combine``
+        self._amp_require_noop = False
 
     @property
     def wd_per_segment(self) -> Optional[torch.Tensor]:
@@ -87,7 +97,10 @@ class FusedOptimizerBase:
         return self.decay_mask * float(self.param_groups[0]["weight_decay"])
 
     def attach_amp_scaler(self, scaler) -> None:
-        raise NotImplementedError(_AMP)
+        """Called by ``amp.initialize``: every step then unscales by
+        ``scaler``'s loss scale, skips on a non-finite gradient and updates
+        the scaler, all on the device."""
+        self._amp_scaler = scaler
 
     def zero_grad(self, set_to_none: bool = False) -> None:
         """Zero the flat gradient buffer and point every ``.grad`` at its
@@ -141,16 +154,40 @@ class FusedOptimizerBase:
         skip that an optimizer decides inside ``_update`` (LAMB's on a
         non-finite gradient) comes after the count, as in the
         reference."""
+        if self._amp_require_noop and noop is None:
+            raise RuntimeError(
+                "this optimizer was initialized by amp with multiple "
+                "dynamically-scaled losses: combine grads with "
+                "amp.unscale_and_combine and call step(noop=noop)")
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
         self._gather_grads()
+        scaler = self._amp_scaler
+        if scaler is not None:
+            grad_scale, noop = self._amp_unscale(scaler, grad_scale, noop)
         if noop is None:
             self.step_count += 1
         else:
-            noop = torch.as_tensor(noop, dtype=torch.float32,
-                                   device=self.master.device)
+            noop = optim_kernels.fp32_scalar(noop, self.master.device)
             self.step_count += (noop <= 0.0).to(self.step_count.dtype)
         self._update(grad_scale, noop)
         return loss
+
+    def _amp_unscale(self, scaler, grad_scale, noop):
+        """The fused amp step's prologue: ``(grad_scale / scale, max(noop,
+        found_inf))`` from one stats pass over the flat gradients, and the
+        scaler's state updated on ``found_inf``; decided before the step
+        count, so a skipped step is not counted."""
+        device = self.master.device
+        _, finite, _ = optim_kernels.global_grad_norm_and_finite(
+            self.grads, self.seg_rows, self.spec.num_tensors)
+        found_inf = 1.0 - finite.float()
+        state = scaler.state
+        f = optim_kernels.fp32_scalar
+        gs = f(1.0 if grad_scale is None else grad_scale, device) / state.scale
+        noop = torch.maximum(f(0.0 if noop is None else noop, device),
+                             found_inf)
+        scaler.state = scaler.update(state, found_inf)
+        return gs, noop

@@ -51,15 +51,14 @@ class FusedLAMB(FusedOptimizerBase):
         n = self.spec.num_tensors
         gnorm, finite, _ = optim_kernels.global_grad_norm_and_finite(
             self.grads, self.seg_rows, n)
-        gs = torch.as_tensor(1.0 if grad_scale is None else grad_scale,
-                             dtype=torch.float32, device=device)
+        f = optim_kernels.fp32_scalar
+        gs = f(1.0 if grad_scale is None else grad_scale, device)
         gnorm = gnorm * gs
         max_norm = float(hp["max_grad_norm"])
         clip = (torch.where(gnorm > max_norm, max_norm / gnorm, 1.0)
                 if max_norm > 0.0 else torch.ones_like(gnorm))
-        noop = torch.as_tensor(0.0 if noop is None else noop,
-                               dtype=torch.float32, device=device)
-        noop = torch.maximum(noop, 1.0 - finite.float())
+        noop = torch.maximum(f(0.0 if noop is None else noop, device),
+                             1.0 - finite.float())
         wd = self.wd_per_segment
         if wd is None:
             wd = hp["weight_decay"]

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.ops.quant import (kv_cast, kv_inverse, kv_qmax,
                                       resolve_kv_dtype)
 
@@ -73,7 +74,8 @@ def _page_dtype(config, dtype, quant):
     model's compute dtype."""
     if quant is not None:
         return quant[0]
-    return dtype if dtype is not None else config.dtype
+    return dtype if dtype is not None else resolve_compute_dtype(
+        config.dtype)
 
 
 def init_paged_cache(config, num_slots: int, *, num_pages: int,

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s eight paths at full width with seeded random
+Drives ``apex_tpu_torch``'s nine paths at full width with seeded random
 weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (into ``apex_tpu_torch/_build/``): GPT-2-small greedy paged decode through
 ``PagedDecodeEngine``; the same decode with quantized weights
@@ -22,7 +22,11 @@ draft_len=3)``, ``PagedDecodeEngine(prefill_chunk=16)``,
 ``speculative_generate``), which run the paged kernel's s > 1 branches;
 and t5-small, served (``T5Model(T5Config())``, ``t5_generate``) and trained
 (``t5_loss``, ``loss.backward()``, ``FusedAdam.step()``), which run the
-flash kernels' additive-bias branches. Phases, one JSON line each,
+flash kernels' additive-bias branches; and ResNet-50 ImageNet training
+under amp (``examples.imagenet.main_amp``: ``resnet50()``,
+``build_training``, ``amp.initialize``, ``SyncBatchNorm``, the DDP facade,
+``FusedSGD.step()``, or ``FusedNovoGrad``), which runs the SGD, NovoGrad
+and stats kernels. Phases, one JSON line each,
 ``t_s`` giving the seconds since the start:
 
 1. ``device``: the card, its power limit, the kernels' build time and
@@ -83,7 +87,16 @@ flash kernels' additive-bias branches. Phases, one JSON line each,
    cross-attention without a bias at Sq = 1 and 114 against Sk = 512; the
    windowed bias branches at 1 x 8 x 1024 x 64, window 256; the library
    call ``scaled_dot_product_attention`` with the bias as a float mask and
-   its backward.
+   its backward. The ResNet-50 rows (``check_resnet_optim``, by
+   ``queued_ms``, fp32 within ``OPT_TOL`` and ``RMS_ATOL`` of the twin's
+   RMS): SGD over ResNet-50's flat buffers (25,021 x 1024, 161 segments)
+   at momentum 0.9 with decay 1e-4 at steps 1 and 2, momentum 0, Nesterov
+   (library: fused ``torch.optim.SGD`` over the 161 views); the whole
+   NovoGrad step at steps 1 and 2, ``init_zero`` both ways, grad scale 0.5
+   and 1, the update kernel timed alone (no library: PyTorch has no
+   NovoGrad); ``multi_tensor_scale`` over fp32 and bf16 buffers, bit-equal
+   (library ``torch.mul(x.float(), s)``); a skipped SGD or NovoGrad step
+   bit-identical.
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
@@ -183,7 +196,26 @@ flash kernels' additive-bias branches. Phases, one JSON line each,
    phases', launches per step asserted (RMSNorm forward and backward 2L +
    1, the three windowed flash kernels L, Adam 1, the unwindowed kernels
    0), and a falling finite loss.
-   The T5 phases run between ``bert_bf16`` and ``mistral_train_fp32``
+   The ResNet-50 phases run after ``bert_bf16`` (their batch needs the
+   room that the later phases' live models take): ``resnet_fp32`` (the
+   bar): ResNet-50 at ImageNet width (1000 classes, 224 x 224), 8 images,
+   amp O0, card against CPU from the same seeded weights: two
+   ``FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)`` steps, then two
+   ``FusedNovoGrad`` steps, each step's losses within 1e-4 relative, every
+   gradient within ``RESNET_FLOOR_FACTOR`` times the CPU's own rounding
+   floor (in norm, per tensor), the running statistics, parameters and
+   optimizer state after it within atol 1e-4 / rtol 1e-3 (the CPU stepping
+   on the card's gradients), the kernels launched twice; then one O1 fp16
+   step with a dynamic scaler and an ``inf`` planted in a gradient:
+   parameters, momentum and the step count bit-identical, the scale
+   halved, ``segment_stats`` and ``sgd`` launched once. ``resnet_bf16``:
+   the example's path, ``resnet50()`` at 224 x 224, 256 images, amp O1
+   bf16, FusedSGD: warm steps, then 10 timed steps: step ms, images/s,
+   FLOPs per step (``resnet_train_flops``) and MFU, peak memory, launches
+   per step asserted (``sgd`` 1, no stats pass: bf16 attaches no scaler).
+   ``resnet_novograd_bf16``: the same with FusedNovoGrad, 3 steps:
+   ``segment_stats`` and ``novograd`` 1 a step, a finite loss.
+   The T5 phases run between the ResNet phases and ``mistral_train_fp32``
    (the Mistral step stays live for its profile, and T5's 128 x 512 batch
    fits before it): ``t5_fp32`` (the bar): t5-small at full width in fp32,
    ``t5_generate``
@@ -210,15 +242,17 @@ flash kernels' additive-bias branches. Phases, one JSON line each,
    ``engine_quant_bf16_profile``,
    ``mistral_bf16_profile``, ``kernel_device_ms``, ``train_bf16_profile``
    ``bert_bf16_profile``, ``mistral_train_bf16_profile``,
-   ``t5_bf16_profile`` and ``t5_train_bf16_profile``: one more bf16
+   ``t5_bf16_profile``, ``t5_train_bf16_profile`` and
+   ``resnet_bf16_profile`` (with the SGD kernel's share of device time):
+   one more bf16
    engine run (and a short run, the first 8 requests at 16 tokens, of each
    quantized configuration, with each kernel's device ms and launches, and
    of Mistral-7B), the host's ops untraced, under ``torch.profiler``
    (device busy and idle share, the top device kernels),
    each kernel's device time per call at the shapes of phase 2, the timed
    bf16 engine run once more, one profiled step of each training path,
-   and last one ``t5_generate`` (host untraced) and one T5 training
-   step. Last, so that no profiler state can touch the times of phases
+   one ``t5_generate`` (host untraced), one T5 training step and one
+   ResNet-50 step. Last, so that no profiler state can touch the times of phases
    2-9.
 
 Then the per-kernel summary line (serving kernels with the launches of the
@@ -232,8 +266,10 @@ branches with those of the timed ``spec_bf16`` run (the s = 16 row beside,
 with the chunked run's) and of the timed int8-pool chunked run; the
 windowed block has no engine path, as the reference refuses both modes
 for windowed models, and reads 0; the flash bias branches with the T5
-runs' launches, the windowed ones reading 0; every path's count beside
-it) and, last, ``{"ok": true, "device": ...}``.
+runs' launches, the windowed ones reading 0; the SGD and NovoGrad kernels
+with the timed ResNet-50 runs' launches, ``multi_tensor_scale`` with 0:
+it has no caller on a path, in the reference either; every path's count
+beside it) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises, so the run exits non-zero without the last line. With
 no CUDA device, or without the ``apex_tpu_torch`` package beside it, it
 exits non-zero at once. Imports nothing of JAX.
@@ -431,9 +467,31 @@ T5_TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
                     "flash_fwd_bias", "flash_bwd_dq", "flash_bwd_dq_bias",
                     "flash_bwd_dkdv", "flash_bwd_dkdv_bias", "adam")
 
+#: the ResNet-50 slice (the example ``examples/imagenet/main_amp.py``):
+#: ImageNet width, 1000 classes at 224 x 224; the timed path at 256 images
+#: a card, amp O1 bf16, FusedSGD(lr 0.1, momentum 0.9, decay 1e-4); the
+#: card-against-CPU bar at 8 images in fp32 (O0), two steps of FusedSGD
+#: and of FusedNovoGrad; the short NovoGrad run's steps
+RESNET_IMAGE, RESNET_CLASSES, RESNET_LR = 224, 1000, 0.1
+RESNET_BATCH, RESNET_WARM, RESNET_TIMED = 256, 3, 10
+RESNET_FP32_BATCH, RESNET_NVG_STEPS = 8, 3
+# ResNet-50 at its random init amplifies rounding: on a CPU, one rounding
+# of every parameter (``perturbed``) moved the gradients by 2.4% median
+# and 3.1% at worst (relative Frobenius norm per tensor; full width, 8
+# images of 112 x 112), far past the per-entry bar atol 1e-4 / rtol 1e-3 on
+# gradients of ~1e-3. So ``resnet_fp32`` holds each gradient in norm to
+# RESNET_FLOOR_FACTOR times the CPU's own floor at the phase's shapes, as
+# the T5 phases do, and the losses, running statistics, parameters and
+# optimizer state to the fixed bars
+RESNET_FLOOR_FACTOR = 4.0
+# the optimizer kernel rows: kernel and twin compute the same fp32 formula,
+# a fused multiply-add apart at most (one fp32 ulp, 6e-8 relative)
+OPT_TOL = (1e-6, 1e-6)
+
 #: kernels whose buffers are fp32 on the path (the summary's dtype)
 FP32_KERNELS = ("adam", "xentropy_fwd", "xentropy_bwd", "segment_stats",
-                "lamb_phase1", "lamb_phase2")
+                "lamb_phase1", "lamb_phase2", "sgd", "novograd",
+                "multi_tensor_scale")
 
 #: kernel name -> the CUDA symbol the profiler reports its launches under
 #: (for ``layer_norm_bwd`` its dx kernel, one launch per call; the small
@@ -468,7 +526,9 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_bwd_dq_bias": "flash_bwd_dq_kernel",
                   "flash_bwd_dq_window_bias": "flash_bwd_dq_kernel",
                   "flash_bwd_dkdv_bias": "flash_bwd_dkdv_kernel",
-                  "flash_bwd_dkdv_window_bias": "flash_bwd_dkdv_kernel"}
+                  "flash_bwd_dkdv_window_bias": "flash_bwd_dkdv_kernel",
+                  "sgd": "sgd_kernel", "novograd": "novograd_kernel",
+                  "multi_tensor_scale": "scale_"}
 
 
 def ptxas_registers() -> dict:
@@ -486,7 +546,9 @@ def ptxas_registers() -> dict:
              "xentropy_bwd_kernel", "stats_rows_kernel",
              "segment_reduce_kernel", "lamb_phase1_kernel",
              "lamb_phase2_kernel", "dequant_matmul_kernel",
-             "dequant_matmul_w4_kernel", "paged_decode_quant_kernel")
+             "dequant_matmul_w4_kernel", "paged_decode_quant_kernel",
+             "sgd_kernel", "novograd_kernel", "scale_f32_kernel",
+             "scale_bf16_kernel")
     regs = {}
     for log in sorted(_build.BUILD.glob("*.log")):
         entry = None
@@ -2015,6 +2077,174 @@ def check_flash_bias(gen, dev):
                             + ("" if name == fwd_name else
                                "; its backward: dq, dk and dv together"),
                     bound_ms=bms, bound_by=by), kernel))
+    return out
+
+
+def resnet_spec():
+    """``(named parameters on the meta device, FlatSpec)`` of ResNet-50 at
+    ImageNet width: 161 tensors, 25,557,032 parameters, 25,021 rows."""
+    from apex_tpu_torch.examples.imagenet import main_amp as rn
+    from apex_tpu_torch.ops import flat_buffer
+
+    named = list(rn.resnet50(device="meta").named_parameters())
+    return named, flat_buffer.build_spec(named)
+
+
+def opt_compare(name: str, got, want) -> float:
+    """``compare`` at ``OPT_TOL`` with the atol cut to ``RMS_ATOL`` of the
+    twin's RMS."""
+    return compare(name, got, want, "float32", OPT_TOL, rms_atol=True)
+
+
+def check_resnet_optim(gen, dev):
+    """The SGD, NovoGrad and scale kernels over ResNet-50's flat buffers
+    (25,021 x 1024 fp32, 161 segments), each against its twin: SGD at
+    momentum 0.9 with decay 1e-4 at step 1 and 2, momentum 0, Nesterov;
+    NovoGrad at step 1 and 2, ``init_zero`` both ways, grad scale 0.5 and
+    1; scale over fp32 and bf16 x. A skipped step must leave every buffer
+    bit-identical. One row per kernel (two for scale: fp32, bf16), timed
+    by ``queued_ms`` at the timed path's case: SGD momentum 0.9, decay
+    1e-4, step 2; NovoGrad's update kernel alone at step 2."""
+    import torch
+
+    from apex_tpu_torch.ops import flat_buffer
+
+    oa = importlib.import_module("apex_tpu_torch.ops.optim_kernels")
+    named, spec = resnet_spec()
+    rows, segs, lane = spec.total_rows, spec.num_tensors, flat_buffer.LANE
+    n = rows * lane
+    seg = spec.segment_rows().to(dev)
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(scale=1.0):
+        return torch.randn(rows, lane, generator=dgen, device=dev) * scale
+
+    g, p, m = randn(0.01), randn(0.05), randn(0.01)
+    out = []
+
+    # SGD: the kernel (in place on copies) against the twin, per case
+    cases = [dict(momentum=0.9, weight_decay=1e-4, step=1),
+             dict(momentum=0.9, weight_decay=1e-4, step=2),
+             dict(momentum=0.0, weight_decay=1e-4, step=2),
+             dict(momentum=0.9, nesterov=True, weight_decay=1e-4, step=2)]
+    errs = []
+    for case in cases:
+        kw = dict(lr=RESNET_LR, **dict(case, step=torch.tensor(
+            case["step"], device=dev)))
+        p1, m1 = oa.sgd_update(g, p.clone(), m.clone(), **kw)
+        torch.cuda.synchronize()
+        rp, rm = oa.sgd_update_reference(g, p, m, **kw)
+        label = f"sgd {case}"
+        errs.append(max(opt_compare(f"{label} p", p1, rp),
+                        opt_compare(f"{label} m", m1, rm),
+                        compare(f"{label} p - p0", p1 - p, rp - p,
+                                "float32", UPDATE_TOL)))
+        if case["momentum"] == 0.0 and not torch.equal(m1, m):
+            raise AssertionError("sgd: momentum 0 changed the buffer")
+    kw = dict(lr=RESNET_LR, momentum=0.9, weight_decay=1e-4,
+              step=torch.tensor(2, device=dev))
+    pk, mk = p.clone(), m.clone()
+    oa.sgd_update(g, pk, mk, **dict(kw, noop=torch.tensor(1.0, device=dev)))
+    torch.cuda.synchronize()
+    if not (torch.equal(pk, p) and torch.equal(mk, m)):
+        raise AssertionError("sgd: a skipped step changed a buffer")
+    bufs = [t.clone() for t in (p, m)]
+    kernel = partial(oa.sgd_update, g, *bufs, **kw)
+    lp = flat_buffer.unflatten(p.clone(), spec)
+    lg = flat_buffer.unflatten(g, spec)
+    for nm, t in lp.items():
+        t.grad = lg[nm]
+    lib = torch.optim.SGD(list(lp.values()), lr=RESNET_LR, momentum=0.9,
+                          weight_decay=1e-4, fused=True)
+    # read g, p, m; write p, m: 20 bytes and ~9 operations an element
+    bms, by = bound_ms(20 * n, 9 * n, "float32")
+    out.append((dict(
+        name="sgd", dtype="float32", shape=[rows, lane], segments=segs,
+        params=sum(spec.sizes), path="resnet", cases=cases,
+        max_abs_err=max(errs), skip_bit_identical=True,
+        ms=queued_ms(kernel),
+        plain_ms=queued_ms(partial(oa.sgd_update_reference, g, p, m, **kw)),
+        library_ms=queued_ms(lib.step),
+        library="torch.optim.SGD(momentum=0.9, weight_decay=1e-4, "
+                "fused=True).step() over the 161 views",
+        bound_ms=bms, bound_by=by), kernel))
+    del lib, lp, lg, bufs
+
+    # NovoGrad: the whole step (stats kernel, second moment, update
+    # kernel) against the whole twin, per case; then the update alone
+    v = torch.rand(segs, generator=dgen, device=dev) * 0.1
+    nvg = dict(beta1=0.95, beta2=0.98, eps=1e-8, weight_decay=1e-4,
+               lr=RESNET_LR)
+    cases = [dict(step=1, init_zero=False, grad_scale=1.0),
+             dict(step=1, init_zero=True, grad_scale=0.5),
+             dict(step=2, init_zero=False, grad_scale=0.5),
+             dict(step=2, init_zero=True, grad_scale=1.0)]
+    errs = []
+    for case in cases:
+        kw = dict(nvg, **dict(case, step=torch.tensor(case["step"],
+                                                      device=dev)))
+        p1, m1, v1 = oa.novograd_update(g, p.clone(), m.clone(), v.clone(),
+                                        seg, segs, **kw)
+        torch.cuda.synchronize()
+        rp, rm, rv = oa.novograd_update_reference(g, p, m, v, seg, segs,
+                                                  **kw)
+        label = f"novograd {case}"
+        errs.append(max(opt_compare(f"{label} p", p1, rp),
+                        opt_compare(f"{label} m", m1, rm),
+                        opt_compare(f"{label} v", v1, rv),
+                        compare(f"{label} p - p0", p1 - p, rp - p,
+                                "float32", UPDATE_TOL)))
+    kw = dict(nvg, step=torch.tensor(2, device=dev), grad_scale=1.0)
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    oa.novograd_update(g, pk, mk, vk, seg, segs,
+                       **dict(kw, noop=torch.tensor(1.0, device=dev)))
+    torch.cuda.synchronize()
+    if not (torch.equal(pk, p) and torch.equal(mk, m) and torch.equal(vk, v)):
+        raise AssertionError("novograd: a skipped step changed a buffer")
+    stats = oa.segment_stats(g, seg, segs)
+    _, vden = oa.novograd_second_moment(stats[0], v, beta2=0.98, eps=1e-8,
+                                        step=2)
+    hp = oa.novograd_hyperparams(beta1=0.95, eps=1e-8, weight_decay=1e-4,
+                                 lr=RESNET_LR, device=dev)
+    bufs = [t.clone() for t in (p, m)]
+    kernel = partial(oa.novograd_apply, hp, g, *bufs, vden, seg)
+    bms, by = bound_ms(20 * n + 4 * rows + 4 * segs, 8 * n, "float32")
+    out.append((dict(
+        name="novograd", dtype="float32", shape=[rows, lane], segments=segs,
+        params=sum(spec.sizes), path="resnet", cases=cases,
+        max_abs_err=max(errs), skip_bit_identical=True,
+        ms=queued_ms(kernel),
+        plain_ms=queued_ms(partial(oa.novograd_apply_reference, hp, g, p, m,
+                                   vden, seg)),
+        whole_step_ms=queued_ms(partial(oa.novograd_update, g, *bufs,
+                                        v.clone(), seg, segs, **kw)),
+        library_ms=None, library="none: PyTorch has no NovoGrad",
+        bound_ms=bms, bound_by=by), kernel))
+    del bufs
+
+    # scale: y = f32(x) * s, one rounding on both sides: bit-equal
+    s = torch.tensor(2.0 ** -16, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = g.to(dtype)
+        y = oa.multi_tensor_scale(x, s)
+        torch.cuda.synchronize()
+        want = oa.multi_tensor_scale_reference(x, s)
+        err = opt_compare(f"multi_tensor_scale {dtype}", y, want)
+        if not torch.equal(y, want):
+            raise AssertionError(f"multi_tensor_scale {dtype}: not "
+                                 f"bit-equal to its twin")
+        kernel = partial(oa.multi_tensor_scale, x, s)
+        bms, by = bound_ms(n * (x.element_size() + 4), n, "float32")
+        out.append((dict(
+            name="multi_tensor_scale", dtype=str(dtype).split(".")[-1],
+            shape=[rows, lane], path="resnet", max_abs_err=err,
+            ms=queued_ms(kernel),
+            plain_ms=queued_ms(partial(oa.multi_tensor_scale_reference, x,
+                                       s)),
+            library_ms=queued_ms(partial(lambda a, b: torch.mul(a.float(),
+                                                                b), x, s)),
+            library="torch.mul(x.float(), s)",
+            bound_ms=bms, bound_by=by), kernel))
     return out
 
 
@@ -3655,10 +3885,11 @@ def perturbed(model, seed: int):
     return ctx()
 
 
-def floor_grad_bars(phase: str, card_grads, cpu_grads, floor_grads) -> dict:
+def floor_grad_bars(phase: str, card_grads, cpu_grads, floor_grads,
+                    factor: float = T5_FLOOR_FACTOR) -> dict:
     """Every gradient of the card against the CPU's, in norm: |card - CPU|
     within the larger of 1e-3 |CPU| (the per-entry bar's rtol) and
-    ``T5_FLOOR_FACTOR`` times the CPU's own floor |CPU' - CPU|, CPU' the
+    ``factor`` times the CPU's own floor |CPU' - CPU|, CPU' the
     CPU's gradient with every parameter moved by one rounding
     (``floor_grads``), Frobenius norms per tensor; a tensor whose CPU
     gradient is 0 must be 0 on the card. Per-entry errors are reported:
@@ -3671,20 +3902,24 @@ def floor_grad_bars(phase: str, card_grads, cpu_grads, floor_grads) -> dict:
     if missing:
         raise AssertionError(f"{phase}: no gradient on the card for "
                              f"{missing}")
-    out = {}
+    out, over = {}, []
     for n, g in card_grads.items():
         want, got = cpu_grads[n], g.cpu()
         norm = want.norm().item()
         err = (got - want).norm().item()
         floor = (floor_grads[n] - want).norm().item()
-        if (not torch.isfinite(got).all()
-                or err > max(1e-3 * norm, T5_FLOOR_FACTOR * floor)):
-            raise AssertionError(
-                f"{phase} grad {n}: |card - CPU| {err:.3e} over "
-                f"max(1e-3 |CPU| = {1e-3 * norm:.3e}, {T5_FLOOR_FACTOR} x "
-                f"the CPU floor {floor:.3e})")
+        bar = max(1e-3 * norm, factor * floor)
+        if not torch.isfinite(got).all() or err > bar:
+            over.append((err / max(bar, 1e-30), n, err, norm, floor))
         out[n] = [norm, err, floor, (got - want).abs().max().item(),
                   want.abs().max().item()]
+    if over:
+        ratio, n, err, norm, floor = max(over, key=lambda o: o[0])
+        raise AssertionError(
+            f"{phase}: {len(over)} of {len(out)} gradients over their bar; "
+            f"the worst, {n}: |card - CPU| {err:.3e} over max(1e-3 |CPU| "
+            f"= {1e-3 * norm:.3e}, {factor} x the CPU floor {floor:.3e}), "
+            f"{ratio:.3g}x the bar")
     return out
 
 
@@ -3915,6 +4150,304 @@ def t5_train_bf16(smi):
     return step, launches
 
 
+# --- the ResNet-50 slice: ImageNet training under amp ----------------------
+
+
+def resnet_batch(batch: int, dev):
+    """The example's synthetic ImageNet batch (numpy seed 0), NCHW."""
+    import numpy as np
+
+    from apex_tpu_torch.examples.imagenet import main_amp as rn
+
+    return rn.synthetic_batch(np.random.default_rng(0), batch, RESNET_IMAGE,
+                              RESNET_CLASSES, device=dev)
+
+
+def resnet_side(dev, optimizer: str, opt_level: str = "O0",
+                half_dtype=None):
+    """``(model, opt, ddp, step)``: ResNet-50 at ImageNet width from the
+    seeded init on ``dev``, through the example's ``build_training``
+    (``step(x, y)`` its training step), under a fresh amp state of its
+    own: ``step`` sets that state for its duration (``amp.scope``), so
+    the other phases' models compute in their configs' dtypes."""
+    import torch
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.imagenet import main_amp as rn
+
+    model = rn.resnet50(num_classes=RESNET_CLASSES, device=dev, seed=SEED)
+    with amp.scope():
+        opt, ddp, train_step = rn.build_training(
+            model, opt_level=opt_level, lr=RESNET_LR, optimizer=optimizer,
+            half_dtype=half_dtype or torch.bfloat16)
+        state = amp.active_state()
+
+    def step(x, y):
+        with amp.scope(state):
+            return train_step(x, y)
+    return model, opt, ddp, state, step
+
+
+def resnet_grads(model, opt, ddp, x, y):
+    """One forward and backward, amp O0 (off): ``(loss, {name:
+    gradient})``, the gradients as views of the optimizer's flat
+    buffer."""
+    from apex_tpu_torch.examples.imagenet import main_amp as rn
+    from apex_tpu_torch.ops import flat_buffer
+
+    opt.zero_grad()
+    loss = rn.nll_loss(ddp(x), y)
+    loss.backward()
+    return loss.item(), flat_buffer.unflatten(opt.grads, opt.spec)
+
+
+def resnet_card_vs_cpu(optimizer: str) -> dict:
+    """Two steps of ``optimizer`` under O0 on the card and on the CPU from
+    the same seeded weights and batch: each step's losses (1e-4 relative),
+    gradients (``floor_grad_bars`` with ``RESNET_FLOOR_FACTOR``: the CPU's
+    own floor measured at each step with every parameter moved by one
+    rounding, its running statistics put back after), running statistics
+    and, after the step, parameters and optimizer state (atol 1e-4, rtol
+    1e-3, per entry). The CPU steps on the card's gradients, so that the
+    steps compare the optimizers and not the two gradients. Returns the
+    phase's numbers, with the card's launches of its steps."""
+    import torch
+
+    from apex_tpu_torch.ops import _build
+
+    sides = {"card": resnet_side(DEV, optimizer),
+             "cpu": resnet_side("cpu", optimizer)}
+    batch = {"card": resnet_batch(RESNET_FP32_BATCH, DEV),
+             "cpu": resnet_batch(RESNET_FP32_BATCH, "cpu")}
+    out = dict(losses_card=[], losses_cpu=[], grads=[], launches={})
+    step_kernels = (("sgd",) if optimizer == "sgd"
+                    else ("segment_stats", "novograd"))
+    for step in range(2):
+        losses, grads = {}, {}
+        for side, (model, opt, ddp, _, _) in sides.items():
+            losses[side], grads[side] = resnet_grads(model, opt, ddp,
+                                                     *batch[side])
+        model, opt, ddp = sides["cpu"][:3]
+        saved = {k: v.clone() for k, v in model.named_buffers()}
+        with perturbed(model, SEED + step):
+            _, floor = resnet_grads(model, opt, ddp, *batch["cpu"])
+            floor = {k: v.clone() for k, v in floor.items()}
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(saved[k])
+        _, grads["cpu"] = resnet_grads(model, opt, ddp, *batch["cpu"])
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(saved[k])
+        if abs(losses["card"] - losses["cpu"]) > 1e-4 * abs(losses["cpu"]):
+            raise AssertionError(f"resnet_fp32 {optimizer} step {step}: "
+                                 f"loss card {losses['card']} vs CPU "
+                                 f"{losses['cpu']}")
+        out["losses_card"].append(losses["card"])
+        out["losses_cpu"].append(losses["cpu"])
+        bars = floor_grad_bars(f"resnet_fp32 {optimizer} step {step}",
+                               grads["card"], grads["cpu"], floor,
+                               factor=RESNET_FLOOR_FACTOR)
+        out["grads"].append(dict(
+            max_rel_err=max(v[1] / max(v[0], 1e-30) for v in bars.values()),
+            max_rel_floor=max(v[2] / max(v[0], 1e-30)
+                              for v in bars.values()),
+            median_rel_floor=sorted(v[2] / max(v[0], 1e-30)
+                                    for v in bars.values())[len(bars) // 2],
+            max_ratio_to_floor=max(v[1] / max(v[2], 1e-30)
+                                   for v in bars.values()),
+            max_abs_err=max(v[3] for v in bars.values())))
+        stats_err = max(
+            compare(f"resnet_fp32 {optimizer} {k}", v.cpu(),
+                    dict(sides["cpu"][0].named_buffers())[k], "float32",
+                    (1e-4, 1e-3))
+            for k, v in sides["card"][0].named_buffers())
+        # the CPU steps on the card's gradients
+        sides["cpu"][1].grads.copy_(sides["card"][1].grads.cpu())
+        card_opt = sides["card"][1]
+        torch.cuda.synchronize()
+        before = dict(_build.launches)
+        card_opt.step()
+        torch.cuda.synchronize()
+        for k in step_kernels:
+            out["launches"][k] = out["launches"].get(k, 0) + (
+                _build.launches[k] - before[k])
+        sides["cpu"][1].step()
+        params_err = max(
+            compare(f"resnet_fp32 {optimizer} step {step} {k}",
+                    card_opt.state[k].cpu() if k != "master"
+                    else card_opt.master.cpu(),
+                    sides["cpu"][1].state[k] if k != "master"
+                    else sides["cpu"][1].master, "float32", (1e-4, 1e-3))
+            for k in ("master", *card_opt.state))
+        out["grads"][-1].update(running_stats_max_abs_err=stats_err,
+                                params_and_state_max_abs_err=params_err)
+    for k in step_kernels:
+        if out["launches"].get(k) != 2:
+            raise AssertionError(f"resnet_fp32 {optimizer}: {k} launched "
+                                 f"{out['launches'].get(k)} times in two "
+                                 f"steps, not 2")
+    return out
+
+
+def resnet_fp32() -> None:
+    """Card against CPU: ResNet-50 at ImageNet width (1000 classes, 224 x
+    224), B = ``RESNET_FP32_BATCH``, amp O0, two ``FusedSGD(lr=0.1,
+    momentum=0.9, weight_decay=1e-4)`` steps, then the same two steps with
+    ``FusedNovoGrad`` (``resnet_card_vs_cpu``); then one O1 fp16 step on
+    the card with a dynamic scaler and an ``inf`` planted in one gradient:
+    parameters, momentum and the step count bit-identical, the scale
+    halved, ``segment_stats`` and ``sgd`` launched once each."""
+    import torch
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.imagenet import main_amp as rn
+    from apex_tpu_torch.ops import _build
+
+    sgd = resnet_card_vs_cpu("sgd")
+    nvg = resnet_card_vs_cpu("novograd")
+    model, opt, ddp, state, step = resnet_side(DEV, "sgd", "O1",
+                                               torch.float16)
+    x, y = resnet_batch(RESNET_FP32_BATCH, DEV)
+    step(x, y)              # a clean step first: the momentum is not zero
+    with amp.scope(state):
+        opt.zero_grad()
+        loss = rn.nll_loss(ddp(x), y)
+        loss.backward()
+        model.fc.weight.grad[3, 5] = float("inf")
+        master = opt.master.clone()
+        momentum = opt.state["momentum_buffer"].clone()
+        count = opt.step_count.item()
+        scale = opt._amp_scaler.state.scale.item()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        opt.step()
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launches.items() if v}
+    new_scale = opt._amp_scaler.state.scale.item()
+    if not (torch.equal(opt.master, master)
+            and torch.equal(opt.state["momentum_buffer"], momentum)
+            and opt.step_count.item() == count):
+        raise AssertionError("resnet_fp32: the O1 fp16 step with an inf "
+                             "gradient changed the parameters, the momentum "
+                             "or the step count")
+    if new_scale != scale / 2:
+        raise AssertionError(f"resnet_fp32: scale {scale} -> {new_scale}, "
+                             f"not halved")
+    if launches != {"segment_stats": 1, "sgd": 1}:
+        raise AssertionError(f"resnet_fp32: the skipped step launched "
+                             f"{launches}, not segment_stats 1 and sgd 1")
+    emit("resnet_fp32", batch=RESNET_FP32_BATCH, image=RESNET_IMAGE,
+         classes=RESNET_CLASSES, opt_level="O0", lr=RESNET_LR,
+         floor_factor=RESNET_FLOOR_FACTOR, sgd=sgd, novograd=nvg,
+         skip_step=dict(opt_level="O1", half_dtype="float16",
+                        loss=loss.item(), scale_before=scale,
+                        scale_after=new_scale, step_count=count,
+                        bit_identical=True, launches=launches))
+
+
+def resnet_train_launches(optimizer: str) -> dict:
+    """The kernels one O1 bf16 training step launches: SGD once, or the
+    stats pass and NovoGrad once each (no scaler: bf16's static scale 1
+    attaches none, so FusedSGD runs no stats pass)."""
+    if optimizer == "sgd":
+        return {"sgd": 1, "segment_stats": 0, "novograd": 0}
+    return {"segment_stats": 1, "novograd": 1, "sgd": 0}
+
+
+def resnet_bf16(smi, optimizer: str = "sgd"):
+    """The example's path at ImageNet width: ``resnet50()``, 224 x 224,
+    B = ``RESNET_BATCH``, amp O1 bf16, ``FusedSGD(lr=0.1, momentum=0.9,
+    weight_decay=1e-4)`` through ``build_training``: warm steps, then timed
+    steps with exact launches per step (``optimizer="novograd"``: the
+    short NovoGrad run, ``RESNET_NVG_STEPS`` steps). Returns the step and
+    the timed steps' launches."""
+    import torch
+
+    from apex_tpu_torch.examples.imagenet import main_amp as rn
+    from apex_tpu_torch.ops import _build
+
+    phase = "resnet_bf16" if optimizer == "sgd" else "resnet_novograd_bf16"
+    live = phase_memory_start()
+    model, opt, ddp, _, train_step = resnet_side(DEV, optimizer, "O1",
+                                                 torch.bfloat16)
+    x, y = resnet_batch(RESNET_BATCH, DEV)
+    step = partial(train_step, x, y)
+    warm, timed = ((RESNET_WARM, RESNET_TIMED) if optimizer == "sgd"
+                   else (1, RESNET_NVG_STEPS))
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    check_launches(phase, launches, resnet_train_launches(optimizer),
+                   per=timed)
+    losses = [v.item() for v in losses]
+    # lr 0.1 with momentum on one memorized batch need not fall every
+    # step: the bar is a finite loss that has fallen below its first value
+    if not all(map(math.isfinite, losses)) or not min(losses) < losses[0]:
+        raise AssertionError(f"{phase}: loss not finite, or never below "
+                             f"its first value: {losses}")
+    step_s = elapsed / timed
+    flops = rn.resnet_train_flops(model, RESNET_BATCH, RESNET_IMAGE)
+    fields = dict(
+        batch=RESNET_BATCH, image=RESNET_IMAGE, classes=RESNET_CLASSES,
+        opt_level="O1", half_dtype="bfloat16", optimizer=optimizer,
+        parameters=sum(p.numel() for p in model.parameters()),
+        tensors=len(list(model.parameters())), timed_steps=timed,
+        step_ms=step_s * 1e3, images_per_s=RESNET_BATCH / step_s,
+        flops_per_step=flops,
+        flops_formula="3 x 2 x (multiply-adds of every conv and fc, from "
+                      "their shapes) x B",
+        mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+        bound_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3,
+        peak_flops=PEAK_FLOPS["bfloat16"], losses=losses,
+        launches_per_step={k: launches[k] / timed
+                           for k in ("sgd", "novograd", "segment_stats")},
+        launches=launches,
+        peak_memory_gib=(torch.cuda.max_memory_allocated() - live) / 2 ** 30,
+        earlier_phases_live_gib=live / 2 ** 30)
+    emit(phase, **fields, nvidia_smi=smi, card_after=card_state())
+    return step, launches
+
+
+#: device activity classes of a ResNet-50 step, by kernel-name fragment
+#: (first match wins): the SGD kernel, the batch-norm apply and backward
+#: ops, cuDNN's convolutions, reductions (the norms' fp32 sums, the mean
+#: pool, the loss), pooling, other elementwise ops (casts, ReLU, the
+#: residual adds)
+RESNET_KERNEL_CLASSES = (
+    ("sgd", ("sgd_kernel",)), ("batch_norm", ("batch_norm",)),
+    ("convolution", ("conv", "xmma", "cutlass", "cudnn", "implicit", "gemm",
+                     "fprop", "dgrad", "wgrad")),
+    ("reduction", ("reduce_kernel",)), ("pool", ("pool",)),
+    ("elementwise", ("elementwise",)))
+
+
+def profile_resnet(step) -> None:
+    """One profiled ResNet-50 training step: device busy and idle share,
+    the SGD kernel's share of device time, device ms by class
+    (``RESNET_KERNEL_CLASSES``), the top device items."""
+    wall, acts = device_profile(step)
+    busy = sum(t for t, _ in acts.values())
+    by_class = {}
+    for k, (t, _) in acts.items():
+        cls = next((c for c, frags in RESNET_KERNEL_CLASSES
+                    if any(f in k for f in frags)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + t
+    sgd_ms = by_class.get("sgd", 0.0)
+    top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:15]
+    emit("resnet_bf16_profile", wall_s=wall, device_busy_s=busy / 1e3,
+         device_idle_share=1.0 - busy / 1e3 / wall, sgd_kernel_ms=sgd_ms,
+         sgd_share_of_device=sgd_ms / busy if busy else None,
+         device_ms_by_class=by_class,
+         top_device=[dict(name=k[:120], ms=t, count=c)
+                     for k, (t, c) in top])
+
+
 def profile_phase(phase: str, fn, cpu: bool = True, **fields) -> None:
     """One run of ``fn`` under the profiler: device busy and idle share and
     the top device items (``cpu=False``: the host's ops untraced)."""
@@ -3963,7 +4496,8 @@ def main() -> int:
               + check_flash_window(gen, DEV) + check_paged_window(gen, DEV)
               + check_norm_bwd_mistral(gen, DEV)
               + check_flash_bwd_window(gen, DEV)
-              + check_paged_block(gen, DEV) + check_flash_bias(gen, DEV))
+              + check_paged_block(gen, DEV) + check_flash_bias(gen, DEV)
+              + check_resnet_optim(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, rms_atol=RMS_ATOL,
          card_before=card_before,
@@ -4020,6 +4554,12 @@ def main() -> int:
     train_step, train_launches = train_bf16(smi)
     bert_fp32()
     bert_step, bert_launches = bert_bf16(smi)
+    # ResNet-50 before T5 and the Mistral-7B training phases: its 256-image
+    # batch needs the room that their live models take
+    resnet_fp32()
+    resnet_step, resnet_launches = resnet_bf16(smi)
+    nvg_launches = resnet_bf16(smi, optimizer="novograd")[1]
+    torch.cuda.empty_cache()
     # T5 before the Mistral-7B training phases, whose step (18 GB of
     # parameters and Adam state) stays live for its profile: the T5 batch
     # of 128 x 512 fits beside what the earlier phases keep
@@ -4046,7 +4586,7 @@ def main() -> int:
     for row, fn in checks:
         if row.get("path") in ("quant_serving", "mistral", "mistral_train",
                                "spec_chunked", "t5", "t5_train",
-                               "window_bias"):
+                               "window_bias", "resnet"):
             continue                  # timed by queued_ms already
         ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
         results.append(dict(name=row["name"], dtype=row["dtype"],
@@ -4066,6 +4606,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_phase("t5_bf16_profile", t5_run, cpu=False)
     profile_phase("t5_train_bf16_profile", t5_train_step)
+    profile_resnet(resnet_step)
 
     # summary: each serving kernel at the serving path's bf16 shapes (decode
     # rows for the norm, a 128-token prefill for flash, the 8-slot pool for
@@ -4147,7 +4688,9 @@ def main() -> int:
                "mistral_train_memory_efficient": me_launches,
                "spec": spec_launches, "chunked": chunk_launches,
                "chunked_kv8": chunk_kv8_launches, "t5": t5_launches,
-               "t5_train": t5_train_launches}
+               "t5_train": t5_train_launches,
+               "resnet_train": resnet_launches,
+               "resnet_novograd": nvg_launches}
     # the windowed block has no engine path (the reference refuses both
     # modes for windowed models), so its launches read 0
     block_path = {"paged_attention_block": "spec",
@@ -4159,7 +4702,9 @@ def main() -> int:
               "library_ms")
     summary = []
     for name, (src, replaces) in _build.KERNELS.items():
-        path = ("t5" if name == "flash_fwd_bias" else "t5_train"
+        path = ("resnet_train" if name in ("sgd", "multi_tensor_scale")
+                else "resnet_novograd" if name == "novograd"
+                else "t5" if name == "flash_fwd_bias" else "t5_train"
                 if name in BIAS_KERNELS else block_path[name]
                 if name in BLOCK_KERNELS
                 else "serving" if name in SERVING_KERNELS else "gpt_train"
@@ -4173,6 +4718,8 @@ def main() -> int:
                    and r["dtype"] == ("float32" if name in FP32_KERNELS
                                       else "bfloat16")
                    and (r.get("path") == "bert") == (path == "bert_train")
+                   and (r.get("path") != "resnet"
+                        or path.startswith("resnet"))
                    and r["shape"] == main_shape.get(name, r["shape"])
                    and r.get("kind") == main_kind.get(name, r.get("kind")))
         entry = dict(
@@ -4194,6 +4741,15 @@ def main() -> int:
                                 or name in MISTRAL_TRAIN_NEW
                                 or name in BLOCK_KERNELS
                                 or name in BIAS_KERNELS)})
+        if path.startswith("resnet"):
+            entry.update({k: row[k] for k in (
+                "shape", "segments", "params", "cases", "skip_bit_identical",
+                "whole_step_ms", "library") if k in row})
+        if name == "multi_tensor_scale":
+            bf = next(r for r in rows if r["name"] == name
+                      and r["dtype"] == "bfloat16")
+            entry["bfloat16"] = dict(shape=bf["shape"],
+                                     **{k: bf[k] for k in timing})
         if name in bias_shape:
             dec = next(r for r in rows if r["name"] == name
                        and r["dtype"] == "bfloat16"

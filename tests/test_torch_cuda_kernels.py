@@ -34,8 +34,14 @@ from apex_tpu_torch.ops.optim_kernels import (adam_update,
                                               lamb_phase1_reference,
                                               lamb_phase2,
                                               lamb_phase2_reference,
+                                              multi_tensor_scale,
+                                              multi_tensor_scale_reference,
+                                              novograd_update,
+                                              novograd_update_reference,
                                               segment_stats,
-                                              segment_stats_reference)
+                                              segment_stats_reference,
+                                              sgd_update,
+                                              sgd_update_reference)
 from apex_tpu_torch.ops.paged_attention import (paged_attention,
                                                 paged_attention_reference)
 from apex_tpu_torch.ops.quant import (fused_dequant_matmul,
@@ -930,3 +936,127 @@ def test_flash_bias_autograd_on_the_card(cuda):
         scale=1.0, masking=masking, bias=table.detach())
     for t, r in zip((q, k, v), want):
         _bwd_close(t.grad, r, torch.float32)
+
+
+# --- the ResNet-50 slice: SGD, NovoGrad, scale ------------------------------
+
+
+def _opt_buffers(cuda, rows=300, seed=11):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(rows, 1024, generator=g).to(cuda) for _ in range(3)]
+
+
+@pytest.mark.parametrize("case", [
+    dict(momentum=0.9, weight_decay=1e-4, step=1),
+    dict(momentum=0.9, weight_decay=1e-4, step=2),
+    dict(momentum=0.9, nesterov=True, step=2),
+    dict(momentum=0.9, dampening=0.1, step=3),
+    dict(momentum=0.0, weight_decay=1e-4, step=2),
+    dict(momentum=0.9, weight_decay=1e-4, step=2, noop=1.0),
+], ids=["first", "later", "nesterov", "dampening", "plain", "noop"])
+def test_sgd_kernel_matches_twin(cuda, case):
+    gr, p, m = _opt_buffers(cuda)
+    kw = dict(lr=0.1, **dict(case, step=torch.tensor(case["step"],
+                                                     device=cuda)))
+    want = sgd_update_reference(gr, p, m, **kw)
+    before = _build.launches["sgd"]
+    got = sgd_update(gr, p.clone(), m.clone(), **kw)
+    assert _build.launches["sgd"] == before + 1
+    for a, r, old in zip(got, want, (p, m)):
+        if case.get("noop") or (a is got[1] and case["momentum"] == 0.0):
+            assert torch.equal(a, old)
+        # one fused multiply-add apart at most: an fp32 ulp of |p| < 8
+        torch.testing.assert_close(a, r, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("init_zero", [False, True])
+@pytest.mark.parametrize("noop", [0.0, 1.0])
+def test_novograd_kernel_matches_twin(cuda, init_zero, noop):
+    gr, p, m = _opt_buffers(cuda, seed=12)
+    seg = torch.repeat_interleave(torch.arange(3, dtype=torch.int32),
+                                  torch.tensor([100, 150, 50])).to(cuda)
+    v = torch.rand(3, device=cuda) * 1e5
+    kw = dict(beta1=0.95, beta2=0.98, eps=1e-8, weight_decay=1e-3, lr=1e-2,
+              step=torch.tensor(2, device=cuda), grad_scale=0.5,
+              noop=torch.tensor(noop, device=cuda), init_zero=init_zero)
+    want = novograd_update_reference(gr, p, m, v, seg, 3, **kw)
+    before = dict(_build.launches)
+    got = novograd_update(gr, p.clone(), m.clone(), v.clone(), seg, 3, **kw)
+    for name in ("segment_stats", "novograd"):
+        assert _build.launches[name] == before[name] + 1
+    for a, r, old in zip(got, want, (p, m, v)):
+        if noop:
+            assert torch.equal(a, old)
+        # the per-tensor sums: fp32 row partials added in fp64 against the
+        # twin's fp64 sums, ~1e-7 relative
+        torch.testing.assert_close(a, r, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_multi_tensor_scale_kernel_matches_twin(cuda, dtype):
+    x = torch.randn(77, 1024, generator=torch.Generator().manual_seed(13))
+    x = x.to(cuda, dtype)
+    s = torch.tensor(2.0 ** -16, device=cuda)
+    before = _build.launches["multi_tensor_scale"]
+    got = multi_tensor_scale(x, s)
+    assert _build.launches["multi_tensor_scale"] == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, multi_tensor_scale_reference(x, s))
+
+
+def test_fused_sgd_amp_skip_launches_stats_and_sgd(cuda):
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedSGD
+
+    module = torch.nn.ParameterDict({
+        f"w{i}": torch.nn.Parameter(torch.randn(n, device=cuda))
+        for i, n in enumerate((5000, 3, 2048))})
+    opt = FusedSGD(list(module.named_parameters()), lr=0.1, momentum=0.9,
+                   weight_decay=1e-4)
+    try:
+        amp.initialize(module, opt, opt_level="O1", half_dtype=torch.float16)
+        for p in module.parameters():
+            p.grad.normal_()
+        module["w1"].grad[1] = float("inf")
+        before, master = dict(_build.launches), opt.master.clone()
+        opt.step()
+        for name in ("segment_stats", "sgd"):
+            assert _build.launches[name] == before[name] + 1
+        assert torch.equal(opt.master, master)
+        assert int(opt.step_count) == 0
+        assert opt._amp_scaler.state.scale.item() == 2.0 ** 15
+    finally:
+        amp.reset()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sync_batchnorm_on_the_card_matches_the_cpu_path(cuda, dtype):
+    """The card's fused batch-norm ops against the plain fp32 formula of
+    the CPU path, channels_last, train mode: output, every gradient and
+    the running statistics."""
+    from apex_tpu_torch.parallel import SyncBatchNorm
+
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(16, 24, 14, 14, generator=g) * 2 + 0.5
+    dy = torch.randn(x.shape, generator=g)
+    outs = {}
+    for dev in ("cpu", cuda):
+        bn = SyncBatchNorm(24, device=dev)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 24))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, 24))
+        xd = x.to(dev, dtype).contiguous(memory_format=torch.channels_last)
+        xd.requires_grad_()
+        y = bn(xd)
+        y.backward(dy.to(dev, dtype))
+        outs[str(dev)] = [t.detach().float().cpu() for t in (
+            y, xd.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+            bn.running_var)]
+        assert y.dtype == dtype
+    tol = TOL[dtype]
+    for got, want in zip(outs["cuda"][:2], outs["cpu"][:2]):
+        torch.testing.assert_close(got, want, atol=tol[0], rtol=tol[1])
+    # dw, db: fp32 sums over 3136 entries, in other orders
+    for got, want in zip(outs["cuda"][2:], outs["cpu"][2:]):
+        torch.testing.assert_close(got, want, atol=1e-3 if dtype ==
+                                   torch.float32 else 1e-1, rtol=1e-3)
