@@ -6,11 +6,12 @@ variables)`` — onto the state dict of ``apex_tpu_torch.models.GPTModel``;
 ``bert_params_from_flax`` does the same for ``BertForPreTraining`` and
 ``llama_params_from_flax`` for ``LlamaModel``, ``t5_params_from_flax``
 for ``T5Model`` and ``resnet_params_from_flax`` for the ImageNet example's
-``ResNet`` (its convolutions change layout: HWIO to OIHW). All sides keep the
-reference's weight layouts (GPT's and Llama's ``(out, in)`` linears, BERT's
-``(in, out)`` ``x @ W``), so every tensor maps one to one; only the names
-change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes numpy, so it
-imports nothing of JAX.
+``ResNet`` (its convolutions change layout: HWIO to OIHW) and
+``group_norm_params_from_flax`` for ``contrib.group_norm.GroupNorm``. All
+sides keep the reference's weight layouts (GPT's and Llama's ``(out, in)``
+linears, BERT's ``(in, out)`` ``x @ W``), so every tensor maps one to one;
+only the names change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes
+numpy, so it imports nothing of JAX.
 
 A quantized GPT or Llama tree (a reference model built with a weight
 policy) maps too: narrow leaves keep their dtype (int8; uint8, the packed
@@ -246,4 +247,22 @@ def resnet_params_from_flax(variables) -> dict:
     if extra:
         raise KeyError(f"flax collections {sorted(extra)} have no "
                        f"counterpart in the port's ResNet")
+    return sd
+
+
+def group_norm_params_from_flax(variables) -> dict:
+    """``{"params": {"weight", "bias"}}`` of the reference's
+    ``contrib.group_norm.GroupNorm`` -> the state dict of the port's
+    ``GroupNorm`` (``{}`` for ``affine=False``, whose tree has no params).
+    Any other leaf or collection raises ``KeyError``."""
+    extra = set(variables) - {"params"}
+    if extra:
+        raise KeyError(f"flax collections {sorted(extra)} have no "
+                       f"counterpart in the port's GroupNorm")
+    sd = {}
+    for path, leaf in _flat_paths(variables.get("params", {})):
+        if path not in ("weight", "bias"):
+            raise KeyError(f"flax leaf {path!r} has no counterpart in the "
+                           f"port's GroupNorm")
+        sd[path] = _tensor(leaf)
     return sd

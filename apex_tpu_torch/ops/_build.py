@@ -23,7 +23,10 @@ and ``paged_attention_block``, ``paged_attention_window_block`` and
 query positions per slot (a speculative verify, a chunked-prefill piece);
 each flash kernel's branch with an additive bias counts under its name
 with ``_bias`` after it (``flash_fwd_bias``, ``flash_fwd_window_bias``,
-``flash_bwd_dq_bias``, ...).
+``flash_bwd_dq_bias``, ...); the scaled-softmax forward counts under
+``scaled_softmax_fwd_causal`` with the causal mask,
+``scaled_softmax_fwd_masked`` with an explicit mask and
+``scaled_softmax_fwd`` with neither.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on a non-zero code. A failed build raises too: a CUDA
@@ -107,6 +110,16 @@ KERNELS = {
     "sgd": ("sgd.cu", "apex_tpu/ops/optim_kernels.py:272"),
     "novograd": ("novograd.cu", "apex_tpu/ops/optim_kernels.py:489"),
     "multi_tensor_scale": ("scale.cu", "apex_tpu/ops/optim_kernels.py:561"),
+    "scaled_softmax_fwd": ("scaled_softmax.cu",
+                           "apex_tpu/ops/scaled_softmax.py:41"),
+    "scaled_softmax_fwd_masked": ("scaled_softmax.cu",
+                                  "apex_tpu/ops/scaled_softmax.py:41"),
+    "scaled_softmax_fwd_causal": ("scaled_softmax.cu",
+                                  "apex_tpu/ops/scaled_softmax.py:41"),
+    "scaled_softmax_bwd": ("scaled_softmax.cu",
+                           "apex_tpu/ops/scaled_softmax.py:59"),
+    "group_norm_fwd": ("group_norm.cu", "apex_tpu/ops/group_norm.py:56"),
+    "group_norm_bwd": ("group_norm.cu", "apex_tpu/ops/group_norm.py:153"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`
@@ -114,10 +127,13 @@ launches = {name: 0 for name in KERNELS}
 
 #: dtype codes shared with ``common.cuh``'s ``ApexDtype``
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
-               torch.float8_e4m3fn: 3}
-#: the compute dtypes every kernel takes, and the narrow storage dtypes of
-#: quantized weights and KV pages
+               torch.float8_e4m3fn: 3, torch.float16: 4}
+#: the compute dtypes every kernel takes, those the scaled-softmax and
+#: GroupNorm kernels take (fp16 too: ``FusedScaleMaskSoftmax``'s
+#: ``input_in_fp16``), and the narrow storage dtypes of quantized weights and
+#: KV pages
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+HALF_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 NARROW_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 _libs: dict[str, ctypes.CDLL] = {}

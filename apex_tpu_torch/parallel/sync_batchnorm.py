@@ -21,11 +21,13 @@ dtype) and the per-channel mean and rstd for the backward, which is the
 closed-form derivative of the same formula: autograd through the fp32
 intermediates would keep several fp32 copies of every activation. On the
 CPU the normalization and its derivative are plain fp32 tensor ops. On the
-card the statistics are the same fp32 sums, read straight from x (the sum
-of squares as the square of ``vector_norm``), and the normalization and
-its backward are torch's fused CUDA batch-norm elementwise and reduction
-ops (those ``torch.nn.SyncBatchNorm`` runs), fp32 inside: two passes over
-x forward and two backward, where the plain ops take about twenty.
+card the statistics are the same fp32 sums: Σx read straight from x, and
+Σx² the reference's fp32 sum of the fp32 products ``x32 * x32`` (formed
+by ``torch.addcmul`` from x in its own dtype, one fp32 tensor; the square
+of ``vector_norm`` was further from the fp64 sum, ROADMAP C1). The
+normalization and its backward are torch's fused CUDA batch-norm
+elementwise and reduction ops (those ``torch.nn.SyncBatchNorm`` runs),
+fp32 inside.
 """
 
 from __future__ import annotations
@@ -47,22 +49,33 @@ def _world_size(process_group) -> int:
     return dist.get_world_size(process_group)
 
 
+def channel_sums(x):
+    """``(s, ss)``: fp32 sums of x and of x^2 over every dimension of an
+    NCHW (or NC...) tensor but 1, ``ss`` the reference's fp32 sum of
+    ``x32 * x32``."""
+    dims = [d for d in range(x.ndim) if d != 1]
+    if x.is_cuda:
+        s = x.sum(dims, dtype=torch.float32)
+        # the fp32 products x32 * x32 formed from x in its own dtype; the
+        # zero has x's rank, as a 0-d tensor would not promote x to fp32
+        zero = torch.zeros([1] * x.ndim, dtype=torch.float32,
+                           device=x.device)
+        ss = torch.addcmul(zero, x, x).sum(dims)
+    else:
+        x32 = x.float()
+        s = x32.sum(dims)
+        ss = (x32 * x32).sum(dims)
+    return s, ss
+
+
 def sync_batch_norm_stats(x, process_group=None):
     """``(mean, var, n)`` per channel of an NCHW (or NC...) tensor: fp32
     sums of x and x^2 over every dimension but 1, ``var = E[x^2] -
     mean^2``."""
     if _world_size(process_group) > 1:
         raise NotImplementedError(_ACROSS_RANKS)
-    dims = [d for d in range(x.ndim) if d != 1]
     n = x.numel() // x.shape[1]
-    if x.is_cuda:
-        s = x.sum(dims, dtype=torch.float32)
-        ss = torch.linalg.vector_norm(x, 2, dim=dims,
-                                      dtype=torch.float32).square()
-    else:
-        x32 = x.float()
-        s = x32.sum(dims)
-        ss = (x32 * x32).sum(dims)
+    s, ss = channel_sums(x)
     mean = s / n
     return mean, ss / n - mean * mean, n
 

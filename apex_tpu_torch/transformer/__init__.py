@@ -1,1 +1,8 @@
-"""Transformer building blocks of the port (tensor-parallel size 1)."""
+"""Transformer building blocks of the port (tensor-parallel size 1):
+``functional`` (RoPE, ``FusedScaleMaskSoftmax``), ``tensor_parallel``,
+``enums``."""
+
+from apex_tpu_torch.transformer.enums import (AttnMaskType, AttnType,
+                                              LayerType, ModelType)
+
+__all__ = ["AttnMaskType", "AttnType", "LayerType", "ModelType"]

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s nine paths at full width with seeded random
+Drives ``apex_tpu_torch``'s eleven paths at full width with seeded random
 weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (into ``apex_tpu_torch/_build/``): GPT-2-small greedy paged decode through
 ``PagedDecodeEngine``; the same decode with quantized weights
@@ -26,7 +26,12 @@ flash kernels' additive-bias branches; and ResNet-50 ImageNet training
 under amp (``examples.imagenet.main_amp``: ``resnet50()``,
 ``build_training``, ``amp.initialize``, ``SyncBatchNorm``, the DDP facade,
 ``FusedSGD.step()``, or ``FusedNovoGrad``), which runs the SGD, NovoGrad
-and stats kernels. Phases, one JSON line each,
+and stats kernels; Megatron's attention softmax
+(``FusedScaleMaskSoftmax`` in its core attention at GPT-2-small's and
+BERT-Large's widths) and one Stable Diffusion v1.5 UNet ResNet block
+(``contrib.group_norm.GroupNorm(act="silu")`` with torch's convolutions),
+which run the scaled-softmax and GroupNorm kernels. Phases, one JSON line
+each,
 ``t_s`` giving the seconds since the start:
 
 1. ``device``: the card, its power limit, the kernels' build time and
@@ -96,7 +101,29 @@ and stats kernels. Phases, one JSON line each,
    and 1, the update kernel timed alone (no library: PyTorch has no
    NovoGrad); ``multi_tensor_scale`` over fp32 and bf16 buffers, bit-equal
    (library ``torch.mul(x.float(), s)``); a skipped SGD or NovoGrad step
-   bit-identical.
+   bit-identical. The softmax rows (``check_scaled_softmax``, by
+   ``queued_ms``): each forward branch and the backward at GPT-2-small's
+   causal [96, 1024, 1024] scores, BERT-Large's [8, 16, 512, 512] with a
+   [8, 1, 1, 512] padding mask and without one, and [2, 4, 16, 8193], fp32
+   and bf16, BERT's masked rows fp16 too (library ``torch.softmax`` on the
+   pre-scaled, pre-masked scores; ``torch._softmax_backward_data``). The
+   GroupNorm rows (``check_group_norm``, by ``queued_ms``): forward and
+   backward at Stable Diffusion v1.5's UNet norms, (8, C, S, S) for (C, S)
+   in (320, 64), (640, 32), (1280, 16), (1280, 8), channels_last, 32
+   groups, SiLU at eps 1e-5 and none at eps 1e-6, fp32 and bf16 (library
+   ``F.group_norm`` and its backward).
+   ``sync_bn_sumsq``: the sum of squares of SyncBatchNorm's statistics at
+   ResNet-50's 12 norm shapes in bf16 against fp64 (``vector_norm``
+   squared, the direct fp32 sum, the port's), failing if the port's is
+   further. ``megatron_softmax``: Megatron's core attention in bf16,
+   forward and backward through ``FusedScaleMaskSoftmax`` (GPT-2-small's
+   8 x 12 x 1024 causal; BERT-Large's 8 x 16 x 512 with and without the
+   padding mask): each forward branch launched once and the backward three
+   times, the fused path against the module's ``forward_torch_softmax``,
+   ms fused and unfused. ``unet_group_norm``: one SD ResNet block at (8,
+   320, 64, 64) bf16, forward and backward: 2 + 2 GroupNorm launches, the
+   output and every gradient against the block on the plain fp32 norm, ms
+   beside ``F.group_norm`` + ``F.silu``, the kernels' share of device time.
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
@@ -268,8 +295,10 @@ windowed block has no engine path, as the reference refuses both modes
 for windowed models, and reads 0; the flash bias branches with the T5
 runs' launches, the windowed ones reading 0; the SGD and NovoGrad kernels
 with the timed ResNet-50 runs' launches, ``multi_tensor_scale`` with 0:
-it has no caller on a path, in the reference either; every path's count
-beside it) and, last, ``{"ok": true, "device": ...}``.
+it has no caller on a path, in the reference either; the scaled-softmax
+and GroupNorm kernels with the ``megatron_softmax`` and
+``unet_group_norm`` runs'; every path's count beside it) and, last,
+``{"ok": true, "device": ...}``.
 Any failure raises, so the run exits non-zero without the last line. With
 no CUDA device, or without the ``apex_tpu_torch`` package beside it, it
 exits non-zero at once. Imports nothing of JAX.
@@ -296,8 +325,10 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # |kernel - twin| <= ATOL + RTOL * |twin|, per dtype. fp32: both sum the
 # same fp32 products in other orders. bf16: both compute in fp32 from the
 # same bf16 inputs and round once to bf16, so they differ by at most about
-# one bf16 ulp (2^-7 relative).
-TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
+# one bf16 ulp (2^-7 relative); fp16 (the scaled-softmax rows) by about one
+# fp16 ulp (2^-10 relative).
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2),
+       "float16": (1e-3, 1e-3)}
 # dgamma/dbeta: fp32 sums over all 8192 rows, taken in another order than
 # the twin's; magnitudes reach ~100, so 1e-4 relative and 1e-3 absolute
 SUM_TOL = (1e-3, 1e-4)
@@ -488,6 +519,34 @@ RESNET_FLOOR_FACTOR = 4.0
 # a fused multiply-add apart at most (one fp32 ulp, 6e-8 relative)
 OPT_TOL = (1e-6, 1e-6)
 
+#: the Megatron attention softmax (``FusedScaleMaskSoftmax``) at the widths
+#: of two models the port trains, head dim 64: GPT-2-small's training
+#: scores (8 x 12 heads x 1024 tokens, causal) and BERT-Large's (8 x 16
+#: heads x 512 tokens, a [8, 1, 1, 512] padding mask from sequence lengths,
+#: one of them a single token); Megatron's query-key layer scaling at each
+#: model's last layer (scores / (sqrt(d) L), softmax scale L); a row longer
+#: than 8192 (the kernels have no cap)
+SOFTMAX_GPT = (TRAIN_BATCH, 12, TRAIN_SEQ)           # (b, np, s)
+SOFTMAX_BERT = (BERT_BATCH, BERT_HEADS, BERT_SEQ)
+SOFTMAX_LONG = (2, 4, 16, 8193)                       # (b, np, sq, sk)
+SOFTMAX_HEAD_DIM = 64
+SOFTMAX_LAYERS = {"gpt": 12, "bert": 24}
+#: Stable Diffusion v1.5's UNet GroupNorm shapes at batch 8 (32 groups;
+#: (channels, side) of its four resolutions): the ResNet blocks' norms, SiLU
+#: fused, eps 1e-5; the attention blocks' norm, no activation, eps 1e-6
+UNET_BATCH, UNET_GROUPS = 8, 32
+UNET_SHAPES = ((320, 64), (640, 32), (1280, 16), (1280, 8))
+UNET_NORMS = (("silu", 1e-5), (None, 1e-6))
+#: the new kernels, by the path that launches them
+SOFTMAX_KERNELS = ("scaled_softmax_fwd", "scaled_softmax_fwd_masked",
+                   "scaled_softmax_fwd_causal", "scaled_softmax_bwd")
+GROUP_NORM_KERNELS = ("group_norm_fwd", "group_norm_bwd")
+#: a relative Frobenius bar for the paths' fused-against-unfused bf16
+#: outputs and gradients: both sides round fp32 values once to bf16 (2^-9
+#: relative); the fused softmax backward starts from the bf16 y it saved,
+#: the unfused one from autograd's fp32 y
+PATH_REL_BAR = 1e-2
+
 #: kernels whose buffers are fp32 on the path (the summary's dtype)
 FP32_KERNELS = ("adam", "xentropy_fwd", "xentropy_bwd", "segment_stats",
                 "lamb_phase1", "lamb_phase2", "sgd", "novograd",
@@ -528,7 +587,13 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_bwd_dkdv_bias": "flash_bwd_dkdv_kernel",
                   "flash_bwd_dkdv_window_bias": "flash_bwd_dkdv_kernel",
                   "sgd": "sgd_kernel", "novograd": "novograd_kernel",
-                  "multi_tensor_scale": "scale_"}
+                  "multi_tensor_scale": "scale_",
+                  "scaled_softmax_fwd": "scaled_softmax_fwd_kernel",
+                  "scaled_softmax_fwd_masked": "scaled_softmax_fwd_kernel",
+                  "scaled_softmax_fwd_causal": "scaled_softmax_fwd_kernel",
+                  "scaled_softmax_bwd": "scaled_softmax_bwd_kernel",
+                  "group_norm_fwd": "group_norm_fwd_kernel",
+                  "group_norm_bwd": "group_norm_bwd_kernel"}
 
 
 def ptxas_registers() -> dict:
@@ -548,7 +613,9 @@ def ptxas_registers() -> dict:
              "lamb_phase2_kernel", "dequant_matmul_kernel",
              "dequant_matmul_w4_kernel", "paged_decode_quant_kernel",
              "sgd_kernel", "novograd_kernel", "scale_f32_kernel",
-             "scale_bf16_kernel")
+             "scale_bf16_kernel", "scaled_softmax_fwd_kernel",
+             "scaled_softmax_bwd_kernel", "group_norm_fwd_kernel",
+             "group_norm_bwd_kernel")
     regs = {}
     for log in sorted(_build.BUILD.glob("*.log")):
         entry = None
@@ -559,7 +626,11 @@ def ptxas_registers() -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m and entry:
                 name = next((n for n in names if n in entry), entry)
-                bf16 = "<bf16>" if "nv_bfloat16" in entry else ""
+                bf16 = ("<bf16>" if "nv_bfloat16" in entry else "<f16>"
+                        if "6__half" in entry else "")
+                # the SiLU instantiations of the GroupNorm kernels
+                if name.startswith("group_norm") and "Lb1E" in entry:
+                    bf16 += "<silu>"
                 # the RMS instantiation of the LayerNorm forward, and the
                 # RMS and from_y instantiations of its backward
                 rms = "<rms>" if (name == "layer_norm_fwd_kernel"
@@ -2246,6 +2317,263 @@ def check_resnet_optim(gen, dev):
             library="torch.mul(x.float(), s)",
             bound_ms=bms, bound_by=by), kernel))
     return out
+
+
+def padding_mask(gen, b: int, s: int, dev):
+    """A ``[b, 1, 1, s]`` padding mask (True = padded) from sequence lengths
+    uniform in 1..s (``gen``), the first a single token."""
+    import torch
+
+    lengths = torch.randint(1, s + 1, (b,), generator=gen)
+    lengths[0] = 1
+    return (torch.arange(s)[None, :] >= lengths[:, None])[:, None, None].to(
+        dev)
+
+
+def softmax_cases(gen, dev):
+    """``(label, x shape, mask, causal, layers)`` of the softmax rows:
+    GPT-2-small's causal scores, BERT-Large's with the padding mask and
+    without one, and a row longer than 8192 with a padding mask."""
+    b, h, s = SOFTMAX_GPT
+    bb, bh, bs = SOFTMAX_BERT
+    lb, lh, lq, lk = SOFTMAX_LONG
+    return [("gpt", (b * h, 1, s, s), None, True, SOFTMAX_LAYERS["gpt"]),
+            ("bert", (bb, bh, bs, bs), padding_mask(gen, bb, bs, dev), False,
+             SOFTMAX_LAYERS["bert"]),
+            ("bert", (bb, bh, bs, bs), None, False, SOFTMAX_LAYERS["bert"]),
+            ("long", SOFTMAX_LONG, padding_mask(gen, lb, lk, dev), False, 1)]
+
+
+def check_scaled_softmax(gen, dev):
+    """The scaled-softmax kernels against their twins: each forward branch
+    and the backward at GPT-2-small's causal [96, 1024, 1024], BERT-Large's
+    [8, 16, 512, 512] with its padding mask (and without one), and [2, 4,
+    16, 8193] (no cap), fp32 and bf16, BERT's masked rows fp16 too; the
+    scores' spread 2 after Megatron's layer scaling ``scale = L``. Timed
+    by ``queued_ms``; library: ``torch.softmax`` on the pre-scaled,
+    pre-masked scores in x's dtype and ``torch._softmax_backward_data``.
+    Rows carry no timing closure (``queued_ms`` has timed them)."""
+    import torch
+
+    ss = importlib.import_module("apex_tpu_torch.ops.scaled_softmax")
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+    out = []
+    for label, shape, mask, causal, scale in softmax_cases(gen, dev):
+        kind = "causal" if causal else "padding" if mask is not None \
+            else "none"
+        dtypes = [torch.float32, torch.bfloat16] + (
+            [torch.float16] if label == "bert" and mask is not None else [])
+        row_shape = [shape[0], *shape[2:]] if causal else list(shape)
+        name = ss._branch(mask, causal)
+        n = math.prod(shape)
+        mask_bytes = mask.numel() if mask is not None else 0
+        for dtype in dtypes:
+            dt = str(dtype).split(".")[-1]
+            x = (torch.randn(shape, generator=dgen, device=dev)
+                 * (2.0 / scale)).to(dtype)
+            dy = torch.randn(shape, generator=dgen, device=dev).to(dtype)
+            y = ss.scaled_softmax_fwd(x, mask, scale, causal)
+            dx = ss.scaled_softmax_bwd(y, dy, scale)
+            torch.cuda.synchronize()
+            want = ss.scaled_softmax_fwd_reference(x, mask, scale, causal)
+            err = compare(f"{name} {label} {dt}", y, want, dt)
+            berr = compare(f"scaled_softmax_bwd {label} {dt}", dx,
+                           ss.scaled_softmax_bwd_reference(y, dy, scale), dt)
+            del want
+            pre = x.float() * scale
+            if mask is not None:
+                pre = pre.masked_fill(mask, ss.MASK_FILL)
+            if causal:
+                pre = pre.masked_fill(torch.ones(shape[2:], dtype=torch.bool,
+                                                 device=dev).triu(1),
+                                      ss.MASK_FILL)
+            pre = pre.to(dtype)
+            esize = x.element_size()
+            common = dict(dtype=dt, shape=row_shape, kind=kind, scale=scale,
+                          path="megatron_softmax")
+            bms, by = bound_ms(2 * n * esize + mask_bytes, 8 * n, "float32")
+            out.append((dict(
+                name=name, **common, max_abs_err=err,
+                ms=queued_ms(partial(ss.scaled_softmax_fwd, x, mask, scale,
+                                     causal), 20),
+                plain_ms=queued_ms(partial(ss.scaled_softmax_fwd_reference,
+                                           x, mask, scale, causal), 5),
+                library_ms=queued_ms(partial(torch.softmax, pre, -1), 20),
+                library="torch.softmax(scores pre-scaled and pre-masked in "
+                        "x's dtype, -1)",
+                bound_ms=bms, bound_by=by), None))
+            bms, by = bound_ms(3 * n * esize, 5 * n, "float32")
+            out.append((dict(
+                name="scaled_softmax_bwd", **common, max_abs_err=berr,
+                ms=queued_ms(partial(ss.scaled_softmax_bwd, y, dy, scale),
+                             20),
+                plain_ms=queued_ms(partial(ss.scaled_softmax_bwd_reference,
+                                           y, dy, scale), 5),
+                library_ms=queued_ms(partial(
+                    torch._softmax_backward_data, dy, y, -1, dtype), 20),
+                library="torch._softmax_backward_data(dy, y, -1)",
+                bound_ms=bms, bound_by=by), None))
+            del x, dy, y, dx, pre
+    return out
+
+
+def unet_norm_input(dgen, c: int, side: int, dtype, dev):
+    """An NCHW ``(UNET_BATCH, c, side, side)`` activation in channels_last
+    memory, mean 0.3."""
+    import torch
+
+    x = torch.randn(UNET_BATCH, side, side, c, generator=dgen, device=dev)
+    return (x + 0.3).to(dtype).permute(0, 3, 1, 2)
+
+
+def check_group_norm(gen, dev):
+    """The GroupNorm kernels against their twins at Stable Diffusion v1.5's
+    UNet norm shapes (``UNET_SHAPES``, batch 8, 32 groups, channels_last),
+    each with SiLU at eps 1e-5 and without at eps 1e-6, fp32 and bf16,
+    weight and bias near 1 and 0: y, mean, rstd; dx, dw, db (dw and db at
+    ``SUM_TOL``: fp32 sums over 8 h w rows in other orders). Timed by
+    ``queued_ms``; library: ``F.group_norm`` on the same NCHW tensor (its
+    weight and bias in x's dtype) and its backward."""
+    import torch
+    import torch.nn.functional as F
+
+    gn = importlib.import_module("apex_tpu_torch.ops.group_norm")
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+    out = []
+    for c, side in UNET_SHAPES:
+        w = torch.randn(c, generator=dgen, device=dev) * 0.1 + 1
+        b = torch.randn(c, generator=dgen, device=dev) * 0.1
+        for act, eps in UNET_NORMS:
+            for dtype in (torch.float32, torch.bfloat16):
+                dt = str(dtype).split(".")[-1]
+                x = unet_norm_input(dgen, c, side, dtype, dev)
+                dy = unet_norm_input(dgen, c, side, dtype, dev)
+                xh, dyh = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+                args = (w, b, UNET_GROUPS)
+                y, mean, rstd = gn.group_norm_fwd(xh, *args, eps, act)
+                bargs = (w, b, mean, rstd, UNET_GROUPS, act)
+                dx, dw, db = gn.group_norm_bwd(xh, dyh, *bargs)
+                torch.cuda.synchronize()
+                label = f"group_norm {c}x{side} {act} {dt}"
+                ry, rmean, rrstd = gn.group_norm_fwd_reference(xh, *args,
+                                                               eps, act)
+                err = max(compare(f"{label} y", y, ry, dt),
+                          compare(f"{label} mean", mean, rmean, "float32"),
+                          compare(f"{label} rstd", rstd, rrstd, "float32"))
+                rdx, rdw, rdb = gn.group_norm_bwd_reference(xh, dyh, *bargs)
+                berr = compare(f"{label} dx", dx, rdx, dt)
+                sums_err = max(compare(f"{label} dw", dw, rdw, "float32",
+                                       SUM_TOL),
+                               compare(f"{label} db", db, rdb, "float32",
+                                       SUM_TOL))
+                del ry, rdx
+                n, esize = x.numel(), x.element_size()
+                common = dict(dtype=dt, shape=list(xh.shape),
+                              kind=act or "none", eps=eps,
+                              groups=UNET_GROUPS, path="unet_group_norm")
+                xl = x.detach().requires_grad_()
+                wl = w.to(dtype).requires_grad_()
+                bl = b.to(dtype).requires_grad_()
+                yl = F.group_norm(xl, UNET_GROUPS, wl, bl, eps)
+                bms, by = bound_ms(2 * n * esize + 8 * c, 12 * n, "float32")
+                out.append((dict(
+                    name="group_norm_fwd", **common, max_abs_err=err,
+                    ms=queued_ms(partial(gn.group_norm_fwd, xh, *args, eps,
+                                         act)),
+                    plain_ms=queued_ms(partial(gn.group_norm_fwd_reference,
+                                               xh, *args, eps, act), 10),
+                    library_ms=queued_ms(partial(F.group_norm, x.detach(),
+                                                 UNET_GROUPS, wl.detach(),
+                                                 bl.detach(), eps)),
+                    library="F.group_norm(x NCHW channels_last, 32, w, b, "
+                            "eps), w and b in x's dtype",
+                    bound_ms=bms, bound_by=by), None))
+                bms, by = bound_ms(3 * n * esize + 16 * c * UNET_BATCH,
+                                   20 * n, "float32")
+                out.append((dict(
+                    name="group_norm_bwd", **common, max_abs_err=berr,
+                    sums_max_abs_err=sums_err,
+                    ms=queued_ms(partial(gn.group_norm_bwd, xh, dyh, *bargs)),
+                    plain_ms=queued_ms(partial(gn.group_norm_bwd_reference,
+                                               xh, dyh, *bargs), 10),
+                    library_ms=queued_ms(partial(
+                        torch.autograd.grad, yl, (xl, wl, bl), dy,
+                        retain_graph=True)),
+                    library="the backward of F.group_norm (dx, dw, db)",
+                    bound_ms=bms, bound_by=by), None))
+                del x, dy, xh, dyh, y, dx, xl, yl
+    return out
+
+
+def sync_bn_sumsq(gen, dev) -> None:
+    """ROADMAP C1: the per-channel sum of squares of SyncBatchNorm's
+    statistics at each of ResNet-50's 12 norm input shapes (53 norms, 256
+    images at 224), bf16 channels_last, mean 0.3 and std 0.5, against the
+    fp64 sum: the largest and median relative error over the channels of
+    ``vector_norm(x, 2, dtype=float32)^2`` (the port's form before C1), of
+    the reference's direct fp32 sum of ``x32 * x32``
+    (``apex_tpu/parallel/sync_batchnorm.py:44``), of an fp64-accumulated
+    ``vector_norm`` squared, and of the port's ``channel_sums``, with the ms
+    of each, and whether the port's equals the direct sum bit for bit.
+    Fails if the port's is further from fp64 than the direct sum."""
+    import collections
+
+    import torch
+
+    from apex_tpu_torch.examples.imagenet import main_amp as rn
+    from apex_tpu_torch.parallel import SyncBatchNorm
+    from apex_tpu_torch.parallel.sync_batchnorm import channel_sums
+
+    model = rn.resnet50(device="meta")
+    shapes = collections.Counter()
+    for mod in model.modules():
+        if isinstance(mod, SyncBatchNorm):
+            mod.register_forward_pre_hook(
+                lambda m, inp: shapes.update([tuple(inp[0].shape)]))
+    model(torch.empty(RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE,
+                      device="meta"))
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+    dims = [0, 2, 3]
+
+    def vector_norm(x):
+        return torch.linalg.vector_norm(x, 2, dim=dims,
+                                        dtype=torch.float32).square()
+
+    def direct(x):
+        x32 = x.float()
+        return (x32 * x32).sum(dims)
+
+    def fp64(x):
+        return torch.linalg.vector_norm(x, 2, dim=dims,
+                                        dtype=torch.float64).square().float()
+
+    forms = (("vector_norm", vector_norm), ("direct", direct),
+             ("fp64", fp64), ("port", lambda t: channel_sums(t)[1]))
+    rows, worst = [], {}
+    for shape, count in shapes.items():
+        x = (torch.randn(shape, generator=dgen, device=dev) * 0.5 + 0.3).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        want = x.double().square().sum(dims)
+        row = dict(shape=list(shape), norms=count,
+                   port_equals_direct=torch.equal(channel_sums(x)[1],
+                                                  direct(x)))
+        for label, fn in forms:
+            rel = ((fn(x).double() - want).abs() / want)
+            row[label] = dict(max_rel_err=rel.max().item(),
+                              median_rel_err=rel.median().item(),
+                              ms=time_ms(partial(fn, x), 10))
+            worst[label] = max(worst.get(label, 0.0), row[label][
+                "max_rel_err"])
+        rows.append(row)
+        del x, want
+    emit("sync_bn_sumsq", dtype="bfloat16", mean=0.3, std=0.5, rows=rows,
+         worst_max_rel_err=worst,
+         ms_total_53_norms={k: sum(r[k]["ms"] * r["norms"] for r in rows)
+                            for k, _ in forms})
+    if worst["port"] > worst["direct"]:
+        raise AssertionError(f"sync_bn_sumsq: the port's sum of squares is "
+                             f"further from fp64 ({worst['port']:.3e}) than "
+                             f"the direct fp32 sum ({worst['direct']:.3e})")
 
 
 # --- phases 3 and 4: the engine --------------------------------------------
@@ -4414,6 +4742,217 @@ def resnet_bf16(smi, optimizer: str = "sgd"):
     return step, launches
 
 
+# --- the Megatron softmax and UNet GroupNorm paths ---------------------------
+
+
+def rel_err(got, want) -> float:
+    """``||got - want|| / ||want||`` (Frobenius, fp32)."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def megatron_attention(q, k, v, softmax, mask, layer: int, b: int):
+    """Megatron's core attention (``CoreAttention.forward``) over ``[b np,
+    s, d]`` q, k and v: scores ``baddbmm(q, k^T) / (sqrt(d) layer)``,
+    ``softmax(scores as [b, np, sq, sk], mask)``, then ``bmm`` with v.
+    Returns the context and the probabilities."""
+    import torch
+
+    bnp, sq, d = q.shape
+    sk = k.shape[1]
+    scores = torch.baddbmm(
+        torch.empty(bnp, sq, sk, dtype=q.dtype, device=q.device), q,
+        k.transpose(1, 2), beta=0.0, alpha=1.0 / (math.sqrt(d) * layer))
+    probs = softmax(scores.view(b, bnp // b, sq, sk), mask)
+    return torch.bmm(probs.view(bnp, sq, sk), v), probs
+
+
+def megatron_softmax(smi) -> dict:
+    """The Megatron attention softmax path in bf16, forward and backward
+    through ``FusedScaleMaskSoftmax(input_in_bf16=True, scale=L,
+    softmax_in_fp32=True)`` inside Megatron's core attention: GPT-2-small's
+    8 x 12 x 1024 causal scores, BERT-Large's 8 x 16 x 512 with a padding
+    mask from sequence lengths and without a mask (each branch of the
+    forward kernel once, the backward three times: asserted). The fused
+    probabilities against the module's own ``forward_torch_softmax`` on the
+    card (Megatron's test) within ``TOL`` (atol cut to ``RMS_ATOL`` of their
+    RMS), the context and dq, dk, dv within ``PATH_REL_BAR``; ms per forward
+    and backward, fused and unfused. Returns the launches of the fused
+    run."""
+    import torch
+
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+
+    live = phase_memory_start()
+    gen = torch.Generator().manual_seed(SEED + 11)
+    dgen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    b, h, s = SOFTMAX_GPT
+    bb, bh, bs = SOFTMAX_BERT
+    mask = padding_mask(gen, bb, bs, DEV)
+    cases = [("gpt_causal", b, h, s, AttnMaskType.causal, None, "gpt"),
+             ("bert_padding", bb, bh, bs, AttnMaskType.padding, mask, "bert"),
+             ("bert_no_mask", bb, bh, bs, AttnMaskType.padding, None, "bert")]
+    runs = []
+    for label, nb, nh, ns, mask_type, m, model in cases:
+        qkv = [torch.randn(nb * nh, ns, SOFTMAX_HEAD_DIM, generator=dgen,
+                           device=DEV).to(torch.bfloat16).requires_grad_()
+               for _ in range(3)]
+        dctx = torch.randn(nb * nh, ns, SOFTMAX_HEAD_DIM, generator=dgen,
+                           device=DEV).to(torch.bfloat16)
+        layer = SOFTMAX_LAYERS[model]
+        fused = FusedScaleMaskSoftmax(input_in_bf16=True,
+                                      attn_mask_type=mask_type,
+                                      scale=float(layer),
+                                      softmax_in_fp32=True)
+        runs.append((label, nb, nh, ns, qkv, dctx, fused, m, layer))
+
+    def step(run, unfused: bool = False):
+        _, nb, _, _, qkv, dctx, fused, m, layer = run
+        softmax = fused.forward_torch_softmax if unfused else fused
+        ctx, probs = megatron_attention(*qkv, softmax, m, layer, nb)
+        return ctx, probs, torch.autograd.grad(ctx, qkv, dctx)
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = [step(run) for run in runs]
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    check_launches("megatron_softmax", launches, {
+        "scaled_softmax_fwd_causal": 1, "scaled_softmax_fwd_masked": 1,
+        "scaled_softmax_fwd": 1, "scaled_softmax_bwd": 3})
+    results = []
+    for run, (ctx, probs, grads) in zip(runs, outs):
+        label, nb, nh, ns = run[:4]
+        uctx, uprobs, ugrads = step(run, unfused=True)
+        probs_err = compare(f"megatron_softmax {label} probs", probs, uprobs,
+                            "bfloat16", rms_atol=True)
+        rels = {"context": rel_err(ctx, uctx),
+                **{f"d{n}": rel_err(g, u)
+                   for n, g, u in zip("qkv", grads, ugrads)}}
+        over = {k: v for k, v in rels.items() if not v <= PATH_REL_BAR}
+        if over:
+            raise AssertionError(f"megatron_softmax {label}: fused against "
+                                 f"unfused over {PATH_REL_BAR}: {over}")
+        results.append(dict(
+            case=label, scores=[nb, nh, ns, ns], scale=run[8],
+            padded_tokens=int(run[7].sum()) if run[7] is not None else 0,
+            probs_max_abs_err=probs_err, rel_err=rels,
+            fused_ms=time_ms(partial(step, run), 5),
+            unfused_ms=time_ms(partial(step, run, True), 5)))
+        del ctx, probs, grads, uctx, uprobs, ugrads
+    emit("megatron_softmax", dtype="bfloat16", head_dim=SOFTMAX_HEAD_DIM,
+         rel_bar=PATH_REL_BAR, launches={k: launches[k]
+                                         for k in SOFTMAX_KERNELS},
+         results=results,
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live) / 2 ** 30,
+         nvidia_smi=smi)
+    return launches
+
+
+def unet_group_norm(smi) -> dict:
+    """One Stable Diffusion v1.5 UNet ResNet block at its first
+    resolution, (8, 320, 64, 64) bf16 channels_last: GroupNorm + SiLU ->
+    conv 3x3 -> GroupNorm + SiLU -> conv 3x3 -> the residual add (the time
+    embedding and dropout left out), through ``contrib.group_norm.GroupNorm
+    (32, 320, act="silu")`` with torch's convolutions, forward and backward:
+    two launches of each GroupNorm kernel (asserted); the output and every
+    gradient within ``PATH_REL_BAR`` of the same block with the plain fp32
+    ``F.group_norm`` + ``F.silu`` rounded to bf16; ms per forward and
+    backward, beside the same block on ``F.group_norm`` + ``F.silu`` in
+    bf16 (the library) and on the plain fp32 norm; the GroupNorm kernels'
+    share of the device time of one profiled step. Returns the launches."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    from apex_tpu_torch.ops import _build
+
+    live = phase_memory_start()
+    c, side = UNET_SHAPES[0]
+    act, eps = UNET_NORMS[0]
+    dgen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    norms, convs = [], []
+    for _ in range(2):
+        norm = GroupNorm(UNET_GROUPS, c, eps=eps, act=act, device=DEV)
+        conv = nn.Conv2d(c, c, 3, padding=1, device=DEV,
+                         dtype=torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        with torch.no_grad():
+            norm.weight.copy_(torch.randn(c, generator=dgen, device=DEV)
+                              * 0.1 + 1)
+            norm.bias.copy_(torch.randn(c, generator=dgen, device=DEV) * 0.1)
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=dgen,
+                                          device=DEV) / math.sqrt(9 * c))
+            conv.bias.copy_(torch.randn(c, generator=dgen, device=DEV) * 0.1)
+        norms.append(norm)
+        convs.append(conv)
+    x = unet_norm_input(dgen, c, side, torch.bfloat16, DEV).requires_grad_()
+    dy = unet_norm_input(dgen, c, side, torch.bfloat16, DEV)
+    params = [x] + [p for m in norms + convs for p in m.parameters()]
+
+    def port(i, t):
+        return norms[i](t)
+
+    def plain(i, t):
+        return F.silu(F.group_norm(t.float(), UNET_GROUPS, norms[i].weight,
+                                   norms[i].bias, eps)).to(t.dtype)
+
+    def library(i, t):
+        return F.silu(F.group_norm(t, UNET_GROUPS,
+                                   norms[i].weight.to(t.dtype),
+                                   norms[i].bias.to(t.dtype), eps))
+
+    def step(norm):
+        hid = convs[0](norm(0, x))
+        out = x + convs[1](norm(1, hid))
+        return out, torch.autograd.grad(out, params, dy)
+
+    step(port)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out, grads = step(port)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    check_launches("unet_group_norm", launches,
+                   {"group_norm_fwd": 2, "group_norm_bwd": 2})
+    ref_out, ref_grads = step(plain)
+    names = ["x"] + [f"{kind}{i}.{p}" for kind, mods in (("norm", norms),
+                                                         ("conv", convs))
+                     for i, m in enumerate(mods)
+                     for p, _ in m.named_parameters()]
+    rels = {"out": rel_err(out, ref_out),
+            **{f"d{n}": rel_err(g, r)
+               for n, g, r in zip(names, grads, ref_grads)}}
+    over = {k: v for k, v in rels.items() if not v <= PATH_REL_BAR}
+    if over:
+        raise AssertionError(f"unet_group_norm: over {PATH_REL_BAR} against "
+                             f"the plain fp32 norm: {over}")
+    del out, grads, ref_out, ref_grads
+    ms = {label: time_ms(partial(step, fn), 10)
+          for label, fn in (("port", port), ("library", library),
+                            ("plain", plain))}
+    wall, acts = device_profile(partial(step, port))
+    busy = sum(t for t, _ in acts.values())
+    gn_ms = {k: sum(t for a, (t, _) in acts.items()
+                    if KERNEL_SYMBOLS[k] in a) for k in GROUP_NORM_KERNELS}
+    emit("unet_group_norm", shape=[UNET_BATCH, c, side, side],
+         dtype="bfloat16", groups=UNET_GROUPS, act=act, eps=eps,
+         rel_bar=PATH_REL_BAR, rel_err=rels,
+         launches={k: launches[k] for k in GROUP_NORM_KERNELS},
+         ms_per_fwd_bwd=ms["port"], library_ms_per_fwd_bwd=ms["library"],
+         plain_ms_per_fwd_bwd=ms["plain"],
+         library="F.group_norm + F.silu in bf16 (weights cast to bf16)",
+         group_norm_device_ms=gn_ms, device_busy_ms=busy,
+         group_norm_share_of_device=sum(gn_ms.values()) / busy if busy
+         else None, device_idle_share=1.0 - busy / 1e3 / wall,
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live) / 2 ** 30,
+         nvidia_smi=smi)
+    return launches
+
+
 #: device activity classes of a ResNet-50 step, by kernel-name fragment
 #: (first match wins): the SGD kernel, the batch-norm apply and backward
 #: ops, cuDNN's convolutions, reductions (the norms' fp32 sums, the mean
@@ -4497,11 +5036,19 @@ def main() -> int:
               + check_norm_bwd_mistral(gen, DEV)
               + check_flash_bwd_window(gen, DEV)
               + check_paged_block(gen, DEV) + check_flash_bias(gen, DEV)
-              + check_resnet_optim(gen, DEV))
+              + check_resnet_optim(gen, DEV) + check_scaled_softmax(gen, DEV)
+              + check_group_norm(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, rms_atol=RMS_ATOL,
          card_before=card_before,
          card_after=card_state(), results=rows)
+    torch.cuda.empty_cache()
+    # the softmax and GroupNorm paths, early: their batches need room that
+    # the later phases' live models take
+    sync_bn_sumsq(gen, DEV)
+    softmax_launches = megatron_softmax(smi)
+    gn_launches = unet_group_norm(smi)
+    torch.cuda.empty_cache()
 
     prompts, new_tokens = workload()
     from apex_tpu_torch.models import generate
@@ -4586,7 +5133,8 @@ def main() -> int:
     for row, fn in checks:
         if row.get("path") in ("quant_serving", "mistral", "mistral_train",
                                "spec_chunked", "t5", "t5_train",
-                               "window_bias", "resnet"):
+                               "window_bias", "resnet", "megatron_softmax",
+                               "unet_group_norm"):
             continue                  # timed by queued_ms already
         ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
         results.append(dict(name=row["name"], dtype=row["dtype"],
@@ -4680,6 +5228,22 @@ def main() -> int:
                   "flash_bwd_dkdv_bias": [T5_TRAIN_BATCH, T5_HEADS,
                                           T5_TRAIN_ENC, T5_HEAD_DIM]}
     main_shape.update(bias_shape)
+    # the softmax kernels at the shapes of their launches in
+    # megatron_softmax: GPT-2-small's causal scores (forward and backward),
+    # BERT-Large's (the masked and unmasked forward); GroupNorm at the UNet
+    # block's (8, 320, 64, 64), SiLU fused
+    gpt_scores = [SOFTMAX_GPT[0] * SOFTMAX_GPT[1], SOFTMAX_GPT[2],
+                  SOFTMAX_GPT[2]]
+    bert_scores = [*SOFTMAX_BERT, SOFTMAX_BERT[2]]
+    unet_nhwc = [UNET_BATCH, UNET_SHAPES[0][1], UNET_SHAPES[0][1],
+                 UNET_SHAPES[0][0]]
+    main_shape.update({"scaled_softmax_fwd_causal": gpt_scores,
+                       "scaled_softmax_bwd": gpt_scores,
+                       "scaled_softmax_fwd_masked": bert_scores,
+                       "scaled_softmax_fwd": bert_scores,
+                       "group_norm_fwd": unet_nhwc,
+                       "group_norm_bwd": unet_nhwc})
+    main_kind.update({"group_norm_fwd": "silu", "group_norm_bwd": "silu"})
     t5_dec_shape = [T5_TRAIN_BATCH, T5_HEADS, T5_TRAIN_DEC, T5_HEAD_DIM]
     by_path = {"serving": launches, "gpt_train": train_launches,
                "bert_train": bert_launches, "mistral": mistral_launches,
@@ -4690,7 +5254,9 @@ def main() -> int:
                "chunked_kv8": chunk_kv8_launches, "t5": t5_launches,
                "t5_train": t5_train_launches,
                "resnet_train": resnet_launches,
-               "resnet_novograd": nvg_launches}
+               "resnet_novograd": nvg_launches,
+               "megatron_softmax": softmax_launches,
+               "unet_group_norm": gn_launches}
     # the windowed block has no engine path (the reference refuses both
     # modes for windowed models), so its launches read 0
     block_path = {"paged_attention_block": "spec",
@@ -4702,7 +5268,9 @@ def main() -> int:
               "library_ms")
     summary = []
     for name, (src, replaces) in _build.KERNELS.items():
-        path = ("resnet_train" if name in ("sgd", "multi_tensor_scale")
+        path = ("megatron_softmax" if name in SOFTMAX_KERNELS
+                else "unet_group_norm" if name in GROUP_NORM_KERNELS
+                else "resnet_train" if name in ("sgd", "multi_tensor_scale")
                 else "resnet_novograd" if name == "novograd"
                 else "t5" if name == "flash_fwd_bias" else "t5_train"
                 if name in BIAS_KERNELS else block_path[name]
@@ -4745,6 +5313,14 @@ def main() -> int:
             entry.update({k: row[k] for k in (
                 "shape", "segments", "params", "cases", "skip_bit_identical",
                 "whole_step_ms", "library") if k in row})
+        if path in ("megatron_softmax", "unet_group_norm"):
+            entry.update(shape=row["shape"], kind=row["kind"],
+                         library=row["library"])
+            entry["other_rows"] = [
+                dict({k: r[k] for k in ("shape", "kind", "dtype")},
+                     **{k: r[k] for k in timing})
+                for r in rows if r["name"] == name and r is not row
+                and r["dtype"] != "float32"]
         if name == "multi_tensor_scale":
             bf = next(r for r in rows if r["name"] == name
                       and r["dtype"] == "bfloat16")

@@ -9,6 +9,7 @@ bounds, stated where used).
 Each test also checks that the wrapper counted exactly its launches.
 """
 
+import importlib
 from functools import partial
 
 import pytest
@@ -55,8 +56,12 @@ from apex_tpu_torch.ops.xentropy import (softmax_cross_entropy, xentropy_bwd,
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2),
+       torch.float16: (1e-3, 1e-3)}
 DTYPES = [torch.float32, torch.bfloat16]
+#: the scaled-softmax and GroupNorm kernels take fp16 too (fp16: both sides
+#: round one fp32 value, within one fp16 ulp, 2^-11 relative)
+HALF_DTYPES = DTYPES + [torch.float16]
 
 
 @pytest.fixture
@@ -1060,3 +1065,170 @@ def test_sync_batchnorm_on_the_card_matches_the_cpu_path(cuda, dtype):
     for got, want in zip(outs["cuda"][2:], outs["cpu"][2:]):
         torch.testing.assert_close(got, want, atol=1e-3 if dtype ==
                                    torch.float32 else 1e-1, rtol=1e-3)
+
+
+SOFTMAX_CASES = [
+    # (b, np, sq, sk, branch): the three forward branches, a padding mask
+    # read through a row stride of 0, a cyclic mask (mb = 2 over b = 3), a
+    # row longer than any block's registers
+    (2, 3, 40, 100, "plain"), (2, 4, 17, 300, "padding"),
+    (3, 2, 24, 64, "cyclic"), (1, 5, 33, 33, "causal"),
+    (1, 1, 20, 33, "causal"), (1, 2, 3, 8193, "padding")]
+
+
+def _softmax_mask(branch, b, sq, sk, g):
+    if branch == "padding":
+        lengths = torch.randint(1, sk + 1, (b,), generator=g)
+        lengths[0] = 1
+        return (torch.arange(sk)[None, :] >= lengths[:, None])[:, None, None]
+    if branch == "cyclic":
+        return torch.rand(2, 1, sq, sk, generator=g) < 0.3
+    return None
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+@pytest.mark.parametrize("b,np_,sq,sk,branch", SOFTMAX_CASES)
+def test_scaled_softmax_kernels_match_twin(cuda, dtype, b, np_, sq, sk,
+                                           branch):
+    from apex_tpu_torch.ops.scaled_softmax import (
+        scaled_softmax_bwd, scaled_softmax_bwd_reference, scaled_softmax_fwd,
+        scaled_softmax_fwd_reference)
+
+    g = torch.Generator().manual_seed(41)
+    x = (torch.randn(b, np_, sq, sk, generator=g) * 2).to(cuda, dtype)
+    dy = torch.randn(b, np_, sq, sk, generator=g).to(cuda, dtype)
+    mask = _softmax_mask(branch, b, sq, sk, g)
+    mask = mask.to(cuda) if mask is not None else None
+    causal = branch == "causal"
+    name = ("scaled_softmax_fwd_causal" if causal else
+            "scaled_softmax_fwd" if mask is None else
+            "scaled_softmax_fwd_masked")
+    before = dict(_build.launches)
+    y = scaled_softmax_fwd(x, mask, 0.7, causal)
+    dx = scaled_softmax_bwd(y, dy, 0.7)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before[name] + 1
+    assert _build.launches["scaled_softmax_bwd"] == \
+        before["scaled_softmax_bwd"] + 1
+    _close(y, scaled_softmax_fwd_reference(x, mask, 0.7, causal), dtype)
+    _close(dx, scaled_softmax_bwd_reference(y, dy, 0.7), dtype)
+    if branch == "padding":               # sample 0 sees column 0 alone
+        assert (y[0, :, :, 0].float() == 1).all()
+
+
+GROUP_NORM_CASES = [
+    # (n, h, w, c, g): the reference's kernel and jnp routes, Stable
+    # Diffusion's cg = 10 and 40, a group wider than the block (cg 2048)
+    (2, 4, 4, 256, 2), (2, 3, 5, 24, 4), (2, 8, 8, 320, 32),
+    (1, 4, 4, 1280, 32), (1, 3, 3, 2048, 1)]
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+@pytest.mark.parametrize("n,h,w,c,groups", GROUP_NORM_CASES)
+@pytest.mark.parametrize("act,affine", [(None, True), ("silu", True),
+                                        ("silu", False)])
+def test_group_norm_kernels_match_twin(cuda, dtype, n, h, w, c, groups, act,
+                                       affine):
+    from apex_tpu_torch.ops.group_norm import (group_norm_bwd,
+                                               group_norm_bwd_reference,
+                                               group_norm_fwd,
+                                               group_norm_fwd_reference)
+
+    g = torch.Generator().manual_seed(43)
+    x = (torch.randn(n, h, w, c, generator=g) + 0.3).to(cuda, dtype)
+    dy = torch.randn(n, h, w, c, generator=g).to(cuda, dtype)
+    wt = (torch.randn(c, generator=g) * 0.1 + 1).to(cuda) if affine else None
+    bt = (torch.randn(c, generator=g) * 0.1).to(cuda) if affine else None
+    before = dict(_build.launches)
+    y, mean, rstd = group_norm_fwd(x, wt, bt, groups, 1e-5, act)
+    dx, dw, db = group_norm_bwd(x, dy, wt, bt, mean, rstd, groups, act)
+    torch.cuda.synchronize()
+    for name in ("group_norm_fwd", "group_norm_bwd"):
+        assert _build.launches[name] == before[name] + 1
+    ry, rmean, rrstd = group_norm_fwd_reference(x, wt, bt, groups, 1e-5, act)
+    _close(y, ry, dtype)
+    _close(mean, rmean, torch.float32)
+    _close(rstd, rrstd, torch.float32)
+    rdx, rdw, rdb = group_norm_bwd_reference(x, dy, wt, bt, mean, rstd,
+                                             groups, act)
+    _bwd_close(dx, rdx, dtype)
+    if affine:                     # fp32 sums over n h w rows, other orders
+        for got, want in ((dw, rdw), (db, rdb)):
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * want.abs().max().item())
+    else:
+        assert dw is None and db is None
+
+
+def test_softmax_and_group_norm_never_take_the_twin_on_the_card(
+        cuda, monkeypatch):
+    """Every public entry point on CUDA tensors launches its kernels; the
+    twins, replaced by a function that raises, are never called."""
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    from apex_tpu_torch.ops import group_norm as gn_ops
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+
+    # the module (``apex_tpu_torch.ops.scaled_softmax`` is the function)
+    ss = importlib.import_module("apex_tpu_torch.ops.scaled_softmax")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took a plain twin")
+
+    for mod, names in ((ss, ("scaled_softmax_fwd_reference",
+                             "scaled_softmax_bwd_reference")),
+                       (gn_ops, ("group_norm_fwd_reference",
+                                 "group_norm_bwd_reference",
+                                 "group_norm_reference"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    before = dict(_build.launches)
+    x = torch.randn(2, 4, 64, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    mask = torch.zeros(2, 1, 1, 64, dtype=torch.bool, device=cuda)
+    causal = FusedScaleMaskSoftmax(input_in_bf16=True,
+                                   attn_mask_type=AttnMaskType.causal,
+                                   scale=2.0)
+    padded = FusedScaleMaskSoftmax(input_in_bf16=True)
+    (causal(x) + padded(x, mask) + padded(x)).sum().backward()
+    ss.scaled_upper_triang_masked_softmax(x[0].detach(), 1.0)
+    gn = GroupNorm(8, 80, act="silu")
+    xg = torch.randn(2, 80, 9, 9, device=cuda).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    gn(xg).sum().backward()
+    torch.cuda.synchronize()
+    got = {k: _build.launches[k] - before[k] for k in (
+        "scaled_softmax_fwd_causal", "scaled_softmax_fwd_masked",
+        "scaled_softmax_fwd", "scaled_softmax_bwd", "group_norm_fwd",
+        "group_norm_bwd")}
+    assert got == {"scaled_softmax_fwd_causal": 2,
+                   "scaled_softmax_fwd_masked": 1, "scaled_softmax_fwd": 1,
+                   "scaled_softmax_bwd": 3, "group_norm_fwd": 1,
+                   "group_norm_bwd": 1}
+    assert torch.isfinite(x.grad.float()).all()
+    assert gn.weight.grad is not None and torch.isfinite(xg.grad).all()
+
+
+def test_sync_batchnorm_statistics_match_fp64_sums(cuda):
+    """ROADMAP C1: on the card the sum of squares is the reference's fp32
+    sum of ``x32 * x32``, bit for bit, within 2e-6 of the fp64 sum per
+    channel; the mean and variance follow from the sums as in fp64."""
+    from apex_tpu_torch.parallel.sync_batchnorm import (channel_sums,
+                                                        sync_batch_norm_stats)
+
+    g = torch.Generator().manual_seed(23)
+    x = (torch.randn(32, 64, 28, 28, generator=g) * 0.5 + 0.3).to(
+        cuda, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dims = [0, 2, 3]
+    s, ss = channel_sums(x)
+    x32, x64 = x.float(), x.double()
+    assert torch.equal(ss, (x32 * x32).sum(dims))
+    s64, ss64 = x64.sum(dims), (x64 * x64).sum(dims)
+    assert ((ss.double() - ss64).abs() / ss64).max().item() <= 2e-6
+    assert ((s.double() - s64).abs() / x64.abs().sum(dims)).max().item() \
+        <= 2e-6
+    mean, var, n = sync_batch_norm_stats(x)
+    assert n == 32 * 28 * 28
+    torch.testing.assert_close(mean.double(), s64 / n, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(var.double(), ss64 / n - (s64 / n) ** 2,
+                               rtol=1e-4, atol=1e-6)
