@@ -38,9 +38,13 @@ __device__ __forceinline__ uint32_t dropout_hash(uint32_t seed, uint32_t bh, uin
 
 // Which (query row, key) pairs a row sees, the dropout factor of a pair and
 // its additive bias. Rows index Sq and keys Sk of one batch entry b; under
-// `causal` a row sees keys <= row + (Sk - Sq), under a sliding window (with
-// causal) only keys >= row + (Sk - Sq) - (window - 1), under segment ids
-// only keys of its own segment. The bias is any tensor that broadcasts to
+// `causal` a row sees keys <= row + offset, under a sliding window (with
+// causal) only keys >= row + offset - (window - 1), under segment ids only
+// keys of its own segment. `offset` is the diagonal: Sk - Sq unless the
+// caller gives one (ring attention's global positions, the reference's
+// causal_offset: r * s_loc for a chunk r hops upstream, negative for a
+// chunk downstream). A row it leaves with no key outputs 0 with LSE
+// kMaskValue, as every row that sees nothing. The bias is any tensor that broadcasts to
 // [B, H, Sq, Sk] (H the query heads), read in place through four element
 // strides, 0 on a broadcast dimension, so a (1, H, Sq, Sk) table serves
 // every batch entry and is never expanded in memory. It shifts the scores
@@ -58,28 +62,42 @@ struct AttnMask {
   const void* bias;    // the additive bias, or null: none
   int bias_bf16;       // its dtype: 1 bf16, 0 fp32
   long long bias_sb, bias_sh, bias_sq, bias_sk;  // element strides of b, h, row, key
+  int offset;          // the causal diagonal: row r sees keys <= r + offset
 
   __device__ __forceinline__ bool visible(int b, int sq, int sk, int row, int key) const {
-    if (causal && key > row + (sk - sq)) return false;
-    if (window > 0 && key < row + (sk - sq) - (window - 1)) return false;
+    if (causal && key > row + offset) return false;
+    if (window > 0 && key < row + offset - (window - 1)) return false;
     return q_seg == nullptr || q_seg[(long)b * sq + row] == kv_seg[(long)b * sk + key];
   }
 
-  // The first key tile (a multiple of kTileKeys) any of the rows >= row0 may
-  // see: the band floor of row0 under a window, else 0. The band only moves
+  // The first key tile (a multiple of kTileKeys) any of the rows >= row_a may
+  // see: the band floor of row_a under a window, else 0. The band only moves
   // forward with the row, so later rows' floors are no lower.
-  __device__ __forceinline__ int first_key(int sq, int sk, int row0, int tile) const {
+  __device__ __forceinline__ int first_key(int row_a, int tile) const {
     if (window <= 0) return 0;
-    const int lo = max(0, row0 + (sk - sq) - (window - 1));
+    const int lo = max(0, row_a + offset - (window - 1));
     return lo / tile * tile;
+  }
+
+  // One past the last key any of the rows < row_end may see, capped at sk:
+  // under causal row_end - 1 + offset + 1, else sk; 0 when the diagonal
+  // leaves every row before row_end with no key.
+  __device__ __forceinline__ int key_end(int sk, int row_end) const {
+    return causal ? max(0, min(sk, row_end + offset)) : sk;
+  }
+
+  // The first row that may see a key >= key_a: under causal the row whose
+  // diagonal reaches key_a, else 0 (may pass sq: then no row does).
+  __device__ __forceinline__ int first_row(int key_a) const {
+    return causal ? max(0, key_a - offset) : 0;
   }
 
   // One past the last row that sees a key <= key_last: under a window the
   // row whose band floor is key_last, else sq. The band only moves forward
   // with the row, so no later row sees a key <= key_last.
-  __device__ __forceinline__ int last_row(int sq, int sk, int key_last) const {
+  __device__ __forceinline__ int last_row(int sq, int key_last) const {
     if (window <= 0) return sq;
-    return max(0, min(sq, key_last - (sk - sq) + window));
+    return max(0, min(sq, key_last - offset + window));
   }
 
   // the bias of (b, query head h, row, key) as fp32; 0 without a bias
@@ -97,7 +115,11 @@ struct AttnMask {
     return __fadd_rn(__fmul_rn(dot, scale), bias_at(b, h, row, key));
   }
 
-  // keep_scale where the pair is kept, 0 where it is dropped, 1 without dropout
+  // keep_scale where the pair is kept, 0 where it is dropped, 1 without
+  // dropout. The pair hashes at its global position (row0 + row, col0 +
+  // key), as _dropout_keep adds the origins; in uint32 the origins' terms
+  // row0 * 0x9E3779B1 + col0 * 0x85EBCA77 are a constant of the call, which
+  // the host folds into `seed`, so the kernels hash (row, key) as before
   __device__ __forceinline__ float keep(uint32_t bh, int row, int key) const {
     if (!dropout) return 1.f;
     return dropout_hash(seed, bh, static_cast<uint32_t>(row), static_cast<uint32_t>(key)) >=

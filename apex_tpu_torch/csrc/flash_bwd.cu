@@ -3,7 +3,10 @@
 // Replaces the TPU kernels apex_tpu/ops/flash_attention.py::_dq_kernel and
 // ::_dkdv_kernel (the two pallas_calls in _fa_bwd_impl), causal or not, with
 // an additive bias, segment ids, attention dropout and a causal sliding
-// window at the default diagonal; no causal_offset. q, do
+// window, on the default diagonal or an explicit causal_offset, with the
+// dropout hash at global origins (ring attention's chunks, as the
+// forward; the reference's dynamic offset is a launch argument here and
+// keeps the band-restricted loops). q, do
 // and dq are [B, H, Sq, D]; k, v, dk and dv are [B, Hkv, Sk, D] with kv head
 // h / (H / Hkv); lse and delta = sum(do * o) are fp32 [B, H, Sq]. AttnMask
 // (attention_common.cuh) gives the visible pairs and the forward's keep
@@ -90,8 +93,13 @@ __device__ __forceinline__ void dot2(const float* a, const float* b, const float
   ce = y;
 }
 
+// The minimum blocks per SM cap the registers at the budget that keeps
+// four dq blocks (64 a thread) and three dk/dv blocks (85) resident: left
+// free, ptxas moved both kernels' counts between builds of near-equal
+// sources (dq 62-80, dk/dv 80-100), and one block fewer per SM cost up to
+// 15% (8 x 12 x 1024 x 64, bf16, on the H100).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, AttnMask mask,
@@ -126,8 +134,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   // the last key any row of this block may see, exclusive, and the first
   // key tile its first row may see (0 without a window)
-  const int k_end = mask.causal ? max(0, min(sk, q0 + nq + sk - sq)) : sk;
-  const int k_begin = mask.first_key(sq, sk, q0, kTile);
+  const int k_end = mask.key_end(sk, q0 + nq);
+  const int k_begin = mask.first_key(q0, kTile);
   for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
     const int nk = min(kTile, k_end - k0);
     __syncthreads();  // previous tile consumed (and qs, dos visible)
@@ -176,7 +184,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
@@ -207,8 +215,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // under causal, rows before q_begin see none of this block's keys; under
   // a window, rows from q_end on see none either
-  const int q_begin = mask.causal ? max(0, k0 - (sk - sq)) : 0;
-  const int q_end = mask.last_row(sq, sk, k0 + nk - 1);
+  const int q_begin = mask.first_row(k0);
+  const int q_end = mask.last_row(sq, k0 + nk - 1);
   for (int g = 0; g < rep; ++g) {
     const int h = hk * rep + g;  // the query head: its index keys the dropout hash
     const uint32_t bh = static_cast<uint32_t>(b * heads + h);
@@ -316,14 +324,15 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed, threshold and
-// keep_scale are read only when dropout is set (the forward's values);
-// window 0 = none (the wrapper passes one only with causal); bias as the
-// forward's (apex_flash_fwd).
+// keep_scale are read only when dropout is set (the forward's values, the
+// origins folded into the seed); window 0 = none (the wrapper passes one only with
+// causal); offset and bias as the forward's (apex_flash_fwd).
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, const void* q_seg,
                                  const void* kv_seg, int causal, int dropout, unsigned seed,
                                  unsigned threshold, float keep_scale, int window,
-                                 const void* bias, int bias_bf16, long long bias_sb,
+                                 int offset, const void* bias, int bias_bf16,
+                                 long long bias_sb,
                                  long long bias_sh, long long bias_sq, long long bias_sk,
                                  int batch, int heads, int kv_heads, int sq, int sk, int d,
                                  float scale, int dtype, void* stream) {
@@ -332,7 +341,7 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v, co
   auto* dl = static_cast<const float*>(delta);
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
                       dropout, seed, threshold, keep_scale, window, bias, bias_bf16, bias_sb,
-                      bias_sh, bias_sq, bias_sk};
+                      bias_sh, bias_sq, bias_sk, offset};
   cudaError_t err =
       dtype == APEX_BF16
           ? launch_dq<__nv_bfloat16>(q, k, v, dout, l, dl, dq, mask, batch, heads, kv_heads, sq,
@@ -346,7 +355,8 @@ extern "C" int apex_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dk, void* dv, const void* q_seg, const void* kv_seg,
                                    int causal, int dropout, unsigned seed, unsigned threshold,
-                                   float keep_scale, int window, const void* bias,
+                                   float keep_scale, int window, int offset,
+                                   const void* bias,
                                    int bias_bf16, long long bias_sb, long long bias_sh,
                                    long long bias_sq, long long bias_sk, int batch, int heads,
                                    int kv_heads, int sq, int sk, int d, float scale, int dtype,
@@ -356,7 +366,7 @@ extern "C" int apex_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   auto* dl = static_cast<const float*>(delta);
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
                       dropout, seed, threshold, keep_scale, window, bias, bias_bf16, bias_sb,
-                      bias_sh, bias_sq, bias_sk};
+                      bias_sh, bias_sq, bias_sk, offset};
   cudaError_t err =
       dtype == APEX_BF16
           ? launch_dkdv<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, mask, batch, heads,

@@ -3,12 +3,18 @@
 //
 // Replaces the TPU kernel apex_tpu/ops/flash_attention.py::_fwd_kernel
 // (pallas_call in _fa_fwd), causal or not, with an additive bias, segment
-// ids, attention dropout and a causal sliding window at the default
-// diagonal; no causal_offset. q is [B, H, Sq, D], k and v are [B, Hkv, Sk,
-// D] with the kv head read as h / (H / Hkv), never repeated. AttnMask
-// (attention_common.cuh) says which keys a row sees, adds the bias to each
-// score (s = scale * q.k + bias, as _fwd_kernel:339-343) and regenerates
-// the reference's dropout keep mask at global positions.
+// ids, attention dropout and a causal sliding window, on the default
+// diagonal Sk - Sq or an explicit causal_offset, with the dropout hash at
+// global origins (ring attention's chunks: _mask_block:211,215,
+// _block_live:300-303, _dropout_keep via drop_meta). q is [B, H, Sq, D], k
+// and v are [B, Hkv, Sk, D] with the kv head read as h / (H / Hkv), never
+// repeated. AttnMask (attention_common.cuh) says which keys a row sees,
+// adds the bias to each score (s = scale * q.k + bias, as
+// _fwd_kernel:339-343) and regenerates the reference's dropout keep mask at
+// global positions. The reference's dynamic offset (an SMEM scalar, zigzag
+// ring attention's per-device distances) runs its full grid unbanded; here
+// every offset is a launch argument, so the band-restricted loop applies
+// to it too, with the same result.
 //
 // Design: one block of 4 warps per (query tile of 16 rows, head, batch). The
 // block walks the key range (under causal only up to the tile's last
@@ -72,8 +78,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   // the last key any row of this tile may see, exclusive, and the first
   // key tile the tile's first row may see (0 without a window)
-  const int k_end = mask.causal ? max(0, min(sk, q0 + nq + sk - sq)) : sk;
-  const int k_begin = mask.first_key(sq, sk, q0, kTileKeys);
+  const int k_end = mask.key_end(sk, q0 + nq);
+  const int k_begin = mask.first_key(q0, kTileKeys);
   for (int k0 = k_begin; k0 < k_end; k0 += kTileKeys) {
     const int nk = min(kTileKeys, k_end - k0);
     __syncthreads();  // previous tile fully consumed (and qs visible)
@@ -114,14 +120,17 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed, threshold and
-// keep_scale are read only when dropout is set; window 0 = none (the
-// wrapper passes one only with causal); bias: null, or fp32 / bf16
-// (bias_bf16) read at b * sb + h * sh + row * sq + key * sk (AttnMask).
+// q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed (with the dropout
+// origins folded in, AttnMask::keep), threshold and keep_scale are read
+// only when dropout is set;
+// window 0 = none (the wrapper passes one only with causal); offset: the
+// causal diagonal (Sk - Sq unless the caller gave one); bias: null, or fp32
+// / bf16 (bias_bf16) read at b * sb + h * sh + row * sq + key * sk
+// (AttnMask).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               const void* q_seg, const void* kv_seg, int causal, int dropout,
                               unsigned seed, unsigned threshold, float keep_scale, int window,
-                              const void* bias, int bias_bf16, long long bias_sb,
+                              int offset, const void* bias, int bias_bf16, long long bias_sb,
                               long long bias_sh, long long bias_sq, long long bias_sk,
                               int batch, int heads, int kv_heads, int sq, int sk, int d,
                               float scale, int dtype, void* stream) {
@@ -129,7 +138,7 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, void*
   auto* l = static_cast<float*>(lse);
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
                       dropout, seed, threshold, keep_scale, window, bias, bias_bf16, bias_sb,
-                      bias_sh, bias_sq, bias_sk};
+                      bias_sh, bias_sq, bias_sk, offset};
   if (dtype == APEX_BF16)
     launch<__nv_bfloat16>(q, k, v, o, l, mask, batch, heads, kv_heads, sq, sk, d, scale, s);
   else

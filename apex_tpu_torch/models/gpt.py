@@ -2,11 +2,16 @@
 
 Counterpart of ``apex_tpu/models/gpt.py`` (``GPTConfig``,
 ``gpt2_small_config``, ``gpt_tiny_config``, ``ParallelDecoderBlock``,
-``GPTModel``, ``lm_token_loss``, ``gpt_loss``) in its three paths:
+``GPTModel``, ``lm_token_loss``, ``gpt_loss``) in its four paths:
 
 - no cache: causal flash attention over the whole sequence; the training
   path, differentiable end to end (the LayerNorm and flash kernels have
   their backward kernels);
+- no cache under ``context_parallel`` with a ring installed
+  (``transformer.parallel_state``): ``ring_attention(causal=True)`` or,
+  under ``context_parallel_zigzag``, ``ring_attention_zigzag``, with the
+  position rows of the tokens' global positions (``context_positions``);
+  the loss is the mean over the ring's tokens;
 - a contiguous cache: the static prefill (length 0, more than one token)
   rides the flash kernel, later chunks the dense ``cached_attention``;
 - a paged cache: each slot's K/V chunk is written into its pages and the
@@ -44,6 +49,10 @@ from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.paged_attention import paged_attention
 from apex_tpu_torch.ops.quant import WeightPrecisionPolicy
+from apex_tpu_torch.ops.ring_attention import (context_positions,
+                                               global_length, ring_attention,
+                                               ring_attention_zigzag)
+from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 
@@ -59,6 +68,10 @@ class GPTConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     tensor_parallel_size: int = 1
+    # ring attention over the context-parallel ring (sequence order, or the
+    # load-balanced zigzag layout: ``to_zigzag`` the batch first)
+    context_parallel: bool = False
+    context_parallel_zigzag: bool = False
     # quantized block linears (inference only): ``quantize_int8`` is the
     # alias of the int8-everywhere policy, ``weight_policy`` a
     # WeightPrecisionPolicy (int8 / fp8 / int4-grouped)
@@ -137,6 +150,13 @@ class ParallelDecoderBlock(nn.Module):
                                       causal=True)
             else:
                 ctx = cached_attention(to_bhsd(q), cache)
+        elif (ring := cp_ring(cfg)) is not None:
+            if cfg.context_parallel_zigzag:
+                ctx = ring_attention_zigzag(to_bhsd(q), to_bhsd(k),
+                                            to_bhsd(v), ring=ring)
+            else:
+                ctx = ring_attention(to_bhsd(q), to_bhsd(k), to_bhsd(v),
+                                     ring=ring, causal=True)
         else:
             ctx = flash_attention(to_bhsd(q), to_bhsd(k), to_bhsd(v),
                                   causal=True)
@@ -196,7 +216,22 @@ class GPTModel(nn.Module):
         b, s = input_ids.shape
         x = self.word_embeddings(input_ids)
         pos = self.position_embeddings
-        if cache is None:
+        ring = cp_ring(cfg) if cache is None else None
+        if cache is not None and cfg.context_parallel:
+            raise ValueError("incremental decoding does not compose with "
+                             "context parallelism; decode on a dp/tp mesh "
+                             "instead")
+        if ring is not None:
+            # the position rows of the global positions held here
+            if global_length(ring, s) > cfg.max_position_embeddings:
+                raise ValueError(
+                    f"global sequence {global_length(ring, s)} (cp = "
+                    f"{ring.size}) exceeds max_position_embeddings="
+                    f"{cfg.max_position_embeddings}")
+            pos_s = pos[context_positions(
+                ring, s, zigzag=cfg.context_parallel_zigzag,
+                device=pos.device)][None]
+        elif cache is None:
             if s > cfg.max_position_embeddings:
                 raise ValueError(f"sequence {s} exceeds "
                                  f"max_position_embeddings="
@@ -225,16 +260,37 @@ class GPTModel(nn.Module):
         return logits, advance_cache(cache, new_layers, s)
 
 
-def lm_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cp_ring(cfg):
+    """The context-parallel ring a no-cache forward attends over: the
+    installed one under ``context_parallel``, else None (the reference's
+    ``context_parallel and _axis_bound(CONTEXT_AXIS)``)."""
+    return (parallel_state.get_context_parallel_ring()
+            if cfg.context_parallel else None)
+
+
+def lm_token_loss(logits: torch.Tensor, labels: torch.Tensor,
+                  ring=None) -> torch.Tensor:
     """Mean next-token loss at tensor-parallel size 1 (the reference's
     unbound branch): logits cast to fp32, ``log_softmax``, mean NLL of
-    ``labels``."""
+    ``labels``. Over a distributed context-parallel ``ring`` its value is
+    the mean over the ring's equal chunks (the reference's CP ``pmean``)
+    and its gradient this rank's own loss's: after every rank's backward,
+    average the gradients over the ring's group, as the reference's
+    example does (``examples/long_context``). The in-process ring holds the
+    whole sequence, so its mean is already the ring's."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels.long()[..., None])[..., 0].mean()
+    loss = -logp.gather(-1, labels.long()[..., None])[..., 0].mean()
+    if ring is not None and not ring.local and ring.size > 1:
+        mean = loss.detach().clone()
+        torch.distributed.all_reduce(mean, group=ring.group)
+        loss = loss + (mean / ring.size - loss.detach())
+    return loss
 
 
 def gpt_loss(model: GPTModel, input_ids: torch.Tensor,
              labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token loss of ``model`` on ``input_ids`` (the no-cache
-    forward), as ``apex_tpu.models.gpt.gpt_loss`` at tp=1."""
-    return lm_token_loss(model(input_ids), labels)
+    forward), as ``apex_tpu.models.gpt.gpt_loss`` at tp=1; under context
+    parallelism the mean over the ring's tokens."""
+    return lm_token_loss(model(input_ids), labels,
+                         ring=cp_ring(model.config))

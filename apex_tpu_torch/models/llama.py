@@ -3,11 +3,18 @@ window) at tensor-parallel size 1, for serving and training.
 
 Counterpart of ``apex_tpu/models/llama.py`` (``LlamaConfig``,
 ``llama_tiny_config``, ``_rope_freqs``, ``_rope_cos_sin``,
-``LlamaDecoderBlock``, ``LlamaModel``, ``llama_loss``) in its three
+``LlamaDecoderBlock``, ``LlamaModel``, ``llama_loss``) in its four
 attention paths:
 
 - no cache: causal flash attention over the whole sequence, banded under
   ``sliding_window``;
+- no cache under ``context_parallel`` with a ring installed
+  (``transformer.parallel_state``): ``ring_attention(causal=True,
+  window=sliding_window)``, or ``ring_attention_zigzag`` under
+  ``context_parallel_zigzag``, with RoPE at the tokens' global positions
+  (``context_positions``: the rank's chunk, or zigzag's two half-chunks;
+  over the in-process ring the model holds the whole sequence in the
+  layout's order);
 - a contiguous cache: the static prefill (length 0, more than one token)
   rides the windowed flash kernel, later chunks the dense banded
   ``cached_attention``;
@@ -48,11 +55,14 @@ from apex_tpu_torch.models.generation import (advance_cache, cached_attention,
                                               is_static_prefill, layer_cache,
                                               update_layer_cache,
                                               update_paged_layer_cache)
-from apex_tpu_torch.models.gpt import lm_token_loss
+from apex_tpu_torch.models.gpt import cp_ring, lm_token_loss
 from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.paged_attention import paged_attention
 from apex_tpu_torch.ops.quant import WeightPrecisionPolicy
+from apex_tpu_torch.ops.ring_attention import (context_positions,
+                                               global_length, ring_attention,
+                                               ring_attention_zigzag)
 from apex_tpu_torch.transformer.functional.fused_rope import (
     fused_apply_rotary_pos_emb_cached)
 from apex_tpu_torch.transformer.tensor_parallel import (
@@ -122,9 +132,6 @@ def mistral_7b_config(**overrides) -> LlamaConfig:
 def _refuse_unported(cfg: LlamaConfig) -> None:
     """Name each configured feature this slice does not carry."""
     unported = [
-        (cfg.context_parallel or cfg.context_parallel_zigzag,
-         "context_parallel (ring attention)",
-         "queue A item 12: ops/ring_attention.py"),
         (cfg.num_experts > 0, "num_experts > 0 (mixture of experts)",
          "queue A item 12: transformer/moe"),
         (cfg.tensor_parallel_size != 1, "tensor_parallel_size > 1",
@@ -156,7 +163,12 @@ def _rope_freqs(cfg: LlamaConfig, pos: torch.Tensor):
 def _rope_cos_sin(cfg: LlamaConfig, s: int, offset: int, device):
     """cos/sin tables ``(s, 1, 1, head_dim)`` for positions ``[offset,
     offset + s)``, the cached-RoPE layout ``[sq, b, np, hn]``."""
-    cos, sin = _rope_freqs(cfg, torch.arange(s, device=device) + offset)
+    return _rope_at(cfg, torch.arange(s, device=device) + offset)
+
+
+def _rope_at(cfg: LlamaConfig, pos: torch.Tensor):
+    """cos/sin tables ``(n, 1, 1, head_dim)`` at the positions ``pos``."""
+    cos, sin = _rope_freqs(cfg, pos)
     return cos[:, None, None, :], sin[:, None, None, :]
 
 
@@ -225,6 +237,13 @@ class LlamaDecoderBlock(nn.Module):
                 ctx = flash_attention(q, k, v, causal=True, window=window)
             else:
                 ctx = cached_attention(q, cache, window=window)
+        elif (ring := cp_ring(cfg)) is not None:
+            if cfg.context_parallel_zigzag:
+                ctx = ring_attention_zigzag(q, k, v, ring=ring,
+                                            window=window)
+            else:
+                ctx = ring_attention(q, k, v, ring=ring, causal=True,
+                                     window=window)
         else:
             ctx = flash_attention(q, k, v, causal=True, window=window)
         ctx = ctx.transpose(1, 2).reshape(b, s, n_h * d)
@@ -283,7 +302,21 @@ class LlamaModel(nn.Module):
         dt = resolve_compute_dtype(cfg.dtype)
         x = self.embed_tokens(input_ids).to(dt)
         dev = x.device
-        if cache is None:
+        ring = cp_ring(cfg) if cache is None else None
+        if cache is not None and cfg.context_parallel:
+            raise ValueError("incremental decoding does not compose with "
+                             "context parallelism; decode on a dp/tp mesh "
+                             "instead")
+        if ring is not None:
+            # RoPE at the global positions of the tokens held here
+            if global_length(ring, s) > cfg.max_position_embeddings:
+                raise ValueError(
+                    f"global sequence {global_length(ring, s)} (cp = "
+                    f"{ring.size}) exceeds max_position_embeddings="
+                    f"{cfg.max_position_embeddings}")
+            cos_, sin_ = _rope_at(cfg, context_positions(
+                ring, s, zigzag=cfg.context_parallel_zigzag, device=dev))
+        elif cache is None:
             if s > cfg.max_position_embeddings:
                 raise ValueError(f"sequence {s} exceeds "
                                  f"max_position_embeddings="
@@ -323,5 +356,6 @@ def llama_loss(model: LlamaModel, input_ids: torch.Tensor,
                labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token loss of ``model`` on ``input_ids`` (the no-cache
     forward), as ``apex_tpu.models.llama.llama_loss`` at tp=1 and no
-    experts."""
-    return lm_token_loss(model(input_ids), labels)
+    experts; under context parallelism the mean over the ring's tokens."""
+    return lm_token_loss(model(input_ids), labels,
+                         ring=cp_ring(model.config))

@@ -23,7 +23,11 @@ and ``paged_attention_block``, ``paged_attention_window_block`` and
 query positions per slot (a speculative verify, a chunked-prefill piece);
 each flash kernel's branch with an additive bias counts under its name
 with ``_bias`` after it (``flash_fwd_bias``, ``flash_fwd_window_bias``,
-``flash_bwd_dq_bias``, ...); the scaled-softmax forward counts under
+``flash_bwd_dq_bias``, ...), and its branch with a causal diagonal
+other than ``Sk - Sq`` or dropout at non-zero origins (a ring attention
+step) with ``_ring`` after it
+(``flash_fwd_ring``, ``flash_fwd_window_ring``, ``flash_bwd_dq_ring``,
+...); the scaled-softmax forward counts under
 ``scaled_softmax_fwd_causal`` with the causal mask,
 ``scaled_softmax_fwd_masked`` with an explicit mask and
 ``scaled_softmax_fwd`` with neither.
@@ -106,6 +110,17 @@ KERNELS = {
     "flash_bwd_dkdv_bias": ("flash_bwd.cu",
                             "apex_tpu/ops/flash_attention.py:572"),
     "flash_bwd_dkdv_window_bias": ("flash_bwd.cu",
+                                   "apex_tpu/ops/flash_attention.py:572"),
+    "flash_fwd_ring": ("flash_fwd.cu", "apex_tpu/ops/flash_attention.py:308"),
+    "flash_fwd_window_ring": ("flash_fwd.cu",
+                              "apex_tpu/ops/flash_attention.py:308"),
+    "flash_bwd_dq_ring": ("flash_bwd.cu",
+                          "apex_tpu/ops/flash_attention.py:526"),
+    "flash_bwd_dq_window_ring": ("flash_bwd.cu",
+                                 "apex_tpu/ops/flash_attention.py:526"),
+    "flash_bwd_dkdv_ring": ("flash_bwd.cu",
+                            "apex_tpu/ops/flash_attention.py:572"),
+    "flash_bwd_dkdv_window_ring": ("flash_bwd.cu",
                                    "apex_tpu/ops/flash_attention.py:572"),
     "sgd": ("sgd.cu", "apex_tpu/ops/optim_kernels.py:272"),
     "novograd": ("novograd.cu", "apex_tpu/ops/optim_kernels.py:489"),

@@ -5,15 +5,18 @@ and their plain PyTorch twins.
 Counterpart of ``apex_tpu/ops/flash_attention.py`` (``_fwd_kernel``,
 ``_dq_kernel``, ``_dkdv_kernel``, ``_fa_bwd_impl``, ``flash_attention``,
 ``flash_attention_with_lse``, ``mha_reference``), causal or not, with an
-additive ``bias``, ``segment_ids``/``kv_segment_ids``, attention dropout and
-a causal sliding window at the default diagonal; no ``causal_offset``
-(ring attention's). Layout as in the reference: q ``[B, H, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` with ``Hkv``
-dividing ``H`` (GQA reads kv head ``h // (H / Hkv)``, never repeated in the
-kernels). A :class:`Masking` says which (query, key) pairs a row sees: under
-``causal`` row ``r`` sees keys ``j <= r + (Sk - Sq)``; under a ``window``
-``w`` (causal only) also ``j >= r + (Sk - Sq) - (w - 1)``; under segment
-ids only keys of its own segment. A row that sees no key outputs 0. The
-forward returns O in q's dtype and the fp32 log-sum-exp.
+additive ``bias``, ``segment_ids``/``kv_segment_ids``, attention dropout,
+a causal sliding window, and ring attention's ``causal_offset`` and
+dropout origins. Layout as in the reference: q ``[B, H, Sq, D]``, k/v
+``[B, Hkv, Sk, D]`` with ``Hkv`` dividing ``H`` (GQA reads kv head ``h //
+(H / Hkv)``, never repeated in the kernels). A :class:`Masking` says which
+(query, key) pairs a row sees: under ``causal`` row ``r`` sees keys ``j <=
+r + offset``; under a ``window`` ``w`` (causal only) also ``j >= r +
+offset - (w - 1)``; under segment ids only keys of its own segment. The
+offset is ``Sk - Sq`` unless ``causal_offset`` gives another (a ring step's
+chunk ``r`` hops upstream sits at ``r * S_loc``; a negative one hides the
+whole chunk's diagonal). A row that sees no key outputs 0, its LSE the
+mask value. The forward returns O in q's dtype and the fp32 log-sum-exp.
 
 The bias is any tensor, in q's dtype or fp32, that broadcasts to ``[B, H,
 Sq, Sk]`` (T5's ``(1, H, S, S)`` relative-position table, a ``(B, 1, 1,
@@ -28,9 +31,12 @@ Dropout is the reference's counter-based keep mask, exactly: each global
 position ``(seed, b * H + h, row, col)`` (H the query heads) hashes through
 the murmur3 finalizer to a ``uint32`` that is kept when at least
 ``min(int(rate * 2^32), 2^32 - 1)``, and a kept probability is scaled by
-``1 / (1 - rate)``. The forward's denominator sums the undropped
-probabilities and only the PV product sees the dropped ones; the backward
-regenerates the same mask. Nothing is stored.
+``1 / (1 - rate)``. ``dropout_row0``/``dropout_col0`` shift the row and
+column to a chunk's global position (added in ``uint32``), so a ring of
+chunked calls draws exactly the keep mask of one unsharded call. The
+forward's denominator sums the undropped probabilities and only the PV
+product sees the dropped ones; the backward regenerates the same mask.
+Nothing is stored.
 
 ``flash_attention`` and ``flash_attention_with_lse`` are differentiable
 through ``_FlashAttentionFunction``: it saves ``q, k, v, o, lse`` and its
@@ -40,7 +46,13 @@ kernel walks only the band, as the reference's band-restricted grids do,
 and counts under a launch name of its own (``flash_fwd_window``,
 ``flash_bwd_dq_window``, ``flash_bwd_dkdv_window``); with a bias each
 counts under its name with ``_bias`` after it (``flash_fwd_bias``,
-``flash_fwd_window_bias``, ...).
+``flash_fwd_window_bias``, ...); a call whose causal diagonal is not
+``Sk - Sq``, or whose dropout is drawn at a non-zero origin (a ring
+attention step), counts under its name with ``_ring`` after it
+(``flash_fwd_ring``, ``flash_fwd_window_ring``, ``flash_bwd_dq_ring``,
+...). Every offset and origin is a host int and a launch argument: the
+reference's traced offset (an SMEM scalar that runs its grid unbanded)
+has no separate branch here.
 
 A tensor on the CPU takes the twins; a CUDA tensor always takes the kernels.
 """
@@ -49,6 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import numbers
 from typing import Optional
 
 import torch
@@ -56,10 +69,6 @@ import torch
 from apex_tpu_torch.ops import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-
-_UNSUPPORTED = ("flash attention in this port takes no causal_offset, "
-                "ring attention's global positions (ROADMAP queue B item 8; "
-                "item 9 for its backward)")
 
 _M32 = 0xFFFFFFFF
 
@@ -118,10 +127,29 @@ def _bias_args(bias, q, k):
 _BIAS_ARGTYPES = (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_longlong,) * 4
 
 
-def launch_name(kernel: str, masking, bias) -> str:
-    """The launch name of a flash kernel's branch: ``_window`` under a
-    window, then ``_bias`` with a bias."""
+def _host_int(name: str, val):
+    """``val`` as a Python int (None stays None); a tensor or any other
+    type raises ``TypeError``."""
+    if val is None or (isinstance(val, numbers.Integral)
+                       and not isinstance(val, bool)):
+        return None if val is None else int(val)
+    raise TypeError(f"{name} must be a host int in this port (a ring "
+                    f"rank's index is known on the host), got "
+                    f"{type(val).__name__}")
+
+
+def launch_name(kernel: str, masking, bias, q_len: int,
+                kv_len: int) -> str:
+    """The launch name of a flash kernel's branch on ``q_len`` queries and
+    ``kv_len`` keys: ``_window`` under a window, then ``_ring`` in ring
+    attention's branch (``Masking.is_ring``), or ``_bias`` with a bias (no
+    ring call carries one: that raises)."""
+    ring = masking.is_ring(q_len, kv_len)
+    if ring and bias is not None:
+        raise ValueError("a causal_offset or a dropout origin does not "
+                         "combine with a bias (ring attention has none)")
     return (kernel + ("" if masking.window is None else "_window")
+            + ("_ring" if ring else "")
             + ("" if bias is None else "_bias"))
 
 
@@ -150,11 +178,14 @@ def dropout_hash(seed: int, bh, rows, cols) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Masking:
     """Which (query, key) pairs each query row sees, and the attention
-    dropout: ``causal`` (key ``j <= r + Sk - Sq``), a sliding ``window``
-    (with ``causal``, key ``j >= r + Sk - Sq - (window - 1)``), int32
+    dropout: ``causal`` (key ``j <= r + offset``), a sliding ``window``
+    (with ``causal``, key ``j >= r + offset - (window - 1)``), int32
     ``segment_ids`` ``[B, Sq]`` and ``kv_segment_ids`` ``[B, Sk]`` (a row
     sees keys of its own segment), ``dropout_rate`` in ``[0, 1)`` with
-    ``dropout_seed``."""
+    ``dropout_seed``. ``causal_offset`` is the diagonal (None: ``Sk -
+    Sq``); ``dropout_row0``/``dropout_col0`` the global row and column of
+    the call's first query and key in the keep mask's hash. All host
+    ints."""
 
     causal: bool = True
     segment_ids: Optional[torch.Tensor] = None
@@ -162,6 +193,27 @@ class Masking:
     dropout_rate: float = 0.0
     dropout_seed: int = 0
     window: Optional[int] = None
+    causal_offset: Optional[int] = None
+    dropout_row0: int = 0
+    dropout_col0: int = 0
+
+    def is_ring(self, q_len: int, kv_len: int) -> bool:
+        """Whether a call on ``q_len`` queries and ``kv_len`` keys takes
+        ring attention's branch, counted under its own launch names: a
+        causal diagonal other than ``Sk - Sq``, or dropout drawn at a
+        non-zero origin. An offset or an origin that changes nothing (the
+        default diagonal given explicitly, an origin without dropout) runs
+        the plain branch."""
+        shifted = (self.causal and self.causal_offset is not None
+                   and self.causal_offset != kv_len - q_len)
+        moved = self.dropout_rate > 0.0 and (self.dropout_row0 != 0
+                                             or self.dropout_col0 != 0)
+        return shifted or moved
+
+    def offset(self, q_len: int, kv_len: int) -> int:
+        """The causal diagonal: row ``r`` sees keys ``<= r + offset``."""
+        return (kv_len - q_len if self.causal_offset is None
+                else self.causal_offset)
 
     @property
     def threshold(self) -> int:
@@ -176,6 +228,8 @@ class Masking:
                 / torch.tensor(1.0 - self.dropout_rate)).item()
 
     def check(self, q, k) -> None:
+        for name in ("causal_offset", "dropout_row0", "dropout_col0"):
+            _host_int(name, getattr(self, name))
         if self.window is not None:
             if not self.causal:
                 raise ValueError("window requires causal=True (Mistral-style "
@@ -200,10 +254,11 @@ class Masking:
         rows = torch.arange(q_len, device=device)[:, None]
         cols = torch.arange(kv_len, device=device)[None, :]
         mask = torch.ones(q_len, kv_len, dtype=torch.bool, device=device)
+        off = self.offset(q_len, kv_len)
         if self.causal:
-            mask = rows + (kv_len - q_len) >= cols
+            mask = rows + off >= cols
         if self.window is not None:
-            mask = mask & (cols >= rows + (kv_len - q_len) - (self.window - 1))
+            mask = mask & (cols >= rows + off - (self.window - 1))
         mask = mask[None, None]
         if self.segment_ids is not None:
             qs = self.segment_ids.to(device)
@@ -214,35 +269,46 @@ class Masking:
     def keep(self, batch: int, heads: int, q_len: int, kv_len: int,
              device) -> Optional[torch.Tensor]:
         """fp32 ``[B, H, Sq, Sk]``: 0 where dropped, ``keep_scale`` where
-        kept; None without dropout."""
+        kept; None without dropout. Rows and columns hash at the origins'
+        global positions, modulo 2^32."""
         if self.dropout_rate <= 0.0:
             return None
         i64 = dict(dtype=torch.int64, device=device)
         bh = torch.arange(batch * heads, **i64).reshape(batch, heads, 1, 1)
-        x = dropout_hash(self.dropout_seed, bh,
-                         torch.arange(q_len, **i64)[:, None],
-                         torch.arange(kv_len, **i64)[None, :])
+        rows = (torch.arange(q_len, **i64) + self.dropout_row0) & _M32
+        cols = (torch.arange(kv_len, **i64) + self.dropout_col0) & _M32
+        x = dropout_hash(self.dropout_seed, bh, rows[:, None],
+                         cols[None, :])
         return torch.where(x >= self.threshold, self.keep_scale,
                            0.0).to(torch.float32)
 
-    def kernel_args(self, device):
+    @property
+    def kernel_seed(self) -> int:
+        """The seed the kernels hash with: the hash adds ``row * 0x9E3779B1
+        + col * 0x85EBCA77`` to the seed in uint32, so the origins' share
+        of a pair's global position is a constant of the call, folded into
+        the seed here."""
+        return (int(self.dropout_seed) + self.dropout_row0 * 0x9E3779B1
+                + self.dropout_col0 * 0x85EBCA77) & _M32
+
+    def kernel_args(self, q_len: int, kv_len: int, device):
         """The C arguments ``(q_seg, kv_seg, causal, dropout, seed,
-        threshold, keep_scale)`` and the segment tensors to keep alive (each
-        kernel takes the window after them)."""
+        threshold, keep_scale, window, offset)`` and the segment tensors to
+        keep alive."""
         segs = []
         if self.segment_ids is not None:
             segs = [t.to(device=device, dtype=torch.int32).contiguous()
                     for t in (self.segment_ids, self.kv_segment_ids)]
         ptrs = [t.data_ptr() for t in segs] or [None, None]
         drop = self.dropout_rate > 0.0
-        return ((*ptrs, int(self.causal), int(drop),
-                 int(self.dropout_seed) & _M32, self.threshold,
-                 self.keep_scale if drop else 1.0), segs)
+        return ((*ptrs, int(self.causal), int(drop), self.kernel_seed,
+                 self.threshold, self.keep_scale if drop else 1.0,
+                 int(self.window or 0), self.offset(q_len, kv_len)), segs)
 
 
 CAUSAL = Masking()
 _MASK_ARGTYPES = (_build.P, _build.P, _build.I, _build.I, ctypes.c_uint,
-                  ctypes.c_uint, _build.F)
+                  ctypes.c_uint, _build.F, _build.I, _build.I)
 
 
 def flash_attention_reference(q, k, v, *, scale: float,
@@ -283,7 +349,7 @@ def _flash_fwd_kernel(q, k, v, scale: float, masking: Masking = CAUSAL,
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    mask_args, segs = masking.kernel_args(q.device)
+    mask_args, segs = masking.kernel_args(sq, sk, q.device)
     _build.check_cuda(q, k, v, *segs)
     _check_bias(bias, q, k)
     o = torch.empty_like(q)
@@ -292,13 +358,12 @@ def _flash_fwd_kernel(q, k, v, scale: float, masking: Masking = CAUSAL,
         return o, lse
     P, I, F = _build.P, _build.I, _build.F
     _build.launch(
-        launch_name("flash_fwd", masking, bias), "apex_flash_fwd",
-        (P, P, P, P, P) + _MASK_ARGTYPES + (I,) + _BIAS_ARGTYPES + (I,) * 6
+        launch_name("flash_fwd", masking, bias, sq, sk), "apex_flash_fwd",
+        (P, P, P, P, P) + _MASK_ARGTYPES + _BIAS_ARGTYPES + (I,) * 6
         + (F, I, P),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *mask_args, int(masking.window or 0),
-        *_bias_args(bias, q, k), b, h, hkv, sq, sk, d, float(scale),
-        _build.dtype_code(q), _build.stream_of(q))
+        lse.data_ptr(), *mask_args, *_bias_args(bias, q, k), b, h, hkv, sq,
+        sk, d, float(scale), _build.dtype_code(q), _build.stream_of(q))
     return o, lse
 
 
@@ -392,16 +457,15 @@ def _bwd_operands(q, k, v, do, lse, delta, masking, bias):
         raise ValueError(f"do {tuple(do.shape)} != q {tuple(q.shape)}")
     ops = [t.contiguous() for t in (q, k, v, do)]
     ops += [lse.float().contiguous(), delta.float().contiguous()]
-    mask_args, segs = masking.kernel_args(q.device)
+    b, h, sq, d = q.shape
+    mask_args, segs = masking.kernel_args(sq, k.shape[2], q.device)
     _build.check_cuda(*ops, *segs)
     _check_bias(bias, q, k)
-    b, h, sq, d = q.shape
     args = (b, h, k.shape[1], sq, k.shape[2], d)
-    return ops, (*mask_args, int(masking.window or 0),
-                 *_bias_args(bias, q, k)), segs, args
+    return ops, (*mask_args, *_bias_args(bias, q, k)), segs, args
 
 
-_BWD_ARGTYPES = _MASK_ARGTYPES + (_build.I,) + _BIAS_ARGTYPES \
+_BWD_ARGTYPES = _MASK_ARGTYPES + _BIAS_ARGTYPES \
     + (_build.I,) * 6 + (_build.F, _build.I, _build.P)
 
 
@@ -417,7 +481,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
     dq = torch.empty_like(ops[0])
     if dq.numel() == 0 or args[4] == 0:
         return dq.zero_()
-    _build.launch(launch_name("flash_bwd_dq", masking, bias),
+    _build.launch(launch_name("flash_bwd_dq", masking, bias, q.shape[2],
+                              k.shape[2]),
                   "apex_flash_bwd_dq", (_build.P,) * 7 + _BWD_ARGTYPES,
                   *(t.data_ptr() for t in ops), dq.data_ptr(), *mask_args,
                   *args, float(scale), _build.dtype_code(dq),
@@ -438,7 +503,8 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, scale: float,
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
     if dk.numel() == 0 or args[3] == 0:
         return dk.zero_(), dv.zero_()
-    _build.launch(launch_name("flash_bwd_dkdv", masking, bias),
+    _build.launch(launch_name("flash_bwd_dkdv", masking, bias, q.shape[2],
+                              k.shape[2]),
                   "apex_flash_bwd_dkdv", (_build.P,) * 8 + _BWD_ARGTYPES,
                   *(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(),
                   *mask_args, *args, float(scale), _build.dtype_code(dk),
@@ -499,18 +565,25 @@ def _attend(q, k, v, scale, masking, bias=None):
 def flash_attention_with_lse(q, k, v, *, scale: Optional[float] = None,
                              causal: bool = False,
                              window: Optional[int] = None,
-                             causal_offset=None,
+                             causal_offset: Optional[int] = None,
                              dropout_rate: float = 0.0,
-                             dropout_seed: int = 0):
+                             dropout_seed: int = 0,
+                             dropout_row0: int = 0,
+                             dropout_col0: int = 0):
     """``(o, lse)``: the kernel on a CUDA tensor, the twin on a CPU one;
-    differentiable in q, k and v through both outputs. The keep mask is
-    drawn at global positions from row and column 0; ``causal_offset``
-    raises."""
-    if causal_offset is not None:
-        raise NotImplementedError(_UNSUPPORTED)
+    differentiable in q, k and v through both outputs, with the
+    reference's signature. ``causal_offset`` places the causal diagonal
+    and the window at global positions (None: ``Sk - Sq``); the keep mask
+    is drawn at global positions from ``dropout_row0`` and
+    ``dropout_col0``. Offsets and origins are host ints (a tensor raises
+    ``TypeError``): the port reads a ring rank's index on the host, so no
+    step syncs on the card."""
     return _attend(q, k, v, scale, Masking(
         causal=bool(causal), dropout_rate=float(dropout_rate),
-        dropout_seed=int(dropout_seed), window=window))
+        dropout_seed=int(dropout_seed), window=window,
+        causal_offset=_host_int("causal_offset", causal_offset),
+        dropout_row0=_host_int("dropout_row0", dropout_row0),
+        dropout_col0=_host_int("dropout_col0", dropout_col0)))
 
 
 def flash_attention(q, k, v, bias=None, segment_ids=None,

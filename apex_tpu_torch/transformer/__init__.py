@@ -1,6 +1,6 @@
 """Transformer building blocks of the port (tensor-parallel size 1):
 ``functional`` (RoPE, ``FusedScaleMaskSoftmax``), ``tensor_parallel``,
-``enums``."""
+``enums``, ``parallel_state`` (the context-parallel ring)."""
 
 from apex_tpu_torch.transformer.enums import (AttnMaskType, AttnType,
                                               LayerType, ModelType)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s eleven paths at full width with seeded random
+Drives ``apex_tpu_torch``'s twelve paths at full width with seeded random
 weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (into ``apex_tpu_torch/_build/``): GPT-2-small greedy paged decode through
 ``PagedDecodeEngine``; the same decode with quantized weights
@@ -30,7 +30,13 @@ and stats kernels; Megatron's attention softmax
 (``FusedScaleMaskSoftmax`` in its core attention at GPT-2-small's and
 BERT-Large's widths) and one Stable Diffusion v1.5 UNet ResNet block
 (``contrib.group_norm.GroupNorm(act="silu")`` with torch's convolutions),
-which run the scaled-softmax and GroupNorm kernels. Phases, one JSON line
+which run the scaled-softmax and GroupNorm kernels; and Mistral-7B trained
+on a long sequence with ring-attention context parallelism
+(``parallel_state.initialize_model_parallel(1, 1,
+context_parallel_size_=4)``, ``LlamaModel(mistral_7b_config(num_layers=2,
+context_parallel=True))``, both layouts), the four ranks of the ring
+emulated in one process (one card is one NCCL rank), which runs the flash
+kernels' causal-offset and dropout-origin branches. Phases, one JSON line
 each,
 ``t_s`` giving the seconds since the start:
 
@@ -124,6 +130,36 @@ each,
    320, 64, 64) bf16, forward and backward: 2 + 2 GroupNorm launches, the
    output and every gradient against the block on the plain fp32 norm, ms
    beside ``F.group_norm`` + ``F.silu``, the kernels' share of device time.
+   The ring rows (``check_flash_ring``, by ``queued_ms``, fp32 and bf16,
+   within ``TOL``, the atol cut to ``RMS_ATOL`` of the twin's RMS, an LSE
+   cotangent in the backward): the ``_window_ring`` branches at
+   Mistral-7B's widths on a ring chunk, 1 x 32 x 4096 x 128 over 8 kv
+   heads, window 4096, at the offsets 4096 (a ring hop), 2048 and 6144
+   and -1024 (the first rows see nothing), and on a zigzag half-chunk, 1 x
+   32 x 2048 x 128, at the offsets 2048 and 4096 that ``ring_train_bf16``
+   runs, library ``scaled_dot_product_attention`` with the offset band as
+   a boolean mask and its backward; the other ``_ring`` branches with
+   dropout 0.1 at a rank's global origins, causal (the diagonal step) and
+   not (a hop), at the ``ring_attention`` phase's sequence-ordered chunk
+   (1 x 32 x 1024 x 128 over 8 kv heads) and at GPT-2-small's 8 x 12 x
+   1024 x 64, no library call. Right after the
+   softmax and GroupNorm paths, the ring phases: ``ring_attention`` (the
+   in-process ring of 4 ranks, 1 x 32 x 4096 x 128 over 8 kv heads, fp32,
+   dropout 0.1; sequence order causal, not causal and window 1536, zigzag
+   causal and window 1536: the output and every gradient against one
+   unsharded call within 1e-4 (RMS + |x|), every ring branch launched,
+   the launches kept by layout);
+   ``ring_train_bf16`` (Mistral-7B, 2 layers, 1 x 16384 tokens, window
+   4096, bf16 over fp32, FusedAdam, both layouts: step ms, tokens/s, MFU,
+   peak memory, launches per step, the ``_window_ring`` ones above 0, a
+   profiled step); ``ring_train_fp32`` (the bar: full width, 2 layers,
+   window 96 below S_loc = 128, 1 x 512, fp32: each layout against the CPU
+   through the same ring and against the plain model on the card, every
+   gradient within 4 x the CPU's one-rounding floor, two FusedAdam steps);
+   ``ring_gpt`` (GPT-2-small fp32 at 8 x 1024, zigzag, two steps against
+   the plain model, no window and no dropout, so only the plain flash
+   branches launch; the port's ``examples/long_context`` at its
+   defaults).
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
@@ -297,7 +333,13 @@ runs' launches, the windowed ones reading 0; the SGD and NovoGrad kernels
 with the timed ResNet-50 runs' launches, ``multi_tensor_scale`` with 0:
 it has no caller on a path, in the reference either; the scaled-softmax
 and GroupNorm kernels with the ``megatron_softmax`` and
-``unet_group_norm`` runs'; every path's count beside it) and, last,
+``unet_group_norm`` runs'; the windowed ring branches with those of the
+timed ``ring_train_bf16`` steps of the sequence-ordered layout, read
+against the row at that layout's shape and offset (both layouts per step
+beside, the zigzag rows among the other rows), the others with the
+``ring_attention`` phase's sequence-ordered runs, read against the row at
+their chunk's shape;
+every path's count beside it) and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises, so the run exits non-zero without the last line. With
 no CUDA device, or without the ``apex_tpu_torch`` package beside it, it
@@ -306,6 +348,7 @@ exits non-zero at once. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import itertools
 import json
@@ -547,10 +590,43 @@ GROUP_NORM_KERNELS = ("group_norm_fwd", "group_norm_bwd")
 #: the unfused one from autograd's fp32 y
 PATH_REL_BAR = 1e-2
 
-#: kernels whose buffers are fp32 on the path (the summary's dtype)
+#: the ring-attention slice: context parallelism over RING_CP ranks of an
+#: in-process ring on the one card (one GPU is one NCCL rank). The ring
+#: branches' kernel rows at Mistral-7B's widths on a chunk of RING_CHUNK
+#: tokens (a 16384-token sequence over 4 ranks), window 4096, at the
+#: offsets RING_OFFSETS (a ring hop's 4096, 2048, 6144 and a negative
+#: one), and on zigzag's half-chunk of RING_CHUNK / 2 at the offsets
+#: RING_ZIGZAG_OFFSETS that its ring runs; with dropout RING_DROPOUT at a
+#: rank's origins on RING_ATTN's chunk and at GPT-2-small's widths.
+#: ``ring_attention``: one layer's attention at RING_ATTN through
+#: the ring against one unsharded call, fp32 within RING_ATTN_TOL (merge
+#: order only). ``ring_train_bf16``: Mistral-7B, RING_TRAIN_LAYERS deep
+#: (32 need 116 GB), 1 x RING_TRAIN_SEQ tokens, window 4096.
+#: ``ring_train_fp32``: full width, 2 layers, window 96 below S_loc = 128
+#: (S_h = 64), 1 x 512, card against CPU and against the plain model, each
+#: gradient within RING_FLOOR_FACTOR times the CPU's one-rounding floor
+RING_CP, RING_CHUNK, RING_DROPOUT = 4, 4096, 0.1
+RING_OFFSETS = (4096, 2048, 6144, -1024)
+RING_ZIGZAG_OFFSETS = (2048, 4096)
+RING_ATTN = dict(batch=1, heads=MISTRAL_HEADS, kv_heads=MISTRAL_KV_HEADS,
+                 seq=4096, d=MISTRAL_HEAD_DIM, window=1536)
+RING_ATTN_TOL = 1e-4
+RING_TRAIN_LAYERS, RING_TRAIN_SEQ = 2, 16384
+RING_TRAIN_WARM, RING_TRAIN_TIMED = 2, 3
+RING_TRAIN_FP32 = dict(layers=2, window=96, batch=1, seq=512)
+RING_FLOOR_FACTOR = 4.0
+#: the flash kernels' ring branches (a diagonal other than Sk - Sq, or
+#: dropout at a non-zero origin)
+RING_KERNELS = ("flash_fwd_ring", "flash_fwd_window_ring",
+                "flash_bwd_dq_ring", "flash_bwd_dq_window_ring",
+                "flash_bwd_dkdv_ring", "flash_bwd_dkdv_window_ring")
+
+#: kernels whose buffers are fp32 on the path (the summary's dtype); the
+#: unwindowed ring branches' path is the fp32 ``ring_attention`` phase
 FP32_KERNELS = ("adam", "xentropy_fwd", "xentropy_bwd", "segment_stats",
                 "lamb_phase1", "lamb_phase2", "sgd", "novograd",
-                "multi_tensor_scale")
+                "multi_tensor_scale", "flash_fwd_ring", "flash_bwd_dq_ring",
+                "flash_bwd_dkdv_ring")
 
 #: kernel name -> the CUDA symbol the profiler reports its launches under
 #: (for ``layer_norm_bwd`` its dx kernel, one launch per call; the small
@@ -593,7 +669,13 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "scaled_softmax_fwd_causal": "scaled_softmax_fwd_kernel",
                   "scaled_softmax_bwd": "scaled_softmax_bwd_kernel",
                   "group_norm_fwd": "group_norm_fwd_kernel",
-                  "group_norm_bwd": "group_norm_bwd_kernel"}
+                  "group_norm_bwd": "group_norm_bwd_kernel",
+                  "flash_fwd_ring": "flash_fwd_kernel",
+                  "flash_fwd_window_ring": "flash_fwd_kernel",
+                  "flash_bwd_dq_ring": "flash_bwd_dq_kernel",
+                  "flash_bwd_dq_window_ring": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkdv_ring": "flash_bwd_dkdv_kernel",
+                  "flash_bwd_dkdv_window_ring": "flash_bwd_dkdv_kernel"}
 
 
 def ptxas_registers() -> dict:
@@ -2059,9 +2141,9 @@ def check_flash_bias(gen, dev):
             o, lse = fa.flash_fwd(q, k, v, **kw)
             torch.cuda.synchronize()
             ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
-            fwd_name = fa.launch_name("flash_fwd", masking, bias)
-            dq_name = fa.launch_name("flash_bwd_dq", masking, bias)
-            dkdv_name = fa.launch_name("flash_bwd_dkdv", masking, bias)
+            fwd_name, dq_name, dkdv_name = (
+                fa.launch_name(n, masking, bias, sq, sk) for n in
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"))
             errs = {fwd_name: compare(fwd_name, o, ro, dn, rms_atol=True)}
             compare(f"{fwd_name} lse", lse, rlse, "float32")
             out_rms = {fwd_name: [rms_of(ro)]}
@@ -4999,6 +5081,577 @@ def profile_phase(phase: str, fn, cpu: bool = True, **fields) -> None:
                      for k, (t, c) in top])
 
 
+# --- the ring-attention slice: context parallelism on one card -------------
+
+
+def offset_pairs(sq: int, sk: int, causal: bool, window, offset) -> int:
+    """Visible (query, key) pairs of one head under ``causal`` and a
+    ``window`` on the diagonal ``offset`` (row r sees keys <= r + offset,
+    and >= r + offset - (window - 1))."""
+    import numpy as np
+
+    rows = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk - 1, rows + offset) if causal else np.full(sq, sk - 1)
+    lo = (np.maximum(0, rows + offset - (window - 1)) if window is not None
+          else np.zeros(sq, dtype=np.int64))
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def ring_row_cases():
+    """``(kind, batch, heads, kv heads, S, d, causal, window, offset, rate,
+    row0, col0)`` of the ring branches' kernel rows. Mistral-7B's widths,
+    window 4096: on a sequence-ordered ring step's chunk of 4096 tokens at
+    the offset of its hop (4096, what ``ring_train_bf16``'s ring layout
+    runs), at 2048 and 6144 and at a negative one (the first 1024 rows see
+    nothing); on zigzag's half-chunk of 2048 tokens at the offsets its
+    windowed ring runs there (2048, 4096). Dropout 0.1 at the last rank's
+    global origins, the diagonal step (causal) and its first hop (not
+    causal): on the ``ring_attention`` phase's sequence-ordered chunk (1 x
+    32 x 1024 x 128 over 8 kv heads) and at GPT-2-small's widths."""
+    m = (1, MISTRAL_HEADS, MISTRAL_KV_HEADS, RING_CHUNK, MISTRAL_HEAD_DIM)
+    z = (1, MISTRAL_HEADS, MISTRAL_KV_HEADS, RING_CHUNK // 2,
+         MISTRAL_HEAD_DIM)
+    s_loc = RING_ATTN["seq"] // RING_CP
+    a = (RING_ATTN["batch"], RING_ATTN["heads"], RING_ATTN["kv_heads"],
+         s_loc, RING_ATTN["d"])
+    g = (TRAIN_BATCH, 12, 12, TRAIN_SEQ, 64)
+    last = RING_CP - 1
+    return ([(f"offset {off}", *m, True, MISTRAL_WINDOW, off, 0.0, 0, 0)
+             for off in RING_OFFSETS]
+            + [(f"zigzag offset {off}", *z, True, MISTRAL_WINDOW, off, 0.0,
+                0, 0) for off in RING_ZIGZAG_OFFSETS]
+            + [(f"{kind} causal", *shape, True, None, None, RING_DROPOUT,
+                last * n, last * n)
+               for kind, shape, n in (("attn", a, s_loc),
+                                      ("gpt", g, TRAIN_SEQ))]
+            + [(f"{kind} noncausal", *shape, False, None, None,
+                RING_DROPOUT, last * n, (last - 1) * n)
+               for kind, shape, n in (("attn", a, s_loc),
+                                      ("gpt", g, TRAIN_SEQ))])
+
+
+def check_flash_ring(gen, dev):
+    """The ring branches of the three flash kernels (``ring_row_cases``),
+    fp32 and bf16, each held against its twin within ``TOL`` (the atol cut
+    to ``RMS_ATOL`` of the twin's RMS), with an LSE cotangent in the
+    backward. Timed by ``queued_ms`` over ``BIG_ITERS`` calls; the bound
+    counts the visible pairs of the offset band; the library call is
+    ``scaled_dot_product_attention`` with the offset band as a boolean
+    ``attn_mask`` and K/V expanded, and its backward (dq, dk and dv
+    together); the dropout rows have none (its dropout draws other bits)."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for (kind, b, h, hkv, s, d, causal, window, off, rate, row0,
+             col0) in ring_row_cases():
+            masking = fa.Masking(causal=causal, window=window,
+                                 causal_offset=off, dropout_rate=rate,
+                                 dropout_seed=SEED, dropout_row0=row0,
+                                 dropout_col0=col0)
+            scale = d ** -0.5
+            q, do = (torch.randn(b, h, s, d, generator=gen).to(dev, dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(b, hkv, s, d, generator=gen).to(dev, dtype)
+                    for _ in range(2))
+            dlse = torch.randn(b, h, s, generator=gen).to(dev)
+            kw = dict(scale=scale, masking=masking)
+            names = [fa.launch_name(n, masking, None, s, s) for n in
+                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")]
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+            errs = {names[0]: compare(names[0], o, ro, dn, rms_atol=True)}
+            compare(f"{names[0]} lse", lse, rlse, "float32")
+            out_rms = {names[0]: [rms_of(ro)]}
+            delta = fa.flash_bwd_delta(ro, do, dlse)
+            args = (q, k, v, do, rlse, delta)
+            del o, lse, ro
+            dq = fa.flash_bwd_dq(*args, **kw)
+            dk, dv = fa.flash_bwd_dkdv(*args, **kw)
+            torch.cuda.synchronize()
+            rdq = fa.flash_bwd_dq_reference(*args, **kw)
+            rdk, rdv = fa.flash_bwd_dkdv_reference(*args, **kw)
+            errs[names[1]] = compare(names[1], dq, rdq, dn, rms_atol=True)
+            errs[names[2]] = max(
+                compare(f"{names[2]} dk", dk, rdk, dn, rms_atol=True),
+                compare(f"{names[2]} dv", dv, rdv, dn, rms_atol=True))
+            out_rms.update({names[1]: [rms_of(rdq)],
+                            names[2]: [rms_of(rdk), rms_of(rdv)]})
+            del dq, dk, dv, rdq, rdk, rdv
+            library = dict.fromkeys(names)
+            if rate == 0.0:
+                rows = torch.arange(s, device=dev)[:, None]
+                cols = torch.arange(s, device=dev)[None, :]
+                band = (cols <= rows + off) & (cols > rows + off - window)
+                ke, ve = (t.repeat_interleave(h // hkv, dim=1)
+                          for t in (k, v))
+                library[names[0]] = queued_ms(partial(
+                    F.scaled_dot_product_attention, q, ke, ve,
+                    attn_mask=band), BIG_ITERS)
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                ol = F.scaled_dot_product_attention(
+                    ql, kl.repeat_interleave(h // hkv, dim=1),
+                    vl.repeat_interleave(h // hkv, dim=1), attn_mask=band)
+                library[names[1]] = library[names[2]] = queued_ms(partial(
+                    torch.autograd.grad, ol, (ql, kl, vl), do,
+                    retain_graph=True), BIG_ITERS)
+                del ol, ql, kl, vl, ke, ve, band
+            elt = q.element_size()
+            pairs = b * h * offset_pairs(s, s, causal, window,
+                                         0 if off is None else off)
+            q_bytes, kv_bytes = b * h * s * d * elt, b * hkv * s * d * elt
+            row_stats = b * h * s * 4
+            for name, fn, plain, call, nbytes, flops in (
+                    (names[0], fa.flash_fwd, fa.flash_attention_reference,
+                     (q, k, v), 2 * q_bytes + 2 * kv_bytes + row_stats,
+                     4 * pairs * d),
+                    (names[1], fa.flash_bwd_dq, fa.flash_bwd_dq_reference,
+                     args, 3 * q_bytes + 2 * kv_bytes + 2 * row_stats,
+                     6 * pairs * d),
+                    (names[2], fa.flash_bwd_dkdv,
+                     fa.flash_bwd_dkdv_reference, args,
+                     2 * q_bytes + 4 * kv_bytes + 2 * row_stats,
+                     8 * pairs * d)):
+                bms, by = bound_ms(nbytes, flops, dn)
+                kernel = partial(fn, *call, **kw)
+                out.append((dict(
+                    name=name, dtype=dn, kind=kind, shape=[b, h, s, d],
+                    kv_heads=hkv, causal=causal, window=window,
+                    causal_offset=off, dropout=rate, dropout_origin=[row0,
+                                                                     col0],
+                    path="ring", max_abs_err=errs[name],
+                    out_rms=out_rms[name], visible_pairs=pairs,
+                    ms=queued_ms(kernel, BIG_ITERS),
+                    plain_ms=queued_ms(partial(plain, *call, **kw),
+                                       BIG_ITERS),
+                    library_ms=library[name],
+                    library=None if library[name] is None else
+                    "scaled_dot_product_attention, the offset band as a "
+                    "boolean attn_mask, K/V expanded"
+                    + ("" if name == names[0] else
+                       "; its backward: dq, dk and dv together"),
+                    bound_ms=bms, bound_by=by), kernel))
+    return out
+
+
+def ring_attention_phase(smi) -> dict:
+    """``ring_attention`` and ``ring_attention_zigzag`` through the
+    in-process ring of ``RING_CP`` ranks on the card (``RING_ATTN``: GQA,
+    dropout 0.1), causal, not causal and windowed, each held against ONE
+    unsharded ``flash_attention_with_lse`` call on the card with the same
+    seed: the output and (dq, dk, dv) within ``RING_ATTN_TOL`` times (the
+    tensor's RMS + |entry|). fp32: the two sum the same products in other
+    orders (dk and dv over the four query heads and every chunk's rows,
+    added by autograd in the ring) and merge the ring's partials, so an
+    entry errs by a few ulps of the terms it sums, whatever its own size;
+    a keep mask that differed by one pair would move an output entry by ~p
+    v / 0.9 ~ 7e-4, some 300 times the output's bar. Every ring branch must
+    launch. Returns the ring calls' launches by layout (``ring`` and
+    ``zigzag``): the layouts cut the sequence into chunks of different
+    lengths."""
+    import torch
+
+    from apex_tpu_torch.ops import (flash_attention_with_lse, from_zigzag,
+                                    ring_attention, ring_attention_zigzag,
+                                    to_zigzag)
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops.ring_attention import LocalRing
+
+    c, cp = RING_ATTN, RING_CP
+    gen = torch.Generator().manual_seed(SEED)
+    q, do = (torch.randn(c["batch"], c["heads"], c["seq"], c["d"],
+                         generator=gen).to(DEV) for _ in range(2))
+    k, v = (torch.randn(c["batch"], c["kv_heads"], c["seq"], c["d"],
+                        generator=gen).to(DEV) for _ in range(2))
+    ring = LocalRing(cp)
+    launches = {layout: dict.fromkeys(dict(_build.launches), 0)
+                for layout in ("ring", "zigzag")}
+    results = []
+    for layout, causal, window in (("ring", True, None),
+                                   ("ring", False, None),
+                                   ("ring", True, c["window"]),
+                                   ("zigzag", True, None),
+                                   ("zigzag", True, c["window"])):
+        kw = dict(window=window, dropout_rate=RING_DROPOUT,
+                  dropout_seed=SEED)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def unsharded():
+            o = flash_attention_with_lse(*leaves, causal=causal, **kw)[0]
+            return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+        def sharded():
+            if layout == "ring":
+                o = ring_attention(*leaves, ring=ring, causal=causal, **kw)
+                return (o.detach(), *torch.autograd.grad(o, leaves, do))
+            zq, zk, zv = (to_zigzag(t, cp) for t in leaves)
+            o = ring_attention_zigzag(zq, zk, zv, ring=ring, **kw)
+            grads = torch.autograd.grad(o, leaves, to_zigzag(do, cp))
+            return (from_zigzag(o.detach(), cp), *grads)
+
+        want = unsharded()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = sharded()
+        torch.cuda.synchronize()
+        case = dict(_build.launches)
+        for name, n in case.items():
+            launches[layout][name] += n
+        errs = {name: compare(f"ring_attention {layout} {name}", g, w,
+                              "float32", (RING_ATTN_TOL * rms_of(w),
+                                          RING_ATTN_TOL))
+                for name, g, w in zip(("o", "dq", "dk", "dv"), got, want)}
+        results.append(dict(
+            layout=layout, causal=causal, window=window, max_abs_err=errs,
+            out_rms=rms_of(want[0]),
+            ms=time_ms(sharded, 3), unsharded_ms=time_ms(unsharded, 3),
+            launches={n: x for n, x in case.items() if x}))
+        del want, got
+    idle = [n for n in RING_KERNELS
+            if not any(by[n] for by in launches.values())]
+    if idle:
+        raise AssertionError(f"ring_attention: no launch of {idle}")
+    emit("ring_attention", cp=cp, shape=[c["batch"], c["heads"], c["seq"],
+                                         c["d"]],
+         kv_heads=c["kv_heads"], dropout=RING_DROPOUT, dtype="float32",
+         tolerance=f"{RING_ATTN_TOL} (rms + |want|) per entry",
+         ms="forward and backward",
+         cases=results, launches={
+             layout: {n: x for n, x in by.items() if x}
+             for layout, by in launches.items()}, nvidia_smi=smi)
+    return launches
+
+
+def set_config(model, cfg) -> None:
+    """Give ``model`` and its blocks ``cfg`` (a layout's context-parallel
+    fields; the parameters do not depend on them)."""
+    for m in model.modules():
+        if hasattr(m, "config"):
+            m.config = cfg
+
+
+def ring_train_bf16(smi) -> dict:
+    """Mistral-7B at full width, ``RING_TRAIN_LAYERS`` deep (32 need 116
+    GB), trained on 1 x ``RING_TRAIN_SEQ`` tokens (four windows of 4096)
+    over the in-process ring of ``RING_CP`` ranks, both layouts, bf16 over
+    fp32 parameters, ``FusedAdam(lr=1e-4, weight_decay=0.01)``: warm steps,
+    then timed steps. Step ms, tokens/s, MFU (PERF.md's formula at S =
+    16384), peak memory, the launches per step of every flash name (the
+    ``_window_ring`` branches > 0, the unwindowed and bias ones 0), then
+    one profiled step (device time by kernel). Returns the timed ring
+    layout's launches (the zigzag's under ``zigzag``)."""
+    import torch
+
+    from apex_tpu_torch.models import (LlamaModel, llama_loss,
+                                       mistral_7b_config)
+    from apex_tpu_torch.ops import _build, to_zigzag
+    from apex_tpu_torch.transformer import parallel_state
+
+    b, s, cp = 1, RING_TRAIN_SEQ, RING_CP
+    out = {}
+    parallel_state.initialize_model_parallel(1, 1, context_parallel_size_=cp)
+    try:
+        for layout in ("ring", "zigzag"):
+            live = phase_memory_start()
+            cfg = mistral_7b_config(
+                num_layers=RING_TRAIN_LAYERS, context_parallel=True,
+                context_parallel_zigzag=layout == "zigzag")
+            model = LlamaModel(cfg, device=DEV, generator=torch.Generator(
+                device=DEV).manual_seed(SEED))
+            opt = make_optimizer(model)
+            ids, labels = train_batch(cfg, b, s, DEV)
+            if layout == "zigzag":
+                ids, labels = (to_zigzag(t, cp, axis=1) for t in (ids, labels))
+
+            def step():
+                opt.zero_grad()
+                loss = llama_loss(model, ids, labels)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+
+            losses = [step() for _ in range(RING_TRAIN_WARM)]
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            losses += [step() for _ in range(RING_TRAIN_TIMED)]
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            launches = dict(_build.launches)
+            peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+            with torch.no_grad():
+                final = llama_loss(model, ids, labels).item()
+            losses = [x.item() for x in losses]
+            per_step = {k: n / RING_TRAIN_TIMED for k, n in launches.items()
+                        if n}
+            stray = [k for k in per_step if k.startswith("flash")
+                     and ("window" not in k or "bias" in k)]
+            idle = [k for k in RING_KERNELS if "window" in k
+                    and not launches[k]]
+            if stray or idle or any(n != int(n) for n in per_step.values()):
+                raise AssertionError(f"ring_train_bf16 {layout}: launches "
+                                     f"per step {per_step}; no launch of "
+                                     f"{idle}")
+            if not all(map(math.isfinite, losses + [final])) \
+                    or not final < losses[0]:
+                raise AssertionError(f"ring_train_bf16 {layout}: loss not "
+                                     f"finite and falling: {losses} then "
+                                     f"{final}")
+            step_s = elapsed / RING_TRAIN_TIMED
+            flops = mistral_train_flops(cfg, b, s)
+            emit("ring_train_bf16", layout=layout, cp=cp, batch=b, seq=s,
+                 layers=cfg.num_layers, layers_published=32,
+                 window=cfg.sliding_window, hidden=cfg.hidden_size,
+                 heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                 parameters=sum(p.numel() for p in model.parameters()),
+                 timed_steps=RING_TRAIN_TIMED, step_ms=step_s * 1e3,
+                 tokens_per_s=b * s / step_s, flops_per_step=flops,
+                 flops_formula="6 * (L (2 e^2 + 2 e e_kv + 3 e f) + V e) * "
+                               "B * S + 12 L * B H pairs(S, w) * d",
+                 mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+                 bound_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3,
+                 losses=losses, loss_after=final,
+                 launches_per_step=per_step, peak_memory_gib=peak,
+                 earlier_phases_live_gib=live / 2 ** 30, nvidia_smi=smi,
+                 card_after=card_state())
+            profile_phase("ring_train_bf16_profile", step, layout=layout)
+            out[layout] = launches
+            del model, opt, step
+            torch.cuda.empty_cache()
+    finally:
+        parallel_state.destroy_model_parallel()
+    return out
+
+
+def ring_train_fp32() -> None:
+    """The bar: Mistral-7B at full width, depth, window and length cut
+    (``RING_TRAIN_FP32``: window below S_loc, so every ring step carries an
+    offset), fp32, over the in-process ring of ``RING_CP`` ranks, both
+    layouts, two ``FusedAdam`` steps. Each layout's card step against the
+    CPU's (the twins through the same ring) and against the same weights
+    without context parallelism on the card: the fp64 cross-entropy of the
+    logits within 1e-4 relative, every gradient within ``RING_FLOOR_FACTOR``
+    times the CPU's own one-rounding floor (``perturbed``; measured in this
+    run on the ring layout's CPU step) or 1e-3 of its norm; after the first
+    step, the CP and plain card models again; after the second, their
+    losses."""
+    import torch
+
+    from apex_tpu_torch.models import (LlamaModel, lm_token_loss,
+                                       mistral_7b_config)
+    from apex_tpu_torch.ops import _build, to_zigzag
+    from apex_tpu_torch.transformer import parallel_state
+
+    c, cp = RING_TRAIN_FP32, RING_CP
+    base = mistral_7b_config(num_layers=c["layers"],
+                             sliding_window=c["window"], dtype=torch.float32,
+                             param_dtype=torch.float32)
+
+    def layout_cfg(layout):
+        return dataclasses.replace(base, context_parallel=True,
+                                   context_parallel_zigzag=layout == "zigzag")
+
+    def loss_grads(model, ids, labels, backward=True):
+        """(fp32 loss, fp64 cross-entropy of the logits, gradients)."""
+        for p in model.parameters():
+            p.grad = None
+        with torch.set_grad_enabled(backward):
+            logits = model(ids)
+            loss = lm_token_loss(logits, labels)
+        logp = torch.log_softmax(logits.detach().double(), dim=-1)
+        ce = -logp.gather(-1, labels.long()[..., None])[..., 0].mean().item()
+        if not backward:
+            return loss.item(), ce, None
+        loss.backward()
+        return loss.item(), ce, {n: p.grad.detach().cpu().clone()
+                                 for n, p in model.named_parameters()}
+
+    def close(phase, a, b):
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"{phase}: cross-entropies {a} and {b} "
+                                 f"differ by more than 1e-4 relative")
+
+    parallel_state.initialize_model_parallel(1, 1, context_parallel_size_=cp)
+    try:
+        cpu = LlamaModel(layout_cfg("ring"), device="cpu",
+                         generator=torch.Generator().manual_seed(SEED))
+        state = cpu.state_dict()
+        ids0, labels0 = train_batch(base, c["batch"], c["seq"], "cpu")
+        cpu_ring = loss_grads(cpu, ids0, labels0)
+        with perturbed(cpu, SEED + 1):
+            floor = loss_grads(cpu, ids0, labels0)[2]
+
+        def floor_at(want):
+            """``want`` moved by the CPU's own one-rounding change, so that
+            ``floor_grad_bars`` reads |CPU' - CPU| whatever it compares."""
+            return {n: want[n] + (floor[n] - cpu_ring[2][n]) for n in want}
+
+        lines = {}
+        for layout in ("ring", "zigzag"):
+            cfg = layout_cfg(layout)
+            ids, labels = ids0, labels0
+            if layout == "zigzag":
+                ids, labels = (to_zigzag(t, cp, axis=1) for t in (ids, labels))
+                set_config(cpu, cfg)
+                cpu_side = loss_grads(cpu, ids, labels)
+            else:
+                cpu_side = cpu_ring
+            card = LlamaModel(cfg, device=DEV, generator=torch.Generator(
+                device=DEV).manual_seed(SEED))
+            plain = LlamaModel(base, device=DEV, generator=torch.Generator(
+                device=DEV).manual_seed(SEED))
+            for m in (card, plain):
+                m.load_state_dict(state)
+            opts = [make_optimizer(m, TRAIN_LR) for m in (card, plain)]
+            ids, labels = ids.to(DEV), labels.to(DEV)
+            plain_ids, plain_labels = ids0.to(DEV), labels0.to(DEV)
+            phase = f"ring_train_fp32 {layout}"
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            got = loss_grads(card, ids, labels)
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+            want = loss_grads(plain, plain_ids, plain_labels)
+            close(f"{phase} card against CPU", got[1], cpu_side[1])
+            close(f"{phase} CP against plain", got[1], want[1])
+            vs_cpu = floor_grad_bars(f"{phase} card against CPU", got[2],
+                                     cpu_side[2], floor_at(cpu_side[2]),
+                                     RING_FLOOR_FACTOR)
+            vs_plain = floor_grad_bars(f"{phase} CP against plain", got[2],
+                                       want[2], floor_at(want[2]),
+                                       RING_FLOOR_FACTOR)
+            for opt in opts:            # each on its own model's .grad
+                opt.step()
+            got1 = loss_grads(card, ids, labels)
+            want1 = loss_grads(plain, plain_ids, plain_labels)
+            close(f"{phase} step 1", got1[1], want1[1])
+            step1 = floor_grad_bars(f"{phase} step 1", got1[2], want1[2],
+                                    floor_at(want1[2]), RING_FLOOR_FACTOR)
+            for opt in opts:
+                opt.step()
+            got2 = loss_grads(card, ids, labels, backward=False)
+            want2 = loss_grads(plain, plain_ids, plain_labels, backward=False)
+            close(f"{phase} step 2", got2[1], want2[1])
+            idle = [k for k in RING_KERNELS if "window" in k
+                    and not launches[k]]
+            if idle:
+                raise AssertionError(f"{phase}: no launch of {idle}")
+
+            def worst(bars):
+                return max(e / max(1e-3 * n, RING_FLOOR_FACTOR * f, 1e-30)
+                           for n, e, f, _, _ in bars.values())
+
+            lines[layout] = dict(
+                ce64_card=[got[1], got1[1], got2[1]],
+                ce64_plain=[want[1], want1[1], want2[1]],
+                ce64_cpu=cpu_side[1], losses_card=[got[0], got1[0], got2[0]],
+                worst_share_of_bar_vs_cpu=worst(vs_cpu),
+                worst_share_of_bar_vs_plain=worst(vs_plain),
+                worst_share_of_bar_step1=worst(step1),
+                median_floor_rel=sorted(
+                    f / n for n, _, f, _, _ in vs_cpu.values() if n)[
+                        len(vs_cpu) // 2],
+                launches={k: n for k, n in launches.items() if n})
+            del card, plain, opts
+            torch.cuda.empty_cache()
+    finally:
+        parallel_state.destroy_model_parallel()
+    emit("ring_train_fp32", cp=cp, batch=c["batch"], seq=c["seq"],
+         layers=c["layers"], window=c["window"], s_loc=c["seq"] // cp,
+         s_half=c["seq"] // (2 * cp), lr=TRAIN_LR,
+         grad_bar=f"|card - want| <= max(1e-3 |want|, {RING_FLOOR_FACTOR} "
+                  f"x |CPU' - CPU|) per tensor, Frobenius",
+         params_with_grad=len(floor), layouts=lines)
+    del cpu, state
+    torch.cuda.empty_cache()
+
+
+def ring_gpt(smi) -> dict:
+    """GPT-2-small (its widths, fp32) at 8 x 1024 tokens (its
+    ``max_position_embeddings``), zigzag over the in-process ring of
+    ``RING_CP`` ranks, two FusedAdam steps, held against the same weights
+    without context parallelism on the card: the losses within 1e-4
+    relative, every gradient per entry (``grad_bars``) at both steps; then
+    the port's example ``run_training`` at its defaults on the card, whose
+    loss must fall. With no window and no dropout the ring gives no offset
+    that moves a diagonal, so its steps launch the plain flash branches
+    and no ``_ring`` or windowed one. Returns the CP steps' launches."""
+    import torch
+
+    from apex_tpu_torch.examples.long_context.train_ring_attention import (
+        run_training)
+    from apex_tpu_torch.models import GPTModel, gpt2_small_config, gpt_loss
+    from apex_tpu_torch.ops import _build, to_zigzag
+    from apex_tpu_torch.transformer import parallel_state
+
+    cp = RING_CP
+    base = gpt2_small_config(dtype=torch.float32)
+    cfg = dataclasses.replace(base, context_parallel=True,
+                              context_parallel_zigzag=True)
+    ids, labels = train_batch(base, TRAIN_BATCH, TRAIN_SEQ, DEV)
+    zids, zlabels = (to_zigzag(t, cp, axis=1) for t in (ids, labels))
+    models = {"cp": GPTModel(cfg, device=DEV), "plain": GPTModel(base,
+                                                                 device=DEV)}
+    models["plain"].load_state_dict(models["cp"].state_dict())
+    opts = {k: make_optimizer(m) for k, m in models.items()}
+    batches = {"cp": (zids, zlabels), "plain": (ids, labels)}
+    launches = dict.fromkeys(dict(_build.launches), 0)
+    losses = {k: [] for k in models}
+    bars = []
+    parallel_state.initialize_model_parallel(1, 1, context_parallel_size_=cp)
+    try:
+        for _ in range(2):
+            grads = {}
+            for k, m in models.items():
+                opts[k].zero_grad()
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                loss = gpt_loss(m, *batches[k])
+                loss.backward()
+                torch.cuda.synchronize()
+                if k == "cp":
+                    for n, x in dict(_build.launches).items():
+                        launches[n] += x
+                losses[k].append(loss.item())
+                grads[k] = {n: p.grad.detach().clone()
+                            for n, p in m.named_parameters()}
+            if abs(losses["cp"][-1] - losses["plain"][-1]) \
+                    > 1e-4 * abs(losses["plain"][-1]):
+                raise AssertionError(f"ring_gpt: losses {losses}")
+            b = grad_bars("ring_gpt", grads["cp"],
+                          {n: g.cpu() for n, g in grads["plain"].items()})
+            bars.append(max(e for _, e in b.values()))
+            for opt in opts.values():
+                opt.step()
+    finally:
+        parallel_state.destroy_model_parallel()
+    plain = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+    idle = [k for k in plain if not launches[k]]
+    stray = [k for k, n in launches.items()
+             if n and k.startswith("flash") and k not in plain]
+    if idle or stray:
+        raise AssertionError(f"ring_gpt: no launch of {idle}; windowed or "
+                             f"ring launches {stray}")
+    del models, opts
+    torch.cuda.empty_cache()
+    example = run_training(device=DEV, verbose=lambda *_: None)
+    if not all(map(math.isfinite, example)) or not example[-1] < example[0]:
+        raise AssertionError(f"ring_gpt: the example's loss did not fall: "
+                             f"{example}")
+    emit("ring_gpt", cp=cp, layout="zigzag", batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, dtype="float32", losses=losses,
+         grads_max_abs_err=bars,
+         grad_bar="atol = min(1e-4, 1e-3 max|g|) per tensor, rtol 1e-3",
+         launches={n: x for n, x in launches.items() if x},
+         example_losses=example, nvidia_smi=smi)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5037,7 +5690,7 @@ def main() -> int:
               + check_flash_bwd_window(gen, DEV)
               + check_paged_block(gen, DEV) + check_flash_bias(gen, DEV)
               + check_resnet_optim(gen, DEV) + check_scaled_softmax(gen, DEV)
-              + check_group_norm(gen, DEV))
+              + check_group_norm(gen, DEV) + check_flash_ring(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, rms_atol=RMS_ATOL,
          card_before=card_before,
@@ -5048,6 +5701,13 @@ def main() -> int:
     sync_bn_sumsq(gen, DEV)
     softmax_launches = megatron_softmax(smi)
     gn_launches = unet_group_norm(smi)
+    torch.cuda.empty_cache()
+    # the ring-attention paths, early too: the 16384-token Mistral step
+    # needs the room that the later phases' live models take
+    ring_attn_launches = ring_attention_phase(smi)
+    ring_train = ring_train_bf16(smi)
+    ring_train_fp32()
+    ring_gpt_launches = ring_gpt(smi)
     torch.cuda.empty_cache()
 
     prompts, new_tokens = workload()
@@ -5134,7 +5794,7 @@ def main() -> int:
         if row.get("path") in ("quant_serving", "mistral", "mistral_train",
                                "spec_chunked", "t5", "t5_train",
                                "window_bias", "resnet", "megatron_softmax",
-                               "unet_group_norm"):
+                               "unet_group_norm", "ring"):
             continue                  # timed by queued_ms already
         ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
         results.append(dict(name=row["name"], dtype=row["dtype"],
@@ -5244,6 +5904,13 @@ def main() -> int:
                        "group_norm_fwd": unet_nhwc,
                        "group_norm_bwd": unet_nhwc})
     main_kind.update({"group_norm_fwd": "silu", "group_norm_bwd": "silu"})
+    # the ring branches at the shapes of the runs whose launches they
+    # carry: the windowed ones at a ring hop's offset (4096) on
+    # ``ring_train_bf16``'s 4096-token chunk, the others at the
+    # ``ring_attention`` phase's 1024-token chunk off the diagonal (not
+    # causal, dropout at a rank's origins)
+    main_kind.update({n: f"offset {RING_OFFSETS[0]}" if "window" in n
+                      else "attn noncausal" for n in RING_KERNELS})
     t5_dec_shape = [T5_TRAIN_BATCH, T5_HEADS, T5_TRAIN_DEC, T5_HEAD_DIM]
     by_path = {"serving": launches, "gpt_train": train_launches,
                "bert_train": bert_launches, "mistral": mistral_launches,
@@ -5256,7 +5923,12 @@ def main() -> int:
                "resnet_train": resnet_launches,
                "resnet_novograd": nvg_launches,
                "megatron_softmax": softmax_launches,
-               "unet_group_norm": gn_launches}
+               "unet_group_norm": gn_launches,
+               "ring_attention": ring_attn_launches["ring"],
+               "ring_attention_zigzag": ring_attn_launches["zigzag"],
+               "ring_train": ring_train["ring"],
+               "ring_train_zigzag": ring_train["zigzag"],
+               "ring_gpt": ring_gpt_launches}
     # the windowed block has no engine path (the reference refuses both
     # modes for windowed models), so its launches read 0
     block_path = {"paged_attention_block": "spec",
@@ -5268,7 +5940,9 @@ def main() -> int:
               "library_ms")
     summary = []
     for name, (src, replaces) in _build.KERNELS.items():
-        path = ("megatron_softmax" if name in SOFTMAX_KERNELS
+        path = ("ring_train" if name in RING_KERNELS and "window" in name
+                else "ring_attention" if name in RING_KERNELS
+                else "megatron_softmax" if name in SOFTMAX_KERNELS
                 else "unet_group_norm" if name in GROUP_NORM_KERNELS
                 else "resnet_train" if name in ("sgd", "multi_tensor_scale")
                 else "resnet_novograd" if name == "novograd"
@@ -5309,6 +5983,20 @@ def main() -> int:
                                 or name in MISTRAL_TRAIN_NEW
                                 or name in BLOCK_KERNELS
                                 or name in BIAS_KERNELS)})
+        if name in RING_KERNELS:
+            keys = ("kind", "shape", "kv_heads", "causal", "window",
+                    "causal_offset", "dropout", "dropout_origin", "out_rms",
+                    "visible_pairs", "library")
+            entry.update({k: row[k] for k in keys})
+            entry["launches_per_step"] = {
+                lay: by_path[p][name] / RING_TRAIN_TIMED
+                for lay, p in (("ring", "ring_train"),
+                               ("zigzag", "ring_train_zigzag"))}
+            entry["other_rows"] = [
+                dict({k: r[k] for k in ("kind", "dtype", "shape",
+                                        "causal_offset", "visible_pairs")},
+                     **{k: r[k] for k in timing})
+                for r in rows if r["name"] == name and r is not row]
         if path.startswith("resnet"):
             entry.update({k: row[k] for k in (
                 "shape", "segments", "params", "cases", "skip_bit_identical",

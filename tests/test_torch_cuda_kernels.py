@@ -575,7 +575,8 @@ def test_windowed_flash_refuses_autograd_on_the_card(cuda):
     """ROADMAP B9's window is ported: a windowed call under autograd runs
     the windowed forward and both windowed backward kernels, never the
     unwindowed ones; with a bias, their ``_window_bias`` branches. What the
-    flash surface still refuses is a ``causal_offset`` (items 8 and 9)."""
+    flash surface still refuses is a traced ``causal_offset``: a tensor
+    (the port takes host ints; items 8 and 9 ported the rest)."""
     q, k, v = (torch.randn(1, 2, 16, 64, device=cuda, requires_grad=True)
                for _ in range(3))
     before = dict(_build.launches)
@@ -592,8 +593,9 @@ def test_windowed_flash_refuses_autograd_on_the_card(cuda):
                  "flash_bwd_dkdv_window_bias"):
         assert _build.launches[name] == before[name] + 1
     assert sum(_build.launches.values()) == sum(before.values()) + 3
-    with pytest.raises(NotImplementedError, match="item 9"):
-        flash_attention_with_lse(q, k, v, causal=True, causal_offset=0)
+    with pytest.raises(TypeError, match="host int"):
+        flash_attention_with_lse(q, k, v, causal=True,
+                                 causal_offset=torch.tensor(0, device=cuda))
 
 
 def _windowed_pool(g, lengths, window, ps, kv, d, maxp, dtype, cuda,
@@ -1232,3 +1234,102 @@ def test_sync_batchnorm_statistics_match_fp64_sums(cuda):
     torch.testing.assert_close(mean.double(), s64 / n, rtol=1e-5, atol=1e-7)
     torch.testing.assert_close(var.double(), ss64 / n - (s64 / n) ** 2,
                                rtol=1e-4, atol=1e-6)
+
+
+#: (heads, kv heads, Sq, Sk, head dim, causal, window, causal_offset,
+#: dropout rate, row0, col0): the ring branches. A ring hop's chunk one
+#: chunk upstream under a window (offset Sk), zigzag's half-chunk offsets
+#: above and below a window, a negative offset (the first rows see
+#: nothing), a band that misses every key, dropout at a rank's origins on
+#: the diagonal and off it (not causal), and an origin near 2^32 (the
+#: hash's uint32 wrap)
+RING_CASES = [
+    (8, 2, 96, 96, 128, True, 96, 96, 0.0, 0, 0),
+    (8, 2, 64, 64, 64, True, 100, 128, 0.0, 0, 0),
+    (4, 4, 64, 64, 64, True, 40, 192, 0.0, 0, 0),
+    (8, 2, 70, 70, 128, True, None, -20, 0.0, 0, 0),
+    (4, 2, 64, 64, 64, True, 30, -10, 0.0, 0, 0),
+    (4, 2, 32, 32, 64, True, 8, 200, 0.0, 0, 0),
+    (8, 8, 100, 100, 64, True, None, None, 0.1, 300, 300),
+    (8, 8, 100, 100, 64, False, None, None, 0.1, 300, 100),
+    (4, 2, 64, 64, 128, True, 50, 64, 0.2, 2 ** 32 - 40, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,hkv,sq,sk,d,causal,window,off,rate,row0,col0",
+                         RING_CASES)
+def test_flash_ring_kernels_match_twin(cuda, dtype, h, hkv, sq, sk, d, causal,
+                                       window, off, rate, row0, col0):
+    """The ring branch of the forward and both backward kernels (an
+    explicit causal offset, dropout origins) against the twins, with an LSE
+    cotangent; each launch counted under its ``_ring`` name (``_window_ring``
+    with a window) and under no other; rows that see no key are 0."""
+    g = torch.Generator().manual_seed(31)
+    q, do = (torch.randn(2, h, sq, d, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, hkv, sk, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    masking = Masking(causal=causal, window=window, causal_offset=off,
+                      dropout_rate=rate, dropout_seed=9, dropout_row0=row0,
+                      dropout_col0=col0)
+    scale = d ** -0.5
+    win = "" if window is None else "_window"
+    before = dict(_build.launches)
+    o, lse = flash_fwd(q, k, v, scale=scale, masking=masking)
+    assert _build.launches[f"flash_fwd{win}_ring"] == \
+        before[f"flash_fwd{win}_ring"] + 1
+    ro, rlse = flash_attention_reference(q, k, v, scale=scale,
+                                         masking=masking)
+    _close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+    dead = ~masking.visible(sq, sk, cuda).any(dim=-1)
+    assert (o[:, :, dead[0, 0]] == 0).all()
+    dlse = torch.randn(2, h, sq, generator=g).to(cuda)
+    got = flash_attention_bwd(q, k, v, ro, rlse, do, scale=scale, dlse=dlse,
+                              masking=masking)
+    for name in (f"flash_bwd_dq{win}_ring", f"flash_bwd_dkdv{win}_ring"):
+        assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 3
+    want = flash_attention_bwd_reference(q, k, v, ro, rlse, do, scale=scale,
+                                         dlse=dlse, masking=masking)
+    for a, r in zip(got, want):
+        assert a.dtype == dtype
+        _bwd_close(a, r, dtype)
+
+
+@pytest.mark.parametrize("layout", ["ring", "zigzag"])
+def test_in_process_ring_on_the_card_matches_one_call(cuda, layout):
+    """The in-process ring of 4 ranks on the card (GQA, windowed, dropout
+    0.1) against one unsharded call of the kernels with the same seed: the
+    output and every gradient within 1e-5 + 1e-4 |x| (fp32, merge order
+    only); the windowed ring branches launched."""
+    from apex_tpu_torch.ops.ring_attention import (LocalRing, from_zigzag,
+                                                   ring_attention,
+                                                   ring_attention_zigzag,
+                                                   to_zigzag)
+
+    g = torch.Generator().manual_seed(32)
+    q, do = (torch.randn(1, 8, 512, 64, generator=g).to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn(1, 2, 512, 64, generator=g).to(cuda)
+            for _ in range(2))
+    kw = dict(window=200, dropout_rate=0.1, dropout_seed=4)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention_with_lse(*leaves, causal=True, **kw)[0]
+    want = (o, *torch.autograd.grad(o, leaves, do))
+    before = dict(_build.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if layout == "ring":
+        o = ring_attention(*leaves, ring=LocalRing(4), causal=True, **kw)
+        got = (o, *torch.autograd.grad(o, leaves, do))
+    else:
+        o = ring_attention_zigzag(*(to_zigzag(t, 4) for t in leaves),
+                                  ring=LocalRing(4), **kw)
+        got = (from_zigzag(o, 4),
+               *torch.autograd.grad(o, leaves, to_zigzag(do, 4)))
+    for name in ("flash_fwd_window_ring", "flash_bwd_dq_window_ring",
+                 "flash_bwd_dkdv_window_ring"):
+        assert _build.launches[name] > before[name]
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-4)

@@ -93,10 +93,14 @@ def test_flash_cross_length_causal_offset_matches_jax():
     dict(causal=True, dropout_rate=0.1, causal_offset=1),
 ])
 def test_unported_flash_options_raise(kwargs):
-    """What is left of the flash surface, ring attention's: an explicit
-    ``causal_offset``, with or without a window or dropout."""
+    """What is left of the flash surface: the reference's traced
+    ``causal_offset`` (a device-index-dependent SMEM scalar). The port's
+    ring reads a rank's index on the host, so an offset is a host int, with
+    or without a window or dropout, and a tensor raises a named
+    ``TypeError``."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, 4, 4))
-    with pytest.raises(NotImplementedError, match="no causal_offset"):
+    kwargs = dict(kwargs, causal_offset=torch.tensor(kwargs["causal_offset"]))
+    with pytest.raises(TypeError, match="causal_offset must be a host int"):
         flash_attention_with_lse(q, k, v, **kwargs)
 
 
@@ -111,8 +115,9 @@ def test_flash_bias_and_segments_raise():
                                              dtype=torch.float64))
     with pytest.raises(ValueError, match="segment ids"):
         flash_attention(q, k, v, segment_ids=torch.zeros(2, 7), causal=True)
-    with pytest.raises(NotImplementedError, match="causal_offset"):
-        flash_attention_with_lse(q, k, v, causal=True, causal_offset=2)
+    with pytest.raises(TypeError, match="dropout_col0"):
+        flash_attention_with_lse(q, k, v, causal=True, dropout_rate=0.1,
+                                 dropout_col0=torch.tensor(2))
 
 
 def test_gqa_heads_must_divide():

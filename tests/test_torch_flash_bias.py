@@ -162,11 +162,13 @@ def test_bias_launch_names_are_registered():
     the window's, and every such name is a registered kernel."""
     bias = torch.zeros(1)
     windowed = Masking(causal=True, window=4)
-    names = {launch_name(kernel, m, b)
+    names = {launch_name(kernel, m, b, 8, 8)
              for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
              for m in (Masking(), windowed) for b in (None, bias)}
-    assert launch_name("flash_fwd", windowed, bias) == "flash_fwd_window_bias"
-    assert launch_name("flash_bwd_dq", Masking(), bias) == "flash_bwd_dq_bias"
+    assert launch_name("flash_fwd", windowed, bias, 8, 8) == \
+        "flash_fwd_window_bias"
+    assert launch_name("flash_bwd_dq", Masking(), bias, 8, 8) == \
+        "flash_bwd_dq_bias"
     assert len(names) == 12 and names <= set(_build.KERNELS)
     for name in names:
         assert _build.KERNELS[name][0] in ("flash_fwd.cu", "flash_bwd.cu")

@@ -183,11 +183,9 @@ def test_greedy_generate_is_token_identical(pair, eos):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("context_parallel", True, "ring attention"),
     ("num_experts", 4, "moe"),
     ("tensor_parallel_size", 2, "tensor_parallel_size"),
     ("rolling_cache", True, "rolling_cache"),
-    ("context_parallel_zigzag", True, "ring attention"),
 ])
 def test_unported_config_fields_raise(field, value, match):
     cfg = llama_tiny_config(sliding_window=WINDOW, **{field: value})

@@ -42,7 +42,10 @@ def test_scan_covers_the_port():
     assert len(files) >= 15
     assert ROOT / "apex_tpu_torch" / "serving" / "scheduler.py" in files
     for new in (("models", "llama.py"), ("models", "t5.py"),
-                ("transformer", "functional", "fused_rope.py")):
+                ("transformer", "functional", "fused_rope.py"),
+                ("ops", "ring_attention.py"),
+                ("transformer", "parallel_state.py"),
+                ("examples", "long_context", "train_ring_attention.py")):
         assert ROOT.joinpath("apex_tpu_torch", *new) in files
 
 
