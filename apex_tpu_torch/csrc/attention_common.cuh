@@ -65,9 +65,24 @@ struct AttnMask {
   int offset;          // the causal diagonal: row r sees keys <= r + offset
 
   __device__ __forceinline__ bool visible(int b, int sq, int sk, int row, int key) const {
+    return in_band(row, key) &&
+           (q_seg == nullptr || q_seg[(long)b * sq + row] == kv_seg[(long)b * sk + key]);
+  }
+
+  // the causal and window tests of visible(), without the segment ids
+  __device__ __forceinline__ bool in_band(int row, int key) const {
     if (causal && key > row + offset) return false;
-    if (window > 0 && key < row + offset - (window - 1)) return false;
-    return q_seg == nullptr || q_seg[(long)b * sq + row] == kv_seg[(long)b * sk + key];
+    return !(window > 0 && key < row + offset - (window - 1));
+  }
+
+  // Whether every row of [row_a, row_b] sees every key of [key_a, key_b]
+  // (inclusive; the caller has checked both lie inside sq and sk): no
+  // segment ids, the whole tile on or below the diagonal of row_a and on
+  // or above the band floor of row_b.
+  __device__ __forceinline__ bool tile_visible(int row_a, int row_b, int key_a,
+                                               int key_b) const {
+    return q_seg == nullptr && (!causal || key_b <= row_a + offset) &&
+           !(window > 0 && key_a < row_b + offset - (window - 1));
   }
 
   // The first key tile (a multiple of kTileKeys) any of the rows >= row_a may
@@ -106,6 +121,29 @@ struct AttnMask {
     const long long i = b * bias_sb + h * bias_sh + row * bias_sq + key * bias_sk;
     return bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[i])
                      : static_cast<const float*>(bias)[i];
+  }
+
+  // the biases of (row, key) and (row, key + 1), each read only where its
+  // pair is visible (in0, in1), 0 elsewhere; both in one 4-byte (bf16) or
+  // 8-byte (fp32) load when the key stride is 1 and the pair is aligned
+  __device__ __forceinline__ float2 bias_pair(int b, int h, int row, int key, bool in0,
+                                              bool in1) const {
+    float2 r = make_float2(0.f, 0.f);
+    if (bias == nullptr) return r;
+    const long long i = b * bias_sb + h * bias_sh + row * bias_sq + key * bias_sk;
+    if (in0 && in1 && bias_sk == 1) {
+      if (bias_bf16) {
+        const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(bias) + i;
+        if ((reinterpret_cast<uintptr_t>(p) & 3) == 0)
+          return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+      } else {
+        const float* p = static_cast<const float*>(bias) + i;
+        if ((reinterpret_cast<uintptr_t>(p) & 7) == 0) return *reinterpret_cast<const float2*>(p);
+      }
+    }
+    if (in0) r.x = bias_at(b, h, row, key);
+    if (in1) r.y = bias_at(b, h, row, key + 1);
+    return r;
   }
 
   // the score of a pair: scale * (q . k), then its bias added, each rounded

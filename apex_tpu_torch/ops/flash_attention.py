@@ -55,6 +55,9 @@ reference's traced offset (an SMEM scalar that runs its grid unbanded)
 has no separate branch here.
 
 A tensor on the CPU takes the twins; a CUDA tensor always takes the kernels.
+On the card the forward routes by dtype: bf16 runs on the tensor cores
+(``flash_fwd_mma_kernel``), fp32 on the CUDA cores (``flash_fwd_kernel``),
+both under the same launch names.
 """
 
 from __future__ import annotations

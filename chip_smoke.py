@@ -676,18 +676,42 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_bwd_dq_window_ring": "flash_bwd_dq_kernel",
                   "flash_bwd_dkdv_ring": "flash_bwd_dkdv_kernel",
                   "flash_bwd_dkdv_window_ring": "flash_bwd_dkdv_kernel"}
+#: every flash forward branch in bf16 runs the tensor-core kernel (fp32
+#: keeps ``flash_fwd_kernel`` above)
+BF16_SYMBOLS = {name: "flash_fwd_mma_kernel" for name in KERNEL_SYMBOLS
+                if name.startswith("flash_fwd")}
+
+
+def kernel_symbol(name: str, dtype: str) -> str:
+    """The CUDA symbol the profiler reports kernel ``name``'s launches at
+    ``dtype`` under."""
+    if dtype == "bfloat16" and name in BF16_SYMBOLS:
+        return BF16_SYMBOLS[name]
+    return KERNEL_SYMBOLS[name]
 
 
 def ptxas_registers() -> dict:
-    """Registers per thread of each built kernel (``<bf16>`` marks the bf16
-    instantiation), from the ptxas reports the build keeps beside each
-    library."""
+    """Registers per thread of each built kernel."""
+    return {name: regs for name, (regs, _) in ptxas_report().items()}
+
+
+def ptxas_spill_bytes() -> dict:
+    """Spill stores plus spill loads, in bytes, of each built kernel."""
+    return {name: spill for name, (_, spill) in ptxas_report().items()}
+
+
+def ptxas_report() -> dict:
+    """``{kernel: (registers per thread, spill bytes)}`` of each built
+    kernel (``<bf16>`` marks the bf16 instantiation, ``<d64>``/``<d128>``
+    the head-dim instances of the tensor-core flash forward), from the
+    ptxas reports the build keeps beside each library."""
     import re
 
     from apex_tpu_torch.ops import _build
 
     names = ("layer_norm_fwd_kernel", "layer_norm_bwd_dx_kernel",
              "layer_norm_bwd_dw_kernel", "flash_fwd_kernel",
+             "flash_fwd_mma_kernel",
              "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
              "paged_decode_kernel", "adam_kernel", "xentropy_fwd_kernel",
              "xentropy_bwd_kernel", "stats_rows_kernel",
@@ -700,11 +724,15 @@ def ptxas_registers() -> dict:
              "group_norm_bwd_kernel")
     regs = {}
     for log in sorted(_build.BUILD.glob("*.log")):
-        entry = None
+        entry, spill = None, 0
         for line in log.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                entry = m.group(1)
+                entry, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
             m = re.search(r"Used (\d+) registers", line)
             if m and entry:
                 name = next((n for n in names if n in entry), entry)
@@ -725,7 +753,11 @@ def ptxas_registers() -> dict:
                 fp8 = "<e4m3>" if ("fp8_e4m3" in entry or (
                     "dequant_matmul_kernel" in entry and "Li1E" in entry)) \
                     else ""
-                regs[name + bf16 + fp8 + rms] = int(m.group(1))
+                # the head-dim instances of the tensor-core flash forward
+                dim = re.search(r"mma_kernelILi(\d+)E", entry)
+                dim = f"<d{dim.group(1)}>" if dim else ""
+                regs[name + bf16 + fp8 + rms + dim] = (int(m.group(1)),
+                                                        spill)
                 entry = None
     return regs
 
@@ -862,6 +894,11 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def achieved_tflops(flops: float, ms: float) -> float:
+    """TFLOP/s of ``flops`` operations done in ``ms``."""
+    return flops / ms / 1e9
+
+
 def rms_of(t) -> float:
     return t.float().pow(2).mean().sqrt().item()
 
@@ -953,6 +990,10 @@ def check_layer_norm(gen, dev):
 
 
 def check_flash(gen, dev):
+    """The causal forward at GPT-2-small's width (12 heads, d 64): a
+    prefill of 16, 128 and 1024 tokens and the training batch, fp32 and
+    bf16. Timed by ``queued_ms``: the short rows take microseconds on the
+    card, less than a launch takes on the host."""
     import torch
     import torch.nn.functional as F
 
@@ -977,13 +1018,16 @@ def check_flash(gen, dev):
             bms, by = bound_ms(nbytes, 4 * pairs * d, dn)
             kernel = partial(fa.flash_attention_with_lse, q, k, v,
                              causal=True)
+            ms = queued_ms(kernel)
             out.append((dict(
                 name="flash_fwd", dtype=dn, shape=[b, h, s, d],
-                max_abs_err=err, ms=time_ms(kernel),
-                plain_ms=time_ms(partial(fa.flash_attention_reference,
-                                         q, k, v, scale=scale)),
-                library_ms=time_ms(partial(F.scaled_dot_product_attention,
-                                           q, k, v, is_causal=True)),
+                max_abs_err=err, ms=ms,
+                tflops=achieved_tflops(4 * pairs * d, ms),
+                plain_ms=queued_ms(partial(fa.flash_attention_reference,
+                                           q, k, v, scale=scale)),
+                library_ms=queued_ms(partial(
+                    F.scaled_dot_product_attention, q, k, v,
+                    is_causal=True)),
                 bound_ms=bms, bound_by=by), kernel))
     return out
 
@@ -1274,8 +1318,11 @@ def check_flash_bert(gen, dev):
             call = (q, k, v) if name == "flash_fwd" else args
             bms, by = bound_ms(nbytes, flops, dn)
             kernel = partial(fn, *call, **kw)
+            ms = time_ms(kernel)
             out.append((dict(
-                name=name, **common, max_abs_err=err, ms=time_ms(kernel),
+                name=name, **common, max_abs_err=err, ms=ms,
+                **({"tflops": achieved_tflops(flops, ms)}
+                   if name == "flash_fwd" else {}),
                 plain_ms=time_ms(partial(plain, *call, **kw)),
                 library_ms=lib, library=lib_name, bound_ms=bms,
                 bound_by=by), kernel))
@@ -1696,9 +1743,11 @@ def check_flash_window(gen, dev):
             del ro, rlse
             elt = q.element_size()
             nbytes = (2 * h + 2 * hkv) * s * d * elt + 4 * h * s
-            bms, by = bound_ms(nbytes, 4 * h * band_pairs(s, w) * d, dn)
+            flops = 4 * h * band_pairs(s, w) * d
+            bms, by = bound_ms(nbytes, flops, dn)
             kernel = partial(fa.flash_attention_with_lse, q, k, v,
                              causal=True, window=w)
+            ms = queued_ms(kernel, BIG_ITERS)
             pos = torch.arange(s, device=dev)
             band = (pos[None, :] <= pos[:, None]) & \
                 (pos[None, :] > pos[:, None] - w)
@@ -1707,8 +1756,8 @@ def check_flash_window(gen, dev):
                 name="flash_fwd_window", dtype=dn, shape=[1, h, s, d],
                 kv_heads=hkv, window=w,
                 path="mistral" if s in FLASH_WINDOW_SEQS else "mistral_train",
-                max_abs_err=err, out_rms=o_rms,
-                ms=queued_ms(kernel, BIG_ITERS),
+                max_abs_err=err, out_rms=o_rms, ms=ms,
+                tflops=achieved_tflops(flops, ms),
                 plain_ms=queued_ms(partial(fa.flash_attention_reference, q,
                                            k, v, scale=scale,
                                            masking=masking), BIG_ITERS),
@@ -2217,10 +2266,12 @@ def check_flash_bias(gen, dev):
                 call = (q, k, v) if name == fwd_name else args
                 bms, by = bound_ms(nbytes, flops, dn)
                 kernel = partial(fn, *call, **kw)
+                ms = queued_ms(kernel, iters)
                 out.append((dict(
                     name=name, dtype=dn, **shape_fields,
-                    max_abs_err=errs[name], out_rms=out_rms[name],
-                    ms=queued_ms(kernel, iters),
+                    max_abs_err=errs[name], out_rms=out_rms[name], ms=ms,
+                    **({"tflops": achieved_tflops(flops, ms)}
+                       if name == fwd_name else {}),
                     plain_ms=queued_ms(partial(plain, *call, **kw), iters),
                     library_ms=library[name],
                     library="scaled_dot_product_attention, "
@@ -5138,7 +5189,9 @@ def check_flash_ring(gen, dev):
     counts the visible pairs of the offset band; the library call is
     ``scaled_dot_product_attention`` with the offset band as a boolean
     ``attn_mask`` and K/V expanded, and its backward (dq, dk and dv
-    together); the dropout rows have none (its dropout draws other bits)."""
+    together); the dropout rows' forward is timed against
+    ``scaled_dot_product_attention`` with ``dropout_p`` (a yardstick only:
+    its dropout draws other bits), their backward against none."""
     import torch
     import torch.nn.functional as F
 
@@ -5201,6 +5254,18 @@ def check_flash_ring(gen, dev):
                     torch.autograd.grad, ol, (ql, kl, vl), do,
                     retain_graph=True), BIG_ITERS)
                 del ol, ql, kl, vl, ke, ve, band
+            else:
+                # a yardstick only: the library's dropout draws other bits
+                ke, ve = (t.repeat_interleave(h // hkv, dim=1)
+                          for t in (k, v))
+                library[names[0]] = queued_ms(partial(
+                    F.scaled_dot_product_attention, q, ke, ve,
+                    is_causal=causal, dropout_p=rate), BIG_ITERS)
+                del ke, ve
+            lib_name = ("scaled_dot_product_attention, the offset band as "
+                        "a boolean attn_mask, K/V expanded" if rate == 0.0
+                        else "scaled_dot_product_attention(is_causal, "
+                        "dropout_p), K/V expanded")
             elt = q.element_size()
             pairs = b * h * offset_pairs(s, s, causal, window,
                                          0 if off is None else off)
@@ -5219,21 +5284,21 @@ def check_flash_ring(gen, dev):
                      8 * pairs * d)):
                 bms, by = bound_ms(nbytes, flops, dn)
                 kernel = partial(fn, *call, **kw)
+                ms = queued_ms(kernel, BIG_ITERS)
                 out.append((dict(
                     name=name, dtype=dn, kind=kind, shape=[b, h, s, d],
                     kv_heads=hkv, causal=causal, window=window,
                     causal_offset=off, dropout=rate, dropout_origin=[row0,
                                                                      col0],
                     path="ring", max_abs_err=errs[name],
-                    out_rms=out_rms[name], visible_pairs=pairs,
-                    ms=queued_ms(kernel, BIG_ITERS),
+                    out_rms=out_rms[name], visible_pairs=pairs, ms=ms,
+                    **({"tflops": achieved_tflops(flops, ms)}
+                       if name == names[0] else {}),
                     plain_ms=queued_ms(partial(plain, *call, **kw),
                                        BIG_ITERS),
                     library_ms=library[name],
                     library=None if library[name] is None else
-                    "scaled_dot_product_attention, the offset band as a "
-                    "boolean attn_mask, K/V expanded"
-                    + ("" if name == names[0] else
+                    lib_name + ("" if name == names[0] else
                        "; its backward: dq, dk and dv together"),
                     bound_ms=bms, bound_by=by), kernel))
     return out
@@ -5673,7 +5738,8 @@ def main() -> int:
     build_s = _build.build_all()
     emit("device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=build_s, registers=ptxas_registers())
+         build_s=build_s, registers=ptxas_registers(),
+         spill_bytes=ptxas_spill_bytes())
     print(smi, flush=True)
 
     warm_card()
@@ -5796,7 +5862,8 @@ def main() -> int:
                                "window_bias", "resnet", "megatron_softmax",
                                "unet_group_norm", "ring"):
             continue                  # timed by queued_ms already
-        ms, seen = kernel_device_ms(fn, KERNEL_SYMBOLS[row["name"]])
+        ms, seen = kernel_device_ms(fn, kernel_symbol(row["name"],
+                                                      row["dtype"]))
         results.append(dict(name=row["name"], dtype=row["dtype"],
                             shape=row["shape"], device_ms=ms,
                             launches_seen=seen))
@@ -5937,7 +6004,7 @@ def main() -> int:
     quant_path = {"dequant_matmul": "w8_kv8", "dequant_matmul_w4": "w4_kv8",
                   "paged_attention_quant": "w8_kv8"}
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms")
+              "library_ms", "tflops")
     summary = []
     for name, (src, replaces) in _build.KERNELS.items():
         path = ("ring_train" if name in RING_KERNELS and "window" in name
@@ -5972,7 +6039,8 @@ def main() -> int:
             max_abs_err=row["max_abs_err"],
             **{k: row[k] for k in ("sums_max_rel_err", "norms_max_rel_err")
                if k in row},
-            ms=row["ms"],
+            ms=row["ms"], **({"tflops": row["tflops"]} if "tflops" in row
+                             else {}),
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             **{k: row[k] for k in ("kind", "shape", "unquantized_ms",
@@ -5995,7 +6063,7 @@ def main() -> int:
             entry["other_rows"] = [
                 dict({k: r[k] for k in ("kind", "dtype", "shape",
                                         "causal_offset", "visible_pairs")},
-                     **{k: r[k] for k in timing})
+                     **{k: r[k] for k in timing if k in r})
                 for r in rows if r["name"] == name and r is not row]
         if path.startswith("resnet"):
             entry.update({k: row[k] for k in (
@@ -6006,14 +6074,14 @@ def main() -> int:
                          library=row["library"])
             entry["other_rows"] = [
                 dict({k: r[k] for k in ("shape", "kind", "dtype")},
-                     **{k: r[k] for k in timing})
+                     **{k: r[k] for k in timing if k in r})
                 for r in rows if r["name"] == name and r is not row
                 and r["dtype"] != "float32"]
         if name == "multi_tensor_scale":
             bf = next(r for r in rows if r["name"] == name
                       and r["dtype"] == "bfloat16")
             entry["bfloat16"] = dict(shape=bf["shape"],
-                                     **{k: bf[k] for k in timing})
+                                     **{k: bf[k] for k in timing if k in bf})
         if name in bias_shape:
             dec = next(r for r in rows if r["name"] == name
                        and r["dtype"] == "bfloat16"
@@ -6023,13 +6091,13 @@ def main() -> int:
                 bias_shape=dec["bias_shape"], dtype="bfloat16",
                 launches=t5_train_launches[name] // 2,
                 out_rms=dec["out_rms"],
-                **{k: dec[k] for k in timing})
+                **{k: dec[k] for k in timing if k in dec})
         if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
             entry["t5_cross"] = [
                 dict(shape=r["shape"], sk=r["sk"], use=r["use"],
                      dtype="bfloat16", out_rms=r["out_rms"],
                      launches=by_path[r["path"]][name],
-                     **{k: r[k] for k in timing})
+                     **{k: r[k] for k in timing if k in r})
                 for r in rows if r["name"] == name
                 and r.get("path") in ("t5", "t5_train")
                 and r["dtype"] == "bfloat16"]
@@ -6038,7 +6106,7 @@ def main() -> int:
                       and r["dtype"] == "bfloat16" and r["s"] == BLOCK_S[1])
             entry["chunk"] = dict(shape=ck["shape"], s=ck["s"],
                                   launches=chunk_launches[name],
-                                  **{k: ck[k] for k in timing})
+                                  **{k: ck[k] for k in timing if k in ck})
         if name == "paged_attention_quant":
             win = next(r for r in rows if r["name"] == name
                        and r.get("path") == "mistral"
@@ -6047,7 +6115,7 @@ def main() -> int:
                 shape=win["shape"], kv_heads=win["kv_heads"],
                 window=win["window"], dtype="bfloat16", kind="int8",
                 unquantized_ms=win["unquantized_ms"],
-                **{k: win[k] for k in timing})
+                **{k: win[k] for k in timing if k in win})
         if name in train_shape:
             tr = next(r for r in rows if r["name"] == name
                       and r.get("path") == "mistral_train"
@@ -6056,7 +6124,7 @@ def main() -> int:
             entry["mistral_train"] = dict(
                 shape=tr["shape"], dtype="bfloat16", out_rms=tr["out_rms"],
                 launches=mistral_train_launches[name],
-                **{k: tr[k] for k in timing})
+                **{k: tr[k] for k in timing if k in tr})
         if path != "bert_train" and name in BERT_KERNELS:
             bert = next(r for r in rows if r["name"] == name
                         and r.get("path") == "bert"
@@ -6064,7 +6132,7 @@ def main() -> int:
                         and r["shape"] == bert_shape.get(name, r["shape"]))
             entry["bert_train"] = dict(
                 shape=bert["shape"], dtype="bfloat16",
-                launches=bert_launches[name], **{k: bert[k] for k in timing})
+                launches=bert_launches[name], **{k: bert[k] for k in timing if k in bert})
         summary.append(entry)
     emit("done", seconds=time.perf_counter() - START)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""A/B of kernel rows of two checkouts of the port on one NVIDIA GPU.
+
+    python3 kernel_ab.py TREE_A TREE_B [--checks check_flash,check_flash_bert]
+
+Runs ``chip_smoke.py``'s kernel checks (this checkout's ``check_*``
+functions: the same shapes, seeds, tolerances and timings for both trees)
+through the ``apex_tpu_torch`` of each tree: one process per turn, in the
+order A, B, B, A, each building the tree's kernels into that tree's
+``apex_tpu_torch/_build/``, warming the card and running the checks, which
+hold every kernel against its twin and time it (default the five flash
+checks: every forward branch, and the backward kernels beside them). Prints
+the card's name and power limit, one JSON line per turn with its rows, and
+a last JSON line with each row's ms in the four turns and B's time over
+A's (the mean of B's two turns over the mean of A's). A check that fails (a kernel off
+its twin) is reported in its turn's line with its error, the other checks
+still run, and the script exits 1. Two trees are compared only within one
+call: the card's clocks and neighbours differ between calls.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ORDER = "ABBA"
+CHECKS = ("check_flash", "check_flash_bert", "check_flash_window",
+          "check_flash_bias", "check_flash_ring")
+ROW_KEYS = ("name", "dtype", "shape", "kind", "use", "path", "sk", "window",
+            "causal_offset")
+
+
+def row_key(row: dict) -> str:
+    return json.dumps([row.get(k) for k in ROW_KEYS])
+
+
+def one(tree: str, checks) -> dict:
+    """The checks through ``tree``'s package, in this process."""
+    import torch
+
+    import chip_smoke as cs          # this checkout's checks, first
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from apex_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_s = _build.build_all()
+    cs.warm_card()
+    gen = torch.Generator().manual_seed(cs.SEED)
+    rows, failed = [], {}
+    for check in checks:
+        try:
+            rows += [row for row, _ in getattr(cs, check)(gen, cs.DEV)]
+        except AssertionError as exc:
+            failed[check] = str(exc)
+    keep = ("ms", "tflops", "max_abs_err", "bound_ms", "library_ms")
+    return dict(tree=tree, build_s=build_s, failed=failed,
+                package=os.path.dirname(_build.__file__),
+                registers=cs.ptxas_registers(),
+                rows=[dict({k: r.get(k) for k in ROW_KEYS},
+                           **{k: r[k] for k in keep if k in r})
+                      for r in rows])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("trees", nargs="*", help="TREE_A TREE_B")
+    ap.add_argument("--checks", default=",".join(CHECKS),
+                    help="chip_smoke check functions, comma-separated")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    checks = tuple(args.checks.split(","))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if args.one:
+        print(json.dumps(one(args.one, checks)), flush=True)
+        return 0
+    if len(args.trees) != 2:
+        ap.error("give two trees")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    ms, failed = {}, False
+    for turn, t in enumerate(ORDER):
+        tree = os.path.abspath(args.trees["AB".index(t)])
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one", tree,
+             "--checks", args.checks],
+            capture_output=True, text=True, cwd=HERE, timeout=1800)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return out.returncode
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(dict(turn=turn, label=t, **res)), flush=True)
+        failed = failed or bool(res["failed"])
+        for r in res["rows"]:
+            ms.setdefault(row_key(r), {"A": [], "B": []})[t].append(r["ms"])
+    table = []
+    for key, by in ms.items():
+        a, b = (sum(by[t]) / len(by[t]) if by[t] else None for t in "AB")
+        table.append(dict(zip(ROW_KEYS, json.loads(key)), A_ms=by["A"],
+                          B_ms=by["B"], b_over_a=b / a if a and b else None))
+    print(json.dumps(dict(nvidia_smi=smi, order=ORDER,
+                          trees=dict(A=args.trees[0], B=args.trees[1]),
+                          rows=table)), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

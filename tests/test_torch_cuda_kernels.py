@@ -17,12 +17,14 @@ import torch
 
 from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.flash_attention import (Masking, flash_attention,
+from apex_tpu_torch.ops.flash_attention import (DEFAULT_MASK_VALUE, Masking,
+                                                flash_attention,
                                                 flash_attention_bwd,
                                                 flash_fwd,
                                                 flash_attention_bwd_reference,
                                                 flash_attention_reference,
-                                                flash_attention_with_lse)
+                                                flash_attention_with_lse,
+                                                launch_name)
 from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                            layer_norm_bwd_reference,
                                            layer_norm_fwd,
@@ -1333,3 +1335,119 @@ def test_in_process_ring_on_the_card_matches_one_call(cuda, layout):
         assert _build.launches[name] > before[name]
     for a, r in zip(got, want):
         torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-4)
+
+
+# --- the bf16 forward on the tensor cores ------------------------------------
+
+#: (b, h, hkv, sq, sk, d, causal, window, offset, segments, rate, bias kind):
+#: ragged Sq and Sk around the kernel's 64-row and 64-key tiles, head dims
+#: on both instances (32 and 64 on the 64 one, 80 and 128 on the 128 one),
+#: GQA 32 over 8, every branch
+MMA_CASES = [
+    (2, 4, 4, 1, 1100, 64, False, None, None, False, 0.0, None),
+    (2, 4, 4, 33, 65, 32, True, None, None, False, 0.0, None),
+    (2, 4, 2, 65, 33, 80, False, None, None, False, 0.0, None),
+    (1, 4, 4, 200, 200, 128, True, None, None, False, 0.0, None),
+    (1, 4, 4, 1100, 1100, 64, True, None, None, False, 0.0, None),
+    (1, 4, 4, 200, 1, 64, False, None, None, False, 0.0, None),
+    (1, 32, 8, 200, 200, 128, True, None, None, False, 0.0, None),
+    (2, 4, 2, 200, 200, 64, False, None, None, True, 0.1, None),
+    (2, 4, 4, 65, 65, 128, True, None, None, True, 0.1, None),
+    (1, 4, 2, 1100, 1100, 128, True, 100, None, False, 0.0, None),
+    (1, 4, 4, 200, 200, 80, True, 33, None, False, 0.1, None),
+    (2, 4, 4, 200, 200, 64, False, None, None, False, 0.0, "table"),
+    (2, 4, 4, 65, 200, 64, True, None, None, False, 0.0, "full"),
+    (2, 4, 4, 33, 200, 32, False, None, None, False, 0.0, "padding"),
+    (1, 4, 4, 200, 200, 64, True, 40, None, False, 0.0, "table"),
+    (1, 4, 2, 4096, 4096, 128, True, 4096, 4096, False, 0.0, None),
+    (1, 4, 2, 4096, 4096, 128, True, 4096, 2048, False, 0.0, None),
+    (1, 4, 2, 4096, 4096, 128, True, 4096, -1024, False, 0.0, None),
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window,off,segments,rate,"
+                         "bias", MMA_CASES)
+def test_bf16_flash_fwd_on_the_tensor_cores_matches_twin(
+        cuda, b, h, hkv, sq, sk, d, causal, window, off, segments, rate,
+        bias):
+    """The bf16 forward (``flash_fwd_mma_kernel``) against its twin at the
+    bf16 tolerance; the LSE at fp32's. Rows that see no key output exactly
+    0 with the mask value as LSE; one launch, under the branch's name."""
+    g = torch.Generator().manual_seed(41)
+    q = torch.randn(b, h, sq, d, generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(b, hkv, sk, d, generator=g).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    seg = None
+    if segments:
+        lengths = torch.tensor([sq, max(1, sq - 37)])[:b]
+        seg = (torch.arange(sq)[None, :] < lengths[:, None]).int().to(cuda)
+    masking = Masking(causal=causal, window=window, causal_offset=off,
+                      segment_ids=seg, kv_segment_ids=seg, dropout_rate=rate,
+                      dropout_seed=13)
+    bt = (None if bias is None else
+          _bias_for(bias, b, h, sq, sk, g).to(cuda, torch.bfloat16))
+    scale = d ** -0.5
+    before = dict(_build.launches)
+    o, lse = flash_fwd(q, k, v, scale=scale, masking=masking, bias=bt)
+    torch.cuda.synchronize()
+    name = launch_name("flash_fwd", masking, bt, sq, sk)
+    assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 1
+    ro, rlse = flash_attention_reference(q, k, v, scale=scale,
+                                         masking=masking, bias=bt)
+    _close(o, ro, torch.bfloat16)
+    _close(lse, rlse, torch.float32)
+    dead = ~masking.visible(sq, sk, cuda).expand(b, 1, sq, sk).any(dim=-1)
+    dead = dead.expand(b, h, sq)
+    assert (o[dead] == 0).all()
+    assert (lse[dead] == DEFAULT_MASK_VALUE).all()
+    if off == -1024:
+        assert dead[:, :, :1024].all() and not dead[:, :, 1024:].any()
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_bf16_flash_fwd_unaligned_rows_take_element_loads(cuda, d):
+    """Operands whose rows are not whole 16-byte chunks (a storage offset of
+    one element; d = 80 rows start 16-byte aligned only without it) give
+    the twin's result through the element loads, bit for bit the same as
+    aligned copies of the same values."""
+    g = torch.Generator().manual_seed(42)
+    h, s = 4, 130
+    flat = torch.randn(3 * h * s * d + 1, generator=g).to(cuda,
+                                                          torch.bfloat16)
+    q, k, v = (flat[1 + i * h * s * d:1 + (i + 1) * h * s * d]
+               .view(1, h, s, d) for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    o, lse = flash_attention_with_lse(q, k, v, causal=True)
+    ro, rlse = flash_attention_reference(q, k, v, scale=d ** -0.5)
+    _close(o, ro, torch.bfloat16)
+    _close(lse, rlse, torch.float32)
+    ao, alse = flash_attention_with_lse(*(t.clone() for t in (q, k, v)),
+                                        causal=True)
+    assert torch.equal(ao, o) and torch.equal(alse, lse)
+
+
+@pytest.mark.parametrize("dtype,symbol", [
+    (torch.bfloat16, "flash_fwd_mma_kernel"),
+    (torch.float32, "flash_fwd_kernel<float>")])
+def test_flash_fwd_routes_by_dtype(cuda, dtype, symbol):
+    """A bf16 forward runs the tensor-core kernel and nothing else on the
+    card (no library attention, no GEMM); an fp32 one the CUDA-core
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(43)
+    q, k, v = (torch.randn(1, 4, 256, 64, generator=g).to(cuda, dtype)
+               for _ in range(3))
+    flash_attention_with_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention_with_lse(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")]
+    kernels = [n for n in names if "flash_fwd" in n]
+    assert len(kernels) == 1 and symbol in kernels[0], names
+    assert not [n for n in names if "flash_fwd" not in n
+                and any(w in n.lower() for w in ("gemm", "attention",
+                                                 "fmha", "sm90", "cutlass"))]
