@@ -72,7 +72,6 @@
 // A broadcast bias, T5's (1, H, S, S) relative-position table, is never
 // expanded in memory in either kernel.
 
-#include "attention_common.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -100,46 +99,6 @@ constexpr int kMinBlocks = kQInRegs<D> ? 2 : 3;
 template <int D>
 constexpr int mma_smem_bytes() {
   return (kBlockM + 4 * kBlockN) * D * static_cast<int>(sizeof(bf16));
-}
-
-// Scale, bias and mask the warp's 16 x 64 score tile in place (fp32
-// accumulators of QK^T in; scores, -inf where hidden, out). kFull: every
-// pair is visible (AttnMask::tile_visible), so no per-element test.
-template <bool kFull>
-__device__ __forceinline__ void score_tile(float (&s)[kNTiles][4], const AttnMask& mask,
-                                           int b, int h, int sq, int sk, int k0, int row0,
-                                           int seg0, int seg1, float scale, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + 8 * half;
-      const int key = k0 + nt * 8 + mma_tile::frag_col(lane, 0);
-      bool in0 = true, in1 = true;
-      if (!kFull) {
-        const bool row_in = row < sq;
-        in0 = row_in && key < sk && mask.in_band(row, key);
-        in1 = row_in && key + 1 < sk && mask.in_band(row, key + 1);
-        if (mask.q_seg != nullptr) {
-          const int seg = half ? seg1 : seg0;
-          const int* kv = mask.kv_seg + (long)b * sk;
-          in0 = in0 && kv[key] == seg;
-          in1 = in1 && kv[key + 1] == seg;
-        }
-      }
-      float& x0 = s[nt][2 * half];
-      float& x1 = s[nt][2 * half + 1];
-      x0 = __fmul_rn(x0, scale);
-      x1 = __fmul_rn(x1, scale);
-      if (mask.bias != nullptr) {  // adding 0 would round nothing
-        const float2 bias = mask.bias_pair(b, h, row, key, in0, in1);
-        x0 = __fadd_rn(x0, bias.x);
-        x1 = __fadd_rn(x1, bias.y);
-      }
-      if (!in0) x0 = -INFINITY;
-      if (!in1) x1 = -INFINITY;
-    }
-  }
 }
 
 template <int D>
@@ -312,10 +271,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kc = 0; kc < kBlockN / 16; ++kc) {
         uint32_t hi[4], lo[4];
-        split_bf16(s[2 * kc][0], s[2 * kc][1], hi[0], lo[0]);
-        split_bf16(s[2 * kc][2], s[2 * kc][3], hi[1], lo[1]);
-        split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], hi[2], lo[2]);
-        split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], hi[3], lo[3]);
+        split_a_frag(s[2 * kc], s[2 * kc + 1], hi, lo);
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t vf[4];

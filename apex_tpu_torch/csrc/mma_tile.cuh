@@ -1,7 +1,8 @@
 // Tensor-core tile helpers for the bf16 attention kernels: the m16n8k16
 // bf16 mma.sync with fp32 accumulators, ldmatrix fragments, 16-byte
-// cp.async copies into XOR-swizzled shared tiles, and where each element
-// of a fragment sits.
+// cp.async copies into XOR-swizzled shared tiles, where each element of a
+// fragment sits, and the scale, bias and masks applied to a score tile's
+// accumulator fragments.
 //
 // A shared tile holds `rows` rows of D bf16 values (D a multiple of 64).
 // Each row is D / 8 chunks of 16 bytes; logical chunk c of row r sits at
@@ -20,6 +21,8 @@
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "attention_common.cuh"
 
 namespace mma_tile {
 
@@ -48,6 +51,14 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (a row's lse,
+// delta or segment id); src_bytes 0 writes a zero and reads nothing
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
 // wait until at most N committed groups of this thread are in flight
@@ -101,6 +112,17 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
+// The A fragments of the 16 x 16 block made of accumulator n-tiles x0 (its
+// columns 0-7) and x1 (8-15), each value as two bf16 parts (split_bf16):
+// an fp32 tile fed to a second product as A costs two products, hi and lo
+__device__ __forceinline__ void split_a_frag(const float (&x0)[4], const float (&x1)[4],
+                                             uint32_t hi[4], uint32_t lo[4]) {
+  split_bf16(x0[0], x0[1], hi[0], lo[0]);
+  split_bf16(x0[2], x0[3], hi[1], lo[1]);
+  split_bf16(x1[0], x1[1], hi[2], lo[2]);
+  split_bf16(x1[2], x1[3], hi[3], lo[3]);
+}
+
 // Copy rows [0, rows) of a [*, d] bf16 matrix (row stride d) into a
 // swizzled tile of kRows x D; rows >= `rows` and columns >= d are zero.
 // `vec`: d % 8 == 0 and src 16-byte aligned, so each chunk is one
@@ -126,6 +148,49 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* tile, const __nv_
         const int col = c * 8 + e;
         dst[e] = (r < rows && col < d) ? src[(long)r * d + col] : __float2bfloat16(0.f);
       }
+    }
+  }
+}
+
+// Scale, bias and mask a warp's 16 x (8 N) score tile in place, rows x
+// keys (fp32 accumulators of Q K^T in; scores, -inf where hidden, out):
+// this thread's rows are row0 and row0 + 8 (segment ids seg0, seg1), its
+// keys k0 + nt * 8 + frag_col. Each score is the reference's fp32 scale *
+// (q . k) + bias, each step rounded once. kFull: every pair is visible
+// (AttnMask::tile_visible), so no per-element test.
+template <bool kFull, int N>
+__device__ __forceinline__ void score_tile(float (&s)[N][4], const AttnMask& mask, int b, int h,
+                                           int sq, int sk, int k0, int row0, int seg0, int seg1,
+                                           float scale, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < N; ++nt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      const int key = k0 + nt * 8 + frag_col(lane, 0);
+      bool in0 = true, in1 = true;
+      if (!kFull) {
+        const bool row_in = row < sq;
+        in0 = row_in && key < sk && mask.in_band(row, key);
+        in1 = row_in && key + 1 < sk && mask.in_band(row, key + 1);
+        if (mask.q_seg != nullptr) {
+          const int seg = half ? seg1 : seg0;
+          const int* kv = mask.kv_seg + (long)b * sk;
+          in0 = in0 && kv[key] == seg;
+          in1 = in1 && kv[key + 1] == seg;
+        }
+      }
+      float& x0 = s[nt][2 * half];
+      float& x1 = s[nt][2 * half + 1];
+      x0 = __fmul_rn(x0, scale);
+      x1 = __fmul_rn(x1, scale);
+      if (mask.bias != nullptr) {  // adding 0 would round nothing
+        const float2 bias = mask.bias_pair(b, h, row, key, in0, in1);
+        x0 = __fadd_rn(x0, bias.x);
+        x1 = __fadd_rn(x1, bias.y);
+      }
+      if (!in0) x0 = -INFINITY;
+      if (!in1) x1 = -INFINITY;
     }
   }
 }

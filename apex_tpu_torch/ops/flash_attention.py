@@ -55,9 +55,11 @@ reference's traced offset (an SMEM scalar that runs its grid unbanded)
 has no separate branch here.
 
 A tensor on the CPU takes the twins; a CUDA tensor always takes the kernels.
-On the card the forward routes by dtype: bf16 runs on the tensor cores
-(``flash_fwd_mma_kernel``), fp32 on the CUDA cores (``flash_fwd_kernel``),
-both under the same launch names.
+On the card each kernel routes by dtype: bf16 runs on the tensor cores
+(``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
+``flash_bwd_dkdv_mma_kernel``), fp32 on the CUDA cores
+(``flash_fwd_kernel``, ``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``),
+each under the same launch names.
 """
 
 from __future__ import annotations

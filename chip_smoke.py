@@ -676,10 +676,11 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_bwd_dq_window_ring": "flash_bwd_dq_kernel",
                   "flash_bwd_dkdv_ring": "flash_bwd_dkdv_kernel",
                   "flash_bwd_dkdv_window_ring": "flash_bwd_dkdv_kernel"}
-#: every flash forward branch in bf16 runs the tensor-core kernel (fp32
-#: keeps ``flash_fwd_kernel`` above)
-BF16_SYMBOLS = {name: "flash_fwd_mma_kernel" for name in KERNEL_SYMBOLS
-                if name.startswith("flash_fwd")}
+#: every flash branch in bf16 runs a tensor-core kernel (fp32 keeps the
+#: ``flash_*_kernel`` symbols above)
+BF16_SYMBOLS = {name: symbol.replace("_kernel", "_mma_kernel")
+                for name, symbol in KERNEL_SYMBOLS.items()
+                if name.startswith("flash_")}
 
 
 def kernel_symbol(name: str, dtype: str) -> str:
@@ -703,7 +704,7 @@ def ptxas_spill_bytes() -> dict:
 def ptxas_report() -> dict:
     """``{kernel: (registers per thread, spill bytes)}`` of each built
     kernel (``<bf16>`` marks the bf16 instantiation, ``<d64>``/``<d128>``
-    the head-dim instances of the tensor-core flash forward), from the
+    the head-dim instances of the tensor-core flash kernels), from the
     ptxas reports the build keeps beside each library."""
     import re
 
@@ -711,7 +712,8 @@ def ptxas_report() -> dict:
 
     names = ("layer_norm_fwd_kernel", "layer_norm_bwd_dx_kernel",
              "layer_norm_bwd_dw_kernel", "flash_fwd_kernel",
-             "flash_fwd_mma_kernel",
+             "flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+             "flash_bwd_dkdv_mma_kernel",
              "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
              "paged_decode_kernel", "adam_kernel", "xentropy_fwd_kernel",
              "xentropy_bwd_kernel", "stats_rows_kernel",
@@ -753,7 +755,7 @@ def ptxas_report() -> dict:
                 fp8 = "<e4m3>" if ("fp8_e4m3" in entry or (
                     "dequant_matmul_kernel" in entry and "Li1E" in entry)) \
                     else ""
-                # the head-dim instances of the tensor-core flash forward
+                # the head-dim instances of the tensor-core flash kernels
                 dim = re.search(r"mma_kernelILi(\d+)E", entry)
                 dim = f"<d{dim.group(1)}>" if dim else ""
                 regs[name + bf16 + fp8 + rms + dim] = (int(m.group(1)),
@@ -1152,8 +1154,8 @@ def check_flash_bwd(gen, dev):
         # the library yardstick computes dq, dk and dv in one backward call
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
         ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        library_ms = time_ms(partial(torch.autograd.grad, ol, (ql, kl, vl),
-                                     do, retain_graph=True))
+        library_ms = queued_ms(partial(torch.autograd.grad, ol, (ql, kl, vl),
+                                       do, retain_graph=True))
         elt = q.element_size()
         pairs = b * h * s * (s + 1) // 2      # visible (query, key) pairs
         tile = b * h * s * d * elt
@@ -1165,10 +1167,12 @@ def check_flash_bwd(gen, dev):
                  fa.flash_bwd_dkdv_reference, 2, 8 * pairs * d)):
             bms, by = bound_ms(inputs + n_out * tile, flops, dn)
             kernel = partial(fn, *args, scale=scale)
+            ms = queued_ms(kernel)
             out.append((dict(
                 name=name, dtype=dn, shape=[b, h, s, d], max_abs_err=err,
-                out_absmax=absmax[name], ms=time_ms(kernel),
-                plain_ms=time_ms(partial(plain, *args, scale=scale)),
+                out_absmax=absmax[name], ms=ms,
+                tflops=achieved_tflops(flops, ms),
+                plain_ms=queued_ms(partial(plain, *args, scale=scale)),
                 library_ms=library_ms,
                 library="backward of F.scaled_dot_product_attention("
                         "is_causal=True): dq, dk and dv together",
@@ -1321,8 +1325,7 @@ def check_flash_bert(gen, dev):
             ms = time_ms(kernel)
             out.append((dict(
                 name=name, **common, max_abs_err=err, ms=ms,
-                **({"tflops": achieved_tflops(flops, ms)}
-                   if name == "flash_fwd" else {}),
+                tflops=achieved_tflops(flops, ms),
                 plain_ms=time_ms(partial(plain, *call, **kw)),
                 library_ms=lib, library=lib_name, bound_ms=bms,
                 bound_by=by), kernel))
@@ -2107,12 +2110,13 @@ def check_flash_bwd_window(gen, dev):
                      8 * pairs * d)):
                 bms, by = bound_ms(inputs + out_bytes, flops, dn)
                 kernel = partial(fn, *args, **kw)
+                ms = queued_ms(kernel, BIG_ITERS)
                 out.append((dict(
                     name=name, dtype=dn, shape=[1, h, s, d], kv_heads=hkv,
                     window=w, path="mistral_train", max_abs_err=err,
                     out_absmax=absmax[name], out_rms=out_rms[name],
-                    visible_pairs=pairs,
-                    ms=queued_ms(kernel, BIG_ITERS),
+                    visible_pairs=pairs, ms=ms,
+                    tflops=achieved_tflops(flops, ms),
                     plain_ms=queued_ms(partial(plain, *args, **kw),
                                        BIG_ITERS),
                     library_ms=library_ms,
@@ -2270,8 +2274,7 @@ def check_flash_bias(gen, dev):
                 out.append((dict(
                     name=name, dtype=dn, **shape_fields,
                     max_abs_err=errs[name], out_rms=out_rms[name], ms=ms,
-                    **({"tflops": achieved_tflops(flops, ms)}
-                       if name == fwd_name else {}),
+                    tflops=achieved_tflops(flops, ms),
                     plain_ms=queued_ms(partial(plain, *call, **kw), iters),
                     library_ms=library[name],
                     library="scaled_dot_product_attention, "
@@ -5189,9 +5192,9 @@ def check_flash_ring(gen, dev):
     counts the visible pairs of the offset band; the library call is
     ``scaled_dot_product_attention`` with the offset band as a boolean
     ``attn_mask`` and K/V expanded, and its backward (dq, dk and dv
-    together); the dropout rows' forward is timed against
-    ``scaled_dot_product_attention`` with ``dropout_p`` (a yardstick only:
-    its dropout draws other bits), their backward against none."""
+    together); the dropout rows are timed against
+    ``scaled_dot_product_attention`` with ``dropout_p`` and K/V expanded,
+    and its backward (a yardstick only: its dropout draws other bits)."""
     import torch
     import torch.nn.functional as F
 
@@ -5261,11 +5264,20 @@ def check_flash_ring(gen, dev):
                 library[names[0]] = queued_ms(partial(
                     F.scaled_dot_product_attention, q, ke, ve,
                     is_causal=causal, dropout_p=rate), BIG_ITERS)
-                del ke, ve
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                ol = F.scaled_dot_product_attention(
+                    ql, kl.repeat_interleave(h // hkv, dim=1),
+                    vl.repeat_interleave(h // hkv, dim=1), is_causal=causal,
+                    dropout_p=rate)
+                library[names[1]] = library[names[2]] = queued_ms(partial(
+                    torch.autograd.grad, ol, (ql, kl, vl), do,
+                    retain_graph=True), BIG_ITERS)
+                del ol, ql, kl, vl, ke, ve
             lib_name = ("scaled_dot_product_attention, the offset band as "
                         "a boolean attn_mask, K/V expanded" if rate == 0.0
                         else "scaled_dot_product_attention(is_causal, "
-                        "dropout_p), K/V expanded")
+                        "dropout_p), K/V expanded, a yardstick only: its "
+                        "dropout draws other bits")
             elt = q.element_size()
             pairs = b * h * offset_pairs(s, s, causal, window,
                                          0 if off is None else off)
@@ -5292,8 +5304,7 @@ def check_flash_ring(gen, dev):
                                                                      col0],
                     path="ring", max_abs_err=errs[name],
                     out_rms=out_rms[name], visible_pairs=pairs, ms=ms,
-                    **({"tflops": achieved_tflops(flops, ms)}
-                       if name == names[0] else {}),
+                    tflops=achieved_tflops(flops, ms),
                     plain_ms=queued_ms(partial(plain, *call, **kw),
                                        BIG_ITERS),
                     library_ms=library[name],

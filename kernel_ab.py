@@ -8,8 +8,8 @@ functions: the same shapes, seeds, tolerances and timings for both trees)
 through the ``apex_tpu_torch`` of each tree: one process per turn, in the
 order A, B, B, A, each building the tree's kernels into that tree's
 ``apex_tpu_torch/_build/``, warming the card and running the checks, which
-hold every kernel against its twin and time it (default the five flash
-checks: every forward branch, and the backward kernels beside them). Prints
+hold every kernel against its twin and time it (default the seven flash
+checks: every forward and backward branch). Prints
 the card's name and power limit, one JSON line per turn with its rows, and
 a last JSON line with each row's ms in the four turns and B's time over
 A's (the mean of B's two turns over the mean of A's). A check that fails (a kernel off
@@ -26,8 +26,9 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ORDER = "ABBA"
-CHECKS = ("check_flash", "check_flash_bert", "check_flash_window",
-          "check_flash_bias", "check_flash_ring")
+CHECKS = ("check_flash", "check_flash_bwd", "check_flash_bert",
+          "check_flash_window", "check_flash_bwd_window", "check_flash_bias",
+          "check_flash_ring")
 ROW_KEYS = ("name", "dtype", "shape", "kind", "use", "path", "sk", "window",
             "causal_offset")
 
@@ -60,6 +61,7 @@ def one(tree: str, checks) -> dict:
     return dict(tree=tree, build_s=build_s, failed=failed,
                 package=os.path.dirname(_build.__file__),
                 registers=cs.ptxas_registers(),
+                spill_bytes=cs.ptxas_spill_bytes(),
                 rows=[dict({k: r.get(k) for k in ROW_KEYS},
                            **{k: r[k] for k in keep if k in r})
                       for r in rows])

@@ -1451,3 +1451,147 @@ def test_flash_fwd_routes_by_dtype(cuda, dtype, symbol):
     assert not [n for n in names if "flash_fwd" not in n
                 and any(w in n.lower() for w in ("gemm", "attention",
                                                  "fmha", "sm90", "cutlass"))]
+
+
+# --- the bf16 backward on the tensor cores -----------------------------------
+
+#: (b, h, hkv, sq, sk, d, causal, window, offset, segments, rate, bias kind,
+#: dlse): Sq and Sk off the kernels' 64-row and 64-key tiles and Sq != Sk
+#: (rows 0..59 of the causal 100-over-40 case see nothing), head dims 16-64
+#: on the 64 instance and 80 and 128 on the 128 one, GQA ratios 1, 2 and 4,
+#: every branch, with and without an LSE cotangent
+MMA_BWD_CASES = [
+    (2, 4, 4, 33, 65, 32, True, None, None, False, 0.0, None, False),
+    (2, 4, 2, 65, 33, 80, False, None, None, False, 0.0, None, True),
+    (1, 4, 4, 100, 40, 64, True, None, None, False, 0.0, None, False),
+    (1, 4, 4, 1, 300, 64, False, None, None, False, 0.0, None, True),
+    (1, 4, 4, 130, 70, 16, False, None, None, False, 0.0, None, False),
+    (1, 4, 4, 200, 200, 128, True, None, None, False, 0.0, None, False),
+    (1, 4, 4, 300, 300, 64, True, None, None, False, 0.0, None, True),
+    (1, 8, 2, 200, 200, 128, True, None, None, False, 0.0, None, False),
+    (2, 4, 2, 200, 200, 64, False, None, None, True, 0.1, None, False),
+    (2, 4, 4, 65, 65, 128, True, None, None, True, 0.1, None, True),
+    (1, 4, 2, 1100, 1100, 128, True, 100, None, False, 0.0, None, True),
+    (1, 4, 4, 200, 200, 80, True, 33, None, False, 0.1, None, False),
+    (2, 4, 4, 200, 200, 64, False, None, None, False, 0.0, "table", False),
+    (2, 4, 4, 65, 200, 64, True, None, None, False, 0.0, "full", False),
+    (2, 4, 4, 33, 200, 32, False, None, None, False, 0.0, "padding", False),
+    (1, 4, 4, 200, 200, 64, True, 40, None, False, 0.0, "table", False),
+    (1, 4, 2, 4096, 4096, 128, True, 4096, 4096, False, 0.0, None, True),
+    (1, 4, 2, 4096, 4096, 128, True, 4096, 2048, False, 0.0, None, True),
+    (1, 4, 2, 4096, 4096, 128, True, 4096, -1024, False, 0.0, None, True),
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window,off,segments,rate,"
+                         "bias,with_dlse", MMA_BWD_CASES)
+def test_bf16_flash_bwd_on_the_tensor_cores_matches_twin(
+        cuda, b, h, hkv, sq, sk, d, causal, window, off, segments, rate,
+        bias, with_dlse):
+    """The bf16 backward (``flash_bwd_dq_mma_kernel``,
+    ``flash_bwd_dkdv_mma_kernel``) against the twins at the bf16 tolerance:
+    one launch each, under the branch's names; rows that see no key give
+    dq exactly 0 and add nothing to dk and dv (their q and do changed, dk
+    and dv stay the same)."""
+    g = torch.Generator().manual_seed(44)
+    q, do = (torch.randn(b, h, sq, d, generator=g).to(cuda, torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, sk, d, generator=g).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    seg = None
+    if segments:
+        lengths = torch.tensor([sq, max(1, sq - 37)])[:b]
+        seg = (torch.arange(sq)[None, :] < lengths[:, None]).int().to(cuda)
+    masking = Masking(causal=causal, window=window, causal_offset=off,
+                      segment_ids=seg, kv_segment_ids=seg, dropout_rate=rate,
+                      dropout_seed=13)
+    bt = (None if bias is None else
+          _bias_for(bias, b, h, sq, sk, g).to(cuda, torch.bfloat16))
+    dlse = (torch.randn(b, h, sq, generator=g).to(cuda) if with_dlse
+            else None)
+    kw = dict(scale=d ** -0.5, dlse=dlse, masking=masking, bias=bt)
+    o, lse = flash_attention_reference(q, k, v, scale=kw["scale"],
+                                       masking=masking, bias=bt)
+    before = dict(_build.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        name = launch_name(kernel, masking, bt, sq, sk)
+        assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 2
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    for a, r in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        _close(a, r, torch.bfloat16)
+    dead = ~masking.visible(sq, sk, cuda).expand(b, 1, sq, sk).any(dim=-1)
+    dead = dead.expand(b, h, sq)
+    if off == -1024:
+        assert dead[:, :, :1024].all() and not dead[:, :, 1024:].any()
+    if (sq, sk, causal) == (100, 40, True):
+        assert dead[:, :, :60].all() and not dead[:, :, 60:].any()
+    if dead.any():
+        assert (got[0][dead] == 0).all()
+        noise = torch.randn(b, h, sq, d, generator=g).to(cuda,
+                                                         torch.bfloat16)
+        q2, do2 = (torch.where(dead[..., None], t + noise, t)
+                   for t in (q, do))
+        again = flash_attention_bwd(q2, k, v, o, lse, do2, **kw)
+        assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_bf16_flash_bwd_unaligned_rows_take_element_loads(cuda, d):
+    """q, k, v and do whose rows are not whole 16-byte chunks (a storage
+    offset of one element) give the twins' dq, dk and dv through the
+    element loads and stores, bit for bit those of aligned copies."""
+    g = torch.Generator().manual_seed(45)
+    h, hkv, s = 4, 2, 130
+    n = h * s * d
+    flat = torch.randn(2 * n + 2 * hkv * s * d + 1, generator=g).to(
+        cuda, torch.bfloat16)
+    q, do = (flat[1 + i * n:1 + (i + 1) * n].view(1, h, s, d)
+             for i in range(2))
+    kv0 = 1 + 2 * n
+    k, v = (flat[kv0 + i * hkv * s * d:kv0 + (i + 1) * hkv * s * d]
+            .view(1, hkv, s, d) for i in range(2))
+    assert q.data_ptr() % 16 != 0 and k.data_ptr() % 16 != 0
+    scale = d ** -0.5
+    o, lse = flash_attention_reference(q, k, v, scale=scale)
+    got = flash_attention_bwd(q, k, v, o, lse, do, scale=scale)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, scale=scale)
+    for a, r in zip(got, want):
+        _close(a, r, torch.bfloat16)
+    aligned = flash_attention_bwd(*(t.clone() for t in (q, k, v, o, lse,
+                                                         do)), scale=scale)
+    for a, r in zip(got, aligned):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("dtype,symbols", [
+    (torch.bfloat16, ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")),
+    (torch.float32, ("flash_bwd_dq_kernel<float>",
+                     "flash_bwd_dkdv_kernel<float>"))])
+def test_flash_bwd_routes_by_dtype(cuda, dtype, symbols):
+    """A bf16 backward runs the two tensor-core kernels and no library
+    attention or GEMM on the card; an fp32 one the CUDA-core kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(46)
+    q, k, v, do = (torch.randn(1, 4, 256, 64, generator=g).to(cuda, dtype)
+                   for _ in range(4))
+    o, lse = flash_attention_with_lse(q, k, v, causal=True)
+    kw = dict(scale=0.125, masking=Masking(causal=True))
+    flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")]
+    kernels = [n for n in names if "flash_bwd" in n]
+    assert len(kernels) == 2, names
+    for symbol in symbols:
+        assert sum(symbol in n for n in kernels) == 1, names
+    assert not [n for n in names if "flash_bwd" not in n
+                and any(w in n.lower() for w in ("gemm", "attention",
+                                                 "fmha", "sm90", "cutlass"))]
