@@ -18,11 +18,13 @@ half-to-even; values are clipped, then cast.
 dequantization inside the kernel: int8 or fp8 e4m3 weights ``(out, in)``
 with per-channel fp32 scales ``(out,)`` (kernel ``dequant_matmul``), or
 int4 nibbles packed group-locally ``(out, in // 2)`` uint8 with fp32 scales
-``(in // group_size, out)`` (kernel ``dequant_matmul_w4``). Inference only:
-a call under autograd on an ``x`` that requires grad raises on either
-device. A tensor on the CPU takes the twin; a CUDA tensor always takes the
-kernel. Not ported: the W8A8 ``int8_matmul`` (ROADMAP), which no model
-calls and which is no Pallas kernel in the reference.
+``(in // group_size, out)`` (kernel ``dequant_matmul_w4``). A bf16 ``x``
+runs the kernels' tensor-core form, whose sum order (``mma_k_split``) the
+shape alone fixes, so a row's value does not depend on the rows beside
+it. Inference only: a call under autograd on an ``x`` that requires grad
+raises on either device. A tensor on the CPU takes the twin; a CUDA tensor
+always takes the kernel. Not ported: the W8A8 ``int8_matmul`` (ROADMAP),
+which no model calls and which is no Pallas kernel in the reference.
 """
 
 from __future__ import annotations
@@ -257,6 +259,40 @@ def _weight_dims(qw, scale):
     return ("int8" if qw.dtype == torch.int8 else "fp8"), out, n_in, 0
 
 
+#: the bf16 tensor-core kernels' tiling (``csrc/dequant_matmul.cu``): a
+#: pipeline stage holds 256 K values (4 warps x 64), a block owns 32 output
+#: channels and 32 rows of x, and the blocks of a K split form one cluster
+#: of at most 8
+MMA_STAGE_K = 256
+MMA_CHANNELS = 32
+MMA_TOKENS = 32
+MMA_MAX_PARTS = 8
+#: the blocks a decode step's one token tile should give the card (the
+#: H100's SMs), which sets how far K is split across blocks; a grid that
+#: has as many (channel tile, token tile) blocks without the split walks
+#: the parts in turn in each block instead of in a cluster of blocks (the
+#: same sums in the same order, so that choice, unlike the split, may
+#: follow the rows)
+MMA_FILL_BLOCKS = 132
+
+
+def mma_k_split(n_in: int, n_out: int) -> tuple:
+    """``(parts, stages per part)``: how the bf16 kernels split K across
+    blocks. Enough parts that ``ceil(n_out / 32) * parts`` blocks reach
+    ``MMA_FILL_BLOCKS``, at most one a stage and ``MMA_MAX_PARTS``, and of
+    those the fewest that divide the stages evenly, where one does. A
+    function of the shape alone, never of the number of rows, so a row's
+    sum runs in one order at every batch size."""
+    stages = -(-n_in // MMA_STAGE_K)
+    tiles = -(-n_out // MMA_CHANNELS)
+    most = min(stages, MMA_MAX_PARTS)
+    parts = min(most, max(1, -(-MMA_FILL_BLOCKS // tiles)))
+    parts = next((p for p in range(parts, most + 1) if stages % p == 0),
+                 parts)
+    per = -(-stages // parts)
+    return -(-stages // per), per
+
+
 def _dequant_matmul_kernel(x2, qw, scale, kind, out, n_in, gs):
     m = x2.shape[0]
     if kind == "int4":
@@ -272,24 +308,31 @@ def _dequant_matmul_kernel(x2, qw, scale, kind, out, n_in, gs):
         raise ValueError("quantized weights must be 8-byte aligned")
     sc = scale.float().contiguous()
     _build.check_cuda(x2, qw, sc)
+    dtype = _build.dtype_code(x2)
     y = torch.empty((m, out), dtype=x2.dtype, device=x2.device)
     if m == 0:
         return y
+    parts, per, seq = 1, 1, 1
+    if x2.dtype == torch.bfloat16:
+        if x2.data_ptr() % 16:             # cp.async takes 16-byte rows
+            x2 = x2.clone()
+        parts, per = mma_k_split(n_in, out)
+        tiles = -(-out // MMA_CHANNELS) * -(-m // MMA_TOKENS)
+        seq = int(tiles >= MMA_FILL_BLOCKS)
     P, I = _build.P, _build.I
     if kind == "int4":
         _build.launch(
             "dequant_matmul_w4", "apex_dequant_matmul_w4",
-            (P, P, P, P, I, I, I, I, I, P),
+            (P, P, P, P, I, I, I, I, I, I, I, I, P),
             x2.data_ptr(), qw.data_ptr(), sc.data_ptr(), y.data_ptr(), m,
-            n_in, out, gs, _build.dtype_code(x2), _build.stream_of(x2))
+            n_in, out, gs, dtype, parts, per, seq, _build.stream_of(x2))
     else:
         _build.launch(
             "dequant_matmul", "apex_dequant_matmul",
-            (P, P, P, P, I, I, I, I, I, P),
+            (P, P, P, P, I, I, I, I, I, I, I, I, P),
             x2.data_ptr(), qw.data_ptr(), sc.data_ptr(), y.data_ptr(), m,
-            n_in, out, _build.dtype_code(x2),
-            _build.dtype_code(qw, _build.NARROW_DTYPES),
-            _build.stream_of(x2))
+            n_in, out, dtype, _build.dtype_code(qw, _build.NARROW_DTYPES),
+            parts, per, seq, _build.stream_of(x2))
     return y
 
 

@@ -61,18 +61,19 @@ each,
    that must leave every buffer bit-identical. The quantized serving rows:
    the dequant-matmul kernels (int8 and fp8 per channel; int4 at group
    128) at GPT-2-small's four linear shapes, 8 and 128 rows, x in fp32 and
-   bf16, timed over copies of the weight that together exceed the L2
-   cache (a decode step streams 48 weights), against cuBLAS on the
-   dequantized weight; a row alone must equal the same row in the batch,
+   bf16, timed over copies of the weight that together exceed the L2 cache
+   (a decode step streams 48 weights), against cuBLAS on the dequantized
+   weight, with their achieved TFLOP/s and TB/s (bf16 x runs the
+   tensor-core kernels); a row alone must equal the same row in the batch,
    bit for bit. The quantized paged kernel with int8 and fp8 pools at the
    paged row's shape, beside the unquantized kernel's time there. The
    Mistral-7B rows, timed as the quantized ones: the RMS branch of the
    LayerNorm forward at width 4096 over a decode step's 8 rows and 4224
-   prefill rows (library ``F.rms_norm``); the windowed flash forward at
-   1 x 32 x S x 128 over 8 kv heads, window 4096, S = 4224 and 6016
-   (library ``scaled_dot_product_attention`` with the band as a boolean
-   mask); the windowed paged decode, unquantized and over int8 and fp8
-   pools, at 8 slots, 32 heads over 8 kv heads, d = 128, page 16, lengths
+   prefill rows (library ``F.rms_norm``); the windowed flash forward at 1
+   x 32 x S x 128 over 8 kv heads, window 4096, S = 4224 and 6016 (library
+   ``scaled_dot_product_attention`` with the band as a boolean mask); the
+   windowed paged decode, unquantized and over int8 and fp8 pools, at 8
+   slots, 32 heads over 8 kv heads, d = 128, page 16, lengths
    spread over 0..6100 with the entries below each band nulled. The
    Mistral-7B training rows, timed the same way: the RMS branch of the
    LayerNorm backward at width 4096 over a training step's 8192 rows and a
@@ -676,11 +677,12 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_bwd_dq_window_ring": "flash_bwd_dq_kernel",
                   "flash_bwd_dkdv_ring": "flash_bwd_dkdv_kernel",
                   "flash_bwd_dkdv_window_ring": "flash_bwd_dkdv_kernel"}
-#: every flash branch in bf16 runs a tensor-core kernel (fp32 keeps the
-#: ``flash_*_kernel`` symbols above)
+#: every flash branch and both dequant kernels in bf16 run a tensor-core
+#: kernel (fp32 keeps the ``flash_*_kernel`` and ``dequant_matmul*_kernel``
+#: symbols above)
 BF16_SYMBOLS = {name: symbol.replace("_kernel", "_mma_kernel")
                 for name, symbol in KERNEL_SYMBOLS.items()
-                if name.startswith("flash_")}
+                if name.startswith(("flash_", "dequant_"))}
 
 
 def kernel_symbol(name: str, dtype: str) -> str:
@@ -719,7 +721,8 @@ def ptxas_report() -> dict:
              "xentropy_bwd_kernel", "stats_rows_kernel",
              "segment_reduce_kernel", "lamb_phase1_kernel",
              "lamb_phase2_kernel", "dequant_matmul_kernel",
-             "dequant_matmul_w4_kernel", "paged_decode_quant_kernel",
+             "dequant_matmul_w4_kernel", "dequant_matmul_mma_kernel",
+             "dequant_matmul_w4_mma_kernel", "paged_decode_quant_kernel",
              "sgd_kernel", "novograd_kernel", "scale_f32_kernel",
              "scale_bf16_kernel", "scaled_softmax_fwd_kernel",
              "scaled_softmax_bwd_kernel", "group_norm_fwd_kernel",
@@ -753,8 +756,9 @@ def ptxas_report() -> dict:
                         "<from_y>" if flags.group(2) == "1" else "")
                 # the e4m3 instantiations of the quantized kernels
                 fp8 = "<e4m3>" if ("fp8_e4m3" in entry or (
-                    "dequant_matmul_kernel" in entry and "Li1E" in entry)) \
-                    else ""
+                    name in ("dequant_matmul_kernel",
+                             "dequant_matmul_mma_kernel")
+                    and "Li1E" in entry)) else ""
                 # the head-dim instances of the tensor-core flash kernels
                 dim = re.search(r"mma_kernelILi(\d+)E", entry)
                 dim = f"<d{dim.group(1)}>" if dim else ""
@@ -1542,7 +1546,8 @@ def check_dequant(gen, dev):
     prefill, x in fp32 and bf16. Kernel, twin and library are each timed
     by ``queued_ms`` over copies of their weight that exceed the L2 cache;
     the library is ``F.linear`` on the dequantized weight in x's dtype
-    (cuBLAS on the full-width weight)."""
+    (cuBLAS on the full-width weight). Each row carries the kernel's
+    achieved TFLOP/s and TB/s (the bytes of ``bound_ms`` over its time)."""
     import torch
     import torch.nn.functional as F
 
@@ -1582,14 +1587,17 @@ def check_dequant(gen, dev):
                         raise AssertionError(f"{name}: a row alone differs "
                                              f"from the same row in a batch")
                     nbytes = m * n_in * elt + wbytes + m * n_out * elt
-                    bms, by = bound_ms(nbytes, 2 * m * n_in * n_out, dn)
+                    flops = 2 * m * n_in * n_out
+                    bms, by = bound_ms(nbytes, flops, dn)
                     kernel = cycling(partial(quant.fused_dequant_matmul, x),
                                      qsets)
+                    ms = queued_ms(kernel)
                     out.append((dict(
                         name=name, kind=kind, dtype=dn, shape=[m, n_in, n_out],
                         **({"group_size": QUANT_GS} if kind == "int4" else {}),
-                        path="quant_serving", max_abs_err=err,
-                        ms=queued_ms(kernel),
+                        path="quant_serving", max_abs_err=err, ms=ms,
+                        tflops=achieved_tflops(flops, ms),
+                        tb_s=nbytes / ms / 1e9,
                         plain_ms=queued_ms(cycling(partial(
                             quant.fused_dequant_matmul_reference, x), qsets)),
                         library_ms=queued_ms(cycling(partial(F.linear, x),
@@ -3026,7 +3034,7 @@ def profile_quant(runs) -> None:
         kernels = {}
         for name in QUANT_KERNELS:
             hits = [(t, c) for k, (t, c) in acts.items()
-                    if KERNEL_SYMBOLS[name] in k]
+                    if kernel_symbol(name, "bfloat16") in k]
             kernels[name] = dict(device_ms=sum(t for t, _ in hits),
                                  launches_seen=sum(c for _, c in hits),
                                  timed_run_launches=launches[name])

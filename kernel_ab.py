@@ -57,7 +57,7 @@ def one(tree: str, checks) -> dict:
             rows += [row for row, _ in getattr(cs, check)(gen, cs.DEV)]
         except AssertionError as exc:
             failed[check] = str(exc)
-    keep = ("ms", "tflops", "max_abs_err", "bound_ms", "library_ms")
+    keep = ("ms", "tflops", "tb_s", "max_abs_err", "bound_ms", "library_ms")
     return dict(tree=tree, build_s=build_s, failed=failed,
                 package=os.path.dirname(_build.__file__),
                 registers=cs.ptxas_registers(),

@@ -438,30 +438,62 @@ def test_fused_lamb_launches_three_kernels_per_step(cuda):
 
 QUANTIZERS = {"int8": quantize_weight, "fp8": quantize_weight_fp8,
               "int4": partial(quantize_weight_int4, group_size=128),
-              "int4_gs16": partial(quantize_weight_int4, group_size=16)}
+              "int4_gs16": partial(quantize_weight_int4, group_size=16),
+              "int4_gs512": partial(quantize_weight_int4, group_size=512)}
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("kind", list(QUANTIZERS))
-@pytest.mark.parametrize("n_in,n_out", [(768, 2304), (3072, 768)])
-def test_dequant_matmul_kernels_match_twin(cuda, dtype, kind, n_in, n_out):
-    """GPT-2-small's linear shapes at decode (8 rows, 1 row) and prefill
-    (37, 128 rows); a row's value must not depend on the rows beside it."""
+def _check_dequant(cuda, dtype, kind, n_in, n_out, qw_offset=0):
+    """Decode (8 rows, 1 row), prefill (37, 128 rows) and past four token
+    tiles of the bf16 kernel (200 rows) against the twin; a row's value
+    must not depend on the rows beside it (in bf16 a row alone runs its K
+    split's parts in a cluster of blocks, a batch of 37 or 200 at most
+    shapes one block through them all). ``qw_offset``: the weight's bytes
+    start that far into their buffer (8: rows not 16-byte aligned)."""
     g = torch.Generator().manual_seed(3)
     qw, sc = QUANTIZERS[kind](torch.randn(n_out, n_in, generator=g)
                               * n_in ** -0.5)
+    if qw_offset:
+        buf = torch.empty(qw.numel() * qw.element_size() + qw_offset,
+                          dtype=torch.uint8, device=cuda)
+        qw = buf[qw_offset:].view(qw.dtype).view(qw.shape).copy_(
+            qw.to(cuda))
+        assert qw.data_ptr() % 16 == qw_offset % 16
     qw, sc = qw.to(cuda), sc.to(cuda)
     name = "dequant_matmul_w4" if kind.startswith("int4") else \
         "dequant_matmul"
-    for m in (8, 1, 37, 128):
+    for m in (8, 1, 37, 128, 200):
         x = torch.randn(m, n_in, generator=g).to(cuda, dtype)
         before = _build.launches[name]
         got = fused_dequant_matmul(x, qw, sc)
         assert _build.launches[name] == before + 1
         _close(got, fused_dequant_matmul_reference(x, qw, sc), dtype)
-        if m == 37:
-            alone = fused_dequant_matmul(x[5:6], qw, sc)
-            assert torch.equal(alone, got[5:6])
+        if m in (37, 200):
+            for i in (5, m - 1):
+                alone = fused_dequant_matmul(x[i:i + 1], qw, sc)
+                assert torch.equal(alone, got[i:i + 1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["int8", "fp8", "int4", "int4_gs16"])
+@pytest.mark.parametrize("n_in,n_out", [(768, 2304), (3072, 768),
+                                        (768, 768), (768, 3072)])
+def test_dequant_matmul_kernels_match_twin(cuda, dtype, kind, n_in, n_out):
+    """GPT-2-small's four block-linear shapes."""
+    _check_dequant(cuda, dtype, kind, n_in, n_out)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,n_in,n_out,qw_offset", [
+    ("int4_gs512", 3072, 768, 0), ("int4_gs512", 1024, 40, 0),
+    ("int8", 24, 40, 0), ("fp8", 24, 40, 0), ("int8", 520, 33, 0),
+    ("int4_gs16", 48, 40, 0), ("int8", 768, 2304, 8),
+    ("int4", 768, 2304, 8)])
+def test_dequant_matmul_edge_shapes_match_twin(cuda, dtype, kind, n_in,
+                                               n_out, qw_offset):
+    """int4 at group 512; ragged widths (in 24 or 520: rows of whole 8-byte
+    chunks only; out 33 or 40: a part of a channel tile); weights 8 bytes
+    off a 16-byte boundary."""
+    _check_dequant(cuda, dtype, kind, n_in, n_out, qw_offset)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
