@@ -14,7 +14,7 @@
 // of m = 32..1024 rows. Two pairs of kernels, routed by x's dtype:
 //
 // bf16 x, dequant_matmul_mma_kernel<KIND> (int8, e4m3) and
-// dequant_matmul_w4_mma_kernel (int4, groups 16..512): the products on the
+// dequant_matmul_w4_mma_kernel (int4, any power-of-two group): the products on the
 // tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulators). Output
 // channels are the M of the product (the weight (out, in) with K
 // contiguous is the A operand as stored), tokens the N: a decode step's 8
@@ -42,6 +42,22 @@
 // own, folded into the sum with fmaf(partial, s[g, o], sum). int8/e4m3
 // scale once, in the epilogue.
 //
+// Every shape the reference serves (apex_tpu/ops/quant.py:186-196,
+// :321-372): groups of 2, 4 and 8 take 8 / half groups in a k16 step's 8
+// bytes; they cannot share one product and keep their own scales, so the
+// step runs one product a group with the A operand's other K positions
+// zeroed (a mask per lane: lane t holds bytes 2t and 2t + 1), 2, 4 or 8
+// products where gs = 16 runs one, each partial folded with its group's
+// scale; their x is gathered value by value (the values under 8 bytes'
+// low nibbles are 8 / half runs of half). Groups of 1024 and more fold
+// per sub-tile as 64-512 do, the scale of group k / gs staged per stage
+// (a stage lies inside one group). Rows that are no whole 16- or 8-byte
+// chunks (int8/e4m3 n_in not a multiple of 8; int4 rows of gs < 16) are
+// copied one element at a time, zero past the row's end, into the same
+// swizzled tiles; the weight is never copied or padded per call. At gs 2
+// and 4 a stage's scales outgrow the int8 stage, so the int4 stage grows
+// to 28 or 36 KB.
+//
 // The sum's order is fixed by (n_in, n_out) alone, never by m: the four
 // warps' sums are added in warp order through shared memory, and where a
 // decode step's one token tile would leave SMs idle, K is split across
@@ -56,7 +72,11 @@
 // fp32 x, dequant_matmul_kernel<float, KIND> and dequant_matmul_w4_kernel
 // <float> (the serving path's greedy-identity bar rests on them): CUDA
 // cores. A block of 8 warps owns 8 rows of x and 32 output channels, 4 per
-// warp. x is staged in shared memory in K tiles; for each tile every lane
+// warp. x is staged in shared memory in K tiles of 512 weight bytes
+// (int4: the values under the bytes' low nibbles, then under their high
+// ones, so that every group size reads them alike; zero past the row's
+// end, which rows that are no whole 8-byte chunks read byte by byte), and
+// groups of 2, 4 and 8 fold 8 / half partials a chunk; for each tile every lane
 // first issues the loads of its weight chunks (8 bytes of one channel: 8
 // int8/e4m3 values, or 16 int4 values), so their latency overlaps the
 // staging, then widens them in registers and folds them against the 8
@@ -75,7 +95,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 8;                      // x rows per block
 constexpr int kChans = 4;                     // output channels per warp
 constexpr int kBlockChans = kWarps * kChans;  // output channels per block
-constexpr int kMaxTileK = 1024;               // x columns staged per tile
+constexpr int kTileBytes = 512;               // weight bytes of a row per K tile
+constexpr int kMaxTileK = 2 * kTileBytes;     // x values staged per row and tile
 
 enum WeightKind { W_INT8 = 0, W_E4M3 = 1, W_INT4 = 2 };
 
@@ -91,19 +112,53 @@ __device__ __forceinline__ float widen(uint32_t byte) {
   return static_cast<float>(v);
 }
 
-template <typename T, int KIND>
+// weight bytes b .. b + 7 of a row: one 8-byte load (vec: rows of whole
+// aligned chunks), else byte by byte, zero past the row's end
+__device__ __forceinline__ uint2 load8(const uint8_t* __restrict__ row, long b, long row_bytes,
+                                       int vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint2*>(row + b));
+  uint32_t lo = 0u, hi = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (b + i < row_bytes) {
+      const uint32_t v = __ldg(row + b + i);
+      if (i < 4) lo |= v << (8 * i);
+      else hi |= v << (8 * (i - 4));
+    }
+  }
+  return make_uint2(lo, hi);
+}
+
+// int4: the x column under byte b's low nibble (hi 0) or its high nibble,
+// for groups of 2 * half values (half = 1 << hshift)
+__device__ __forceinline__ int nibble_col(long b, int hshift, int hi) {
+  const int half = 1 << hshift;
+  return static_cast<int>(((b >> hshift) << (hshift + 1)) + (b & (half - 1))) + hi * half;
+}
+
+// kRagged: int8/e4m3 rows that are no whole 8-byte chunks, int4 groups
+// below 16 or above 1024, weights off an 8-byte boundary: bytes read one at a
+// time where a chunk would cross the row, x staged by the bytes' nibbles,
+// and int4 groups folded a group at a time. The other shapes compile
+// without these paths.
+template <typename T, int KIND, bool kRagged>
 __device__ __forceinline__ void dequant_matmul(const T* __restrict__ x,
                                                const uint8_t* __restrict__ w,
                                                const float* __restrict__ scale,
                                                T* __restrict__ y, int m, int n_in, int n_out,
-                                               int gs) {
+                                               int gs, int w_vec8) {
+  // x[r][col]: the tile's values (kRagged int4: the value under byte col's
+  // low nibble, x[r][kTileBytes + col] the one under its high nibble)
   __shared__ __align__(16) float xs[kRows][kMaxTileK];
-  constexpr int kTile = KIND == W_INT4 ? kMaxTileK : kMaxTileK / 2;
+  constexpr int kTile = KIND == W_INT4 ? kMaxTileK : kMaxTileK / 2;  // x values a tile
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m0 = blockIdx.y * kRows;
   const int rows = min(kRows, m - m0);
   const int o0 = blockIdx.x * kBlockChans + warp * kChans;
   const long row_bytes = KIND == W_INT4 ? n_in / 2 : n_in;
+  const int half = gs / 2;
+  const int hshift = KIND == W_INT4 ? __ffs(half) - 1 : 0;
+  const int n_groups = KIND == W_INT4 ? n_in / gs : 0;
 
   float acc[kRows][kChans];
 #pragma unroll
@@ -113,7 +168,8 @@ __device__ __forceinline__ void dequant_matmul(const T* __restrict__ x,
 
   for (int k0 = 0; k0 < n_in; k0 += kTile) {
     const int tk = min(kTile, n_in - k0);
-    const int chunks = (KIND == W_INT4 ? tk / 2 : tk) / 8;
+    const int tb = KIND == W_INT4 ? tk / 2 : tk;  // the tile's weight bytes of a row
+    const int chunks = kRagged ? (tb + 7) / 8 : tb / 8;
     const long byte0 = KIND == W_INT4 ? k0 / 2 : k0;
     // this tile's weight chunks, loaded before the staging so that their
     // latency overlaps it; absent chunks and channels read as 0
@@ -124,15 +180,33 @@ __device__ __forceinline__ void dequant_matmul(const T* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < kChans; ++j) {
         raw[u][j] = make_uint2(0u, 0u);
-        if (c < chunks && o0 + j < n_out)
-          raw[u][j] = __ldg(reinterpret_cast<const uint2*>(
-              w + (long)(o0 + j) * row_bytes + byte0 + 8 * c));
+        if (c < chunks && o0 + j < n_out) {
+          const uint8_t* row = w + (long)(o0 + j) * row_bytes;
+          raw[u][j] = kRagged ? load8(row, byte0 + 8 * c, row_bytes, w_vec8)
+                              : __ldg(reinterpret_cast<const uint2*>(row + byte0 + 8 * c));
+        }
       }
     }
     __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kRows * tk; i += kThreads) {
-      const int r = i / tk, col = i - r * tk;
-      xs[r][col] = r < rows ? to_f32<T>(x[(long)(m0 + r) * n_in + k0 + col]) : 0.f;
+    if constexpr (!kRagged) {
+      for (int i = threadIdx.x; i < kRows * tk; i += kThreads) {
+        const int r = i / tk, col = i - r * tk;
+        xs[r][col] = r < rows ? to_f32<T>(x[(long)(m0 + r) * n_in + k0 + col]) : 0.f;
+      }
+    } else {
+      // the tile's whole chunks, zero past the row's end
+      const int span = 8 * chunks, width = KIND == W_INT4 ? 2 * span : span;
+      for (int r = 0; r < kRows; ++r) {
+        for (int i = threadIdx.x; i < width; i += kThreads) {
+          const int hi = KIND == W_INT4 && i >= span, col = i - hi * span;
+          float v = 0.f;
+          if (r < rows && col < tb) {
+            const long k = KIND == W_INT4 ? nibble_col(byte0 + col, hshift, hi) : byte0 + col;
+            v = to_f32<T>(x[(long)(m0 + r) * n_in + k]);
+          }
+          xs[r][hi * kTileBytes + col] = v;
+        }
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -158,17 +232,13 @@ __device__ __forceinline__ void dequant_matmul(const T* __restrict__ x,
             for (int i = 0; i < 8; ++i) acc[r][j] = fmaf(xv[i], wv[j][i], acc[r][j]);
         }
       } else {
-        // bytes 8c .. 8c + 7 of the tile's packed row: group gt of the tile
-        // at byte offset jj, low nibbles at values gt*gs + jj + i, high
-        // nibbles at gt*gs + gs/2 + jj + i (both biased by +8)
-        const int half = gs / 2;
-        const int gt = (8 * c) / half, jj = (8 * c) % half;
-        const int lo0 = gt * gs + jj, hi0 = lo0 + half;
-        const int g = k0 / gs + gt;
-        float lo[kChans][8], hi[kChans][8], s[kChans];
+        // bytes 8c .. 8c + 7 of the tile's packed row, both nibbles biased
+        // by +8: group gt of the tile at byte offset jj, low nibbles at
+        // values gt*gs + jj + i, high nibbles at gt*gs + gs/2 + jj + i (or,
+        // kRagged, at xs[r][8c + i] and xs[r][kTileBytes + 8c + i])
+        float lo[kChans][8], hi[kChans][8];
 #pragma unroll
         for (int j = 0; j < kChans; ++j) {
-          s[j] = o0 + j < n_out ? scale[(long)g * n_out + o0 + j] : 0.f;
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const uint32_t b = ((i < 4 ? raw[u][j].x : raw[u][j].y) >> (8 * (i % 4))) & 0xffu;
@@ -176,22 +246,55 @@ __device__ __forceinline__ void dequant_matmul(const T* __restrict__ x,
             hi[j][i] = static_cast<float>(static_cast<int>(b >> 4) - 8);
           }
         }
+        if constexpr (!kRagged) {
+          const int gt = (8 * c) / half, jj = (8 * c) % half;
+          const int lo0 = gt * gs + jj, hi0 = lo0 + half;
+          const int g = k0 / gs + gt;
+          float s[kChans];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 la = *reinterpret_cast<const float4*>(&xs[r][lo0]);
-          const float4 lb = *reinterpret_cast<const float4*>(&xs[r][lo0 + 4]);
-          const float4 ha = *reinterpret_cast<const float4*>(&xs[r][hi0]);
-          const float4 hb = *reinterpret_cast<const float4*>(&xs[r][hi0 + 4]);
-          const float xl[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
-          const float xh[8] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
+          for (int j = 0; j < kChans; ++j)
+            s[j] = o0 + j < n_out ? scale[(long)g * n_out + o0 + j] : 0.f;
 #pragma unroll
-          for (int j = 0; j < kChans; ++j) {
-            float p = 0.f;
+          for (int r = 0; r < kRows; ++r) {
+            const float4 la = *reinterpret_cast<const float4*>(&xs[r][lo0]);
+            const float4 lb = *reinterpret_cast<const float4*>(&xs[r][lo0 + 4]);
+            const float4 ha = *reinterpret_cast<const float4*>(&xs[r][hi0]);
+            const float4 hb = *reinterpret_cast<const float4*>(&xs[r][hi0 + 4]);
+            const float xl[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
+            const float xh[8] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
 #pragma unroll
-            for (int i = 0; i < 8; ++i) p = fmaf(xl[i], lo[j][i], p);
+            for (int j = 0; j < kChans; ++j) {
+              float p = 0.f;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) p = fmaf(xh[i], hi[j][i], p);
-            acc[r][j] = fmaf(p, s[j], acc[r][j]);  // this chunk's share of group g
+              for (int i = 0; i < 8; ++i) p = fmaf(xl[i], lo[j][i], p);
+#pragma unroll
+              for (int i = 0; i < 8; ++i) p = fmaf(xh[i], hi[j][i], p);
+              acc[r][j] = fmaf(p, s[j], acc[r][j]);  // this chunk's share of group g
+            }
+          }
+        } else {
+          // group g0 holds the chunk's first byte; groups of 2, 4 or 8
+          // values are 8 / half groups in the 8 bytes, byte i in group
+          // g0 + (i >> hshift), each partial folded with its own scale
+          const long g0 = (byte0 + 8 * c) >> hshift;
+          auto group_scale = [&](long g, int o) {
+            return g < n_groups && o < n_out ? __ldg(scale + g * n_out + o) : 0.f;
+          };
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+            for (int j = 0; j < kChans; ++j) {
+              float p = 0.f;
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                p = fmaf(xs[r][8 * c + i], lo[j][i], p);
+                p = fmaf(xs[r][kTileBytes + 8 * c + i], hi[j][i], p);
+                if (((i + 1) & (half - 1)) == 0 || (i == 7 && half >= 8)) {
+                  acc[r][j] = fmaf(p, group_scale(g0 + (i >> hshift), o0 + j), acc[r][j]);
+                  p = 0.f;
+                }
+              }
+            }
           }
         }
       }
@@ -218,20 +321,20 @@ static_assert(kRows * kChans == 32, "one output per lane in the epilogue");
 
 // two entry symbols, so that a profile tells the per-channel kernel
 // (KIND int8 or e4m3) from the int4 one
-template <typename T, int KIND>
+template <typename T, int KIND, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
 dequant_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
                       const float* __restrict__ scale, T* __restrict__ y, int m, int n_in,
-                      int n_out) {
-  dequant_matmul<T, KIND>(x, w, scale, y, m, n_in, n_out, 0);
+                      int n_out, int w_vec8) {
+  dequant_matmul<T, KIND, kRagged>(x, w, scale, y, m, n_in, n_out, 0, w_vec8);
 }
 
-template <typename T>
+template <typename T, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
 dequant_matmul_w4_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
                          const float* __restrict__ scale, T* __restrict__ y, int m, int n_in,
-                         int n_out, int gs) {
-  dequant_matmul<T, W_INT4>(x, w, scale, y, m, n_in, n_out, gs);
+                         int n_out, int gs, int w_vec8) {
+  dequant_matmul<T, W_INT4, kRagged>(x, w, scale, y, m, n_in, n_out, gs, w_vec8);
 }
 
 
@@ -243,12 +346,24 @@ void launch_f32(const void* x, const void* w, const void* scale, void* y, int m,
   auto wp = static_cast<const uint8_t*>(w);
   auto sp = static_cast<const float*>(scale);
   auto yp = static_cast<float*>(y);
-  if constexpr (KIND == W_INT4)
-    dequant_matmul_w4_kernel<float><<<grid, kThreads, 0, stream>>>(xp, wp, sp, yp, m, n_in,
-                                                                   n_out, gs);
-  else
-    dequant_matmul_kernel<float, KIND><<<grid, kThreads, 0, stream>>>(xp, wp, sp, yp, m, n_in,
-                                                                      n_out);
+  const int row_bytes = KIND == W_INT4 ? n_in / 2 : n_in;
+  const int w_vec8 = row_bytes % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 8 == 0;
+  // the common shapes: whole aligned 8-byte chunks, int4 groups 16..1024
+  // (a K tile of 1024 values holds whole groups, a chunk's 8 bytes one)
+  const bool ragged = !w_vec8 || (KIND == W_INT4 && (gs < 16 || gs > 1024));
+#define APEX_DEQUANT_F32(R)                                                                   \
+  if constexpr (KIND == W_INT4)                                                               \
+    dequant_matmul_w4_kernel<float, R><<<grid, kThreads, 0, stream>>>(xp, wp, sp, yp, m, n_in, \
+                                                                      n_out, gs, w_vec8);     \
+  else                                                                                        \
+    dequant_matmul_kernel<float, KIND, R><<<grid, kThreads, 0, stream>>>(xp, wp, sp, yp, m,    \
+                                                                         n_in, n_out, w_vec8)
+  if (ragged) {
+    APEX_DEQUANT_F32(true);
+  } else {
+    APEX_DEQUANT_F32(false);
+  }
+#undef APEX_DEQUANT_F32
 }
 
 // --- bf16 x: the tensor-core kernels ----------------------------------------
@@ -285,13 +400,22 @@ constexpr int kW8Sub = kChans * kW8Row, kX8Sub = kTokens * kX8Row;
 constexpr int kW4Sub = kChans * kW4Row, kX4Half = kTokens * kX4Row, kX4Sub = 2 * kX4Half;
 constexpr int kW8Stage = kWarps * kW8Sub, kW4Stage = kWarps * kW4Sub;
 constexpr int kX4Stage = kWarps * kX4Sub;
-constexpr int kMaxGroups = kStageK / 16;   // int4 groups a stage can touch (gs = 16)
 constexpr int kStageBytes = kW8Stage + kWarps * kX8Sub;
 constexpr int kRedPitch = kChans + 4;      // the warps' sums, [warp][token][channel]
 constexpr int kSumBytes = kChans * kTokens * 4;
-constexpr int kSmem = kStages * kStageBytes + kSumBytes;
-static_assert(kW4Stage + kX4Stage + kMaxGroups * kChans * 4 <= kStageBytes, "int4 stage");
 static_assert(kWarps * kTokens * kRedPitch * 4 <= kStageBytes, "the warps' sums");
+
+// a stage's bytes: int4 stages the scales of the kStageK / gs groups it
+// touches after its tiles, which at gs 2 and 4 needs more than the int8
+// stage's room
+__host__ __device__ constexpr int stage_bytes(bool int4, int gs) {
+  const int need = int4 ? kW4Stage + kX4Stage + (kStageK / gs) * kChans * 4 : 0;
+  return need > kStageBytes ? need : kStageBytes;
+}
+__host__ __device__ constexpr int smem_bytes(bool int4, int gs) {
+  return kStages * stage_bytes(int4, gs) + kSumBytes;
+}
+constexpr int kRaggedSmem = smem_bytes(true, 2);  // the most any shape takes
 
 // the physical 16-byte chunk of logical chunk c in row r of each tile
 __device__ __forceinline__ int swz_w8(int r, int c) { return c ^ ((r >> 1) & 3); }
@@ -370,12 +494,15 @@ __device__ __forceinline__ void widen_word(uint32_t w, uint32_t& k01, uint32_t& 
   }
 }
 
-template <int KIND>
+// kRagged: rows that are no whole 8-byte chunks (int8/e4m3 n_in % 8,
+// int4 rows of groups below 16) and int4 groups below 16; the others compile
+// without these paths
+template <int KIND, bool kRagged>
 __device__ __forceinline__ void dequant_mma(const bf16* __restrict__ x,
                                             const uint8_t* __restrict__ w,
                                             const float* __restrict__ scale, bf16* __restrict__ y,
                                             int m, int n_in, int n_out, int gs, int per,
-                                            int seq, int w_vec16) {
+                                            int seq, int w_mode) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool kInt4 = KIND == W_INT4;
   constexpr int kRowBytes = kInt4 ? kStageK / 2 : kStageK;  // weight bytes of a stage's row
@@ -394,6 +521,10 @@ __device__ __forceinline__ void dequant_mma(const bf16* __restrict__ x,
   const int half = gs / 2;  // int4: bytes of a group, values under its low nibbles
   const int nt_live = min(kNF, (m - tok0 + 7) / 8);
   const int n_rows = min(kChans, n_out - ch0), n_toks = min(kTokens, m - tok0);
+  const int st_bytes = kRagged ? stage_bytes(kInt4, gs) : kStageBytes;
+  // x's rows 16-byte aligned (the wrapper aligns x itself): its K values
+  // go by 16-byte copies, else one at a time
+  const bool x_vec = !kRagged || n_in % 8 == 0;
 
   // weights in whole 16- (or 8-) byte chunks, zero past the row's end;
   // rows past n_out and tokens past m are not copied (they reach only
@@ -406,9 +537,25 @@ __device__ __forceinline__ void dequant_mma(const bf16* __restrict__ x,
   // int4: a byte's group and offset by shifts (gs a power of two)
   const int hshift = kInt4 ? __ffs(half) - 1 : 0;
   auto load_stage = [&](int st, int buf) {
-    unsigned char* base = smem + buf * kStageBytes;
+    unsigned char* base = smem + buf * st_bytes;
     const int b0 = st * kRowBytes;  // the stage's first weight byte of a row
-    if (w_vec16) {
+    if (kRagged && w_mode == 0) {
+      // rows that are no whole 8-byte chunks: bytes one at a time, zero
+      // past the row's end
+      constexpr int kPerRow = kRowBytes / 16;
+#pragma unroll
+      for (int it = 0; it < kChans * kPerRow / kThreads; ++it) {
+        const int c = threadIdx.x + it * kThreads;
+        const int r = c / kPerRow, col = c % kPerRow * 16, b = b0 + col;
+        if (r >= n_rows) continue;
+        const uint8_t* src = w + (long)(ch0 + r) * row_bytes;
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (b + i < row_bytes) v[i / 4] |= static_cast<uint32_t>(__ldg(src + b + i)) << (8 * (i % 4));
+        *reinterpret_cast<uint4*>(w_dst(base, r, col)) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    } else if (w_mode == 2) {
       constexpr int kPerRow = kRowBytes / 16;
 #pragma unroll
       for (int it = 0; it < kChans * kPerRow / kThreads; ++it) {
@@ -438,24 +585,51 @@ __device__ __forceinline__ void dequant_mma(const bf16* __restrict__ x,
         const int sub = c / (kTokens * 8), r = c / 8 % kTokens, q = c % 8;
         const int k = b0 + sub * kSubK + q * 8;
         const bool in = k < n_in;
-        if (r < n_toks)
-          cp_async_16(xs + sub * kX8Sub + r * kX8Row + swz_x8(r, q) * 16,
-                      in ? x + (long)(tok0 + r) * n_in + k : x, in ? 16 : 0);
+        if (r >= n_toks) continue;
+        unsigned char* dst = xs + sub * kX8Sub + r * kX8Row + swz_x8(r, q) * 16;
+        if (x_vec) {
+          cp_async_16(dst, in ? x + (long)(tok0 + r) * n_in + k : x, in ? 16 : 0);
+        } else {
+          // a row that is no whole 16-byte chunks: values one at a time,
+          // zero past its end
+          const unsigned short* src =
+              reinterpret_cast<const unsigned short*>(x + (long)(tok0 + r) * n_in);
+          uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (k + i < n_in) v[i / 2] |= static_cast<uint32_t>(__ldg(src + k + i)) << (16 * (i % 2));
+          *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+        }
       }
     } else {
       // the values under the low (hi = 0) and the high nibbles of 8 packed
-      // bytes: 8 contiguous values of x, as gs/2 is a multiple of 8
+      // bytes: 8 contiguous values of x where gs/2 is a multiple of 8
 #pragma unroll
       for (int it = 0; it < kWarps * 2 * kTokens * 4 / kThreads; ++it) {
         const int c = threadIdx.x + it * kThreads;
         const int sub = c / (2 * kTokens * 4), hi = c / (kTokens * 4) % 2;
         const int r = c / 4 % kTokens, q = c % 4;
         const int b = b0 + sub * kSubBytes + q * 8;
-        const int k = ((b >> hshift) << (hshift + 1)) + (b & (half - 1)) + hi * half;
-        const bool in = b < row_bytes;
-        if (r < n_toks)
-          cp_async_16(xs + sub * kX4Sub + hi * kX4Half + r * kX4Row + swz_x4(r, q) * 16,
-                      in ? x + (long)(tok0 + r) * n_in + k : x, in ? 16 : 0);
+        if (r >= n_toks) continue;
+        unsigned char* dst = xs + sub * kX4Sub + hi * kX4Half + r * kX4Row + swz_x4(r, q) * 16;
+        if (!kRagged || half >= 8) {
+          const int k = ((b >> hshift) << (hshift + 1)) + (b & (half - 1)) + hi * half;
+          const bool in = b < row_bytes;
+          cp_async_16(dst, in ? x + (long)(tok0 + r) * n_in + k : x, in ? 16 : 0);
+        } else {
+          // groups of 2, 4 or 8 values: the 8 bytes' values lie in 8 / half
+          // runs of half; gathered one at a time, zero past the row's end
+          const unsigned short* src =
+              reinterpret_cast<const unsigned short*>(x + (long)(tok0 + r) * n_in);
+          uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int bi = b + i;
+            const int k = ((bi >> hshift) << (hshift + 1)) + (bi & (half - 1)) + hi * half;
+            if (bi < row_bytes) v[i / 2] |= static_cast<uint32_t>(__ldg(src + k)) << (16 * (i % 2));
+          }
+          *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+        }
       }
     }
     // the scales of the groups the stage touches, [group][channel]
@@ -498,7 +672,7 @@ __device__ __forceinline__ void dequant_mma(const bf16* __restrict__ x,
   };
 
   auto compute = [&](int buf, int st) {
-    const unsigned char* base = smem + buf * kStageBytes;
+    const unsigned char* base = smem + buf * st_bytes;
     const unsigned char* ws = base + warp * kWSub;
     if constexpr (!kInt4) {
       const unsigned char* xs = base + kWStage + warp * kX8Sub;
@@ -530,9 +704,11 @@ __device__ __forceinline__ void dequant_mma(const bf16* __restrict__ x,
       const float* ss = reinterpret_cast<const float*>(base + kWStage + kX4Stage);
       const int g0 = (st * kRowBytes) >> hshift;
       const int bw = st * kRowBytes + warp * kSubBytes;  // the warp's first packed byte
-      if (gs == 16) {
-        // a step is one 8-byte group: lane t takes bytes 2t, 2t+1, low
-        // nibbles values 2t, 2t+1, high nibbles 8 + 2t, 9 + 2t
+      if (gs <= 16) {
+        // a step is 8 bytes: one group at gs = 16, else 8 / half groups of
+        // half bytes; lane t takes bytes 2t, 2t+1, their low nibbles at
+        // the step's K positions 2t, 2t+1 (x staged as the values under
+        // the bytes' low nibbles), their high nibbles at 8 + 2t, 9 + 2t
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           uint32_t a[kMF][4];
@@ -549,17 +725,42 @@ __device__ __forceinline__ void dequant_mma(const bf16* __restrict__ x,
             a[i][1] = nibble_pair(hi, 0);
             a[i][3] = nibble_pair(hi, 4);
           }
+          uint32_t b0[kNF], b1[kNF];
 #pragma unroll
           for (int j = 0; j < kNF; ++j) {
-            if (j < nt_live) {
-              const int r = j * 8 + lg;
-              const int off = r * kX4Row + swz_x4(r, q) * 16 + 4 * lt;
-              const uint32_t b0 = ld32(xlo + off), b1 = ld32(xhi + off);
-#pragma unroll
-              for (int i = 0; i < kMF; ++i) mma_bf16(prt[i][j], a[i], b0, b1);
-            }
+            const int r = j * 8 + lg;
+            const int off = r * kX4Row + swz_x4(r, q) * 16 + 4 * lt;
+            b0[j] = j < nt_live ? ld32(xlo + off) : 0u;
+            b1[j] = j < nt_live ? ld32(xhi + off) : 0u;
           }
-          fold(ss, ((bw + 8 * q) >> hshift) - g0);
+          if (gs == 16) {
+#pragma unroll
+            for (int j = 0; j < kNF; ++j)
+              if (j < nt_live)
+#pragma unroll
+                for (int i = 0; i < kMF; ++i) mma_bf16(prt[i][j], a[i], b0[j], b1[j]);
+            fold(ss, ((bw + 8 * q) >> hshift) - g0);
+            continue;
+          }
+          if constexpr (!kRagged) continue;
+          // one product a group, the A operand's K positions of the other
+          // groups zeroed: lane t's byte 2t is the lower half of each of
+          // its registers, byte 2t + 1 the upper
+          for (int qq = 0; qq < (8 >> hshift); ++qq) {
+            const uint32_t keep = (((2 * lt) >> hshift) == qq ? 0x0000FFFFu : 0u) |
+                                  (((2 * lt + 1) >> hshift) == qq ? 0xFFFF0000u : 0u);
+            uint32_t am[kMF][4];
+#pragma unroll
+            for (int i = 0; i < kMF; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) am[i][e] = a[i][e] & keep;
+#pragma unroll
+            for (int j = 0; j < kNF; ++j)
+              if (j < nt_live)
+#pragma unroll
+                for (int i = 0; i < kMF; ++i) mma_bf16(prt[i][j], am[i], b0[j], b1[j]);
+            fold(ss, ((bw + 8 * q) >> hshift) + qq - g0);
+          }
         }
       } else {
         // a 16-byte unit of one group: lane t takes bytes 4t..4t+3, first
@@ -609,9 +810,9 @@ __device__ __forceinline__ void dequant_mma(const bf16* __restrict__ x,
   // `sums`, each thread's kPer outputs, set by the first part
   constexpr int kPer = kTokens * kChans / kThreads;  // outputs of a thread
   const int c = threadIdx.x % kChans, r0 = threadIdx.x / kChans;
-  float* sums = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  float* sums = reinterpret_cast<float*>(smem + kStages * st_bytes);
   auto reduce_part = [&](int buf, bool first) {
-    float* red = reinterpret_cast<float*>(smem + buf * kStageBytes);
+    float* red = reinterpret_cast<float*>(smem + buf * st_bytes);
     __syncthreads();  // every warp is done with the stage
 #pragma unroll
     for (int i = 0; i < kMF; ++i)
@@ -679,30 +880,31 @@ __device__ __forceinline__ void dequant_mma(const bf16* __restrict__ x,
   }
 }
 
-template <int KIND>
+template <int KIND, bool kRagged>
 __global__ void __launch_bounds__(kThreads, 4)
 dequant_matmul_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
                           const float* __restrict__ scale, bf16* __restrict__ y, int m, int n_in,
-                          int n_out, int per, int seq, int w_vec16) {
-  dequant_mma<KIND>(x, w, scale, y, m, n_in, n_out, 0, per, seq, w_vec16);
+                          int n_out, int per, int seq, int w_mode) {
+  dequant_mma<KIND, kRagged>(x, w, scale, y, m, n_in, n_out, 0, per, seq, w_mode);
 }
 
+template <bool kRagged>
 __global__ void __launch_bounds__(kThreads, 3)
 dequant_matmul_w4_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
                              const float* __restrict__ scale, bf16* __restrict__ y, int m,
-                             int n_in, int n_out, int gs, int per, int seq, int w_vec16) {
-  dequant_mma<W_INT4>(x, w, scale, y, m, n_in, n_out, gs, per, seq, w_vec16);
+                             int n_in, int n_out, int gs, int per, int seq, int w_mode) {
+  dequant_mma<W_INT4, kRagged>(x, w, scale, y, m, n_in, n_out, gs, per, seq, w_mode);
 }
 
 // above 48 KB of shared memory only after opting in, once per device and
 // kernel
 template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int* opted) {
+cudaError_t opt_in(Kernel kernel, int* opted, int smem_max) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && !opted[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
     if (err != cudaSuccess) return err;
     opted[dev] = 1;
   }
@@ -712,12 +914,12 @@ cudaError_t opt_in(Kernel kernel, int* opted) {
 // a grid of (channel tiles, token tiles, parts), the parts of a tile one
 // cluster (parts 1: one block walks them all)
 template <typename Kernel, typename... Args>
-cudaError_t launch_grid(Kernel kernel, int m, int n_out, int parts, cudaStream_t stream,
+cudaError_t launch_grid(Kernel kernel, int m, int n_out, int parts, int smem, cudaStream_t stream,
                         Args... args) {
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((n_out + kChans - 1) / kChans, (m + kTokens - 1) / kTokens, parts);
   config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = kSmem;
+  config.dynamicSmemBytes = smem;
   config.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -729,39 +931,57 @@ cudaError_t launch_grid(Kernel kernel, int m, int n_out, int parts, cudaStream_t
   return cudaLaunchKernelEx(&config, kernel, args...);
 }
 
-template <int KIND>
-int launch(const void* x, const void* w, const void* scale, void* y, int m, int n_in, int n_out,
-           int gs, int parts, int per, int seq, cudaStream_t stream) {
-  if (parts < 1 || parts > kMaxParts || per < 1) return static_cast<int>(cudaErrorInvalidValue);
+template <int KIND, bool kRagged>
+int launch_kind(const void* x, const void* w, const void* scale, void* y, int m, int n_in,
+                int n_out, int gs, int parts, int per, int seq, int w_mode,
+                cudaStream_t stream) {
   const int grid_parts = seq ? 1 : parts;
   static int opted[64] = {};
-  const int row_bytes = KIND == W_INT4 ? n_in / 2 : n_in;
-  const int w_vec16 = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int smem = kRagged ? smem_bytes(KIND == W_INT4, gs) : smem_bytes(false, 0);
+  const int smem_max = kRagged ? kRaggedSmem : smem_bytes(false, 0);
   auto xp = static_cast<const bf16*>(x);
   auto wp = static_cast<const uint8_t*>(w);
   auto sp = static_cast<const float*>(scale);
   auto yp = static_cast<bf16*>(y);
   cudaError_t err;
   if constexpr (KIND == W_INT4) {
-    err = opt_in(dequant_matmul_w4_mma_kernel, opted);
+    err = opt_in(dequant_matmul_w4_mma_kernel<kRagged>, opted, smem_max);
     if (err == cudaSuccess)
-      err = launch_grid(dequant_matmul_w4_mma_kernel, m, n_out, grid_parts, stream, xp, wp, sp,
-                        yp, m, n_in, n_out, gs, per, seq, w_vec16);
+      err = launch_grid(dequant_matmul_w4_mma_kernel<kRagged>, m, n_out, grid_parts, smem,
+                        stream, xp, wp, sp, yp, m, n_in, n_out, gs, per, seq, w_mode);
   } else {
-    err = opt_in(dequant_matmul_mma_kernel<KIND>, opted);
+    err = opt_in(dequant_matmul_mma_kernel<KIND, kRagged>, opted, smem_max);
     if (err == cudaSuccess)
-      err = launch_grid(dequant_matmul_mma_kernel<KIND>, m, n_out, grid_parts, stream, xp, wp,
-                        sp, yp, m, n_in, n_out, per, seq, w_vec16);
+      err = launch_grid(dequant_matmul_mma_kernel<KIND, kRagged>, m, n_out, grid_parts, smem,
+                        stream, xp, wp, sp, yp, m, n_in, n_out, per, seq, w_mode);
   }
   return static_cast<int>(err);
+}
+
+template <int KIND>
+int launch(const void* x, const void* w, const void* scale, void* y, int m, int n_in, int n_out,
+           int gs, int parts, int per, int seq, cudaStream_t stream) {
+  if (parts < 1 || parts > kMaxParts || per < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int row_bytes = KIND == W_INT4 ? n_in / 2 : n_in;
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
+  // the weights' copies: 16 bytes, 8 bytes, or (rows that are no whole
+  // 8-byte chunks) one byte at a time
+  const int w_mode = row_bytes % 16 == 0 && wa % 16 == 0 ? 2
+                     : row_bytes % 8 == 0 && wa % 8 == 0 ? 1 : 0;
+  const bool ragged = w_mode == 0 || (KIND != W_INT4 && n_in % 8 != 0) ||
+                      (KIND == W_INT4 && gs < 16);
+  return ragged ? launch_kind<KIND, true>(x, w, scale, y, m, n_in, n_out, gs, parts, per, seq,
+                                          w_mode, stream)
+                : launch_kind<KIND, false>(x, w, scale, y, m, n_in, n_out, gs, parts, per, seq,
+                                           w_mode, stream);
 }
 
 }  // namespace tc
 
 }  // namespace
 
-// int8 (w_dtype APEX_I8) or e4m3 (APEX_E4M3) weights (n_out, n_in), n_in a
-// multiple of 8, per-channel scales (n_out,). A bf16 x (16-byte aligned)
+// int8 (w_dtype APEX_I8) or e4m3 (APEX_E4M3) weights (n_out, n_in), any
+// n_in, per-channel scales (n_out,). A bf16 x (16-byte aligned)
 // takes the tensor-core kernel, its K split into `parts` (1..8) of `per`
 // stages each, summed in part order by a cluster of `parts` blocks or, with
 // `seq`, by one block in turn (the same sums); fp32 ignores the three.
@@ -782,8 +1002,8 @@ extern "C" int apex_dequant_matmul(const void* x, const void* w, const void* sca
 }
 
 // int4 weights packed group-locally (n_out, n_in / 2), scales (n_in / gs,
-// n_out), gs a power of two in 16..512 dividing n_in; parts, per and seq
-// as above
+// n_out), gs any power of two >= 2 dividing n_in; parts, per and seq as
+// above
 extern "C" int apex_dequant_matmul_w4(const void* x, const void* w, const void* scale, void* y,
                                       int m, int n_in, int n_out, int gs, int dtype, int parts,
                                       int per, int seq, void* stream) {

@@ -255,15 +255,6 @@ def launch(name: str, symbol: str, argtypes, *args) -> None:
     launches[name] += 1
 
 
-def query(name: str, symbol: str, argtypes, restype, *args):
-    """Call C helper ``symbol`` of kernel ``name``'s library, one that
-    launches nothing (a scratch size, say): not counted as a launch."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = restype
-    return fn(*args)
-
-
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

@@ -139,6 +139,69 @@ def layer_norm_bwd_reference(dy2d: torch.Tensor, src2d: torch.Tensor,
     return dx, (dy * xhat).sum(dim=0), None if rms else dy.sum(dim=0)
 
 
+#: the backward kernel's tiling (``csrc/layer_norm_bwd.cu``): blocks of 256
+#: threads holding 256 / team teams of a row each; at most this many
+#: 16-byte slots of a row a thread keeps in registers, by element size (bf16
+#: 2, fp32 4: 16 values, where the accumulators still fit 128 registers),
+#: and 2 a pass over a row wider than that; at most two blocks on each SM
+#: (the H100 has 132), so that the grid is co-resident for the barrier
+#: behind which the kernel sums dgamma/dbeta (one launch). A row walked in
+#: passes keeps dgamma/dbeta's accumulators, 8 bytes a column, in shared
+#: memory where a block may take them (the H100's 227 KB a block, less the
+#: kernel's own arrays), one block an SM where two would not fit its 228 KB,
+#: and in device memory past that
+NORM_BWD_THREADS = 256
+NORM_BWD_MAX_SLOTS = {2: 2, 4: 4}
+NORM_BWD_WIDE_SLOTS = 2
+NORM_BWD_BLOCKS_PER_SM = 2
+NORM_BWD_SMS = 132
+NORM_BWD_ACC_SMEM = 220 * 1024
+NORM_BWD_ACC_SMEM_TWO = 108 * 1024
+
+
+def norm_bwd_plan(rows: int, cols: int, elt: int, sms: int = NORM_BWD_SMS):
+    """The backward kernel's tile choice for a ``(rows, cols)`` input of
+    ``elt``-byte elements on a card of ``sms`` SMs: ``dict(team, slots,
+    passes, teams, blocks)``. A row's team is the fewest threads (a
+    power of two from 32 to 256) that hold its 16-byte slots at
+    ``NORM_BWD_MAX_SLOTS`` a thread, ``slots`` the slots a thread then
+    holds; a row wider than 256 threads hold is walked in ``passes``. The
+    rows are dealt to ``blocks * teams`` teams in turn, a team for every
+    row up to two blocks an SM. A function of the shape (and the card)
+    alone, so dgamma/dbeta are summed in one order at every call.
+    ``acc_smem``: a row walked in passes keeps its accumulators in shared
+    memory (``blocks`` then leaves them room)."""
+    pack = 16 // elt
+    n_slots = -(-cols // pack)
+    cap = NORM_BWD_MAX_SLOTS[elt]
+    team = 32
+    while team * cap < n_slots and team < NORM_BWD_THREADS:
+        team *= 2
+    slots, passes = -(-n_slots // team), 1
+    if slots > cap:
+        passes, slots = -(-n_slots // (team * NORM_BWD_WIDE_SLOTS)), \
+            NORM_BWD_WIDE_SLOTS
+    teams = NORM_BWD_THREADS // team
+    acc_smem = passes > 1 and 8 * cols <= NORM_BWD_ACC_SMEM
+    per_sm = NORM_BWD_BLOCKS_PER_SM
+    if acc_smem and 8 * cols > NORM_BWD_ACC_SMEM_TWO:
+        per_sm = 1
+    blocks = min(max(1, -(-rows // teams)), per_sm * sms)
+    return dict(team=team, slots=slots, passes=passes, teams=teams,
+                blocks=blocks, acc_smem=acc_smem)
+
+
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    """The SMs of a CUDA device, once per device."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
+
+
 def _norm_bwd_kernel(dy2d, src2d, mean, rstd, weight, bias, rms: bool,
                      from_y: bool):
     rows, cols = src2d.shape
@@ -154,29 +217,35 @@ def _norm_bwd_kernel(dy2d, src2d, mean, rstd, weight, bias, rms: bool,
     mean = mean.float().contiguous() if not (rms or from_y) else None
     w = weight.float().contiguous() if weight is not None else None
     b = bias.float().contiguous() if (bias is not None and from_y) else None
-    P, I = _build.P, _build.I
+    dtype = _build.dtype_code(dy2d)
     dx = torch.empty_like(dy2d)
+    plan = norm_bwd_plan(rows, cols, dy2d.element_size(),
+                         _sm_count(dy2d.device))
     dw = db = part = None
     if w is not None:
         dw = torch.empty(cols, dtype=torch.float32, device=dy2d.device)
         if not rms:
             db = torch.empty(cols, dtype=torch.float32, device=dy2d.device)
-        # the kernel's tile layout decides the dgamma/dbeta scratch size
-        n_part = _build.query(name, "apex_layer_norm_bwd_scratch_floats",
-                              (I, I), _build.L, rows, cols)
-        part = torch.empty(n_part, dtype=torch.float32, device=dy2d.device)
+        part = torch.empty(2 * plan["blocks"] * cols, dtype=torch.float32,
+                           device=dy2d.device)
     _build.check_cuda(*[t for t in (dy2d, src2d, mean, rstd, w, b)
                         if t is not None])
+    # 16-byte loads: whole slots in every row, every row base aligned
+    vec = int(cols % (16 // dy2d.element_size()) == 0
+              and all(t.data_ptr() % 16 == 0
+                      for t in (dy2d, src2d, dx, w, b) if t is not None))
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    P, I = _build.P, _build.I
     _build.launch(
         name, "apex_layer_norm_bwd",
-        (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+        (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P),
         dy2d.data_ptr(), src2d.data_ptr(), ptr(mean), rstd.data_ptr(),
         ptr(w), ptr(b), dx.data_ptr(), ptr(dw), ptr(db), ptr(part), rows,
-        cols, int(rms), int(from_y), _build.dtype_code(dy2d),
+        cols, int(rms), int(from_y), dtype, plan["team"], plan["slots"],
+        plan["passes"], plan["blocks"], vec, int(plan["acc_smem"]),
         _build.stream_of(dy2d))
     return dx, dw, db
 

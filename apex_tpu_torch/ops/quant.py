@@ -295,13 +295,6 @@ def mma_k_split(n_in: int, n_out: int) -> tuple:
 
 def _dequant_matmul_kernel(x2, qw, scale, kind, out, n_in, gs):
     m = x2.shape[0]
-    if kind == "int4":
-        if not 16 <= gs <= 512:
-            raise NotImplementedError(
-                f"the int4 kernel takes group sizes 16..512, got {gs}")
-    elif n_in % 8:
-        raise NotImplementedError(f"the dequant kernel takes in_features "
-                                  f"that are multiples of 8, got {n_in}")
     x2 = x2.contiguous()
     qw = qw.contiguous()
     if qw.data_ptr() % 8:

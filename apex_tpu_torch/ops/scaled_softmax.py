@@ -27,6 +27,11 @@ forward kernel launches under its branch's name:
 ``scaled_softmax_fwd_causal``, ``scaled_softmax_fwd_masked`` or
 ``scaled_softmax_fwd``.
 
+On the card the forward is sized by ``sk``: :func:`fwd_path` chooses the
+path and the wrapper passes it to the kernel. Up to ``SOFTMAX_WARP_COLS``
+columns a warp holds the row in registers, longer rows take a block each
+and two passes.
+
 A tensor on the CPU takes the twins; a CUDA tensor always takes the kernels.
 """
 
@@ -40,6 +45,25 @@ from apex_tpu_torch.ops import _build
 
 # the reference fills masked scores with -10000 (scaled_masked_softmax.h)
 MASK_FILL = -10000.0
+
+#: the widest row the forward kernel holds in one warp's registers
+SOFTMAX_WARP_COLS = 1024
+
+
+def fwd_path(sk: int, dtype) -> int:
+    """The forward kernel's path for rows of ``sk`` columns of ``dtype``:
+    the 16-byte units a lane of the row's warp holds (1, 2, 4 or 8: 8
+    values each in bf16 and fp16, 4 in fp32), or 0 where the row is wider
+    than ``SOFTMAX_WARP_COLS`` and a block of 256 threads takes it in two
+    passes. The kernel takes the path it is given."""
+    if sk > SOFTMAX_WARP_COLS:
+        return 0
+    per_lane = -(-sk // (32 * (16 // torch.tensor([], dtype=dtype)
+                               .element_size())))
+    nvec = 1
+    while nvec < per_lane:
+        nvec *= 2
+    return nvec
 
 
 def _check(x: torch.Tensor) -> None:
@@ -109,11 +133,11 @@ def scaled_softmax_fwd(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
     _build.check_cuda(x)
     P, I, L, F = _build.P, _build.I, _build.L, _build.F
     _build.launch(_branch(mask, causal), "apex_scaled_softmax_fwd",
-                  (P, P, P, L, L, L, I, I, I, I, I, F, I, I, P),
+                  (P, P, P, L, L, L, I, I, I, I, I, F, I, I, I, P),
                   x.data_ptr(), y.data_ptr(), mptr, *strides, mb, b, np_, sq,
                   sk, float(scale), int(causal),
                   _build.dtype_code(x, _build.HALF_DTYPES),
-                  _build.stream_of(x))
+                  fwd_path(sk, x.dtype), _build.stream_of(x))
     return y
 
 

@@ -52,7 +52,8 @@ each,
    time for the work. The BERT rows: LayerNorm forward and backward at
    width 1024, eps 1e-12, over the 4096 tokens in fp32 (the embedding
    norm) and bf16 (the sublayer norms) and over the MLM head's 640 rows in
-   bf16; the flash kernels at 8x16x512x64,
+   bf16 (every LayerNorm row by ``queued_ms``; the backward's dgamma/dbeta
+   the same bits in a second call); the flash kernels at 8x16x512x64,
    non-causal, with per-row padding lengths (from the seed) as segment ids
    and dropout 0.1; the xentropy kernels at the gathered MLM head's 640 x
    30528 and the NSP head's 8 x 2, with smoothing 0 and 0.1 and padded
@@ -65,7 +66,9 @@ each,
    (a decode step streams 48 weights), against cuBLAS on the dequantized
    weight, with their achieved TFLOP/s and TB/s (bf16 x runs the
    tensor-core kernels); a row alone must equal the same row in the batch,
-   bit for bit. The quantized paged kernel with int8 and fp8 pools at the
+   bit for bit; then the shapes of ROADMAP C2 (``QUANT_C2``: int4 at
+   groups 2 and 8 at 768 -> 2304 and 1024 at 3072 -> 768, int8 and fp8 at
+   ``in`` 36), rows marked ``c2``. The quantized paged kernel with int8 and fp8 pools at the
    paged row's shape, beside the unquantized kernel's time there. The
    Mistral-7B rows, timed as the quantized ones: the RMS branch of the
    LayerNorm forward at width 4096 over a decode step's 8 rows and 4224
@@ -423,6 +426,12 @@ BERT_FP32_LR = 1e-3
 QUANT_GS = 128
 QUANT_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 QUANT_ROWS = (NUM_SLOTS, 128)
+#: ROADMAP C2's shapes: (kind, group size, in, out), int4 groups below 16
+#: and above 512 at GPT-2-small's widths, int8/e4m3 at an ``in`` that is no
+#: multiple of 8
+QUANT_C2 = (("int4", 2, 768, 2304), ("int4", 8, 768, 2304),
+            ("int4", 1024, 3072, 768), ("int8", 0, 36, 768),
+            ("fp8", 0, 36, 768))
 L2_BYTES = 50 * 2 ** 20
 
 # the Mistral-7B serving slice (mistral_7b_config: 32 query heads over 8 kv
@@ -454,6 +463,10 @@ MISTRAL_POOL = dict(num_pages=1024, max_pages_per_seq=384)
 # tokens, its depth cut to fit the card beside the earlier phases
 MISTRAL_TRAIN_LAYERS, MISTRAL_TRAIN_BATCH, MISTRAL_TRAIN_SEQ = 4, 1, 8192
 NORM_BWD_ROWS = (MISTRAL_TRAIN_SEQ, 77)
+#: a row wider than the norm backward holds in registers (it walks the row
+#: in passes): a 2048-token sequence at width 8192, Llama-2-70B's hidden
+#: size
+NORM_BWD_WIDE = (2048, 8192)
 FLASH_BWD_WINDOW_CASES = ((4224, MISTRAL_WINDOW), (6016, MISTRAL_WINDOW),
                           (MISTRAL_TRAIN_SEQ, MISTRAL_WINDOW), (1024, 256))
 MISTRAL_TRAIN_FP32 = dict(layers=2, window=128, batch=1, seq=512)
@@ -630,12 +643,13 @@ FP32_KERNELS = ("adam", "xentropy_fwd", "xentropy_bwd", "segment_stats",
                 "flash_bwd_dkdv_ring")
 
 #: kernel name -> the CUDA symbol the profiler reports its launches under
-#: (for ``layer_norm_bwd`` its dx kernel, one launch per call; the small
-#: dgamma/dbeta reduction that follows it is not counted)
+#: (for ``layer_norm_bwd`` its one kernel, which also sums dgamma/dbeta;
+#: for the softmax forward the warp and the block path,
+#: ``scaled_softmax_fwd_``)
 KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_fwd": "flash_fwd_kernel",
                   "paged_attention": "paged_decode_kernel",
-                  "layer_norm_bwd": "layer_norm_bwd_dx_kernel",
+                  "layer_norm_bwd": "layer_norm_bwd_kernel",
                   "flash_bwd_dq": "flash_bwd_dq_kernel",
                   "flash_bwd_dkdv": "flash_bwd_dkdv_kernel",
                   "adam": "adam_kernel",
@@ -650,8 +664,8 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "rms_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_fwd_window": "flash_fwd_kernel",
                   "paged_attention_window": "paged_decode_kernel",
-                  "rms_norm_bwd": "layer_norm_bwd_dx_kernel",
-                  "layer_norm_bwd_from_y": "layer_norm_bwd_dx_kernel",
+                  "rms_norm_bwd": "layer_norm_bwd_kernel",
+                  "layer_norm_bwd_from_y": "layer_norm_bwd_kernel",
                   "flash_bwd_dq_window": "flash_bwd_dq_kernel",
                   "flash_bwd_dkdv_window": "flash_bwd_dkdv_kernel",
                   "paged_attention_block": "paged_decode_kernel",
@@ -665,9 +679,9 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_bwd_dkdv_window_bias": "flash_bwd_dkdv_kernel",
                   "sgd": "sgd_kernel", "novograd": "novograd_kernel",
                   "multi_tensor_scale": "scale_",
-                  "scaled_softmax_fwd": "scaled_softmax_fwd_kernel",
-                  "scaled_softmax_fwd_masked": "scaled_softmax_fwd_kernel",
-                  "scaled_softmax_fwd_causal": "scaled_softmax_fwd_kernel",
+                  "scaled_softmax_fwd": "scaled_softmax_fwd_",
+                  "scaled_softmax_fwd_masked": "scaled_softmax_fwd_",
+                  "scaled_softmax_fwd_causal": "scaled_softmax_fwd_",
                   "scaled_softmax_bwd": "scaled_softmax_bwd_kernel",
                   "group_norm_fwd": "group_norm_fwd_kernel",
                   "group_norm_bwd": "group_norm_bwd_kernel",
@@ -712,8 +726,8 @@ def ptxas_report() -> dict:
 
     from apex_tpu_torch.ops import _build
 
-    names = ("layer_norm_fwd_kernel", "layer_norm_bwd_dx_kernel",
-             "layer_norm_bwd_dw_kernel", "flash_fwd_kernel",
+    names = ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel",
+             "flash_fwd_kernel",
              "flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
              "flash_bwd_dkdv_mma_kernel",
              "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
@@ -724,7 +738,8 @@ def ptxas_report() -> dict:
              "dequant_matmul_w4_kernel", "dequant_matmul_mma_kernel",
              "dequant_matmul_w4_mma_kernel", "paged_decode_quant_kernel",
              "sgd_kernel", "novograd_kernel", "scale_f32_kernel",
-             "scale_bf16_kernel", "scaled_softmax_fwd_kernel",
+             "scale_bf16_kernel", "scaled_softmax_fwd_warp_kernel",
+             "scaled_softmax_fwd_long_kernel",
              "scaled_softmax_bwd_kernel", "group_norm_fwd_kernel",
              "group_norm_bwd_kernel")
     regs = {}
@@ -751,14 +766,26 @@ def ptxas_report() -> dict:
                 rms = "<rms>" if (name == "layer_norm_fwd_kernel"
                                   and "Lb1E" in entry) else ""
                 flags = re.search(r"Lb([01])ELb([01])E", entry)
-                if name == "layer_norm_bwd_dx_kernel" and flags:
+                if name == "layer_norm_bwd_kernel" and flags:
                     rms = ("<rms>" if flags.group(1) == "1" else "") + (
                         "<from_y>" if flags.group(2) == "1" else "")
+                # the slots a thread holds (norm backward, and <wide>: a
+                # row walked in passes) or the units a lane holds (softmax
+                # warp path)
+                nv = re.search(r"Li(\d+)E(Lb([01])E)?EE", entry)
+                if name in ("layer_norm_bwd_kernel",
+                            "scaled_softmax_fwd_warp_kernel") and nv:
+                    rms += f"<nv{nv.group(1)}>" + (
+                        "<wide>" if nv.group(3) == "1" else "")
                 # the e4m3 instantiations of the quantized kernels
                 fp8 = "<e4m3>" if ("fp8_e4m3" in entry or (
                     name in ("dequant_matmul_kernel",
                              "dequant_matmul_mma_kernel")
                     and "Li1E" in entry)) else ""
+                # the dequant kernels' instances for ragged rows and the
+                # int4 groups below 16 (ROADMAP C2)
+                if name.startswith("dequant_matmul") and "Lb1EE" in entry:
+                    fp8 += "<ragged>"
                 # the head-dim instances of the tensor-core flash kernels
                 dim = re.search(r"mma_kernelILi(\d+)E", entry)
                 dim = f"<d{dim.group(1)}>" if dim else ""
@@ -931,6 +958,17 @@ def compare(name: str, got, want, dtype: str, tol=None,
     return err.max().item()
 
 
+def same_bits(name: str, first, second) -> None:
+    """AssertionError unless two calls' outputs (None where absent) are
+    the same bits: the kernels sum in orders fixed by the shape."""
+    import torch
+
+    for a, b in zip(first, second):
+        if (a is None) != (b is None) or (
+                a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{name}: a second call gives other bits")
+
+
 def max_rel_err(got, want) -> float:
     """max |got - want| / |want| over the entries where ``want`` is not 0."""
     got, want = got.float(), want.float()
@@ -986,11 +1024,11 @@ def check_layer_norm(gen, dev):
         kernel = partial(ln.layer_norm_fwd, x, w, b, eps)
         out.append((dict(
             name="layer_norm_fwd", dtype=dn, shape=[rows, cols], eps=eps,
-            **extra, max_abs_err=err, ms=time_ms(kernel),
-            plain_ms=time_ms(
+            **extra, max_abs_err=err, ms=queued_ms(kernel),
+            plain_ms=queued_ms(
                 partial(ln.layer_norm_fwd_reference, x, w, b, eps)),
-            library_ms=time_ms(partial(F.layer_norm, x, (cols,),
-                                       w.to(dtype), b.to(dtype), eps)),
+            library_ms=queued_ms(partial(F.layer_norm, x, (cols,),
+                                         w.to(dtype), b.to(dtype), eps)),
             bound_ms=bms, bound_by=by), kernel))
     return out
 
@@ -1083,6 +1121,12 @@ def check_paged(gen, dev):
 
 
 def check_layer_norm_bwd(gen, dev):
+    """The LayerNorm backward (saved x, affine) against its twin at GPT-2's
+    training rows and BERT-Large's, then at ``NORM_BWD_WIDE``, a row the
+    kernel walks in passes (fp32 and bf16, eps 1e-5, its data from a
+    generator of its own, so the later checks' draws stay as they were).
+    Kernel, twin and library (the backward of ``F.layer_norm``) timed by
+    ``queued_ms``; each row's TB/s is its bound's bytes over its time."""
     import torch
     import torch.nn.functional as F
 
@@ -1091,13 +1135,16 @@ def check_layer_norm_bwd(gen, dev):
     out = []
     # GPT-2's training rows, then BERT-Large's (the rows of the forward's
     # cases but its prefill and decode rows, which take no backward)
-    cases = [c for c in layer_norm_cases()
+    cases = [c + (gen,) for c in layer_norm_cases()
              if c[0] == TRAIN_BATCH * TRAIN_SEQ or c[4]]
-    for rows, cols, dtype, eps, extra in cases:
-        x = (torch.randn(rows, cols, generator=gen) * 2 + 0.5).to(dev, dtype)
-        dy = torch.randn(rows, cols, generator=gen).to(dev, dtype)
-        w = (torch.rand(cols, generator=gen) + 0.5).to(dev)
-        b = torch.randn(cols, generator=gen).to(dev)
+    wide_gen = torch.Generator().manual_seed(SEED)
+    cases += [(*NORM_BWD_WIDE, dtype, 1e-5, dict(use="wide row"), wide_gen)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for rows, cols, dtype, eps, extra, g in cases:
+        x = (torch.randn(rows, cols, generator=g) * 2 + 0.5).to(dev, dtype)
+        dy = torch.randn(rows, cols, generator=g).to(dev, dtype)
+        w = (torch.rand(cols, generator=g) + 0.5).to(dev)
+        b = torch.randn(cols, generator=g).to(dev)
         _, mean, rstd = ln.layer_norm_fwd_reference(x, w, b, eps)
         dx, dw, db = ln.layer_norm_bwd(dy, x, mean, rstd, w)
         torch.cuda.synchronize()
@@ -1106,6 +1153,8 @@ def check_layer_norm_bwd(gen, dev):
         err = max(compare("layer_norm_bwd dx", dx, rdx, dn),
                   compare("layer_norm_bwd dgamma", dw, rdw, dn, SUM_TOL),
                   compare("layer_norm_bwd dbeta", db, rdb, dn, SUM_TOL))
+        same_bits("layer_norm_bwd", (dw, db),
+                  ln.layer_norm_bwd(dy, x, mean, rstd, w)[1:])
         elt = x.element_size()
         # read dy, x, mean, rstd, w; write dx, dgamma, dbeta
         nbytes = 3 * rows * cols * elt + 2 * rows * 4 + 3 * cols * 4
@@ -1114,13 +1163,15 @@ def check_layer_norm_bwd(gen, dev):
         xl = x.detach().requires_grad_()
         wl, bl = (t.to(dtype).requires_grad_() for t in (w, b))
         y = F.layer_norm(xl, (cols,), wl, bl, eps)
+        ms = queued_ms(kernel)
         out.append((dict(
             name="layer_norm_bwd", dtype=dn, shape=[rows, cols], eps=eps,
-            **extra, max_abs_err=err, ms=time_ms(kernel),
-            plain_ms=time_ms(partial(ln.layer_norm_bwd_reference, dy, x,
-                                     mean, rstd, w)),
-            library_ms=time_ms(partial(torch.autograd.grad, y, (xl, wl, bl),
-                                       dy, retain_graph=True)),
+            **extra, max_abs_err=err, ms=ms, tb_s=nbytes / ms / 1e9,
+            plain_ms=queued_ms(partial(ln.layer_norm_bwd_reference, dy, x,
+                                       mean, rstd, w)),
+            library_ms=queued_ms(partial(torch.autograd.grad, y,
+                                         (xl, wl, bl), dy,
+                                         retain_graph=True)),
             library="backward of F.layer_norm",
             bound_ms=bms, bound_by=by), kernel))
     return out
@@ -1543,69 +1594,88 @@ def check_dequant(gen, dev):
     """The dequant-matmul kernels at GPT-2-small's block-linear shapes:
     int8 and fp8 per channel (``dequant_matmul``), int4 at group 128
     (``dequant_matmul_w4``), at a decode step's 8 rows and a 128-token
-    prefill, x in fp32 and bf16. Kernel, twin and library are each timed
-    by ``queued_ms`` over copies of their weight that exceed the L2 cache;
-    the library is ``F.linear`` on the dequantized weight in x's dtype
-    (cuBLAS on the full-width weight). Each row carries the kernel's
-    achieved TFLOP/s and TB/s (the bytes of ``bound_ms`` over its time)."""
+    prefill, x in fp32 and bf16 (``check_dequant_c2``: the same at ROADMAP
+    C2's shapes). Kernel, twin and library are
+    each timed by ``queued_ms`` over copies of their weight that exceed
+    the L2 cache; the library is ``F.linear`` on the dequantized weight in
+    x's dtype (cuBLAS on the full-width weight). Each row carries the
+    kernel's achieved TFLOP/s and TB/s (the bytes of ``bound_ms`` over its
+    time)."""
+    out = []
+    for kind in ("int8", "fp8", "int4"):
+        for n_in, n_out in QUANT_SHAPES:
+            out += dequant_rows(gen, dev, kind,
+                                QUANT_GS if kind == "int4" else 0, n_in,
+                                n_out, False)
+    return out
+
+
+def check_dequant_c2(gen, dev):
+    """``check_dequant``'s rows at ROADMAP C2's shapes (``QUANT_C2``), rows
+    marked ``c2``: shapes a tree from before C2's repair refuses, so that
+    an A/B against such a tree leaves this check out."""
+    out = []
+    for kind, gs, n_in, n_out in QUANT_C2:
+        out += dequant_rows(gen, dev, kind, gs, n_in, n_out, True)
+    return out
+
+
+def dequant_rows(gen, dev, kind, gs, n_in, n_out, c2):
+    """``check_dequant``'s rows of one weight: fp32 and bf16 x at each of
+    ``QUANT_ROWS``."""
     import torch
     import torch.nn.functional as F
 
     quant = importlib.import_module("apex_tpu_torch.ops.quant")
 
-    quantizers = {"int8": quant.quantize_weight,
-                  "fp8": quant.quantize_weight_fp8,
-                  "int4": partial(quant.quantize_weight_int4,
-                                  group_size=QUANT_GS)}
+    quantize = {"int8": quant.quantize_weight,
+                "fp8": quant.quantize_weight_fp8,
+                "int4": partial(quant.quantize_weight_int4,
+                                group_size=gs)}[kind]
+    name = DEQUANT_KERNEL[kind]
+    w = torch.randn(n_out, n_in, generator=gen) * n_in ** -0.5
+    qw, sc = (t.to(dev) for t in quantize(w))
+    wbytes = qw.numel() * qw.element_size() + sc.numel() * 4
+    qsets = [(qw.clone(), sc.clone()) for _ in range(copies_for(wbytes))]
     out = []
-    for kind, quantize in quantizers.items():
-        name = DEQUANT_KERNEL[kind]
-        for n_in, n_out in QUANT_SHAPES:
-            w = torch.randn(n_out, n_in, generator=gen) * n_in ** -0.5
-            qw, sc = (t.to(dev) for t in quantize(w))
-            wbytes = qw.numel() * qw.element_size() + sc.numel() * 4
-            qsets = [(qw.clone(), sc.clone())
-                     for _ in range(copies_for(wbytes))]
-            for dtype in (torch.float32, torch.bfloat16):
-                full = quant.dequantize_weight(qw, sc).to(dtype)
-                fsets = [(full.clone(),) for _ in range(
-                    copies_for(full.numel() * full.element_size()))]
-                dn = str(dtype).split(".")[1]
-                elt = full.element_size()
-                for m in QUANT_ROWS:
-                    x = torch.randn(m, n_in, generator=gen).to(dev, dtype)
-                    y = quant.fused_dequant_matmul(x, qw, sc)
-                    torch.cuda.synchronize()
-                    err = compare(name, y,
-                                  quant.fused_dequant_matmul_reference(
-                                      x, qw, sc), dn)
-                    # the kernel's rows do not depend on the batch (the
-                    # twin's CPU matmul makes no such promise)
-                    if x.is_cuda and not torch.equal(
-                            quant.fused_dequant_matmul(x[3:4], qw, sc),
-                            y[3:4]):
-                        raise AssertionError(f"{name}: a row alone differs "
-                                             f"from the same row in a batch")
-                    nbytes = m * n_in * elt + wbytes + m * n_out * elt
-                    flops = 2 * m * n_in * n_out
-                    bms, by = bound_ms(nbytes, flops, dn)
-                    kernel = cycling(partial(quant.fused_dequant_matmul, x),
-                                     qsets)
-                    ms = queued_ms(kernel)
-                    out.append((dict(
-                        name=name, kind=kind, dtype=dn, shape=[m, n_in, n_out],
-                        **({"group_size": QUANT_GS} if kind == "int4" else {}),
-                        path="quant_serving", max_abs_err=err, ms=ms,
-                        tflops=achieved_tflops(flops, ms),
-                        tb_s=nbytes / ms / 1e9,
-                        plain_ms=queued_ms(cycling(partial(
-                            quant.fused_dequant_matmul_reference, x), qsets)),
-                        library_ms=queued_ms(cycling(partial(F.linear, x),
-                                                   fsets)),
-                        library="F.linear on the dequantized weight in x's "
-                                "dtype (cuBLAS)",
-                        weight_copies=len(qsets), bound_ms=bms, bound_by=by),
-                        kernel))
+    for dtype in (torch.float32, torch.bfloat16):
+        full = quant.dequantize_weight(qw, sc).to(dtype)
+        fsets = [(full.clone(),) for _ in range(
+            copies_for(full.numel() * full.element_size()))]
+        dn = str(dtype).split(".")[1]
+        elt = full.element_size()
+        for m in QUANT_ROWS:
+            x = torch.randn(m, n_in, generator=gen).to(dev, dtype)
+            fields = dict(name=name, kind=kind, dtype=dn,
+                          shape=[m, n_in, n_out],
+                          **({"group_size": gs} if kind == "int4" else {}),
+                          **({"c2": True} if c2 else {}),
+                          path="quant_serving")
+            y = quant.fused_dequant_matmul(x, qw, sc)
+            torch.cuda.synchronize()
+            err = compare(name, y, quant.fused_dequant_matmul_reference(
+                x, qw, sc), dn)
+            # the kernel's rows do not depend on the batch (the twin's CPU
+            # matmul makes no such promise)
+            if x.is_cuda and not torch.equal(
+                    quant.fused_dequant_matmul(x[3:4], qw, sc), y[3:4]):
+                raise AssertionError(f"{name}: a row alone differs from "
+                                     f"the same row in a batch")
+            nbytes = m * n_in * elt + wbytes + m * n_out * elt
+            flops = 2 * m * n_in * n_out
+            bms, by = bound_ms(nbytes, flops, dn)
+            kernel = cycling(partial(quant.fused_dequant_matmul, x), qsets)
+            ms = queued_ms(kernel)
+            out.append((dict(
+                fields, max_abs_err=err, ms=ms,
+                tflops=achieved_tflops(flops, ms), tb_s=nbytes / ms / 1e9,
+                plain_ms=queued_ms(cycling(partial(
+                    quant.fused_dequant_matmul_reference, x), qsets)),
+                library_ms=queued_ms(cycling(partial(F.linear, x), fsets)),
+                library="F.linear on the dequantized weight in x's dtype "
+                        "(cuBLAS)",
+                weight_copies=len(qsets), bound_ms=bms, bound_by=by),
+                kernel))
     return out
 
 
@@ -2020,6 +2090,7 @@ def check_norm_bwd_mistral(gen, dev):
                    compare(f"{name} dgamma", got[1], want[1], dn, SUM_TOL)]
                   + ([compare(f"{name} dbeta", got[2], want[2], dn,
                               SUM_TOL)] if b is not None else []))
+        same_bits(name, got[1:], kernel()[1:])
         elt = x.element_size()
         # read dy, x (or y), rstd, w (and b); write dx, dgamma (and dbeta)
         n_vec = 2 if rms else 4
@@ -2034,10 +2105,11 @@ def check_norm_bwd_mistral(gen, dev):
             bl = b.to(dtype).requires_grad_()
             yl = F.layer_norm(xl, (cols,), wl, bl, eps)
             leaves, lib = (xl, wl, bl), "backward of F.layer_norm"
+        ms = queued_ms(kernel)
         out.append((dict(
             name=name, dtype=dn, shape=[rows, cols], kind=kind, eps=eps,
             path="mistral_train", max_abs_err=err, out_rms=rms_of(want[0]),
-            ms=queued_ms(kernel),
+            ms=ms, tb_s=nbytes / ms / 1e9,
             plain_ms=queued_ms(plain),
             library_ms=queued_ms(partial(torch.autograd.grad, yl, leaves,
                                          dy, retain_graph=True)),
@@ -2488,6 +2560,24 @@ def softmax_cases(gen, dev):
             ("long", SOFTMAX_LONG, padding_mask(gen, lb, lk, dev), False, 1)]
 
 
+def kept_scores(shape, mask, causal: bool) -> int:
+    """The scores of ``[b, np, sq, sk]`` that are not fill (masked, or
+    right of the diagonal under ``causal``): the x values the forward
+    needs, in this run's mask."""
+    import torch
+
+    b, np_, sq, sk = shape
+    keep = torch.ones(sq, sk, dtype=torch.bool, device=mask.device
+                      if mask is not None else None)
+    if causal:
+        keep = keep.tril()
+    if mask is None:
+        return b * np_ * int(keep.sum())
+    m = ~mask.expand(mask.shape[0], 1, sq, sk) & keep
+    per_block = m.flatten(1).sum(1).cpu()
+    return np_ * int(per_block[torch.arange(b) % mask.shape[0]].sum())
+
+
 def check_scaled_softmax(gen, dev):
     """The scaled-softmax kernels against their twins: each forward branch
     and the backward at GPT-2-small's causal [96, 1024, 1024], BERT-Large's
@@ -2496,7 +2586,10 @@ def check_scaled_softmax(gen, dev):
     scores' spread 2 after Megatron's layer scaling ``scale = L``. Timed
     by ``queued_ms``; library: ``torch.softmax`` on the pre-scaled,
     pre-masked scores in x's dtype and ``torch._softmax_backward_data``.
-    Rows carry no timing closure (``queued_ms`` has timed them)."""
+    The forward's bound reads only the scores that are not fill
+    (``kept_scores``) and writes every output; each row's TB/s is its
+    bound's bytes over its time. Rows carry no timing closure
+    (``queued_ms`` has timed them)."""
     import torch
 
     ss = importlib.import_module("apex_tpu_torch.ops.scaled_softmax")
@@ -2510,6 +2603,7 @@ def check_scaled_softmax(gen, dev):
         row_shape = [shape[0], *shape[2:]] if causal else list(shape)
         name = ss._branch(mask, causal)
         n = math.prod(shape)
+        kept = kept_scores(shape, mask, causal)
         mask_bytes = mask.numel() if mask is not None else 0
         for dtype in dtypes:
             dt = str(dtype).split(".")[-1]
@@ -2519,6 +2613,8 @@ def check_scaled_softmax(gen, dev):
             y = ss.scaled_softmax_fwd(x, mask, scale, causal)
             dx = ss.scaled_softmax_bwd(y, dy, scale)
             torch.cuda.synchronize()
+            same_bits(f"{name} {label} {dt}", (y,),
+                      (ss.scaled_softmax_fwd(x, mask, scale, causal),))
             want = ss.scaled_softmax_fwd_reference(x, mask, scale, causal)
             err = compare(f"{name} {label} {dt}", y, want, dt)
             berr = compare(f"scaled_softmax_bwd {label} {dt}", dx,
@@ -2535,22 +2631,25 @@ def check_scaled_softmax(gen, dev):
             esize = x.element_size()
             common = dict(dtype=dt, shape=row_shape, kind=kind, scale=scale,
                           path="megatron_softmax")
-            bms, by = bound_ms(2 * n * esize + mask_bytes, 8 * n, "float32")
+            nbytes = (kept + n) * esize + mask_bytes
+            bms, by = bound_ms(nbytes, 8 * n, "float32")
+            ms = queued_ms(partial(ss.scaled_softmax_fwd, x, mask, scale,
+                                   causal), 20)
             out.append((dict(
-                name=name, **common, max_abs_err=err,
-                ms=queued_ms(partial(ss.scaled_softmax_fwd, x, mask, scale,
-                                     causal), 20),
+                name=name, **common, max_abs_err=err, ms=ms,
+                tb_s=nbytes / ms / 1e9,
                 plain_ms=queued_ms(partial(ss.scaled_softmax_fwd_reference,
                                            x, mask, scale, causal), 5),
                 library_ms=queued_ms(partial(torch.softmax, pre, -1), 20),
                 library="torch.softmax(scores pre-scaled and pre-masked in "
                         "x's dtype, -1)",
                 bound_ms=bms, bound_by=by), None))
-            bms, by = bound_ms(3 * n * esize, 5 * n, "float32")
+            nbytes = 3 * n * esize
+            bms, by = bound_ms(nbytes, 5 * n, "float32")
+            ms = queued_ms(partial(ss.scaled_softmax_bwd, y, dy, scale), 20)
             out.append((dict(
                 name="scaled_softmax_bwd", **common, max_abs_err=berr,
-                ms=queued_ms(partial(ss.scaled_softmax_bwd, y, dy, scale),
-                             20),
+                ms=ms, tb_s=nbytes / ms / 1e9,
                 plain_ms=queued_ms(partial(ss.scaled_softmax_bwd_reference,
                                            y, dy, scale), 5),
                 library_ms=queued_ms(partial(
@@ -5769,6 +5868,7 @@ def main() -> int:
               + check_flash_bwd(gen, DEV) + check_adam(gen, DEV)
               + check_flash_bert(gen, DEV) + check_xentropy(gen, DEV)
               + check_lamb(gen, DEV) + check_dequant(gen, DEV)
+              + check_dequant_c2(gen, DEV)
               + check_paged_quant(gen, DEV) + check_rms_norm(gen, DEV)
               + check_flash_window(gen, DEV) + check_paged_window(gen, DEV)
               + check_norm_bwd_mistral(gen, DEV)
@@ -6049,7 +6149,8 @@ def main() -> int:
                    and (r.get("path") != "resnet"
                         or path.startswith("resnet"))
                    and r["shape"] == main_shape.get(name, r["shape"])
-                   and r.get("kind") == main_kind.get(name, r.get("kind")))
+                   and r.get("kind") == main_kind.get(name, r.get("kind"))
+                   and not r.get("c2"))
         entry = dict(
             name=name, route="cuda",
             source=os.path.relpath(_build.source_path(name), HERE),

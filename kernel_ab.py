@@ -30,7 +30,7 @@ CHECKS = ("check_flash", "check_flash_bwd", "check_flash_bert",
           "check_flash_window", "check_flash_bwd_window", "check_flash_bias",
           "check_flash_ring")
 ROW_KEYS = ("name", "dtype", "shape", "kind", "use", "path", "sk", "window",
-            "causal_offset")
+            "causal_offset", "group_size")
 
 
 def row_key(row: dict) -> str:

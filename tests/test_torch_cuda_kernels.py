@@ -155,6 +155,77 @@ def test_layer_norm_bwd_kernel_matches_twin(cuda, dtype, rows):
     assert torch.equal(again[1], dw) and torch.equal(again[2], db)
 
 
+#: (rms, from_y, weight, bias): every branch of the backward kernel
+NORM_BWD_BRANCHES = [
+    (False, False, True, True), (False, False, False, False),
+    (True, False, True, False), (True, False, False, False),
+    (False, True, True, True), (False, True, True, False),
+    (True, True, True, False), (False, True, False, False)]
+
+
+def _check_norm_bwd(cuda, dtype, rows, cols, rms, from_y, affine, bias):
+    """The backward kernel in one branch against its twin: dx at ``TOL``,
+    dgamma/dbeta (fp32 sums over the rows, in other orders) at atol 1e-3 /
+    rtol 1e-4; dgamma/dbeta the same bits in a second call."""
+    g = torch.Generator().manual_seed(rows + cols)
+    x = (torch.randn(rows, cols, generator=g) * 2 + 0.5).to(cuda, dtype)
+    dy = torch.randn(rows, cols, generator=g).to(cuda, dtype)
+    w = (torch.rand(cols, generator=g) + 0.5).to(cuda) if affine else None
+    b = torch.randn(cols, generator=g).to(cuda) if bias else None
+    if rms:
+        y, mean, rstd = rms_norm_fwd_reference(x, w)
+    else:
+        y, mean, rstd = layer_norm_fwd_reference(x, w, b)
+    args = (dy, y if from_y else x, None if rms or from_y else mean, rstd,
+            w, b, rms, from_y)
+    name = ("layer_norm_bwd_from_y" if from_y else
+            "rms_norm_bwd" if rms else "layer_norm_bwd")
+    before = _build.launches[name]
+    got = layer_norm_bwd(*args)
+    assert _build.launches[name] == before + 1
+    want = layer_norm_bwd_reference(*args)
+    assert got[0].dtype == dtype
+    _close(got[0], want[0], dtype)
+    if not affine:
+        assert got[1] is None and got[2] is None
+        return
+    torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)
+    if rms:
+        assert got[2] is None
+    else:
+        torch.testing.assert_close(got[2], want[2], atol=1e-3, rtol=1e-4)
+    again = layer_norm_bwd(*args)
+    assert torch.equal(again[1], got[1])
+    assert rms or torch.equal(again[2], got[2])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cols", [768, 1000, 4096])
+@pytest.mark.parametrize("rows", [1, 7, 77, 640, 4224])
+@pytest.mark.parametrize("rms,from_y,affine,bias", NORM_BWD_BRANCHES)
+def test_norm_bwd_every_branch_matches_twin(cuda, dtype, rows, cols, rms,
+                                            from_y, affine, bias):
+    """Rows from one to several a team (4224); 2 warps a row (768, 1000:
+    a ragged last slot) and a block (4096)."""
+    _check_norm_bwd(cuda, dtype, rows, cols, rms, from_y, affine, bias)
+
+
+@pytest.mark.parametrize("dtype,rows,cols", [
+    (torch.bfloat16, 77, 8192), (torch.bfloat16, 640, 8192),
+    (torch.float32, 7, 20000), (torch.bfloat16, 33, 1001),
+    (torch.float32, 700, 1001), (torch.bfloat16, 300, 16384),
+    (torch.float32, 9, 40000), (torch.bfloat16, 5, 8196)])
+@pytest.mark.parametrize("rms,from_y,affine,bias", NORM_BWD_BRANCHES[:5])
+def test_norm_bwd_wide_and_unaligned_rows_match_twin(cuda, dtype, rows, cols,
+                                                     rms, from_y, affine,
+                                                     bias):
+    """Rows wider than a block holds, walked in passes: dgamma/dbeta's
+    accumulators in shared memory at two blocks an SM (8192), at one
+    (16384, 20000), unaligned (8196), and in device memory (40000); and
+    widths that leave rows unaligned (one element at a time)."""
+    _check_norm_bwd(cuda, dtype, rows, cols, rms, from_y, affine, bias)
+
+
 def test_layer_norm_autograd_takes_both_kernels(cuda):
     g = torch.Generator().manual_seed(4)
     x = torch.randn(4, 9, 768, generator=g).to(cuda).requires_grad_()
@@ -440,6 +511,9 @@ QUANTIZERS = {"int8": quantize_weight, "fp8": quantize_weight_fp8,
               "int4": partial(quantize_weight_int4, group_size=128),
               "int4_gs16": partial(quantize_weight_int4, group_size=16),
               "int4_gs512": partial(quantize_weight_int4, group_size=512)}
+QUANTIZERS.update({f"int4_gs{gs}": partial(quantize_weight_int4,
+                                           group_size=gs)
+                   for gs in (2, 4, 8, 1024, 2048)})
 
 
 def _check_dequant(cuda, dtype, kind, n_in, n_out, qw_offset=0):
@@ -494,6 +568,24 @@ def test_dequant_matmul_edge_shapes_match_twin(cuda, dtype, kind, n_in,
     chunks only; out 33 or 40: a part of a channel tile); weights 8 bytes
     off a 16-byte boundary."""
     _check_dequant(cuda, dtype, kind, n_in, n_out, qw_offset)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,n_in,n_out", [
+    ("int4_gs2", 768, 2304), ("int4_gs4", 768, 2304), ("int4_gs8", 768, 2304),
+    ("int4_gs1024", 3072, 768), ("int4_gs2048", 2048, 768),
+    ("int4_gs2", 36, 40), ("int4_gs4", 100, 33), ("int4_gs8", 72, 40),
+    ("int8", 36, 40), ("fp8", 36, 40), ("int8", 100, 33), ("fp8", 100, 33),
+    ("int8", 1001, 48)])
+def test_dequant_matmul_every_served_shape_matches_twin(cuda, dtype, kind,
+                                                        n_in, n_out):
+    """ROADMAP C2: every shape the reference serves runs on the card. int4
+    groups of 2, 4 and 8 (several groups in a k16 step) and of 1024 and
+    2048 (a stage inside one group), at GPT-2-small's widths and at ragged
+    ones (rows of 18, 50 and 36 packed bytes); int8/e4m3 in_features that
+    are no multiple of 8. Against the twin at ``TOL``; a bf16 row alone
+    bit-equal to the same row in a batch."""
+    _check_dequant(cuda, dtype, kind, n_in, n_out)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1150,6 +1242,70 @@ def test_scaled_softmax_kernels_match_twin(cuda, dtype, b, np_, sq, sk,
     _close(dx, scaled_softmax_bwd_reference(y, dy, 0.7), dtype)
     if branch == "padding":               # sample 0 sees column 0 alone
         assert (y[0, :, :, 0].float() == 1).all()
+
+
+#: (b, np, sq, sk, mask kind, causal): sk at 1, 31, 32, 33, BERT's 512, the
+#: warp path's limit and one past it, and 8193; every mask broadcast
+SOFTMAX_PATH_CASES = [
+    (2, 2, 5, 1, "padding", False), (2, 3, 7, 31, "padding", False),
+    (3, 2, 6, 32, "cyclic", False), (2, 2, 9, 33, "padding", False),
+    (2, 4, 16, 512, "padding", False), (2, 2, 8, 512, "full", False),
+    (2, 2, 6, 512, "columns", False), (2, 2, 6, 512, "transposed", False),
+    (1, 2, 8, 1024, "padding", False), (1, 2, 8, 1025, "padding", False),
+    (1, 2, 3, 8193, "padding", False), (2, 2, 8, 1025, "transposed", False),
+    (1, 3, 40, 100, None, True), (1, 2, 100, 40, None, True),
+    (1, 2, 24, 1024, None, True), (1, 1, 9, 1100, None, True),
+    (2, 3, 16, 512, None, False), (1, 2, 4, 1500, None, False)]
+
+
+def _path_mask(kind, b, sq, sk, g):
+    """A mask of ``kind`` whose broadcast to [mb, 1, sq, sk] reads with row
+    stride 0 (padding), column stride 1 (full, cyclic), column stride 0
+    (columns: one value a query) or a column stride of sq (transposed);
+    sample 0's first row is masked everywhere."""
+    if kind == "padding":
+        m = torch.rand(b, 1, 1, sk, generator=g) < 0.3
+        m[0] = True
+    elif kind == "full":
+        m = torch.rand(b, 1, sq, sk, generator=g) < 0.3
+        m[0, 0, 0] = True
+    elif kind == "cyclic":
+        m = torch.rand(2, 1, sq, sk, generator=g) < 0.3
+        m[0, 0, 0] = True
+    elif kind == "columns":
+        m = torch.rand(b, 1, sq, 1, generator=g) < 0.5
+        m[0, 0, 0] = True
+    else:
+        m = (torch.rand(b, 1, sk, sq, generator=g) < 0.3).transpose(-1, -2)
+        m[0, 0, 0] = True
+    return m
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+@pytest.mark.parametrize("b,np_,sq,sk,kind,causal", SOFTMAX_PATH_CASES)
+def test_scaled_softmax_fwd_paths_match_twin(cuda, dtype, b, np_, sq, sk,
+                                             kind, causal):
+    """The forward on both paths (a warp a row up to 1024 columns, a block
+    past it) against the twin at ``TOL``; a row masked everywhere is
+    uniform; the output is the same bits in a second call."""
+    from apex_tpu_torch.ops.scaled_softmax import (
+        _branch, scaled_softmax_fwd, scaled_softmax_fwd_reference)
+
+    g = torch.Generator().manual_seed(sk + sq)
+    x = (torch.randn(b, np_, sq, sk, generator=g) * 3).to(cuda, dtype)
+    mask = _path_mask(kind, b, sq, sk, g) if kind else None
+    mask = mask.to(cuda) if mask is not None else None
+    name = _branch(mask, causal)
+    before = _build.launches[name]
+    y = scaled_softmax_fwd(x, mask, 0.7, causal)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    _close(y, scaled_softmax_fwd_reference(x, mask, 0.7, causal), dtype)
+    if kind:
+        torch.testing.assert_close(y[0, 0, 0].float(),
+                                   torch.full((sk,), 1.0 / sk, device=cuda),
+                                   atol=TOL[dtype][0], rtol=TOL[dtype][1])
+    assert torch.equal(scaled_softmax_fwd(x, mask, 0.7, causal), y)
 
 
 GROUP_NORM_CASES = [

@@ -19,7 +19,10 @@ by one fma, the four warps' and the K split's parts summed in order, the
 per-channel scale last. It is held against the twin's fp32 matmul within
 the fp32 rounding bound of an n_in-term dot, at GPT-2-small's four block
 shapes (int8, e4m3, int4 at groups 16 and 128; 512 where n_in allows),
-at groups 32, 64 and 256, at ragged widths; and a row alone equals, bit
+at groups 32, 64 and 256, at ragged widths, and at every shape the
+reference serves beyond those (groups of 2, 4, 8, 1024 and 2048, with
+one masked product a group below 16; int8/e4m3 ``in_features`` that are
+no multiple of 8); and a row alone equals, bit
 for bit, the same row in a batch of 37 (the order is fixed by the shape,
 ``mma_k_split``, never by the rows). A wrong fragment mapping (a
 nibble, a lane or a K offset of x off by one) leaves the bound by orders
@@ -163,6 +166,9 @@ def emulate(x, qw, sc):
     def xreg(cols):                   # x's bf16 pair at columns (c, c + 1)
         return xb[toks, cols] | (xb[toks, cols + 1] << 16)
 
+    def xpair(c0, c1):                # x's bf16 pair at columns (c0, c1)
+        return xb[toks, c0] | (xb[toks, c1] << 16)
+
     def k_low(byte):                  # the value under a byte's low nibble
         return byte // half * gs + byte % half
 
@@ -193,6 +199,28 @@ def emulate(x, qw, sc):
                         np.float32)
                     return acc, np.zeros_like(prt)
 
+                if gs < 16:
+                    # 8 / half groups a step: one product a group, the
+                    # other groups' K positions of A masked to zero
+                    hs = half.bit_length() - 1
+                    for q in range(4):
+                        byte = bw + 8 * q + 2 * LANE_T
+                        lo = byte_perm(word(rows, byte, 2), 0, 0x4140)
+                        hi = byte_perm(word(rows + 8, byte, 2), 0, 0x4140)
+                        a = (nibble_pair(lo, 0), nibble_pair(hi, 0),
+                             nibble_pair(lo, 4), nibble_pair(hi, 4))
+                        b0 = xpair(k_low(byte), k_low(byte + 1))
+                        b1 = xpair(k_low(byte) + half, k_low(byte + 1) + half)
+                        for qq in range(8 // half):
+                            keep = (np.where((2 * LANE_T) >> hs == qq,
+                                             0xFFFF, 0)
+                                    | np.where((2 * LANE_T + 1) >> hs == qq,
+                                               0xFFFF0000, 0)).astype(
+                                                   np.uint32)
+                            am = tuple(r & keep for r in a)
+                            prt = mma(prt, a_matrix(am), b_matrix(b0, b1))
+                            acc, prt = fold(acc, prt, bw + 8 * q + qq * half)
+                    continue
                 if gs == 16:
                     for q in range(4):
                         byte = bw + 8 * q + 2 * LANE_T
@@ -286,6 +314,17 @@ EMULATED += [("int4", 512, 3072, 768), ("int4", 512, 1024, 40),
              ("int4", 32, 256, 48), ("int4", 64, 384, 40),
              ("int4", 256, 768, 40), ("int8", 0, 24, 40), ("fp8", 0, 24, 40),
              ("int8", 0, 520, 33), ("int4", 16, 48, 40)]
+# every shape the reference serves (ROADMAP C2): int4 groups of 2, 4 and 8
+# (several groups in a k16 step, one masked product each) and of 1024 and
+# 2048 (a stage inside one group), at GPT-2-small's widths and ragged ones
+# (rows of 18 and 50 packed bytes); int8/e4m3 in_features that are no
+# multiple of 8 (the K tail zero-filled)
+C2_SHAPES = [("int4", gs, 768, 2304) for gs in (2, 4, 8)]
+C2_SHAPES += [("int4", 1024, 768 * 4, 768), ("int4", 2048, 2048, 40),
+              ("int4", 2, 36, 40), ("int4", 4, 100, 33), ("int4", 8, 72, 40),
+              ("int8", 0, 36, 40), ("fp8", 0, 36, 40), ("int8", 0, 100, 33),
+              ("fp8", 0, 1001, 48)]
+EMULATED += C2_SHAPES
 
 
 @pytest.mark.parametrize("kind,gs,n_in,n_out", EMULATED)
@@ -303,7 +342,9 @@ def test_emulated_kernel_within_fp32_rounding_of_twin(kind, gs, n_in, n_out):
 
 @pytest.mark.parametrize("kind,gs,n_in,n_out", [
     ("int8", 0, 3072, 768), ("fp8", 0, 768, 2304), ("int4", 16, 768, 768),
-    ("int4", 128, 768, 3072), ("int4", 512, 3072, 768)])
+    ("int4", 128, 768, 3072), ("int4", 512, 3072, 768),
+    ("int4", 2, 768, 768), ("int4", 4, 100, 40), ("int4", 1024, 2048, 40),
+    ("int8", 0, 36, 40)])
 def test_emulated_row_alone_equals_row_in_batch(kind, gs, n_in, n_out):
     _, x, _, qw, sc = _inputs(kind, gs, 37, n_in, n_out, seed=1)
     x = torch.from_numpy(x).bfloat16()

@@ -185,3 +185,149 @@ def test_modules_take_memory_efficient(cls):
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
+
+
+# --- the backward kernel's tile plan and summation order ---------------------
+
+LN = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+
+
+@pytest.mark.parametrize("rows,cols,elt", [
+    (77, 4096, 2), (77, 4096, 4), (640, 1024, 2), (640, 1024, 4),
+    (4096, 1024, 2), (8192, 768, 2), (8192, 768, 4), (8192, 4096, 2),
+    (8192, 4096, 4), (4224, 4096, 2), (1, 768, 2), (7, 1000, 2),
+    (7, 1001, 4), (100, 8192, 2), (3, 40000, 4)])
+def test_norm_bwd_plan_covers_the_row_and_fills_the_card(rows, cols, elt):
+    """Every row's slots are held (team x slots x passes x 16 bytes cover
+    the width, at most 2 slots a thread in bf16 and 4 in fp32), teams
+    divide the 256-thread block, and the grid spreads the rows: a team for
+    every row up to two blocks on each of the 132 SMs (the co-resident
+    grid that the one-launch dgamma/dbeta sum needs), on a smaller card
+    two blocks on each of its SMs."""
+    plan = LN.norm_bwd_plan(rows, cols, elt)
+    pack = 16 // elt
+    assert plan["team"] in (32, 64, 128, 256)
+    assert plan["teams"] * plan["team"] == LN.NORM_BWD_THREADS
+    assert 1 <= plan["slots"] <= LN.NORM_BWD_MAX_SLOTS[elt]
+    covered = plan["team"] * plan["slots"] * plan["passes"] * pack
+    assert covered >= cols
+    assert (plan["passes"] - 1) * plan["team"] * plan["slots"] * pack < cols
+    units = -(-rows // plan["teams"])
+    assert plan["blocks"] == min(units, 2 * 132)
+    assert LN.norm_bwd_plan(rows, cols, elt, sms=114)["blocks"] == \
+        min(units, 2 * 114)
+
+
+def test_norm_bwd_plan_at_the_paths_shapes():
+    """Mistral's 77 ragged rows spread over 77 blocks, a block a row, in
+    one launch; its 8192 training rows, BERT's MLM norm (640 x 1024) and
+    GPT-2's rows fill the card; GPT-2's 768 bf16 columns are two warps a
+    row, Mistral's 4096 a block; 8192 bf16 columns take two passes."""
+    assert LN.norm_bwd_plan(77, 4096, 2) == dict(
+        team=256, slots=2, passes=1, teams=1, blocks=77, acc_smem=False)
+    assert LN.norm_bwd_plan(8192, 4096, 2)["blocks"] == 264
+    assert LN.norm_bwd_plan(640, 1024, 2) == dict(
+        team=64, slots=2, passes=1, teams=4, blocks=160, acc_smem=False)
+    assert LN.norm_bwd_plan(8192, 768, 2) == dict(
+        team=64, slots=2, passes=1, teams=4, blocks=264, acc_smem=False)
+    assert LN.norm_bwd_plan(8192, 768, 4) == dict(
+        team=64, slots=3, passes=1, teams=4, blocks=264, acc_smem=False)
+    assert LN.norm_bwd_plan(100, 8192, 2)["passes"] == 2
+    # rows walked in passes keep dgamma/dbeta in shared memory: two blocks
+    # an SM at 8192 columns, one at 16384, none past ~28 K columns
+    assert LN.norm_bwd_plan(2048, 8192, 2) == dict(
+        team=256, slots=2, passes=2, teams=1, blocks=264, acc_smem=True)
+    assert LN.norm_bwd_plan(2048, 16384, 4) == dict(
+        team=256, slots=2, passes=8, teams=1, blocks=132, acc_smem=True)
+    assert LN.norm_bwd_plan(3, 40000, 4)["acc_smem"] is False
+
+
+def _fma(a, b, c):
+    """fp32 fmaf(a, b, c): the exact product and sum, rounded once."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _emulated_kernel_grads(x, w, b, dy, *, rms, memory_efficient, dtype,
+                           sms=LN.NORM_BWD_SMS):
+    """The backward kernel's arithmetic on the forward twin's saved
+    tensors, in fp32 numpy: xhat as the kernel forms it (``(y - b) * (1 /
+    w)`` with one correctly rounded reciprocal a column under
+    ``memory_efficient``), dx by its formula, and dgamma/dbeta summed in
+    the plan's order (on a card of ``sms`` SMs): each team's rows in turn
+    by fma, the block's teams in team order, then (behind the grid
+    barrier) the blocks' partial rows in 8 warp stripes added in warp
+    order."""
+    f32 = np.float32
+    xt = torch.from_numpy(x).to(dtype)
+    wt = torch.from_numpy(w) if w is not None else None
+    if rms:
+        y, mean, rstd = LN.rms_norm_fwd_reference(xt, wt)
+    else:
+        y, mean, rstd = LN.layer_norm_fwd_reference(
+            xt, wt, torch.from_numpy(b) if b is not None else None)
+    src = (y if memory_efficient else xt).float().numpy()
+    g = torch.from_numpy(dy).to(dtype).float().numpy()
+    rows, cols = src.shape
+    rs, mu = rstd.numpy(), mean.numpy()
+    if memory_efficient:
+        xhat = src
+        if w is not None:
+            rcp = (1.0 / w.astype(np.float64)).astype(f32)
+            xhat = (src - (b if b is not None else f32(0))) * rcp
+    else:
+        xhat = src * rs if rms else (src - mu) * rs
+    wdy = g * (w if w is not None else f32(1))
+    inv_cols = f32(1) / f32(cols)
+    c1 = (xhat.astype(np.float64) * wdy).sum(1, keepdims=True).astype(f32)
+    c2 = f32(0) if rms else wdy.astype(np.float64).sum(
+        1, keepdims=True).astype(f32) * inv_cols
+    dx = (wdy - xhat * (c1 * inv_cols) - c2) * rs
+    dx = torch.from_numpy(dx).to(dtype).float().numpy()
+    if w is None:
+        return [dx]
+    plan = LN.norm_bwd_plan(rows, cols, xt.element_size(), sms=sms)
+    blocks, teams = plan["blocks"], plan["teams"]
+    n_teams = blocks * teams
+    parts = []
+    for blk in range(blocks):
+        buf = None
+        for k in range(teams):
+            acc = [np.zeros(cols, f32), np.zeros(cols, f32)]
+            for r in range(blk * teams + k, rows, n_teams):
+                acc = [_fma(g[r], xhat[r], acc[0]), acc[1] + g[r]]
+            buf = acc if buf is None else [buf[0] + acc[0], buf[1] + acc[1]]
+        parts.append(buf)
+    stripes = []
+    for warp in range(8):
+        a = [np.zeros(cols, f32), np.zeros(cols, f32)]
+        for t in range(warp, blocks, 8):
+            a = [a[0] + parts[t][0], a[1] + parts[t][1]]
+        stripes.append(a)
+    sums = [np.zeros(cols, f32), np.zeros(cols, f32)]
+    for a in stripes:
+        sums = [sums[0] + a[0], sums[1] + a[1]]
+    return [dx, sums[0]] + ([] if rms or b is None and not
+                             memory_efficient else [sums[1]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rms,memory_efficient,params", [
+    (False, False, "wb"), (True, False, "w"), (False, True, "wb"),
+    (True, True, "w"), (False, False, "")])
+@pytest.mark.parametrize("sms", [132, 4])
+@pytest.mark.parametrize("rows", [37, 300])
+def test_emulated_kernel_order_matches_jax(rows, sms, rms, memory_efficient,
+                                           params, dtype):
+    """The kernel's fixed summation order (a team a row across the card,
+    or on a 4-SM card several rows a team) and its division-free xhat
+    under ``memory_efficient`` give dx, dgamma and dbeta within this
+    file's bars of ``jax.grad`` through the reference's kernel."""
+    x, w, b, dy = _inputs(rows, seed=60 + rows)
+    w = w if "w" in params else None
+    b = b if "b" in params else None
+    kw = dict(rms=rms, memory_efficient=memory_efficient, dtype=dtype)
+    got = _emulated_kernel_grads(x, w, b, dy, sms=sms, **kw)
+    want = _jax_grads(x, w, b, dy, **kw)
+    _check(got, want[:len(got)] if w is not None else want[:1], dtype,
+           memory_efficient)

@@ -290,3 +290,129 @@ def test_fused_module_dispatch_and_reference_errors():
                jnp.asarray(x3.numpy()), 1.0)), "float32")
     _close(_f32(ScaledSoftmax.apply(x, 1.0)),
            _f32(ScaledMaskedSoftmax.apply(x, None, 1.0)), "float32")
+
+
+# --- the forward kernel's path by sk, and its arithmetic emulated ------------
+
+@pytest.mark.parametrize("dtype,pack", [(torch.float32, 4),
+                                        (torch.bfloat16, 8),
+                                        (torch.float16, 8)])
+def test_forward_path_by_sk(dtype, pack):
+    """Up to ``SOFTMAX_WARP_COLS`` columns a warp holds the row, its lanes'
+    16-byte units covering it (a power of two of them, at most 8); wider
+    rows (1025, 8193) take a block each. There is no cap on sk."""
+    assert tss.SOFTMAX_WARP_COLS == 1024
+    for sk in (1, 31, 32, 33, 256, 257, 512, 1000, 1023, 1024):
+        nvec = tss.fwd_path(sk, dtype)
+        assert nvec in (1, 2, 4, 8) and 32 * nvec * pack >= sk
+        assert nvec == 1 or 32 * nvec // 2 * pack < sk
+    assert tss.fwd_path(1024, dtype) == 1024 // (32 * pack)
+    for sk in (1025, 2048, 8193, 100000):
+        assert tss.fwd_path(sk, dtype) == 0
+
+
+def _butterfly(vals, op):
+    """A warp's xor-shuffle reduction over its 32 lanes' ``vals``: every
+    lane ends with the same value, combined in the kernel's order."""
+    vals = list(vals)
+    for o in (16, 8, 4, 2, 1):
+        vals = [op(vals[i], vals[i ^ o]) for i in range(32)]
+    assert all(v == vals[0] or (np.isnan(v) and np.isnan(vals[0]))
+               for v in vals)
+    return vals[0]
+
+
+def _merge(a, b):
+    """The kernel's merge of (max, sum of exp to it) pairs; a side that
+    holds no value is (-inf, 0)."""
+    (m, s), (m2, s2) = a, b
+    mn = np.maximum(m, m2)
+    f32 = np.float32
+    s = (s if m == mn else s * np.exp(f32(m - mn))) + \
+        (s2 if m2 == mn else s2 * np.exp(f32(m2 - mn)))
+    return (mn, f32(s))
+
+
+def _emulated_forward(x, mask, scale, causal, dtype):
+    """The forward kernel's fp32 arithmetic on one score tensor: the warp
+    path (lane l's units l + 32 j, its sum in unit order, the warp's
+    butterfly, exp once an element, one reciprocal a row) or the block
+    path (each of 256 threads' units merged online into (max, sum), the
+    warps' butterflies, the warps in order, then exp again)."""
+    f32 = np.float32
+    b, np_, sq, sk = x.shape
+    nvec = tss.fwd_path(sk, getattr(torch, dtype))
+    pack = 16 // torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    v = _f32(_t(x, dtype)) * f32(scale)
+    if mask is not None:
+        v = np.where(np.broadcast_to(mask, (mask.shape[0], 1, sq, sk))[
+            np.arange(b) % mask.shape[0]], f32(tss.MASK_FILL), v)
+    if causal:
+        v = np.where(np.arange(sq)[:, None] < np.arange(sk)[None, :],
+                     f32(tss.MASK_FILL), v)
+    rows = v.reshape(-1, sk)
+    out = np.empty_like(rows)
+    threads = 32 if nvec else 256
+    units = -(-sk // pack)
+    for i, row in enumerate(rows):
+        lane_units = [[u for u in range(t, units, threads)]
+                      for t in range(threads)]
+        if nvec:
+            m = _butterfly([max([row[u * pack:(u + 1) * pack].max()
+                                 for u in us], default=-np.inf)
+                            for us in lane_units], max)
+            e = np.exp(row - m).astype(f32)
+            sums = []
+            for us in lane_units:
+                s = f32(0)
+                for u in us:
+                    for val in e[u * pack:(u + 1) * pack]:
+                        s = f32(s + val)
+                sums.append(s)
+            inv = f32(1) / _butterfly(sums, lambda p, q: f32(p + q))
+            out[i] = e * inv
+            continue
+        pairs = []
+        for us in lane_units:
+            ms = (f32(-np.inf), f32(0))
+            for u in us:
+                vals = row[u * pack:(u + 1) * pack]
+                um = vals.max()
+                ms = _merge(ms, (um, np.exp(vals - um).astype(f32).sum(
+                    dtype=f32)))
+            pairs.append(ms)
+        warps = [_butterfly(pairs[w * 32:(w + 1) * 32], _merge)
+                 for w in range(8)]
+        m, s = warps[0]
+        for p in warps[1:]:
+            m, s = _merge((m, s), p)
+        out[i] = np.exp(row - m).astype(f32) * (f32(1) / s)
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,masked,causal", [
+    ((2, 2, 3, 33), True, False), ((1, 2, 5, 512), False, True),
+    ((2, 1, 2, 1025), True, False), ((1, 1, 3, 1040), False, True)])
+def test_emulated_forward_matches_jax(shape, masked, causal, dtype):
+    """Both paths' arithmetic (a reciprocal of the sum instead of a
+    division; the block path's online max and sum, whose threads past the
+    row's units hold (-inf, 0)) within the reference's bars of its kernel,
+    a row masked everywhere uniform."""
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.standard_normal(shape) * 3).astype(np.float32)
+    mask = None
+    if masked:
+        mask = rng.random((shape[0], 1, 1, shape[3])) < 0.3
+        mask[0, 0, 0, :] = True
+    got = _emulated_forward(x, mask, 0.5, causal, dtype)
+    if causal:
+        want = jss.scaled_upper_triang_masked_softmax(
+            _j(x.reshape(-1, *shape[2:]), dtype), 0.5).reshape(shape)
+    else:
+        want = jss.scaled_masked_softmax(
+            _j(x, dtype), None if mask is None else jnp.asarray(mask), 0.5)
+    got = _f32(torch.from_numpy(got).to(getattr(torch, dtype)))
+    _close(got, np.asarray(want.astype(jnp.float32)), dtype)
+    if masked:
+        np.testing.assert_allclose(got[0, 0], 1.0 / shape[3], rtol=TOL[dtype])
