@@ -1,5 +1,6 @@
 // Per-row and per-segment reductions over the flat fp32 (rows, 1024)
-// optimizer buffers, shared by segment_stats.cu and lamb.cu.
+// optimizer buffers: the row layout, segment_bounds and block_sum, shared
+// by segment_stats.cu and lamb.cu; segment_reduce_kernel, lamb.cu's.
 //
 // Every 1024-element row of a flat buffer belongs to one tensor (its
 // segment), and each segment's rows are contiguous and in order
@@ -20,17 +21,35 @@ constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kVecPerLane = kLane / 4 / 32;  // float4s each lane takes of a row
 constexpr int kReduceThreads = 256;
 
-// First index i in [0, n) with seg_rows[i] >= s (n if none).
-__device__ __forceinline__ int lower_bound_rows(const int* seg_rows, int n, int s) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (seg_rows[mid] < s)
-      lo = mid + 1;
-    else
-      hi = mid;
+// lo = the first row of segment s, hi = the first row past it (the first
+// index whose seg_rows entry is >= s, >= s + 1; n if none), found by the
+// block together: each round every thread probes the last entry of its
+// chunk of the range still open (sorted, so the probes below the key are
+// a prefix, counted by __syncthreads_count) and the range shrinks to one
+// chunk less its probe. ~log_blockDim(n) rounds, both bounds at once;
+// every thread of the block must call it.
+__device__ __forceinline__ void segment_bounds(const int* __restrict__ seg_rows, int n, int s,
+                                               int& lo, int& hi) {
+  const int nt = static_cast<int>(blockDim.x);
+  int lo0 = 0, hi0 = n, lo1 = 0, hi1 = n;  // each answer in [lo, hi]
+  while (hi0 > lo0 || hi1 > lo1) {
+    const int c0 = max(1, (hi0 - lo0 + nt - 1) / nt);
+    const int c1 = max(1, (hi1 - lo1 + nt - 1) / nt);
+    const int p0 = lo0 + (threadIdx.x + 1) * c0 - 1, p1 = lo1 + (threadIdx.x + 1) * c1 - 1;
+    const bool b0 = hi0 > lo0 && p0 < hi0 && seg_rows[p0] < s;
+    const bool b1 = hi1 > lo1 && p1 < hi1 && seg_rows[p1] < s + 1;
+    const int n0 = __syncthreads_count(b0), n1 = __syncthreads_count(b1);
+    if (hi0 > lo0) {
+      hi0 = min(hi0, lo0 + (n0 + 1) * c0 - 1);
+      lo0 += n0 * c0;
+    }
+    if (hi1 > lo1) {
+      hi1 = min(hi1, lo1 + (n1 + 1) * c1 - 1);
+      lo1 += n1 * c1;
+    }
   }
-  return lo;
+  lo = lo0;
+  hi = lo1;
 }
 
 // Sum over the threads of a block in a fixed order: shuffles in each warp,
@@ -61,8 +80,8 @@ segment_reduce_kernel(const float* __restrict__ part, const int* __restrict__ se
   __shared__ double fs[kReduceThreads / 32];
   __shared__ long long cs[kReduceThreads / 32];
   const int s = blockIdx.x;
-  const int lo = lower_bound_rows(seg_rows, rows, s);
-  const int hi = lower_bound_rows(seg_rows, rows, s + 1);
+  int lo, hi;
+  segment_bounds(seg_rows, rows, s, lo, hi);
   for (int k = 0; k < n_stats; ++k) {
     const float* pk = part + (long)k * rows;
     if (k == count_stat) {

@@ -22,6 +22,7 @@ A tensor on the CPU takes the twins; a CUDA tensor always takes the kernels.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -70,6 +71,64 @@ def rms_norm_fwd_reference(x2d: torch.Tensor, weight=None,
     return y.to(x2d.dtype), mean, rstd
 
 
+#: the forward kernel's tiling (``csrc/layer_norm_fwd.cu``): blocks of 256
+#: threads holding 256 / team teams of a row each; a team holds its row in
+#: registers, this many 16-byte slots a thread by element size (bf16 4, fp32
+#: 8: 32 values), up to ``NORM_FWD_MAX_SLOTS`` (64 bf16 values) once the
+#: team is the whole block; a row wider than that is walked in passes of
+#: ``NORM_FWD_SLOTS`` slots a thread
+NORM_FWD_THREADS = 256
+NORM_FWD_SLOTS = {2: 4, 4: 8}
+NORM_FWD_MAX_SLOTS = {2: 8, 4: 8}
+
+
+def norm_fwd_plan(cols: int, elt: int):
+    """The forward kernel's tile choice for rows of ``cols`` ``elt``-byte
+    elements: ``dict(team, slots, passes)``. A row's team is the fewest
+    threads (a power of two from 32 to 256) that hold its 16-byte slots at
+    ``NORM_FWD_SLOTS`` a thread, ``slots`` the slots a thread then holds
+    (at most ``NORM_FWD_MAX_SLOTS`` in a team of 256); a wider row is walked
+    in ``passes``. A function of the width and the element size alone,
+    never of the row count: a row's bits are the same alone or in a
+    batch."""
+    pack = 16 // elt
+    n_slots = max(1, -(-cols // pack))
+    want = NORM_FWD_SLOTS[elt]
+    team = 32
+    while team * want < n_slots and team < NORM_FWD_THREADS:
+        team *= 2
+    slots, passes = -(-n_slots // team), 1
+    if slots > NORM_FWD_MAX_SLOTS[elt]:
+        slots, passes = want, -(-n_slots // (team * want))
+    return dict(team=team, slots=slots, passes=passes)
+
+
+def norm_fwd_grid(rows: int, team: int, sms: int):
+    """The forward's launch for ``rows`` rows of teams of ``team``
+    threads on a card of ``sms`` SMs: ``dict(teams, hoist)``. ``teams``
+    rows a block: a full block of 256 threads once the rows give every SM
+    one, fewer while they do not, so that a decode step's few rows spread
+    over as many SMs. ``hoist`` while the grid is at most a block an SM: a
+    row's latency is then the time, and a thread holding at most 32 values
+    reads w and b with x (measured: 8 x 768 fp32 0.00348 ms against
+    0.00431, 4096 x 1024 bf16 0.00809 against 0.00684, `NVIDIA H100 80GB
+    HBM3, 700.00 W`, ``kernel_ab.py``). Only the launch depends on the row
+    count: a team computes its row alike in any block, hoisted or not."""
+    per_block = NORM_FWD_THREADS // team
+    return dict(teams=max(1, min(per_block, -(-rows // sms))),
+                hoist=rows <= sms * per_block)
+
+
+@functools.lru_cache(maxsize=1024)
+def _norm_fwd_launch(rows: int, cols: int, elt: int, sms: int):
+    """``(team, slots, passes, teams, hoist)`` of the forward's launch,
+    worked out once per shape and card: the plan and grid above."""
+    plan = norm_fwd_plan(cols, elt)
+    grid = norm_fwd_grid(rows, plan["team"], sms)
+    return (plan["team"], plan["slots"], plan["passes"], grid["teams"],
+            int(grid["hoist"]))
+
+
 def _norm_fwd_kernel(name: str, x2d, weight, bias, eps: float, rms: bool):
     rows, cols = x2d.shape
     x2d = x2d.contiguous()
@@ -79,14 +138,22 @@ def _norm_fwd_kernel(name: str, x2d, weight, bias, eps: float, rms: bool):
     mean = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
     rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
     _build.check_cuda(*[t for t in (x2d, w, b) if t is not None])
+    elt = x2d.element_size()
+    # 16-byte loads and stores: whole slots in every row, every base aligned
+    # (y is a fresh allocation, aligned far past 16 bytes)
+    vec = int(cols % (16 // elt) == 0
+              and all(t.data_ptr() % 16 == 0
+                      for t in (x2d, w, b) if t is not None))
     P, I, F = _build.P, _build.I, _build.F
     _build.launch(
         name, "apex_layer_norm_fwd",
-        (P, P, P, P, P, P, I, I, F, I, I, P),
+        (P, P, P, P, P, P, I, I, F, I, I, I, I, I, I, I, I, P),
         x2d.data_ptr(), w.data_ptr() if w is not None else None,
         b.data_ptr() if b is not None else None, y.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), rows, cols, float(eps), int(rms),
-        _build.dtype_code(x2d), _build.stream_of(x2d))
+        _build.dtype_code(x2d),
+        *_norm_fwd_launch(rows, cols, elt, _sm_count(x2d.device)), vec,
+        _build.stream_of(x2d))
     return y, mean, rstd
 
 

@@ -210,6 +210,18 @@ def segment_stats_reference(a, seg_rows, num_segments: int, b=None):
     return _segment_sum(per_row, seg_rows, num_segments)
 
 
+#: rows of a group: the stats kernel's row pass sums each 8 rows (a block's)
+#: into one partial, which the segment pass reads for every group that
+#: lies inside one segment (``csrc/segment_stats.cu``)
+STATS_GROUP_ROWS = 8
+
+
+def stats_scratch_bytes(rows: int) -> int:
+    """The stats kernel's scratch for ``rows`` rows: per group fp64 sums
+    of A and B and an int64 count, then per row three fp32 partials."""
+    return 24 * -(-rows // STATS_GROUP_ROWS) + 12 * rows
+
+
 def segment_stats(a, seg_rows, num_segments: int, b=None):
     """Per-segment ``[sumsq(a), sumsq(b), nonfinite(a)]``, fp32 ``[3,
     num_segments]``, in one pass: the kernel on a CUDA tensor, the twin on a
@@ -221,14 +233,15 @@ def segment_stats(a, seg_rows, num_segments: int, b=None):
     _check_seg_rows(seg_rows, a.shape[0])
     rows = a.shape[0]
     seg = seg_rows.to(device=a.device, dtype=torch.int32).contiguous()
-    part = torch.empty(3 * rows, dtype=torch.float32, device=a.device)
+    scratch = torch.empty(stats_scratch_bytes(rows), dtype=torch.uint8,
+                          device=a.device)
     out = torch.empty(3, num_segments, dtype=torch.float32, device=a.device)
     _build.check_cuda(*[t for t in (a, b, seg) if t is not None])
     P, I = _build.P, _build.I
     _build.launch("segment_stats", "apex_segment_stats",
                   (P, P, P, P, P, I, I, P), a.data_ptr(),
                   b.data_ptr() if b is not None else None, seg.data_ptr(),
-                  part.data_ptr(), out.data_ptr(), rows, num_segments,
+                  scratch.data_ptr(), out.data_ptr(), rows, num_segments,
                   _build.stream_of(a))
     return out
 

@@ -53,13 +53,18 @@ each,
    width 1024, eps 1e-12, over the 4096 tokens in fp32 (the embedding
    norm) and bf16 (the sublayer norms) and over the MLM head's 640 rows in
    bf16 (every LayerNorm row by ``queued_ms``; the backward's dgamma/dbeta
-   the same bits in a second call); the flash kernels at 8x16x512x64,
-   non-causal, with per-row padding lengths (from the seed) as segment ids
+   the same bits in a second call; every forward row, LayerNorm and
+   RMSNorm, the same bits in a second call and row 0 alone the bits of row
+   0 in the batch, and rows at a ragged width and as an unaligned view);
+   the flash kernels at 8x16x512x64, non-causal, with per-row padding
+   lengths (from the seed) as segment ids
    and dropout 0.1; the xentropy kernels at the gathered MLM head's 640 x
    30528 and the NSP head's 8 x 2, with smoothing 0 and 0.1 and padded
    rows; the stats and LAMB kernels over BERT-Large's flat buffers, with
    an injected inf and NaNs whose count must be exact, and a skipped step
-   that must leave every buffer bit-identical. The quantized serving rows:
+   that must leave every buffer bit-identical (the stats kernel also over
+   ResNet-50's; its rows by ``queued_ms`` beside ``torch._foreach_norm``).
+   The quantized serving rows:
    the dequant-matmul kernels (int8 and fp8 per channel; int4 at group
    128) at GPT-2-small's four linear shapes, 8 and 128 rows, x in fp32 and
    bf16, timed over copies of the weight that together exceed the L2 cache
@@ -72,7 +77,9 @@ each,
    paged row's shape, beside the unquantized kernel's time there. The
    Mistral-7B rows, timed as the quantized ones: the RMS branch of the
    LayerNorm forward at width 4096 over a decode step's 8 rows and 4224
-   prefill rows (library ``F.rms_norm``); the windowed flash forward at 1
+   prefill rows (library ``F.rms_norm``), and at t5-small's width 512, eps
+   1e-6, over a decode step's 8 rows and a training batch's 128 x 512
+   encoder rows; the windowed flash forward at 1
    x 32 x S x 128 over 8 kv heads, window 4096, S = 4224 and 6016 (library
    ``scaled_dot_product_attention`` with the band as a boolean mask); the
    windowed paged decode, unquantized and over int8 and fp8 pools, at 8
@@ -266,7 +273,8 @@ each,
    The ResNet-50 phases run after ``bert_bf16`` (their batch needs the
    room that the later phases' live models take): ``resnet_fp32`` (the
    bar): ResNet-50 at ImageNet width (1000 classes, 224 x 224), 8 images,
-   amp O0, card against CPU from the same seeded weights: two
+   amp O0, card against CPU from the same seeded weights, cuDNN's
+   convolutions in their deterministic algorithms: two
    ``FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)`` steps, then two
    ``FusedNovoGrad`` steps, each step's losses within 1e-4 relative, every
    gradient within ``RESNET_FLOOR_FACTOR`` times the CPU's own rounding
@@ -353,6 +361,7 @@ exits non-zero at once. Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import importlib
 import itertools
 import json
@@ -645,7 +654,9 @@ FP32_KERNELS = ("adam", "xentropy_fwd", "xentropy_bwd", "segment_stats",
 #: kernel name -> the CUDA symbol the profiler reports its launches under
 #: (for ``layer_norm_bwd`` its one kernel, which also sums dgamma/dbeta;
 #: for the softmax forward the warp and the block path,
-#: ``scaled_softmax_fwd_``)
+#: ``scaled_softmax_fwd_``), or a tuple of the symbols of an op that is
+#: several launches (``segment_stats``: its row pass and its segment sums;
+#: ``lamb_phase1``: its row pass and the norms' segment sums)
 KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_fwd": "flash_fwd_kernel",
                   "paged_attention": "paged_decode_kernel",
@@ -655,8 +666,10 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "adam": "adam_kernel",
                   "xentropy_fwd": "xentropy_fwd_kernel",
                   "xentropy_bwd": "xentropy_bwd_kernel",
-                  "segment_stats": "stats_rows_kernel",
-                  "lamb_phase1": "lamb_phase1_kernel",
+                  "segment_stats": ("stats_rows_kernel",
+                                    "stats_segments_kernel"),
+                  "lamb_phase1": ("lamb_phase1_kernel",
+                                  "segment_reduce_kernel"),
                   "lamb_phase2": "lamb_phase2_kernel",
                   "dequant_matmul": "dequant_matmul_kernel",
                   "dequant_matmul_w4": "dequant_matmul_w4_kernel",
@@ -699,9 +712,9 @@ BF16_SYMBOLS = {name: symbol.replace("_kernel", "_mma_kernel")
                 if name.startswith(("flash_", "dequant_"))}
 
 
-def kernel_symbol(name: str, dtype: str) -> str:
+def kernel_symbol(name: str, dtype: str):
     """The CUDA symbol the profiler reports kernel ``name``'s launches at
-    ``dtype`` under."""
+    ``dtype`` under (a tuple of symbols for an op of several launches)."""
     if dtype == "bfloat16" and name in BF16_SYMBOLS:
         return BF16_SYMBOLS[name]
     return KERNEL_SYMBOLS[name]
@@ -733,7 +746,8 @@ def ptxas_report() -> dict:
              "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
              "paged_decode_kernel", "adam_kernel", "xentropy_fwd_kernel",
              "xentropy_bwd_kernel", "stats_rows_kernel",
-             "segment_reduce_kernel", "lamb_phase1_kernel",
+             "stats_segments_kernel", "segment_reduce_kernel",
+             "lamb_phase1_kernel",
              "lamb_phase2_kernel", "dequant_matmul_kernel",
              "dequant_matmul_w4_kernel", "dequant_matmul_mma_kernel",
              "dequant_matmul_w4_mma_kernel", "paged_decode_quant_kernel",
@@ -761,10 +775,19 @@ def ptxas_report() -> dict:
                 # the SiLU instantiations of the GroupNorm kernels
                 if name.startswith("group_norm") and "Lb1E" in entry:
                     bf16 += "<silu>"
-                # the RMS instantiation of the LayerNorm forward, and the
-                # RMS and from_y instantiations of its backward
-                rms = "<rms>" if (name == "layer_norm_fwd_kernel"
-                                  and "Lb1E" in entry) else ""
+                # the RMS instantiations of the LayerNorm forward, its
+                # slots a thread, element loads (<ragged>), passes over a
+                # wide row and w and b read with x (<hoist>); the RMS and
+                # from_y instantiations of its backward
+                rms = ""
+                fwd = re.search(r"Lb([01])ELi(\d+)ELb([01])ELb([01])E"
+                                r"Lb([01])EE", entry)
+                if name == "layer_norm_fwd_kernel" and fwd:
+                    rms = (("<rms>" if fwd.group(1) == "1" else "")
+                           + f"<nv{fwd.group(2)}>"
+                           + ("" if fwd.group(3) == "1" else "<ragged>")
+                           + ("<wide>" if fwd.group(4) == "1" else "")
+                           + ("<hoist>" if fwd.group(5) == "1" else ""))
                 flags = re.search(r"Lb([01])ELb([01])E", entry)
                 if name == "layer_norm_bwd_kernel" and flags:
                     rms = ("<rms>" if flags.group(1) == "1" else "") + (
@@ -857,19 +880,20 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def queued_ms(fn, iters: int = 50) -> float:
+def queued_ms(fn, iters: int = 50, sleep_cycles: int = 800_000) -> float:
     """``time_ms`` with the calls queued behind a sleep on the card, so that
     the events time the card's work and not the host's launch rate: calls
-    of tens of µs are launch-bound in ``time_ms``. The sleep (~0.4 ms of
-    host time per call at the H100's 1.98 GHz) ends before the start
-    event, so it is not timed."""
+    of tens of µs are launch-bound in ``time_ms``. The sleep
+    (``sleep_cycles`` a call: ~0.4 ms of host time per call at the H100's
+    1.98 GHz by default) ends before the start event, so it is not timed;
+    a call that holds the host longer needs more."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(800_000 * iters)
+    torch.cuda._sleep(sleep_cycles * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -908,16 +932,46 @@ def device_profile(fn, reps: int = 1, cpu: bool = True):
     return wall, acts
 
 
-def kernel_device_ms(fn, symbol: str, reps: int = 20):
-    """``(device ms per launch, launches seen)`` of the kernels whose names
-    hold ``symbol`` over ``reps`` calls of ``fn``, from the profiler: the
-    time is divided by the launches the profiler reports, not by ``reps``,
-    so launches it drops do not count as time ((None, 0) when it sees
-    none)."""
-    _, acts = device_profile(fn, reps)
-    hits = [(t, c) for k, (t, c) in acts.items() if symbol in k]
-    ms, seen = sum(t for t, _ in hits), sum(c for _, c in hits)
-    return (ms / seen if seen else None), seen
+def kernel_device_ms(fn, symbol, reps: int = 20):
+    """``(device ms per call, launches seen, {symbol: device ms per
+    launch})`` of the kernels whose names hold ``symbol`` (or, for an op of
+    several launches, one of a tuple of symbols, each launched once a
+    call) over ``reps`` calls of ``fn``, from the profiler: each symbol's
+    time is divided by the launches the profiler reports of it, not by
+    ``reps``, so launches it drops do not count as time, and the call's
+    time is the sum over its symbols ((None, 0, {}) when it sees none).
+    Late in a long process the profiler at times reports no device
+    activity for a whole run; such a run is profiled again, up to three
+    runs in all."""
+    symbols = (symbol,) if isinstance(symbol, str) else symbol
+    for _ in range(3):
+        _, acts = device_profile(fn, reps)
+        split, seen = {}, 0
+        for sym in symbols:
+            hits = [(t, c) for k, (t, c) in acts.items() if sym in k]
+            n = sum(c for _, c in hits)
+            seen += n
+            if n:
+                split[sym] = sum(t for t, _ in hits) / n
+        if seen:
+            break
+    return (sum(split.values()) if split else None), seen, split
+
+
+def library_device_ms(fn, reps: int = 20):
+    """``(device ms per call, launches seen)`` of a library call ``fn``
+    (every kernel it launches) over ``reps`` calls, from the profiler. The
+    call launches the same kernels each time, so a run in which the
+    profiler dropped none reports each kernel a multiple of ``reps`` times;
+    a run that does not (launches dropped, or none seen) is profiled again,
+    up to three runs in all, and the time is None when no run was whole,
+    never a sum divided by calls that were not all seen."""
+    for _ in range(3):
+        _, acts = device_profile(fn, reps)
+        seen = sum(c for _, c in acts.values())
+        if acts and all(c % reps == 0 for _, c in acts.values()):
+            return sum(t for t, _ in acts.values()) / reps, seen
+    return None, seen
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -969,6 +1023,21 @@ def same_bits(name: str, first, second) -> None:
             raise AssertionError(f"{name}: a second call gives other bits")
 
 
+def bits_digest(*tensors) -> str:
+    """A digest of the tensors' bits (sha-256 over each one's int32 words
+    summed on the card, then its first and last 4096 words), for
+    comparing two trees' outputs on the same inputs."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        w = t.contiguous().view(-1).view(torch.int32)
+        h.update(str(w.long().sum().item()).encode())
+        h.update(w[:4096].cpu().numpy().tobytes())
+        h.update(w[-4096:].cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def max_rel_err(got, want) -> float:
     """max |got - want| / |want| over the entries where ``want`` is not 0."""
     got, want = got.float(), want.float()
@@ -984,7 +1053,10 @@ def layer_norm_cases():
     checks: GPT-2's at width 768, eps 1e-5 (training rows, a prefill,
     decode rows), then BERT-Large's at width 1024, eps 1e-12: the
     embedding norm (fp32, before the cast), the 48 sublayer norms (bf16)
-    and the gathered MLM head's norm (bf16, 640 rows)."""
+    and the gathered MLM head's norm (bf16, 640 rows); last a ragged width
+    (1000 columns: 125 bf16 slots over a warp's 32 lanes, some lanes 3 and
+    some 4) and GPT-2's prefill rows as a view one element into its buffer
+    (no 16-byte aligned row: read and written element by element)."""
     import torch
 
     gpt = [(rows, 768, dtype, 1e-5, {})
@@ -997,20 +1069,76 @@ def layer_norm_cases():
                 path="bert", use="attention and MLP norms")),
             (heads, 1024, torch.bfloat16, 1e-12, dict(
                 path="bert", use="MLM head norm"))]
-    return gpt + bert
+    odd = [(1024, cols, dtype, 1e-5, dict(use=use))
+           for cols, use in ((1000, "ragged width"), (768, "unaligned view"))
+           for dtype in (torch.float32, torch.bfloat16)]
+    return gpt + bert + odd
+
+
+#: uses of ``layer_norm_cases``' last rows, which draw their data from a
+#: generator of their own (the later checks' draws stay as they were) and
+#: have no backward row
+ODD_NORM_ROWS = ("ragged width", "unaligned view")
+
+
+def norm_fwd_bits(name: str, fwd, x, *args) -> None:
+    """AssertionError unless the norm forward ``fwd(x, *args)`` gives the
+    same bits in a second call and row 0 alone the bits of row 0 in the
+    batch: the tile plan depends on the width alone."""
+    first = fwd(x, *args)
+    same_bits(name, first, fwd(x, *args))
+    same_bits(f"{name} row 0 alone", [t[:1] for t in first],
+              fwd(x[:1], *args))
+
+
+def unaligned(x):
+    """``x`` as a view one element into a buffer of its dtype: the same
+    values, no row on a 16-byte boundary."""
+    flat = x.new_empty(x.numel() + 1)
+    flat[1:] = x.flatten()
+    return flat[1:].view(x.shape)
+
+
+def norm_fwd_timings(x, fwd, plain, library, *args, copy=None) -> dict:
+    """``ms``, ``plain_ms`` and ``library_ms`` of a norm forward row by
+    ``queued_ms``, each over copies of ``x`` (made by ``copy``, default
+    ``clone``) whose reads and written outputs together exceed the L2
+    cache, outputs kept until their copy comes round again: x is read and
+    y written through device memory, as ``bound_ms``'s rate assumes (over
+    one x, rows up to 50 MB stay in L2 and beat that rate). ``library``
+    takes x alone. Rows too small to fill L2 in 256 copies stay in it; a
+    launch's latency, far above their bound, is their time. Returns the
+    row's fields and the rotating kernel call, for the profiles."""
+    nbytes = 2 * x.numel() * x.element_size()
+    copy = copy or (lambda t: t.clone())
+    xs = [copy(x) for _ in range(copies_for(nbytes))]
+    kernel = rotating(fwd, [(xc, *args) for xc in xs])
+    return dict(ms=queued_ms(kernel),
+                plain_ms=queued_ms(rotating(plain,
+                                            [(xc, *args) for xc in xs])),
+                library_ms=None if library is None else queued_ms(
+                    rotating(library, [(xc,) for xc in xs])),
+                x_copies=len(xs)), kernel
 
 
 def check_layer_norm(gen, dev):
+    """The LayerNorm forward against its twin at ``layer_norm_cases``,
+    each row also as ``norm_fwd_bits``; kernel, twin and ``F.layer_norm``
+    (the library) timed by ``norm_fwd_timings``."""
     import torch
     import torch.nn.functional as F
 
     ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
 
     out = []
+    odd_gen = torch.Generator().manual_seed(SEED)
     for rows, cols, dtype, eps, extra in layer_norm_cases():
-        x = (torch.randn(rows, cols, generator=gen) * 2 + 0.5).to(dev, dtype)
-        w = (torch.rand(cols, generator=gen) + 0.5).to(dev)
-        b = torch.randn(cols, generator=gen).to(dev)
+        g = odd_gen if extra.get("use") in ODD_NORM_ROWS else gen
+        x = (torch.randn(rows, cols, generator=g) * 2 + 0.5).to(dev, dtype)
+        if extra.get("use") == "unaligned view":
+            x = unaligned(x)
+        w = (torch.rand(cols, generator=g) + 0.5).to(dev)
+        b = torch.randn(cols, generator=g).to(dev)
         y, mean, rstd = ln.layer_norm_fwd(x, w, b, eps)
         torch.cuda.synchronize()
         ry, rmean, rstd_ref = ln.layer_norm_fwd_reference(x, w, b, eps)
@@ -1018,18 +1146,19 @@ def check_layer_norm(gen, dev):
         err = compare("layer_norm_fwd", y, ry, dn)
         compare("layer_norm_fwd mean", mean, rmean, "float32")
         compare("layer_norm_fwd rstd", rstd, rstd_ref, "float32")
+        norm_fwd_bits("layer_norm_fwd", ln.layer_norm_fwd, x, w, b, eps)
         elt = x.element_size()
         nbytes = 2 * rows * cols * elt + 2 * cols * 4 + 2 * rows * 4
         bms, by = bound_ms(nbytes, 8 * rows * cols, dn)
-        kernel = partial(ln.layer_norm_fwd, x, w, b, eps)
+        lw, lb = w.to(dtype), b.to(dtype)
+        times, kernel = norm_fwd_timings(
+            x, ln.layer_norm_fwd, ln.layer_norm_fwd_reference,
+            lambda xc: F.layer_norm(xc, (cols,), lw, lb, eps), w, b, eps,
+            copy=unaligned if extra.get("use") == "unaligned view" else None)
         out.append((dict(
             name="layer_norm_fwd", dtype=dn, shape=[rows, cols], eps=eps,
-            **extra, max_abs_err=err, ms=queued_ms(kernel),
-            plain_ms=queued_ms(
-                partial(ln.layer_norm_fwd_reference, x, w, b, eps)),
-            library_ms=queued_ms(partial(F.layer_norm, x, (cols,),
-                                         w.to(dtype), b.to(dtype), eps)),
-            bound_ms=bms, bound_by=by), kernel))
+            **extra, max_abs_err=err, **times, bound_ms=bms, bound_by=by),
+            kernel))
     return out
 
 
@@ -1136,7 +1265,8 @@ def check_layer_norm_bwd(gen, dev):
     # GPT-2's training rows, then BERT-Large's (the rows of the forward's
     # cases but its prefill and decode rows, which take no backward)
     cases = [c + (gen,) for c in layer_norm_cases()
-             if c[0] == TRAIN_BATCH * TRAIN_SEQ or c[4]]
+             if c[4].get("use") not in ODD_NORM_ROWS
+             and (c[0] == TRAIN_BATCH * TRAIN_SEQ or c[4])]
     wide_gen = torch.Generator().manual_seed(SEED)
     cases += [(*NORM_BWD_WIDE, dtype, 1e-5, dict(use="wide row"), wide_gen)
               for dtype in (torch.float32, torch.bfloat16)]
@@ -1463,6 +1593,54 @@ def bert_no_decay(name: str) -> bool:
     return "bias" in name or "norm" in name.lower()
 
 
+def segment_stats_row(g, spec, seg, path: str):
+    """The stats kernel over the flat gradient buffer ``g`` of ``spec``
+    against its twin, with an inf and two NaNs injected: the non-finite
+    counts exact, the sums within ``SEGMENT_SUM_TOL``, the same bits in a
+    second call. Kernel, twin and ``torch._foreach_norm`` over the
+    per-parameter views (the library) timed by ``queued_ms``."""
+    import torch
+
+    from apex_tpu_torch.ops import flat_buffer
+
+    oa = importlib.import_module("apex_tpu_torch.ops.optim_kernels")
+    rows, segs, lane = spec.total_rows, spec.num_tensors, flat_buffer.LANE
+    n = rows * lane
+    g[0, 5] = float("inf")
+    g[rows // 2, 7] = g[rows // 2, 8] = float("nan")
+    stats = oa.segment_stats(g, seg, segs)
+    torch.cuda.synchronize()
+    rstats = oa.segment_stats_reference(g, seg, segs)
+    if not torch.equal(stats[2], rstats[2]) or stats[2].sum().item() != 3:
+        raise AssertionError(f"segment_stats: non-finite count "
+                             f"{stats[2].sum().item()}, twin "
+                             f"{rstats[2].sum().item()}, injected 3")
+    finite = torch.isfinite(rstats[:2])
+    err = compare("segment_stats sumsq", stats[:2][finite],
+                  rstats[:2][finite], "float32", SEGMENT_SUM_TOL)
+    rel = max_rel_err(stats[:2][finite], rstats[:2][finite])
+    same_bits("segment_stats", [torch.nan_to_num(stats)],
+              [torch.nan_to_num(oa.segment_stats(g, seg, segs))])
+    views = list(flat_buffer.unflatten(g, spec).values())
+    bms, by = bound_ms(n * 4 + rows * 4 + 3 * segs * 4, 3 * n, "float32")
+    kernel = partial(oa.segment_stats, g, seg, segs)
+    # the library's views hold the host longer than queued_ms's default
+    # sleep covers (behind it BERT's 302 read 0.52-0.95 ms a call, the
+    # profiler ~0.5), so its calls queue behind ~2 ms each; the profiles
+    # (kernel_device_ms, kernel_ab.py --device-ms) time its device work too
+    kernel.library = partial(torch._foreach_norm, views)
+    return (dict(
+        name="segment_stats", dtype="float32", shape=[rows, lane],
+        segments=segs, params=sum(spec.sizes), path=path,
+        nonfinite_injected=3, max_abs_err=err, sums_max_rel_err=rel,
+        sums_tolerance=SEGMENT_SUM_TOL, ms=queued_ms(kernel),
+        plain_ms=queued_ms(partial(oa.segment_stats_reference, g, seg,
+                                   segs)),
+        library_ms=queued_ms(kernel.library, sleep_cycles=4_000_000),
+        library="torch._foreach_norm over the per-parameter views",
+        bound_ms=bms, bound_by=by), kernel)
+
+
 def check_lamb(gen, dev):
     """The stats kernel and both LAMB phases over the flat buffers of
     BertForPreTraining(bert_large_config()), with its per-tensor decay."""
@@ -1484,38 +1662,7 @@ def check_lamb(gen, dev):
     def randn():
         return torch.randn(rows, lane, generator=dgen, device=dev)
 
-    out = []
-    # segment stats: an inf and two NaNs in the gradients, counted exactly
-    g = randn()
-    g[0, 5] = float("inf")
-    g[rows // 2, 7] = g[rows // 2, 8] = float("nan")
-    stats = oa.segment_stats(g, seg, segs)
-    torch.cuda.synchronize()
-    rstats = oa.segment_stats_reference(g, seg, segs)
-    if not torch.equal(stats[2], rstats[2]) or stats[2].sum().item() != 3:
-        raise AssertionError(f"segment_stats: non-finite count "
-                             f"{stats[2].sum().item()}, twin "
-                             f"{rstats[2].sum().item()}, injected 3")
-    finite = torch.isfinite(rstats[:2])
-    err = compare("segment_stats sumsq", stats[:2][finite],
-                  rstats[:2][finite], "float32", SEGMENT_SUM_TOL)
-    rel = max_rel_err(stats[:2][finite], rstats[:2][finite])
-    again = oa.segment_stats(g, seg, segs)
-    if not torch.equal(torch.nan_to_num(again), torch.nan_to_num(stats)):
-        raise AssertionError("segment_stats: two runs differ")
-    views = list(flat_buffer.unflatten(g, spec).values())
-    bms, by = bound_ms(n * 4 + rows * 4 + 3 * segs * 4, 3 * n, "float32")
-    kernel = partial(oa.segment_stats, g, seg, segs)
-    out.append((dict(
-        name="segment_stats", dtype="float32", shape=[rows, lane],
-        segments=segs, params=sum(spec.sizes), path="bert",
-        nonfinite_injected=3, max_abs_err=err, sums_max_rel_err=rel,
-        sums_tolerance=SEGMENT_SUM_TOL, ms=time_ms(kernel),
-        plain_ms=time_ms(partial(oa.segment_stats_reference, g, seg, segs)),
-        library_ms=time_ms(partial(torch._foreach_norm, views)),
-        library="torch._foreach_norm over the per-parameter views",
-        bound_ms=bms, bound_by=by), kernel))
-    del g, views
+    out = [segment_stats_row(randn(), spec, seg, "bert")]
 
     # LAMB: phase 1 against its twin, the trust ratio, phase 2; then a
     # skipped step, which must leave every buffer bit-identical
@@ -1562,7 +1709,8 @@ def check_lamb(gen, dev):
     tables = rows * 4 + 3 * segs * 4
     for name, err, extra, fn, plain, nbytes, flops in (
             ("lamb_phase1", err1,
-             dict(norms_max_rel_err=rel1, norms_tolerance=SEGMENT_SUM_TOL),
+             dict(norms_max_rel_err=rel1, norms_tolerance=SEGMENT_SUM_TOL,
+                  bits=bits_digest(st, u)),
              phase1,
              partial(oa.lamb_phase1_reference, hp, g, p, m, v, seg, wd),
              7 * n * 4 + tables, 20 * n),
@@ -1582,6 +1730,22 @@ def cycling(fn, arg_sets):
     """``fn(*args)`` over the argument sets in turn, one set per call."""
     sets = itertools.cycle(arg_sets)
     return lambda: fn(*next(sets))
+
+
+def rotating(fn, arg_sets):
+    """``cycling`` that also holds each call's output until its argument
+    set comes round again: the outputs, too, rotate over as many buffers,
+    so that a call's writes do not land on lines the previous call left
+    in the L2 cache."""
+    turn = itertools.cycle(range(len(arg_sets)))
+    held = [None] * len(arg_sets)
+
+    def call():
+        i = next(turn)
+        held[i] = None                # its buffer is this call's to reuse
+        held[i] = fn(*arg_sets[i])
+        return held[i]
+    return call
 
 
 def copies_for(nbytes: int) -> int:
@@ -1743,42 +1907,50 @@ def check_paged_quant(gen, dev):
 def check_rms_norm(gen, dev):
     """The RMS branch of the LayerNorm forward kernel at Mistral-7B's width,
     eps 1e-5: a decode step's rows, a long prefill's and a training step's
-    (``path`` "mistral_train"). Kernel, twin and
-    ``F.rms_norm`` (the library) are timed by ``queued_ms``."""
+    (``path`` "mistral_train"); then at t5-small's width 512, eps 1e-6: a
+    decode step's ``T5_BATCH`` rows and a training batch's encoder rows
+    (``path`` "t5", from a generator of their own, so the later checks'
+    draws stay as they were). Each row also as ``norm_fwd_bits``. Kernel,
+    twin and ``F.rms_norm`` (the library) are timed by
+    ``norm_fwd_timings``: ``queued_ms`` over copies past the L2 cache."""
     import torch
     import torch.nn.functional as F
 
     ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
 
     out = []
-    cols, eps = MISTRAL_HIDDEN, 1e-5
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows in (*RMS_ROWS, MISTRAL_TRAIN_SEQ):
-            x = (torch.randn(rows, cols, generator=gen) * 2 + 0.5).to(dev,
-                                                                      dtype)
-            w = (torch.rand(cols, generator=gen) + 0.5).to(dev)
-            y, mean, rstd = ln.rms_norm_fwd(x, w, eps)
-            torch.cuda.synchronize()
-            ry, _, rstd_ref = ln.rms_norm_fwd_reference(x, w, eps)
-            dn = str(dtype).split(".")[1]
-            err = compare("rms_norm_fwd", y, ry, dn, rms_atol=True)
-            compare("rms_norm_fwd rstd", rstd, rstd_ref, "float32")
-            if (mean != 0).any():
-                raise AssertionError("rms_norm_fwd: mean must be exactly 0")
-            nbytes = 2 * rows * cols * x.element_size() + cols * 4 \
-                + 2 * rows * 4
-            bms, by = bound_ms(nbytes, 4 * rows * cols, dn)
-            kernel = partial(ln.rms_norm_fwd, x, w, eps)
-            lib = getattr(F, "rms_norm", None)
-            out.append((dict(
-                name="rms_norm_fwd", dtype=dn, shape=[rows, cols], eps=eps,
-                path="mistral" if rows in RMS_ROWS else "mistral_train",
-                max_abs_err=err, out_rms=rms_of(ry), ms=queued_ms(kernel),
-                plain_ms=queued_ms(partial(ln.rms_norm_fwd_reference, x, w,
-                                           eps)),
-                library_ms=None if lib is None else queued_ms(
-                    partial(lib, x, (cols,), w.to(dtype), eps)),
-                library="F.rms_norm", bound_ms=bms, bound_by=by), kernel))
+    mistral = [(rows, MISTRAL_HIDDEN, 1e-5, "mistral" if rows in RMS_ROWS
+                else "mistral_train")
+               for rows in (*RMS_ROWS, MISTRAL_TRAIN_SEQ)]
+    t5 = [(rows, T5_HEADS * T5_HEAD_DIM, 1e-6, "t5")
+          for rows in (T5_BATCH, T5_TRAIN_BATCH * T5_TRAIN_ENC)]
+    t5_gen = torch.Generator().manual_seed(SEED)
+    cases = [(dtype, *case, g) for cases, g in ((mistral, gen), (t5, t5_gen))
+             for dtype in (torch.float32, torch.bfloat16) for case in cases]
+    for dtype, rows, cols, eps, path, g in cases:
+        x = (torch.randn(rows, cols, generator=g) * 2 + 0.5).to(dev, dtype)
+        w = (torch.rand(cols, generator=g) + 0.5).to(dev)
+        y, mean, rstd = ln.rms_norm_fwd(x, w, eps)
+        torch.cuda.synchronize()
+        ry, _, rstd_ref = ln.rms_norm_fwd_reference(x, w, eps)
+        dn = str(dtype).split(".")[1]
+        err = compare("rms_norm_fwd", y, ry, dn, rms_atol=True)
+        compare("rms_norm_fwd rstd", rstd, rstd_ref, "float32")
+        if (mean != 0).any():
+            raise AssertionError("rms_norm_fwd: mean must be exactly 0")
+        norm_fwd_bits("rms_norm_fwd", ln.rms_norm_fwd, x, w, eps)
+        nbytes = 2 * rows * cols * x.element_size() + cols * 4 \
+            + 2 * rows * 4
+        bms, by = bound_ms(nbytes, 4 * rows * cols, dn)
+        lib, lw = getattr(F, "rms_norm", None), w.to(dtype)
+        times, kernel = norm_fwd_timings(
+            x, ln.rms_norm_fwd, ln.rms_norm_fwd_reference,
+            None if lib is None else (
+                lambda xc: lib(xc, (cols,), lw, eps)), w, eps)
+        out.append((dict(
+            name="rms_norm_fwd", dtype=dn, shape=[rows, cols], eps=eps,
+            path=path, max_abs_err=err, out_rms=rms_of(ry), **times,
+            library="F.rms_norm", bound_ms=bms, bound_by=by), kernel))
     return out
 
 
@@ -2384,11 +2556,12 @@ def opt_compare(name: str, got, want) -> float:
 
 
 def check_resnet_optim(gen, dev):
-    """The SGD, NovoGrad and scale kernels over ResNet-50's flat buffers
-    (25,021 x 1024 fp32, 161 segments), each against its twin: SGD at
+    """The SGD, NovoGrad, scale and stats kernels over ResNet-50's flat
+    buffers (25,021 x 1024 fp32, 161 segments), each against its twin: SGD at
     momentum 0.9 with decay 1e-4 at step 1 and 2, momentum 0, Nesterov;
     NovoGrad at step 1 and 2, ``init_zero`` both ways, grad scale 0.5 and
-    1; scale over fp32 and bf16 x. A skipped step must leave every buffer
+    1; scale over fp32 and bf16 x; the stats as ``segment_stats_row``. A
+    skipped step must leave every buffer
     bit-identical. One row per kernel (two for scale: fp32, bf16), timed
     by ``queued_ms`` at the timed path's case: SGD momentum 0.9, decay
     1e-4, step 2; NovoGrad's update kernel alone at step 2."""
@@ -2532,6 +2705,8 @@ def check_resnet_optim(gen, dev):
                                                                 b), x, s)),
             library="torch.mul(x.float(), s)",
             bound_ms=bms, bound_by=by), kernel))
+    # the stats pass of FusedNovoGrad and of the amp overflow check
+    out.append(segment_stats_row(randn(0.01), spec, seg, "resnet"))
     return out
 
 
@@ -4780,8 +4955,25 @@ def resnet_card_vs_cpu(optimizer: str) -> dict:
     rounding, its running statistics put back after), running statistics
     and, after the step, parameters and optimizer state (atol 1e-4, rtol
     1e-3, per entry). The CPU steps on the card's gradients, so that the
-    steps compare the optimizers and not the two gradients. Returns the
-    phase's numbers, with the card's launches of its steps."""
+    steps compare the optimizers and not the two gradients. cuDNN runs its
+    deterministic algorithms here (restored after): its default backward
+    convolutions give other gradient bits in every run, and after the
+    first step's lr 0.1 the most sensitive tensors (stage3_block2's norms
+    and conv3) move from run to run by up to the CPU's floor, and whether
+    the bar held depended on the draw. Returns the phase's numbers, with the
+    card's launches of its steps."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _resnet_card_vs_cpu(optimizer)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _resnet_card_vs_cpu(optimizer: str) -> dict:
+    """``resnet_card_vs_cpu``'s steps, under the cuDNN setting it chose."""
     import torch
 
     from apex_tpu_torch.ops import _build
@@ -4910,7 +5102,8 @@ def resnet_fp32() -> None:
                              f"{launches}, not segment_stats 1 and sgd 1")
     emit("resnet_fp32", batch=RESNET_FP32_BATCH, image=RESNET_IMAGE,
          classes=RESNET_CLASSES, opt_level="O0", lr=RESNET_LR,
-         floor_factor=RESNET_FLOOR_FACTOR, sgd=sgd, novograd=nvg,
+         floor_factor=RESNET_FLOOR_FACTOR, cudnn_deterministic=True,
+         sgd=sgd, novograd=nvg,
          skip_step=dict(opt_level="O1", half_dtype="float16",
                         loss=loss.item(), scale_before=scale,
                         scale_after=new_scale, step_count=count,
@@ -5981,11 +6174,17 @@ def main() -> int:
                                "window_bias", "resnet", "megatron_softmax",
                                "unet_group_norm", "ring"):
             continue                  # timed by queued_ms already
-        ms, seen = kernel_device_ms(fn, kernel_symbol(row["name"],
-                                                      row["dtype"]))
+        ms, seen, split = kernel_device_ms(
+            fn, kernel_symbol(row["name"], row["dtype"]))
         results.append(dict(name=row["name"], dtype=row["dtype"],
                             shape=row["shape"], device_ms=ms,
-                            launches_seen=seen))
+                            launches_seen=seen,
+                            **({"device_ms_by_symbol": split}
+                               if len(split) > 1 else {}),
+                            **(dict(zip(("library_device_ms",
+                                         "library_launches_seen"),
+                                        library_device_ms(fn.library)))
+                               if hasattr(fn, "library") else {})))
     emit("kernel_device_ms", card_before=card_state(), reps=20,
          results=results)
     # the same timed run once more, after the profiler: its slowdown, if any
@@ -6185,6 +6384,13 @@ def main() -> int:
                                         "causal_offset", "visible_pairs")},
                      **{k: r[k] for k in timing if k in r})
                 for r in rows if r["name"] == name and r is not row]
+        if name == "segment_stats":
+            rn = next(r for r in rows if r["name"] == name
+                      and r.get("path") == "resnet")
+            entry["resnet"] = dict(
+                shape=rn["shape"], segments=rn["segments"],
+                launches=nvg_launches[name],
+                **{k: rn[k] for k in timing if k in rn})
         if path.startswith("resnet"):
             entry.update({k: row[k] for k in (
                 "shape", "segments", "params", "cases", "skip_bit_identical",

@@ -2,6 +2,7 @@
 """A/B of kernel rows of two checkouts of the port on one NVIDIA GPU.
 
     python3 kernel_ab.py TREE_A TREE_B [--checks check_flash,check_flash_bert]
+                         [--device-ms]
 
 Runs ``chip_smoke.py``'s kernel checks (this checkout's ``check_*``
 functions: the same shapes, seeds, tolerances and timings for both trees)
@@ -12,7 +13,13 @@ hold every kernel against its twin and time it (default the seven flash
 checks: every forward and backward branch). Prints
 the card's name and power limit, one JSON line per turn with its rows, and
 a last JSON line with each row's ms in the four turns and B's time over
-A's (the mean of B's two turns over the mean of A's). A check that fails (a kernel off
+A's (the mean of B's two turns over the mean of A's), and, for a row
+that carries a digest of its outputs (``bits``), whether all four turns
+gave the same bits. ``--device-ms`` also
+profiles each row's kernel (``chip_smoke.kernel_device_ms``: the
+profiler's device ms per call, and per launched symbol for an op of
+several launches) and, where a row's kernel carries its library call
+(``fn.library``), that call's device ms. A check that fails (a kernel off
 its twin) is reported in its turn's line with its error, the other checks
 still run, and the script exits 1. Two trees are compared only within one
 call: the card's clocks and neighbours differ between calls.
@@ -37,7 +44,7 @@ def row_key(row: dict) -> str:
     return json.dumps([row.get(k) for k in ROW_KEYS])
 
 
-def one(tree: str, checks) -> dict:
+def one(tree: str, checks, device_ms: bool = False) -> dict:
     """The checks through ``tree``'s package, in this process."""
     import torch
 
@@ -54,10 +61,24 @@ def one(tree: str, checks) -> dict:
     rows, failed = [], {}
     for check in checks:
         try:
-            rows += [row for row, _ in getattr(cs, check)(gen, cs.DEV)]
+            pairs = getattr(cs, check)(gen, cs.DEV)
         except AssertionError as exc:
             failed[check] = str(exc)
-    keep = ("ms", "tflops", "tb_s", "max_abs_err", "bound_ms", "library_ms")
+            continue
+        for row, fn in pairs:
+            if device_ms:
+                row["device_ms"], _, split = cs.kernel_device_ms(
+                    fn, cs.kernel_symbol(row["name"], row["dtype"]))
+                if len(split) > 1:
+                    row["device_ms_by_symbol"] = split
+                if hasattr(fn, "library"):
+                    (row["library_device_ms"],
+                     row["library_launches_seen"]) = cs.library_device_ms(
+                        fn.library)
+            rows.append(row)
+    keep = ("ms", "tflops", "tb_s", "max_abs_err", "bound_ms", "library_ms",
+            "device_ms", "device_ms_by_symbol", "library_device_ms",
+            "library_launches_seen", "x_copies", "bits")
     return dict(tree=tree, build_s=build_s, failed=failed,
                 package=os.path.dirname(_build.__file__),
                 registers=cs.ptxas_registers(),
@@ -72,6 +93,8 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", help="TREE_A TREE_B")
     ap.add_argument("--checks", default=",".join(CHECKS),
                     help="chip_smoke check functions, comma-separated")
+    ap.add_argument("--device-ms", action="store_true",
+                    help="profile each row's kernel too")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     checks = tuple(args.checks.split(","))
@@ -82,7 +105,7 @@ def main() -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     if args.one:
-        print(json.dumps(one(args.one, checks)), flush=True)
+        print(json.dumps(one(args.one, checks, args.device_ms)), flush=True)
         return 0
     if len(args.trees) != 2:
         ap.error("give two trees")
@@ -91,12 +114,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    ms, failed = {}, False
+    ms, dev_ms, bits, failed = {}, {}, {}, False
     for turn, t in enumerate(ORDER):
         tree = os.path.abspath(args.trees["AB".index(t)])
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", tree,
-             "--checks", args.checks],
+             "--checks", args.checks]
+            + (["--device-ms"] if args.device_ms else []),
             capture_output=True, text=True, cwd=HERE, timeout=1800)
         if out.returncode != 0:
             print(out.stderr[-4000:], file=sys.stderr)
@@ -106,11 +130,21 @@ def main() -> int:
         failed = failed or bool(res["failed"])
         for r in res["rows"]:
             ms.setdefault(row_key(r), {"A": [], "B": []})[t].append(r["ms"])
+            if "bits" in r:
+                bits.setdefault(row_key(r), []).append(r["bits"])
+            if "device_ms" in r:
+                dev_ms.setdefault(row_key(r), {"A": [], "B": []})[t].append(
+                    r["device_ms"])
     table = []
     for key, by in ms.items():
         a, b = (sum(by[t]) / len(by[t]) if by[t] else None for t in "AB")
+        dev = ({f"{t}_device_ms": dev_ms[key][t] for t in "AB"}
+               if key in dev_ms else {})
+        same = ({"same_bits": len(set(bits[key])) == 1} if key in bits
+                else {})
         table.append(dict(zip(ROW_KEYS, json.loads(key)), A_ms=by["A"],
-                          B_ms=by["B"], b_over_a=b / a if a and b else None))
+                          B_ms=by["B"], b_over_a=b / a if a and b else None,
+                          **dev, **same))
     print(json.dumps(dict(nvidia_smi=smi, order=ORDER,
                           trees=dict(A=args.trees[0], B=args.trees[1]),
                           rows=table)), flush=True)

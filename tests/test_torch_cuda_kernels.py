@@ -1783,3 +1783,119 @@ def test_flash_bwd_routes_by_dtype(cuda, dtype, symbols):
     assert not [n for n in names if "flash_bwd" not in n
                 and any(w in n.lower() for w in ("gemm", "attention",
                                                  "fmha", "sm90", "cutlass"))]
+
+
+# --- the norm forward's tile plan and the stats pass at the paths' shapes ---
+
+#: widths of the norm forward: one value, a ragged few, T5, GPT-2, a
+#: ragged 1000, BERT, Mistral, a team of 256 with one ragged slot, a whole
+#: block of 8 bf16 slots a thread, a row walked in passes
+NORM_FWD_WIDTHS = [1, 7, 512, 768, 1000, 1024, 4096, 4097, 16384, 40000]
+#: (rms, weight, bias): every branch of the forward
+NORM_FWD_BRANCHES = [(False, True, True), (False, True, False),
+                     (False, False, False), (True, True, False),
+                     (True, False, False)]
+
+
+def _norm_fwd(x, w, b, rms):
+    if rms:
+        return rms_norm_fwd(x, w, 1e-6), rms_norm_fwd_reference(x, w, 1e-6)
+    return layer_norm_fwd(x, w, b), layer_norm_fwd_reference(x, w, b)
+
+
+def _norm_inputs(cuda, rows, cols, dtype, seed, weight=True, bias=True):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(rows, cols, generator=g) * 2 + 0.5).to(cuda, dtype)
+    w = (torch.rand(cols, generator=g) + 0.5).to(cuda) if weight else None
+    b = torch.randn(cols, generator=g).to(cuda) if bias else None
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rms,weight,bias", NORM_FWD_BRANCHES)
+@pytest.mark.parametrize("cols", NORM_FWD_WIDTHS)
+def test_norm_fwd_every_width_and_branch_matches_twin(cuda, dtype, cols,
+                                                      rms, weight, bias):
+    """Every width the plan tiles differently (a warp to a block a row,
+    element loads where a row is no whole 16-byte slots, passes past the
+    registers), every branch, against the twin: y at ``TOL``, mean and
+    rstd at fp32's; mean exactly 0 under RMS; one launch under the
+    branch's name."""
+    x, w, b = _norm_inputs(cuda, 37, cols, dtype, cols, weight, bias)
+    name = "rms_norm_fwd" if rms else "layer_norm_fwd"
+    before = dict(_build.launches)
+    got, want = _norm_fwd(x, w, b, rms)
+    assert _build.launches[name] == before[name] + 1
+    _close(got[0], want[0], dtype)
+    _close(got[2], want[2], torch.float32)
+    if rms:
+        assert (got[1] == 0).all()
+    else:
+        _close(got[1], want[1], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("cols", [768, 1000, 4096, 40000])
+def test_norm_fwd_rows_have_the_same_bits_alone_and_in_a_batch(cuda, dtype,
+                                                               rms, cols):
+    """The plan depends on the width alone: each row of a batch has the
+    bits of the same row alone (a decode step's rows against a prefill's),
+    and a second call gives the same bits."""
+    x, w, b = _norm_inputs(cuda, 300, cols, dtype, 20 + cols, bias=not rms)
+    got = _norm_fwd(x, w, b, rms)[0]
+    again = _norm_fwd(x, w, b, rms)[0]
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+    for r in (0, 1, 150, 299):
+        alone = _norm_fwd(x[r:r + 1], w, b, rms)[0]
+        for a, c in zip(alone, got):
+            assert torch.equal(a, c[r:r + 1])
+    eight = _norm_fwd(x[:8], w, b, rms)[0]
+    assert torch.equal(eight[0], got[0][:8])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("cols", [768, 4096])
+def test_norm_fwd_unaligned_x_matches_the_aligned_bits(cuda, dtype, rms,
+                                                       cols):
+    """x one element into its buffer (no row on a 16-byte boundary) takes
+    element loads over the same slots: the same bits as the aligned copy."""
+    x, w, b = _norm_inputs(cuda, 37, cols, dtype, 30, bias=not rms)
+    flat = x.new_empty(x.numel() + 1)
+    flat[1:] = x.flatten()
+    xu = flat[1:].view(x.shape)
+    assert xu.data_ptr() % 16 != 0
+    got, want = _norm_fwd(xu, w, b, rms)
+    _close(got[0], want[0], dtype)
+    for a, c in zip(got, _norm_fwd(x, w, b, rms)[0]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("with_b", [False, True])
+@pytest.mark.parametrize("counts", [
+    (1,) * 64 + (3, 1, 1),
+    (30522, 1, 1, 512, 1024, 1, 1, 4096, 4, 4, 1),
+])
+def test_segment_stats_one_row_and_long_segments_match_twin(cuda, counts,
+                                                            with_b):
+    """One-row segments (biases and norm weights), and BERT-Large's word
+    embedding's 30522 rows beside its neighbours: counts exact, sums at
+    the fp64 twin's ~1.4e-7 (the smoke's ``SEGMENT_SUM_TOL``), the same
+    bits in a second call; one launch."""
+    seg, (a, b, _, _) = _flat(cuda, counts, 14)
+    a[-1, 3] = float("inf")
+    a[0, 0] = float("nan")
+    before = _build.launches["segment_stats"]
+    got = segment_stats(a, seg, len(counts), b if with_b else None)
+    assert _build.launches["segment_stats"] == before + 1
+    want = segment_stats_reference(a, seg, len(counts),
+                                   b if with_b else None)
+    assert torch.equal(got[2], want[2])
+    assert got[2].sum().item() == 2
+    finite = torch.isfinite(want[:2])
+    torch.testing.assert_close(got[:2][finite], want[:2][finite], atol=1e-3,
+                               rtol=1e-6)
+    again = segment_stats(a, seg, len(counts), b if with_b else None)
+    assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(got))
