@@ -1,6 +1,6 @@
-// Online-softmax row state shared by the flash prefill and paged decode
-// kernels, and the masking (causal, sliding window, segment ids, dropout)
-// and additive bias the three flash kernels share.
+// Online-softmax row state of the fp32 flash forward, and the masking
+// (causal, sliding window, segment ids, dropout) and additive bias the
+// three flash kernels share.
 //
 // One warp owns one query row at a time. A key tile of up to 32 keys sits in
 // shared memory as fp32 rows of stride `ld`; lane j scores key j against the

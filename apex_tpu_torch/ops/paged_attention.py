@@ -27,14 +27,17 @@ requires grad raises on either device.
 Each ``s > 1`` branch counts its launches under a name of its own
 (``paged_attention_block``, ``paged_attention_window_block``,
 ``paged_attention_quant_block``), so a run can tell verify and chunk
-launches from decode steps.
+launches from decode steps. A call counts once under its name, though the
+kernel is two launches: the split pass and the merge
+(:func:`paged_split_plan` says how a slot's page walk is split).
 
 A tensor on the CPU takes the twin; a CUDA tensor always takes the kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -129,12 +132,60 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths, *,
     return ctx.reshape(b, h, s_q, d).to(q.dtype)
 
 
+#: the positions one block of the split pass walks (a split), by the
+#: kernel's head-dim bucket (64: d <= 64, else 128), from a sweep on the
+#: card (``paged_split_sweep.py``): GPT-2's 12 heads of 64 want more, shorter
+#: splits (the pool's live bytes sit in L2 and latency rules), Mistral-7B's
+#: 8 kv heads of 128 over a 4096-position window fewer, longer ones
+SPLIT_KEYS = {64: 128, 128: 512}
+#: the kernel's limits: rows of one block (a kv head's ``s * rep``; more
+#: make row groups), pages of one split (its table entries sit in shared
+#: memory)
+BLOCK_ROWS = 64
+MAX_SPLIT_PAGES = 64
+
+
+class PagedSplitPlan(NamedTuple):
+    """How ``csrc/paged_attention.cu`` cuts a call: ``split_pages`` pages a
+    split (splits anchored at absolute page indices), ``grid_splits``
+    splits a slot in the grid, ``groups`` row groups of up to
+    ``BLOCK_ROWS`` rows a kv head, ``block_rows`` rows in the first."""
+    split_pages: int
+    grid_splits: int
+    groups: int
+    block_rows: int
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_split_plan(page_size: int, d: int, s: int, rep: int, window: int,
+                     max_pages: int) -> PagedSplitPlan:
+    """The split pass's cut of a call, from the shape alone: never the batch
+    or the lengths, so the wrapper reads nothing from the card. A split is
+    ``SPLIT_KEYS[64 if d <= 64 else 128]`` positions of pages (at least one
+    page, at most ``MAX_SPLIT_PAGES``), whatever the table width, so where
+    a slot's splits fall, and so its bits, depend only on its own length
+    and the shape. The grid holds as
+    many splits as a slot can have live: every page of the table, or under
+    a ``window`` (0: none) the pages of the ``s + window - 1`` positions from
+    the earliest row's band floor to the last position."""
+    keys = SPLIT_KEYS[64 if d <= 64 else 128]
+    split_pages = max(1, min(MAX_SPLIT_PAGES, keys // page_size))
+    grid = -(-max_pages // split_pages)
+    if window:
+        span = -(-(s + window - 1) // page_size) + 1
+        grid = min(grid, -(-(span - 1) // split_pages) + 1)
+    rows = s * rep
+    return PagedSplitPlan(split_pages, max(grid, 1), -(-rows // BLOCK_ROWS),
+                          min(rows, BLOCK_ROWS))
+
+
 def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
                   window=None, k_scales=None, v_scales=None):
     """Launch ``paged_attention`` (``paged_attention_window`` under a
     window) or, with scales, ``paged_attention_quant`` (q in fp32 or bf16,
     pages int8 or e4m3); an ``s > 1`` block counts under the branch's
-    ``_block`` name."""
+    ``_block`` name. The split pass's partials go to fp32 scratch
+    allocated here."""
     _, kv, page_size, d = k_pages.shape
     b, h, s = q.shape[0], q.shape[1], q.shape[2]
     if d > 128:
@@ -152,9 +203,14 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    plan = paged_split_plan(page_size, d, s, h // kv, int(window or 0),
+                            bt.shape[1])
+    part = torch.empty(b * kv * plan.groups * plan.grid_splits
+                       * plan.block_rows * (d + 2), dtype=torch.float32,
+                       device=q.device)
     P, I, F = _build.P, _build.I, _build.F
     shape = (b, h, kv, s, page_size, d, bt.shape[1], float(scale),
-             int(window or 0))
+             int(window or 0), plan.split_pages, plan.grid_splits)
     block = "_block" if s > 1 else ""
     if quant:
         ks = k_scales.float().contiguous()
@@ -162,10 +218,11 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
         _build.check_cuda(q, ks, vs)
         _build.launch(
             "paged_attention_quant" + block, "apex_paged_attention_quant",
-            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P),
+            (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, I,
+             I, P),
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             ks.data_ptr(), vs.data_ptr(), bt.data_ptr(), ln.data_ptr(),
-            out.data_ptr(), *shape, _build.dtype_code(q),
+            out.data_ptr(), part.data_ptr(), *shape, _build.dtype_code(q),
             _build.dtype_code(k_pages, _build.NARROW_DTYPES),
             _build.stream_of(q))
     else:
@@ -173,10 +230,10 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
             ("paged_attention" if window is None
              else "paged_attention_window") + block,
             "apex_paged_attention",
-            (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P),
+            (P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, I, P),
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            bt.data_ptr(), ln.data_ptr(), out.data_ptr(), *shape,
-            _build.dtype_code(q), _build.stream_of(q))
+            bt.data_ptr(), ln.data_ptr(), out.data_ptr(), part.data_ptr(),
+            *shape, _build.dtype_code(q), _build.stream_of(q))
     return out
 
 

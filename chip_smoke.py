@@ -73,8 +73,14 @@ each,
    tensor-core kernels); a row alone must equal the same row in the batch,
    bit for bit; then the shapes of ROADMAP C2 (``QUANT_C2``: int4 at
    groups 2 and 8 at 768 -> 2304 and 1024 at 3072 -> 768, int8 and fp8 at
-   ``in`` 36), rows marked ``c2``. The quantized paged kernel with int8 and fp8 pools at the
-   paged row's shape, beside the unquantized kernel's time there. The
+   ``in`` 36), rows marked ``c2``. Every paged row (by ``queued_ms``,
+   with its achieved TB/s, the bound's bytes over its time, and the same
+   bits in a second call): GPT-2-small's 8-slot pool (12 heads, d = 64,
+   page 16, lengths 0..1024), fp32 and bf16, then each slot alone (batch
+   1) and the batch at a wider table, which must give the batch's bits
+   (rows ``use`` "alone"); the quantized paged kernel with int8 and fp8
+   pools at the paged row's shape, beside the unquantized kernel's time
+   there. The
    Mistral-7B rows, timed as the quantized ones: the RMS branch of the
    LayerNorm forward at width 4096 over a decode step's 8 rows and 4224
    prefill rows (library ``F.rms_norm``), and at t5-small's width 512, eps
@@ -99,7 +105,8 @@ each,
    query blocks at GPT-2-small's pool (8 slots, 12 heads, d = 64, page 16,
    lengths 0..1024) at s = 4 and 16, fp32 and bf16, over the fp pool and
    over int8 and fp8 pools, and windowed at Mistral-7B's shapes at s = 16,
-   each held within ``RMS_ATOL`` of its twin's RMS; the rows before a short
+   each held within ``RMS_ATOL`` of its twin's RMS (the paged kernel's
+   split pass and merge, ``KERNEL_SYMBOLS``); the rows before a short
    slot's start must be exactly 0. The T5 rows (``check_flash_bias``, by
    ``queued_ms``, fp32 and bf16, within ``RMS_ATOL`` of the twin's RMS):
    the bias branch of the flash forward at the encoder's 8 x 8 x 512 x 64
@@ -323,7 +330,9 @@ each,
    engine run (and a short run, the first 8 requests at 16 tokens, of each
    quantized configuration, with each kernel's device ms and launches, and
    of Mistral-7B), the host's ops untraced, under ``torch.profiler``
-   (device busy and idle share, the top device kernels),
+   (device busy and idle share, the top device kernels; the engine and
+   Mistral-7B profiles also the paged kernel's device ms a call, its split
+   pass and merge summed),
    each kernel's device time per call at the shapes of phase 2, the timed
    bf16 engine run once more, one profiled step of each training path,
    one ``t5_generate`` (host untraced), one T5 training step and one
@@ -651,15 +660,23 @@ FP32_KERNELS = ("adam", "xentropy_fwd", "xentropy_bwd", "segment_stats",
                 "multi_tensor_scale", "flash_fwd_ring", "flash_bwd_dq_ring",
                 "flash_bwd_dkdv_ring")
 
+#: the paged kernel's launches a call: its split pass (either route,
+#: ``paged_split_simt_kernel`` or ``paged_split_mma_kernel``) and its merge;
+#: and the one kernel of a tree whose paged call was one launch
+#: (``paged_decode_kernel``, ``paged_decode_quant_kernel``), so that an A/B
+#: against such a tree reads both sides
+PAGED_SYMBOLS = ("paged_split_", "paged_merge_kernel", "paged_decode_")
+
 #: kernel name -> the CUDA symbol the profiler reports its launches under
 #: (for ``layer_norm_bwd`` its one kernel, which also sums dgamma/dbeta;
 #: for the softmax forward the warp and the block path,
 #: ``scaled_softmax_fwd_``), or a tuple of the symbols of an op that is
 #: several launches (``segment_stats``: its row pass and its segment sums;
-#: ``lamb_phase1``: its row pass and the norms' segment sums)
+#: ``lamb_phase1``: its row pass and the norms' segment sums; the six paged
+#: names: ``PAGED_SYMBOLS``)
 KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_fwd": "flash_fwd_kernel",
-                  "paged_attention": "paged_decode_kernel",
+                  "paged_attention": PAGED_SYMBOLS,
                   "layer_norm_bwd": "layer_norm_bwd_kernel",
                   "flash_bwd_dq": "flash_bwd_dq_kernel",
                   "flash_bwd_dkdv": "flash_bwd_dkdv_kernel",
@@ -673,17 +690,17 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "lamb_phase2": "lamb_phase2_kernel",
                   "dequant_matmul": "dequant_matmul_kernel",
                   "dequant_matmul_w4": "dequant_matmul_w4_kernel",
-                  "paged_attention_quant": "paged_decode_quant_kernel",
+                  "paged_attention_quant": PAGED_SYMBOLS,
                   "rms_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_fwd_window": "flash_fwd_kernel",
-                  "paged_attention_window": "paged_decode_kernel",
+                  "paged_attention_window": PAGED_SYMBOLS,
                   "rms_norm_bwd": "layer_norm_bwd_kernel",
                   "layer_norm_bwd_from_y": "layer_norm_bwd_kernel",
                   "flash_bwd_dq_window": "flash_bwd_dq_kernel",
                   "flash_bwd_dkdv_window": "flash_bwd_dkdv_kernel",
-                  "paged_attention_block": "paged_decode_kernel",
-                  "paged_attention_window_block": "paged_decode_kernel",
-                  "paged_attention_quant_block": "paged_decode_quant_kernel",
+                  "paged_attention_block": PAGED_SYMBOLS,
+                  "paged_attention_window_block": PAGED_SYMBOLS,
+                  "paged_attention_quant_block": PAGED_SYMBOLS,
                   "flash_fwd_bias": "flash_fwd_kernel",
                   "flash_fwd_window_bias": "flash_fwd_kernel",
                   "flash_bwd_dq_bias": "flash_bwd_dq_kernel",
@@ -751,6 +768,8 @@ def ptxas_report() -> dict:
              "lamb_phase2_kernel", "dequant_matmul_kernel",
              "dequant_matmul_w4_kernel", "dequant_matmul_mma_kernel",
              "dequant_matmul_w4_mma_kernel", "paged_decode_quant_kernel",
+             "paged_split_simt_kernel", "paged_split_mma_kernel",
+             "paged_merge_kernel",
              "sgd_kernel", "novograd_kernel", "scale_f32_kernel",
              "scale_bf16_kernel", "scaled_softmax_fwd_warp_kernel",
              "scaled_softmax_fwd_long_kernel",
@@ -809,7 +828,15 @@ def ptxas_report() -> dict:
                 # int4 groups below 16 (ROADMAP C2)
                 if name.startswith("dequant_matmul") and "Lb1EE" in entry:
                     fp8 += "<ragged>"
+                # the paged split pass's instances: int8 pages, the head
+                # dim bucket and the rows a warp may carry
+                pk = re.search(r"simt_kernelI(?:f|13__nv_bfloat16)(a)?.*"
+                               r"Li(\d+)ELi(\d+)EE", entry)
+                if name == "paged_split_simt_kernel" and pk:
+                    rms = (("<i8>" if pk.group(1) else "")
+                           + f"<d{pk.group(2)}><rt{pk.group(3)}>")
                 # the head-dim instances of the tensor-core flash kernels
+                # (and of the paged split pass)
                 dim = re.search(r"mma_kernelILi(\d+)E", entry)
                 dim = f"<d{dim.group(1)}>" if dim else ""
                 regs[name + bf16 + fp8 + rms + dim] = (int(m.group(1)),
@@ -1205,7 +1232,24 @@ def check_flash(gen, dev):
     return out
 
 
+def paged_times(name: str, kernel, plain, first, nbytes: float) -> dict:
+    """A paged row's times by ``queued_ms`` (the kernel is ~0.01 ms: by
+    ``time_ms`` it would read the host's launch rate): the kernel's, its
+    twin's, and its achieved TB/s, the bound's bytes over its time; the
+    kernel's output ``first`` must come back bit for bit in a second
+    call."""
+    same_bits(name, (first,), (kernel(),))
+    ms = queued_ms(kernel)
+    return dict(ms=ms, plain_ms=queued_ms(plain), tb_s=nbytes / ms / 1e9)
+
+
 def check_paged(gen, dev):
+    """GPT-2-small's paged decode step: 8 slots, 12 heads, d = 64, page 16,
+    lengths 0..1024, fp32 and bf16, by ``queued_ms``; a zero-length slot
+    outputs exactly 0. Then each slot alone (batch 1, its own table row)
+    and the batch at a table twice as wide must give the batch's bits: a
+    slot's splits depend on its own length alone. The rows ``use`` "alone"
+    time the longest slot alone."""
     import torch
 
     pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
@@ -1221,6 +1265,7 @@ def check_paged(gen, dev):
         n = -(-int(lengths[i]) // ps)
         bt[i, :n] = perm[i * maxp:i * maxp + n]
     bt, ln = bt.to(dev), lengths.to(dev)
+    pools = []
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.randn(slots, h, 1, d, generator=gen).to(dev, dtype)
         kp, vp = (torch.randn(num_pages, h, ps, d, generator=gen)
@@ -1242,9 +1287,36 @@ def check_paged(gen, dev):
         out.append((dict(
             name="paged_attention", dtype=dn,
             shape=[slots, h, ps, d, maxp], lengths=lengths.tolist(),
-            max_abs_err=err, ms=time_ms(kernel),
-            plain_ms=time_ms(partial(pa.paged_attention_reference,
-                                     q, kp, vp, bt, ln)),
+            max_abs_err=err, **paged_times(
+                "paged_attention", kernel, partial(
+                    pa.paged_attention_reference, q, kp, vp, bt, ln), o,
+                nbytes),
+            library_ms=None, bound_ms=bms, bound_by=by), kernel))
+        pools.append((dtype, q, kp, vp, o))
+    wide = torch.cat([bt, torch.zeros_like(bt)], 1)
+    for dtype, q, kp, vp, o in pools:
+        same_bits("paged_attention at a wider table", (o,),
+                  (pa.paged_attention(q, kp, vp, wide, ln),))
+        for i in range(slots):
+            alone = pa.paged_attention(q[i:i + 1], kp, vp, bt[i:i + 1],
+                                       ln[i:i + 1])
+            if not torch.equal(alone[0], o[i]):
+                raise AssertionError(f"paged_attention: slot {i} alone gives "
+                                     f"other bits than in the batch")
+        i = slots - 1
+        args = (q[i:i + 1], kp, vp, bt[i:i + 1], ln[i:i + 1])
+        dn = str(dtype).split(".")[1]
+        n, elt = int(lengths[i]), q.element_size()
+        nbytes = 2 * n * h * d * elt + 2 * h * d * elt + maxp * 4 + 4
+        bms, by = bound_ms(nbytes, 4 * n * h * d, dn)
+        kernel = partial(pa.paged_attention, *args)
+        out.append((dict(
+            name="paged_attention", use="alone", dtype=dn,
+            shape=[1, h, ps, d, maxp], lengths=[n],
+            max_abs_err=compare("paged_attention alone", o[i:i + 1],
+                                pa.paged_attention_reference(*args), dn),
+            **paged_times("paged_attention alone", kernel, partial(
+                pa.paged_attention_reference, *args), o[i:i + 1], nbytes),
             library_ms=None, bound_ms=bms, bound_by=by), kernel))
     return out
 
@@ -1895,9 +1967,10 @@ def check_paged_quant(gen, dev):
             out.append((dict(
                 name="paged_attention_quant", kind=kv_name, dtype=dn,
                 shape=[slots, h, ps, d, maxp], lengths=lengths.tolist(),
-                path="quant_serving", max_abs_err=err, ms=queued_ms(kernel),
-                plain_ms=queued_ms(partial(pa.paged_attention_reference, q, kp,
-                                         vp, bt, ln, **kw)),
+                path="quant_serving", max_abs_err=err, **paged_times(
+                    "paged_attention_quant", kernel, partial(
+                        pa.paged_attention_reference, q, kp, vp, bt, ln,
+                        **kw), o, nbytes),
                 unquantized_ms=queued_ms(partial(pa.paged_attention, q, kpf,
                                                vpf, bt, ln)),
                 library_ms=None, bound_ms=bms, bound_by=by), kernel))
@@ -2092,9 +2165,9 @@ def check_paged_window(gen, dev):
         return (dict(
             name=name, dtype=dn, shape=shape, kv_heads=kv, window=w,
             lengths=lengths, path="mistral", max_abs_err=err,
-            ms=queued_ms(kernel),
-            plain_ms=queued_ms(partial(pa.paged_attention_reference, q, kp,
-                                       vp, bt, ln, **kw)),
+            **paged_times(name, kernel, partial(
+                pa.paged_attention_reference, q, kp, vp, bt, ln, **kw), o,
+                nbytes),
             library_ms=None, bound_ms=bms, bound_by=by, **extra), kernel)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -2169,9 +2242,9 @@ def check_paged_block(gen, dev):
             name=name, dtype=dn, shape=[b, h, s, ps, d, maxp], s=s,
             kv_heads=kv, window=window, lengths=list(lengths),
             path="spec_chunked", max_abs_err=err, out_rms=rms_of(want),
-            ms=queued_ms(kernel),
-            plain_ms=queued_ms(partial(pa.paged_attention_reference, q, kp,
-                                       vp, bt, ln, **kw)),
+            **paged_times(name, kernel, partial(
+                pa.paged_attention_reference, q, kp, vp, bt, ln, **kw), o,
+                nbytes),
             library_ms=None, library="none: no single PyTorch call",
             bound_ms=bms, bound_by=by, **extra), kernel)
 
@@ -3300,17 +3373,19 @@ def short_run(run):
 def profile_quant(runs) -> None:
     """One profiled short run (``short_run``) of each quantized bf16
     configuration: device busy and idle share, each quantized kernel's
-    device ms and launches seen, beside the timed full run's launches."""
+    device ms and calls seen (``op_device_ms``: the paged kernel's split
+    pass and merge together), beside the timed full run's launches."""
     out = {}
     for label, (run, launches, _) in runs.items():
         wall, acts = device_profile(short_run(run), cpu=False)
         busy = sum(t for t, _ in acts.values())
         kernels = {}
         for name in QUANT_KERNELS:
-            hits = [(t, c) for k, (t, c) in acts.items()
-                    if kernel_symbol(name, "bfloat16") in k]
-            kernels[name] = dict(device_ms=sum(t for t, _ in hits),
-                                 launches_seen=sum(c for _, c in hits),
+            symbols = kernel_symbol(name, "bfloat16")
+            op = op_device_ms(acts, (symbols,) if isinstance(symbols, str)
+                              else symbols)
+            kernels[name] = dict(device_ms=op["ms"],
+                                 launches_seen=op["calls"],
                                  timed_run_launches=launches[name])
         top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:10]
         out[label] = dict(wall_s=wall, device_busy_s=busy / 1e3,
@@ -5423,12 +5498,32 @@ def profile_resnet(step) -> None:
                      for k, (t, c) in top])
 
 
-def profile_phase(phase: str, fn, cpu: bool = True, **fields) -> None:
+def op_device_ms(acts, symbols) -> dict:
+    """An op's device ms a call in a profile (``device_profile``'s
+    activities), its launches being one kernel of each of ``symbols`` a
+    call: the time of every kernel whose name holds one of them, over the
+    most launches seen of any one."""
+    counts = [sum(c for k, (_, c) in acts.items() if sym in k)
+              for sym in symbols]
+    total = sum(t for k, (t, _) in acts.items()
+                if any(sym in k for sym in symbols))
+    calls = max(counts)
+    return dict(ms_per_call=total / calls if calls else None, calls=calls,
+                ms=total)
+
+
+def profile_phase(phase: str, fn, cpu: bool = True, ops=None,
+                  **fields) -> None:
     """One run of ``fn`` under the profiler: device busy and idle share and
-    the top device items (``cpu=False``: the host's ops untraced)."""
+    the top device items (``cpu=False``: the host's ops untraced); with
+    ``ops`` ({name: symbols}), each op's device ms a call
+    (``op_device_ms``)."""
     wall, acts = device_profile(fn, cpu=cpu)
     busy = sum(t for t, _ in acts.values())
     top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:15]
+    if ops:
+        fields["op_device_ms"] = {name: op_device_ms(acts, symbols)
+                                  for name, symbols in ops.items()}
     emit(phase, **fields, wall_s=wall, device_busy_s=busy / 1e3,
          device_idle_share=1.0 - busy / 1e3 / wall,
          top_device=[dict(name=k[:120], ms=t, count=c)
@@ -6160,10 +6255,11 @@ def main() -> int:
     # the shapes of phase 2
     profile_phase("engine_bf16_profile",
                   partial(drive_engine, model, prompts, new_tokens),
-                  cpu=False)
+                  cpu=False, ops={"paged_attention": PAGED_SYMBOLS})
     profile_spec_round(model, prompts, new_tokens)
     profile_quant(quant_runs)
     profile_phase("mistral_bf16_profile", short_run(mistral_run), cpu=False,
+                  ops={"paged_attention_window": PAGED_SYMBOLS},
                   requests=NUM_SLOTS, budget_cap=PROFILE_BUDGET)
     del mistral_model, mistral_run
     torch.cuda.empty_cache()
@@ -6322,7 +6418,7 @@ def main() -> int:
     quant_path = {"dequant_matmul": "w8_kv8", "dequant_matmul_w4": "w4_kv8",
                   "paged_attention_quant": "w8_kv8"}
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms", "tflops")
+              "library_ms", "tflops", "tb_s")
     summary = []
     for name, (src, replaces) in _build.KERNELS.items():
         path = ("ring_train" if name in RING_KERNELS and "window" in name
@@ -6358,8 +6454,8 @@ def main() -> int:
             max_abs_err=row["max_abs_err"],
             **{k: row[k] for k in ("sums_max_rel_err", "norms_max_rel_err")
                if k in row},
-            ms=row["ms"], **({"tflops": row["tflops"]} if "tflops" in row
-                             else {}),
+            ms=row["ms"], **{k: row[k] for k in ("tflops", "tb_s")
+                             if k in row},
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             **{k: row[k] for k in ("kind", "shape", "unquantized_ms",

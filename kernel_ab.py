@@ -10,7 +10,10 @@ through the ``apex_tpu_torch`` of each tree: one process per turn, in the
 order A, B, B, A, each building the tree's kernels into that tree's
 ``apex_tpu_torch/_build/``, warming the card and running the checks, which
 hold every kernel against its twin and time it (default the seven flash
-checks: every forward and backward branch). Prints
+checks: every forward and backward branch; the paged kernel's are
+``check_paged,check_paged_quant,check_paged_window,check_paged_block``,
+whose rows the key ``ROW_KEYS`` tells apart by ``s`` and ``lengths``
+too). Prints
 the card's name and power limit, one JSON line per turn with its rows, and
 a last JSON line with each row's ms in the four turns and B's time over
 A's (the mean of B's two turns over the mean of A's), and, for a row
@@ -37,7 +40,7 @@ CHECKS = ("check_flash", "check_flash_bwd", "check_flash_bert",
           "check_flash_window", "check_flash_bwd_window", "check_flash_bias",
           "check_flash_ring")
 ROW_KEYS = ("name", "dtype", "shape", "kind", "use", "path", "sk", "window",
-            "causal_offset", "group_size")
+            "causal_offset", "group_size", "s", "lengths")
 
 
 def row_key(row: dict) -> str:
@@ -76,7 +79,8 @@ def one(tree: str, checks, device_ms: bool = False) -> dict:
                      row["library_launches_seen"]) = cs.library_device_ms(
                         fn.library)
             rows.append(row)
-    keep = ("ms", "tflops", "tb_s", "max_abs_err", "bound_ms", "library_ms",
+    keep = ("ms", "plain_ms", "tflops", "tb_s", "max_abs_err", "bound_ms",
+            "library_ms",
             "device_ms", "device_ms_by_symbol", "library_device_ms",
             "library_launches_seen", "x_copies", "bits")
     return dict(tree=tree, build_s=build_s, failed=failed,

@@ -838,6 +838,106 @@ def test_paged_block_longer_than_a_page_raises(cuda):
         paged_attention(q, kp, kp, bt, ln)
 
 
+# --- the split page walk (flash-decode): splits, merge, batch invariance ---
+
+#: (s, rep, d): GPT-2's decode and blocks (d 64), Mistral's (GQA 4, d 128),
+#: d 16 and 80, a ragged 35 rows, and 80 rows (two row groups of 64 and 16)
+SPLIT_SHAPES = [(1, 1, 64), (1, 4, 128), (4, 4, 16), (4, 1, 80),
+                (16, 1, 64), (16, 4, 128), (5, 7, 80), (16, 5, 64)]
+SPLIT_BRANCHES = ["fp", "window", "int8", "fp8", "int8_window"]
+
+
+def _split_case(cuda, dtype, branch, s, rep, d, seed, lengths=None,
+                extra_pages=0):
+    """A shuffled pool of 48-page slots at page 16 (768 positions: at the
+    plan's 8 pages a split, up to 6 splits a slot), lengths on page and
+    split edges +-1, window 300 (its band floor inside a split); page 0
+    poisoned. Returns (args, kwargs, launch name)."""
+    g = torch.Generator().manual_seed(seed)
+    window = 300 if "window" in branch else None
+    kv_dtype = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
+                "int8_window": torch.int8}.get(branch)
+    ps, kv, maxp = 16, 2, 48
+    if lengths is None:
+        lengths = [0, 1, s - 1, 127, 128, 129, 256, 257, 400, 767, 768]
+    (kp, vp), scales, bt = _block_pool(g, lengths, s, window, ps, kv, d,
+                                       maxp, dtype, cuda, kv_dtype)
+    if extra_pages:
+        bt = torch.cat([bt, torch.zeros(bt.shape[0], extra_pages,
+                                        dtype=bt.dtype, device=cuda)], 1)
+    q = torch.randn(len(lengths), rep * kv, s, d, generator=g).to(cuda,
+                                                                  dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = {} if window is None else dict(window=window)
+    if scales is not None:
+        kw.update(k_scales=scales[0], v_scales=scales[1])
+    name = ("paged_attention_quant" if kv_dtype is not None
+            else "paged_attention_window" if window else "paged_attention")
+    return (q, kp, vp, bt, ln), kw, name + ("_block" if s > 1 else "")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("branch", SPLIT_BRANCHES)
+@pytest.mark.parametrize("s,rep,d", SPLIT_SHAPES)
+def test_paged_split_kernels_match_twin(cuda, dtype, branch, s, rep, d):
+    """Every branch over up to 6 live splits a slot: the twin at ``TOL``,
+    one launch counted under the branch's name and no other, rows before a
+    slot's start and zero-length slots exactly 0, the same bits in a
+    second call."""
+    args, kw, name = _split_case(cuda, dtype, branch, s, rep, d,
+                                 seed=31 + s + rep + d)
+    before = dict(_build.launches)
+    got = paged_attention(*args, **kw)
+    assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 1
+    torch.cuda.synchronize()
+    _close(got, paged_attention_reference(*args, **kw), dtype)
+    assert torch.isfinite(got.float()).all()
+    for i, n in enumerate(args[4].tolist()):
+        if n < s:
+            assert (got[i, :, :s - n] == 0).all()
+    assert torch.equal(paged_attention(*args, **kw), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("branch", ["fp", "window", "int8_window"])
+@pytest.mark.parametrize("s,rep,d", [(1, 1, 64), (1, 4, 128), (16, 4, 128),
+                                     (4, 1, 64)])
+def test_paged_split_rows_are_batch_invariant(cuda, dtype, branch, s, rep,
+                                              d):
+    """A slot's output is the same bits alone (batch 1), in the batch and
+    at a wider table: its splits and sum orders depend on its own length
+    alone."""
+    args, kw, _ = _split_case(cuda, dtype, branch, s, rep, d, seed=7)
+    q, kp, vp, bt, ln = args
+    batch = paged_attention(*args, **kw)
+    wide = torch.cat([bt, torch.zeros(bt.shape[0], 40, dtype=bt.dtype,
+                                      device=cuda)], 1)
+    assert torch.equal(paged_attention(q, kp, vp, wide, ln, **kw), batch)
+    for i in range(q.shape[0]):
+        alone = paged_attention(q[i:i + 1], kp, vp, bt[i:i + 1],
+                                ln[i:i + 1], **kw)
+        assert torch.equal(alone[0], batch[i]), i
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_split_unaligned_pool_view_matches_twin(cuda, dtype):
+    """A pool viewed one element off a 16-byte boundary takes element
+    copies into the same tiles: the twin at ``TOL`` and the aligned pool's
+    bits."""
+    args, kw, _ = _split_case(cuda, dtype, "window", 4, 4, 64, seed=3)
+    q, kp, vp, bt, ln = args
+    views = []
+    for p in (kp, vp):
+        flat = torch.empty(p.numel() + 1, dtype=p.dtype, device=cuda)
+        view = flat[1:].view(p.shape)
+        view.copy_(p)
+        views.append(view)
+    got = paged_attention(q, *views, bt, ln, **kw)
+    _close(got, paged_attention_reference(*args, **kw), dtype)
+    assert torch.equal(got, paged_attention(*args, **kw))
+
+
 # --- the training slice of Mistral-7B: RMSNorm and memory_efficient
 # backward, the windowed flash backward ---------------------------------
 
