@@ -26,15 +26,103 @@ agrees with it within fp32 rounding for data of moderate mean.
 ``_GroupNormFunction``, which saves x, the weight and bias, and the mean
 and rstd. A tensor on the CPU takes the twins; a CUDA tensor always takes
 the kernels.
+
+On the card each call is two launches, counted once under its name: the
+kernels tile NHWC as it lies (whole rows, 8 channels a thread) and split
+a sample's rows into chunks, one block each, whose partial statistics
+the sample's last block of the first launch merges in a fixed order
+(``csrc/group_norm.cu``). The cut is
+:func:`group_norm_split_plan`'s, a function of ``(hw, c, cg)`` and the
+element size alone, never of the batch: a sample's y, mean, rstd and dx
+have the same bits alone and in a batch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from apex_tpu_torch.ops import _build
+
+#: channels a thread of the kernels holds: one 16-byte load of bf16 or
+#: fp16, two of fp32
+VEC = 8
+#: the threads a block aims at (whole warps of thread rows x vector
+#: columns), the most vector columns a block takes (a wider row is cut
+#: into tiles) and the most thread rows
+BLOCK_THREADS = 320
+MAX_COL_THREADS = 320
+MAX_THREAD_ROWS = 32
+#: chunks of a sample the plan aims at, forward and backward (32 and 16:
+#: the best of 4-32 at Stable Diffusion's shapes on an H100,
+#: ``group_norm_sweep.py``), and the most rows a thread walks, by element
+#: size: 256 bytes, in steps with the next step's loads in flight
+#: (``csrc/group_norm.cu``'s kStep, kBwdStep)
+MIN_CHUNKS = {False: 32, True: 16}
+MAX_ROWS = {2: 16, 4: 8}
+
+
+class GroupNormSplitPlan(NamedTuple):
+    """The kernels' cut of a call (``csrc/group_norm.cu``'s ``Plan``)."""
+    cols: int          # vector columns of a row, ceil(c / VEC)
+    col_threads: int   # vector columns of a tile, one thread each
+    tiles: int         # column tiles of a row
+    thread_rows: int   # thread row r walks rows r, r + thread_rows, ...;
+    #                    a power of 2, the lanes of a column
+    threads: int       # a block: thread_rows x col_threads, whole warps
+    rows: int          # rows a thread walks
+    chunk_rows: int    # rows of a chunk (a block's rows): thread_rows x rows
+    chunks: int        # chunks of a sample
+
+
+def group_norm_split_plan(hw: int, c: int, cg: int, elt: int,
+                          backward: bool = False) -> GroupNormSplitPlan:
+    """The kernels' cut of a ``(n, hw, c)`` call in groups of ``cg``
+    channels of ``elt`` bytes, forward or ``backward``, from the shape
+    alone: never the batch, so a sample's statistics, and so its bits, do
+    not depend on n. A block holds ``thread_rows`` rows of whole vector
+    columns (a power of 2: the most up to ``BLOCK_THREADS`` threads; a
+    column's thread rows are neighbouring lanes of one warp, summed by a
+    xor butterfly), each thread ``rows`` rows: as many as give a
+    sample ``MIN_CHUNKS[backward]`` chunks, between 1 and ``MAX_ROWS``.
+    ``cg`` does not change the cut: any group is folded from
+    its channels."""
+    if hw <= 0 or c <= 0 or cg <= 0 or c % cg or elt not in (2, 4):
+        raise ValueError(f"no GroupNorm plan for hw={hw}, c={c}, cg={cg}, "
+                         f"elt={elt}")
+    cols = -(-c // VEC)
+    col_threads = min(cols, MAX_COL_THREADS)
+    tiles = -(-cols // col_threads)
+    most = max(1, min(MAX_THREAD_ROWS, BLOCK_THREADS // col_threads))
+    thread_rows = 1 << (most.bit_length() - 1)
+    threads = -(-thread_rows * col_threads // 32) * 32
+    rows = max(1, min(MAX_ROWS[elt],
+                      hw // (thread_rows * MIN_CHUNKS[backward])))
+    chunk_rows = thread_rows * rows
+    return GroupNormSplitPlan(cols, col_threads, tiles, thread_rows, threads,
+                              rows, chunk_rows, -(-hw // chunk_rows))
+
+
+def tile_groups(plan: GroupNormSplitPlan, c: int, cg: int, q: int) -> range:
+    """The groups whose channels tile ``q`` of a row holds (the kernels'
+    ``g_lo .. g_hi``)."""
+    lo = q * plan.col_threads * VEC
+    hi = min(c, lo + plan.col_threads * VEC)
+    return range(lo // cg, (hi - 1) // cg + 1)
+
+
+def group_tiles(plan: GroupNormSplitPlan, cg: int, g: int) -> range:
+    """The tiles that hold group ``g``'s channels (the kernels'
+    ``group_tiles``)."""
+    span = plan.col_threads * VEC
+    return range(g * cg // span, ((g + 1) * cg - 1) // span + 1)
+
+
+def ragged(c: int, *tensors: torch.Tensor) -> bool:
+    """Whether a call takes the kernels' element loads: a row that is no
+    whole vectors, or a tensor off a 16-byte boundary."""
+    return c % VEC != 0 or any(t.data_ptr() % 16 for t in tensors)
 
 
 def _check(x: torch.Tensor, weight, bias, num_groups: int,
@@ -130,28 +218,65 @@ def _affine(weight, bias):
     return weight.float().contiguous(), bias.float().contiguous()
 
 
+#: per (device, stream): int32 counts a sample, zero between calls (each
+#: kernel's last block of a sample sets its count back to zero)
+_counts: dict = {}
+
+
+def _sample_counts(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The kernels' per-sample block counts on x's device and stream (one
+    buffer a stream: calls on one stream run in order)."""
+    key = (x.device, _build.stream_of(x))
+    buf = _counts.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=x.device)
+        _counts[key] = buf
+    return buf
+
+
+def _plan_args(plan: GroupNormSplitPlan):
+    return (plan.col_threads, plan.tiles, plan.thread_rows, plan.threads,
+            plan.rows, plan.chunk_rows, plan.chunks)
+
+
+def _launch_shape(x: torch.Tensor, num_groups: int):
+    n, h, w_, c = x.shape
+    if n > 65535:
+        raise ValueError(f"the GroupNorm kernels take at most 65535 "
+                         f"samples a call, got {n}")
+    hw, cg = h * w_, c // num_groups
+    return n, hw, c, cg
+
+
 def group_norm_fwd(x: torch.Tensor, weight, bias, num_groups: int,
                    eps: float = 1e-5, act: Optional[str] = None):
-    """``(y, mean, rstd)``: the kernel on a CUDA tensor, the twin on a CPU
-    one."""
+    """``(y, mean, rstd)``: the kernels on a CUDA tensor (two launches, one
+    count), the twin on a CPU one."""
     if x.device.type == "cpu":
         return group_norm_fwd_reference(x, weight, bias, num_groups, eps, act)
     _check(x, weight, bias, num_groups, act)
-    n, h, w_, c = x.shape
+    n, hw, c, cg = _launch_shape(x, num_groups)
     x = x.contiguous()
     w, b = _affine(weight, bias)
     y = torch.empty_like(x)
     mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     _build.check_cuda(*[t for t in (x, w, b) if t is not None])
+    code = _build.dtype_code(x, _build.HALF_DTYPES)
+    if n == 0 or hw == 0:
+        return y, mean, rstd
+    plan = group_norm_split_plan(hw, c, cg, x.element_size())
+    part = torch.empty(n * plan.chunks * plan.tiles * num_groups * 3,
+                       dtype=torch.float32, device=x.device)
     P, I, F = _build.P, _build.I, _build.F
     _build.launch("group_norm_fwd", "apex_group_norm_fwd",
-                  (P, P, P, P, P, P, I, I, I, I, F, I, I, P),
+                  (P,) * 8 + (I,) * 4 + (F,) + (I,) * 10 + (P,),
                   x.data_ptr(), w.data_ptr() if w is not None else None,
                   b.data_ptr() if b is not None else None, y.data_ptr(),
-                  mean.data_ptr(), rstd.data_ptr(), n, h * w_, c,
-                  c // num_groups, float(eps), int(act == "silu"),
-                  _build.dtype_code(x, _build.HALF_DTYPES),
+                  mean.data_ptr(), rstd.data_ptr(), part.data_ptr(),
+                  _sample_counts(x, n).data_ptr(), n, hw, c, cg, float(eps),
+                  int(act == "silu"), code,
+                  int(ragged(c, x, y)), *_plan_args(plan),
                   _build.stream_of(x))
     return y, mean, rstd
 
@@ -159,9 +284,9 @@ def group_norm_fwd(x: torch.Tensor, weight, bias, num_groups: int,
 def group_norm_bwd(x: torch.Tensor, dy: torch.Tensor, weight, bias,
                    mean: torch.Tensor, rstd: torch.Tensor, num_groups: int,
                    act: Optional[str] = None):
-    """``(dx, dw, db)``: the kernel on a CUDA tensor (its per-sample dw and
-    db partials summed over the samples here, as the reference sums its
-    kernel's outside it), the twin on a CPU one."""
+    """``(dx, dw, db)``: the kernels on a CUDA tensor (two launches, one
+    count; dw and db summed over the samples on the card, in a fixed
+    order), the twin on a CPU one."""
     if x.device.type == "cpu":
         return group_norm_bwd_reference(x, dy, weight, bias, mean, rstd,
                                         num_groups, act)
@@ -169,32 +294,46 @@ def group_norm_bwd(x: torch.Tensor, dy: torch.Tensor, weight, bias,
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
                          f"x {tuple(x.shape)} {x.dtype}")
-    n, h, w_, c = x.shape
+    n, hw, c, cg = _launch_shape(x, num_groups)
     x, dy = x.contiguous(), dy.contiguous()
     mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
     w, b = _affine(weight, bias)
     dx = torch.empty_like(x)
-    dwp = dbp = None
-    if w is not None:
-        dwp = torch.empty((n, c), dtype=torch.float32, device=x.device)
-        dbp = torch.empty_like(dwp)
+    dw = db = None
+    run = n > 0 and hw > 0
+    if w is not None:                   # the kernels write every channel
+        dw = (torch.empty if run else torch.zeros)(
+            c, dtype=torch.float32, device=x.device)
+        db = torch.empty_like(dw) if run else torch.zeros_like(dw)
     _build.check_cuda(*[t for t in (x, dy, w, b, mean, rstd) if t is not None])
+    code = _build.dtype_code(x, _build.HALF_DTYPES)
+    if run:
+        plan = group_norm_split_plan(hw, c, cg, x.element_size(),
+                                     backward=True)
+        blocks = n * plan.chunks
+        gpart = torch.empty(blocks * plan.tiles * num_groups * 2,
+                            dtype=torch.float32, device=x.device)
+        cpart = (torch.empty(2 * blocks * c, dtype=torch.float32,
+                             device=x.device) if w is not None else None)
+        ab = torch.empty(n * num_groups * 2, dtype=torch.float32,
+                         device=x.device)
 
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
+        def ptr(t):
+            return t.data_ptr() if t is not None else None
 
-    P, I = _build.P, _build.I
-    _build.launch("group_norm_bwd", "apex_group_norm_bwd",
-                  (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-                  x.data_ptr(), dy.data_ptr(), ptr(w), ptr(b),
-                  mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), ptr(dwp),
-                  ptr(dbp), n, h * w_, c, c // num_groups,
-                  int(act == "silu"),
-                  _build.dtype_code(x, _build.HALF_DTYPES),
-                  _build.stream_of(x))
+        P, I = _build.P, _build.I
+        _build.launch("group_norm_bwd", "apex_group_norm_bwd",
+                      (P,) * 13 + (I,) * 14 + (P,),
+                      x.data_ptr(), dy.data_ptr(), ptr(w), ptr(b),
+                      mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+                      ptr(dw), ptr(db), gpart.data_ptr(), ptr(cpart),
+                      ab.data_ptr(), _sample_counts(x, n).data_ptr(), n, hw,
+                      c, cg, int(act == "silu"), code,
+                      int(ragged(c, x, dy, dx)), *_plan_args(plan),
+                      _build.stream_of(x))
     if w is None:
         return dx, None, None
-    return dx, dwp.sum(dim=0).to(weight.dtype), dbp.sum(dim=0).to(bias.dtype)
+    return dx, dw.to(weight.dtype), db.to(bias.dtype)
 
 
 class _GroupNormFunction(torch.autograd.Function):

@@ -131,11 +131,14 @@ each,
    [8, 1, 1, 512] padding mask and without one, and [2, 4, 16, 8193], fp32
    and bf16, BERT's masked rows fp16 too (library ``torch.softmax`` on the
    pre-scaled, pre-masked scores; ``torch._softmax_backward_data``). The
-   GroupNorm rows (``check_group_norm``, by ``queued_ms``): forward and
-   backward at Stable Diffusion v1.5's UNet norms, (8, C, S, S) for (C, S)
-   in (320, 64), (640, 32), (1280, 16), (1280, 8), channels_last, 32
-   groups, SiLU at eps 1e-5 and none at eps 1e-6, fp32 and bf16 (library
-   ``F.group_norm`` and its backward).
+   GroupNorm rows (``check_group_norm``, by ``queued_ms`` over copies of
+   x and dy past the L2 cache, with the profiler's device ms of both
+   launches of a call): forward and backward at Stable Diffusion v1.5's
+   UNet norms, (8, C, S, S) for (C, S) in (320, 64), (640, 32), (1280,
+   16), (1280, 8), channels_last, 32 groups, SiLU at eps 1e-5 and none at
+   eps 1e-6, fp32 and bf16, a second call's bits and sample 0's alone
+   equal to the batch's (library ``F.group_norm``; its backward's device
+   ms by the profiler).
    ``sync_bn_sumsq``: the sum of squares of SyncBatchNorm's statistics at
    ResNet-50's 12 norm shapes in bf16 against fp64 (``vector_norm``
    squared, the direct fp32 sum, the port's), failing if the port's is
@@ -666,6 +669,16 @@ FP32_KERNELS = ("adam", "xentropy_fwd", "xentropy_bwd", "segment_stats",
 #: (``paged_decode_kernel``, ``paged_decode_quant_kernel``), so that an A/B
 #: against such a tree reads both sides
 PAGED_SYMBOLS = ("paged_split_", "paged_merge_kernel", "paged_decode_")
+#: the GroupNorm ops' launches a call: the forward's statistics and apply
+#: passes, the backward's sums and dx passes; and each op's one kernel of
+#: a tree whose call was one launch, so that an A/B against such a tree
+#: reads both sides
+GROUP_NORM_FWD_SYMBOLS = ("group_norm_fwd_stats_kernel",
+                          "group_norm_fwd_apply_kernel",
+                          "group_norm_fwd_kernel")
+GROUP_NORM_BWD_SYMBOLS = ("group_norm_bwd_sums_kernel",
+                          "group_norm_bwd_dx_kernel",
+                          "group_norm_bwd_kernel")
 
 #: kernel name -> the CUDA symbol the profiler reports its launches under
 #: (for ``layer_norm_bwd`` its one kernel, which also sums dgamma/dbeta;
@@ -673,7 +686,7 @@ PAGED_SYMBOLS = ("paged_split_", "paged_merge_kernel", "paged_decode_")
 #: ``scaled_softmax_fwd_``), or a tuple of the symbols of an op that is
 #: several launches (``segment_stats``: its row pass and its segment sums;
 #: ``lamb_phase1``: its row pass and the norms' segment sums; the six paged
-#: names: ``PAGED_SYMBOLS``)
+#: names: ``PAGED_SYMBOLS``; the GroupNorm ops: ``GROUP_NORM_*_SYMBOLS``)
 KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "flash_fwd": "flash_fwd_kernel",
                   "paged_attention": PAGED_SYMBOLS,
@@ -713,8 +726,8 @@ KERNEL_SYMBOLS = {"layer_norm_fwd": "layer_norm_fwd_kernel",
                   "scaled_softmax_fwd_masked": "scaled_softmax_fwd_",
                   "scaled_softmax_fwd_causal": "scaled_softmax_fwd_",
                   "scaled_softmax_bwd": "scaled_softmax_bwd_kernel",
-                  "group_norm_fwd": "group_norm_fwd_kernel",
-                  "group_norm_bwd": "group_norm_bwd_kernel",
+                  "group_norm_fwd": GROUP_NORM_FWD_SYMBOLS,
+                  "group_norm_bwd": GROUP_NORM_BWD_SYMBOLS,
                   "flash_fwd_ring": "flash_fwd_kernel",
                   "flash_fwd_window_ring": "flash_fwd_kernel",
                   "flash_bwd_dq_ring": "flash_bwd_dq_kernel",
@@ -773,8 +786,8 @@ def ptxas_report() -> dict:
              "sgd_kernel", "novograd_kernel", "scale_f32_kernel",
              "scale_bf16_kernel", "scaled_softmax_fwd_warp_kernel",
              "scaled_softmax_fwd_long_kernel",
-             "scaled_softmax_bwd_kernel", "group_norm_fwd_kernel",
-             "group_norm_bwd_kernel")
+             "scaled_softmax_bwd_kernel", *GROUP_NORM_FWD_SYMBOLS,
+             *GROUP_NORM_BWD_SYMBOLS)
     regs = {}
     for log in sorted(_build.BUILD.glob("*.log")):
         entry, spill = None, 0
@@ -791,9 +804,18 @@ def ptxas_report() -> dict:
                 name = next((n for n in names if n in entry), entry)
                 bf16 = ("<bf16>" if "nv_bfloat16" in entry else "<f16>"
                         if "6__half" in entry else "")
-                # the SiLU instantiations of the GroupNorm kernels
-                if name.startswith("group_norm") and "Lb1E" in entry:
-                    bf16 += "<silu>"
+                # the SiLU and element-load (<ragged>) instantiations of
+                # the GroupNorm kernels: <T, kSilu, kRagged>, the
+                # statistics pass <T, kRagged>, a one-launch tree's
+                # kernels <T, kSilu>
+                gn = re.search(r"kernelI(?:f|13__nv_bfloat16|6__half)"
+                               r"((?:Lb[01]E)+)E", entry)
+                if name.startswith("group_norm") and gn:
+                    flags = re.findall(r"Lb([01])E", gn.group(1))
+                    if name == "group_norm_fwd_stats_kernel":
+                        flags.insert(0, "0")
+                    bf16 += ("<silu>" if flags[0] == "1" else "") + (
+                        "<ragged>" if flags[1:] == ["1"] else "")
                 # the RMS instantiations of the LayerNorm forward, its
                 # slots a thread, element loads (<ragged>), passes over a
                 # wide row and w and b read with x (<hoist>); the RMS and
@@ -2922,9 +2944,18 @@ def check_group_norm(gen, dev):
     UNet norm shapes (``UNET_SHAPES``, batch 8, 32 groups, channels_last),
     each with SiLU at eps 1e-5 and without at eps 1e-6, fp32 and bf16,
     weight and bias near 1 and 0: y, mean, rstd; dx, dw, db (dw and db at
-    ``SUM_TOL``: fp32 sums over 8 h w rows in other orders). Timed by
-    ``queued_ms``; library: ``F.group_norm`` on the same NCHW tensor (its
-    weight and bias in x's dtype) and its backward."""
+    ``SUM_TOL``: fp32 sums over 8 h w rows in other orders); a second call
+    gives the same bits, and sample 0 alone the bits of sample 0 in the
+    batch (y, mean, rstd, dx). Kernel, twin and library are timed by
+    ``queued_ms`` over copies of x (and dy) whose reads and written outputs
+    together exceed the L2 cache (``copies_for``, ``rotating``: over one x
+    a row up to 50 MB would be read from L2), and each row carries the
+    kernels' device ms by the profiler (``kernel_device_ms`` over the op's
+    symbols: both launches of a call). Library: ``F.group_norm`` on the
+    same NCHW tensor (its weight and bias in x's dtype), and for the
+    backward the device ms of ``torch.autograd.grad`` over its graph, one
+    graph a copy (``library_device_ms``: its ``queued_ms`` reads the host).
+    The rows keep no closure: their copies are freed here."""
     import torch
     import torch.nn.functional as F
 
@@ -2958,41 +2989,80 @@ def check_group_norm(gen, dev):
                                compare(f"{label} db", db, rdb, "float32",
                                        SUM_TOL))
                 del ry, rdx
+                same_bits(label, (y, mean, rstd, dx, dw, db),
+                          (*gn.group_norm_fwd(xh, *args, eps, act),
+                           *gn.group_norm_bwd(xh, dyh, *bargs)))
+                alone = gn.group_norm_fwd(xh[:1], *args, eps, act)
+                same_bits(f"{label} sample 0 alone",
+                          (y[:1], mean[:1], rstd[:1], dx[:1]),
+                          (*alone, gn.group_norm_bwd(
+                              xh[:1], dyh[:1], w, b, *alone[1:],
+                              UNET_GROUPS, act)[0]))
+                del alone
                 n, esize = x.numel(), x.element_size()
                 common = dict(dtype=dt, shape=list(xh.shape),
                               kind=act or "none", eps=eps,
                               groups=UNET_GROUPS, path="unet_group_norm")
-                xl = x.detach().requires_grad_()
-                wl = w.to(dtype).requires_grad_()
-                bl = b.to(dtype).requires_grad_()
-                yl = F.group_norm(xl, UNET_GROUPS, wl, bl, eps)
+                wl, bl = w.to(dtype), b.to(dtype)
                 bms, by = bound_ms(2 * n * esize + 8 * c, 12 * n, "float32")
+                xs = [xh.clone() for _ in range(copies_for(2 * n * esize))]
+                fwd_sets = [(xc, *args, eps, act) for xc in xs]
+                kernel = rotating(gn.group_norm_fwd, fwd_sets)
+                library = rotating(
+                    lambda xc: F.group_norm(xc.permute(0, 3, 1, 2),
+                                            UNET_GROUPS, wl, bl, eps),
+                    [(xc,) for xc in xs])
+                dev_ms, seen, split = kernel_device_ms(
+                    kernel, kernel_symbol("group_norm_fwd", dt))
+                lib_dev, lib_seen = library_device_ms(library)
                 out.append((dict(
                     name="group_norm_fwd", **common, max_abs_err=err,
-                    ms=queued_ms(partial(gn.group_norm_fwd, xh, *args, eps,
-                                         act)),
-                    plain_ms=queued_ms(partial(gn.group_norm_fwd_reference,
-                                               xh, *args, eps, act), 10),
-                    library_ms=queued_ms(partial(F.group_norm, x.detach(),
-                                                 UNET_GROUPS, wl.detach(),
-                                                 bl.detach(), eps)),
+                    ms=queued_ms(kernel),
+                    plain_ms=queued_ms(rotating(gn.group_norm_fwd_reference,
+                                                fwd_sets), 10),
+                    library_ms=queued_ms(library),
                     library="F.group_norm(x NCHW channels_last, 32, w, b, "
                             "eps), w and b in x's dtype",
+                    device_ms=dev_ms, device_ms_by_symbol=split,
+                    launches_seen=seen, library_device_ms=lib_dev,
+                    library_launches_seen=lib_seen, x_copies=len(xs),
                     bound_ms=bms, bound_by=by), None))
-                bms, by = bound_ms(3 * n * esize + 16 * c * UNET_BATCH,
+                del xs, fwd_sets, kernel, library
+                bms, by = bound_ms(3 * n * esize + 16 * c
+                                   + 8 * UNET_BATCH * UNET_GROUPS,
                                    20 * n, "float32")
+                pairs = [(xh.clone(), dyh.clone())
+                         for _ in range(copies_for(3 * n * esize))]
+                bwd_sets = [(xc, dc, *bargs) for xc, dc in pairs]
+                kernel = rotating(gn.group_norm_bwd, bwd_sets)
+                wg = wl.detach().requires_grad_()
+                bg = bl.detach().requires_grad_()
+                graphs = []
+                for xc, dc in pairs:
+                    xl = xc.permute(0, 3, 1, 2).detach().requires_grad_()
+                    graphs.append((F.group_norm(xl, UNET_GROUPS, wg, bg, eps),
+                                   xl, dc.permute(0, 3, 1, 2)))
+                library = rotating(
+                    lambda yl, xl, dc: torch.autograd.grad(
+                        yl, (xl, wg, bg), dc, retain_graph=True), graphs)
+                dev_ms, seen, split = kernel_device_ms(
+                    kernel, kernel_symbol("group_norm_bwd", dt))
+                lib_dev, lib_seen = library_device_ms(library)
                 out.append((dict(
                     name="group_norm_bwd", **common, max_abs_err=berr,
                     sums_max_abs_err=sums_err,
-                    ms=queued_ms(partial(gn.group_norm_bwd, xh, dyh, *bargs)),
-                    plain_ms=queued_ms(partial(gn.group_norm_bwd_reference,
-                                               xh, dyh, *bargs), 10),
-                    library_ms=queued_ms(partial(
-                        torch.autograd.grad, yl, (xl, wl, bl), dy,
-                        retain_graph=True)),
-                    library="the backward of F.group_norm (dx, dw, db)",
+                    ms=queued_ms(kernel),
+                    plain_ms=queued_ms(rotating(gn.group_norm_bwd_reference,
+                                                bwd_sets), 10),
+                    library_ms=lib_dev,
+                    library="the backward of F.group_norm (dx, dw, db): "
+                            "device ms by the profiler",
+                    device_ms=dev_ms, device_ms_by_symbol=split,
+                    launches_seen=seen, library_device_ms=lib_dev,
+                    library_launches_seen=lib_seen, x_copies=len(pairs),
                     bound_ms=bms, bound_by=by), None))
-                del x, dy, xh, dyh, y, dx, xl, yl
+                del pairs, bwd_sets, kernel, library, graphs
+                del x, dy, xh, dyh, y, dx
     return out
 
 
@@ -5448,7 +5518,8 @@ def unet_group_norm(smi) -> dict:
     wall, acts = device_profile(partial(step, port))
     busy = sum(t for t, _ in acts.values())
     gn_ms = {k: sum(t for a, (t, _) in acts.items()
-                    if KERNEL_SYMBOLS[k] in a) for k in GROUP_NORM_KERNELS}
+                    if any(sym in a for sym in KERNEL_SYMBOLS[k]))
+             for k in GROUP_NORM_KERNELS}
     emit("unet_group_norm", shape=[UNET_BATCH, c, side, side],
          dtype="bfloat16", groups=UNET_GROUPS, act=act, eps=eps,
          rel_bar=PATH_REL_BAR, rel_err=rels,

@@ -22,7 +22,10 @@ gave the same bits. ``--device-ms`` also
 profiles each row's kernel (``chip_smoke.kernel_device_ms``: the
 profiler's device ms per call, and per launched symbol for an op of
 several launches) and, where a row's kernel carries its library call
-(``fn.library``), that call's device ms. A check that fails (a kernel off
+(``fn.library``), that call's device ms (a check that profiles its rows
+itself, as ``check_group_norm`` does, keeps its own numbers; a row with no
+closure, as some softmax rows, has none). A check that
+fails (a kernel off
 its twin) is reported in its turn's line with its error, the other checks
 still run, and the script exits 1. Two trees are compared only within one
 call: the card's clocks and neighbours differ between calls.
@@ -69,7 +72,9 @@ def one(tree: str, checks, device_ms: bool = False) -> dict:
             failed[check] = str(exc)
             continue
         for row, fn in pairs:
-            if device_ms:
+            # a row the check profiled itself keeps its numbers; a row with
+            # no kernel closure has none to profile
+            if device_ms and fn is not None and "device_ms" not in row:
                 row["device_ms"], _, split = cs.kernel_device_ms(
                     fn, cs.kernel_symbol(row["name"], row["dtype"]))
                 if len(split) > 1:

@@ -1408,11 +1408,26 @@ def test_scaled_softmax_fwd_paths_match_twin(cuda, dtype, b, np_, sq, sk,
     assert torch.equal(scaled_softmax_fwd(x, mask, 0.7, causal), y)
 
 
+#: a view off a 16-byte boundary (the kernels' element loads)
+GROUP_NORM_UNALIGNED = (2, 5, 7, 96, 8)
 GROUP_NORM_CASES = [
     # (n, h, w, c, g): the reference's kernel and jnp routes, Stable
     # Diffusion's cg = 10 and 40, a group wider than the block (cg 2048)
     (2, 4, 4, 256, 2), (2, 3, 5, 24, 4), (2, 8, 8, 320, 32),
-    (1, 4, 4, 1280, 32), (1, 3, 3, 2048, 1)]
+    (1, 4, 4, 1280, 32), (1, 3, 3, 2048, 1),
+    # Stable Diffusion v1.5's four UNet norm shapes at batch 2 (several
+    # chunks a sample), cg = 4 (a vector over two groups) and cg = 3 at a
+    # c of no whole vectors, a row of two column tiles, an unaligned view
+    (2, 64, 64, 320, 32), (2, 32, 32, 640, 32), (2, 16, 16, 1280, 32),
+    (2, 8, 8, 1280, 32), (2, 6, 6, 48, 12), (2, 5, 3, 60, 20),
+    (1, 3, 5, 4104, 4), GROUP_NORM_UNALIGNED]
+
+
+def _unaligned(t):
+    """``t`` as a view one element into a buffer of its dtype."""
+    flat = t.new_empty(t.numel() + 1)
+    flat[1:] = t.flatten()
+    return flat[1:].view(t.shape)
 
 
 @pytest.mark.parametrize("dtype", HALF_DTYPES)
@@ -1429,6 +1444,9 @@ def test_group_norm_kernels_match_twin(cuda, dtype, n, h, w, c, groups, act,
     g = torch.Generator().manual_seed(43)
     x = (torch.randn(n, h, w, c, generator=g) + 0.3).to(cuda, dtype)
     dy = torch.randn(n, h, w, c, generator=g).to(cuda, dtype)
+    if (n, h, w, c, groups) == GROUP_NORM_UNALIGNED:
+        x, dy = _unaligned(x), _unaligned(dy)
+        assert x.data_ptr() % 16 and dy.data_ptr() % 16
     wt = (torch.randn(c, generator=g) * 0.1 + 1).to(cuda) if affine else None
     bt = (torch.randn(c, generator=g) * 0.1).to(cuda) if affine else None
     before = dict(_build.launches)
@@ -1450,6 +1468,51 @@ def test_group_norm_kernels_match_twin(cuda, dtype, n, h, w, c, groups, act,
                                        atol=1e-4 * want.abs().max().item())
     else:
         assert dw is None and db is None
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+def test_group_norm_sample_alone_is_the_batch_bits(cuda, dtype):
+    """The kernels' cut depends on the shape alone: one sample's y, mean,
+    rstd and dx are the same bits alone and inside a batch of 8."""
+    from apex_tpu_torch.ops.group_norm import group_norm_bwd, group_norm_fwd
+
+    g = torch.Generator().manual_seed(44)
+    x = (torch.randn(8, 32, 32, 320, generator=g) + 0.3).to(cuda, dtype)
+    dy = torch.randn(8, 32, 32, 320, generator=g).to(cuda, dtype)
+    wt = (torch.randn(320, generator=g) * 0.1 + 1).to(cuda)
+    bt = (torch.randn(320, generator=g) * 0.1).to(cuda)
+    y, mean, rstd = group_norm_fwd(x, wt, bt, 32, 1e-5, "silu")
+    dx = group_norm_bwd(x, dy, wt, bt, mean, rstd, 32, "silu")[0]
+    for i in (0, 5):
+        y1, mean1, rstd1 = group_norm_fwd(x[i:i + 1], wt, bt, 32, 1e-5,
+                                          "silu")
+        dx1 = group_norm_bwd(x[i:i + 1], dy[i:i + 1], wt, bt, mean1, rstd1,
+                             32, "silu")[0]
+        for got, want in ((y1, y), (mean1, mean), (rstd1, rstd), (dx1, dx)):
+            assert torch.equal(got, want[i:i + 1])
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+@pytest.mark.parametrize("affine", [True, False])
+def test_group_norm_second_call_gives_the_same_bits(cuda, dtype, affine):
+    """Every sum runs in an order fixed by the shape: a second call gives
+    the same y, mean, rstd, dx, dw and db."""
+    from apex_tpu_torch.ops.group_norm import group_norm_bwd, group_norm_fwd
+
+    g = torch.Generator().manual_seed(45)
+    x = (torch.randn(8, 16, 16, 1280, generator=g) + 0.3).to(cuda, dtype)
+    dy = torch.randn(8, 16, 16, 1280, generator=g).to(cuda, dtype)
+    wt = (torch.randn(1280, generator=g) * 0.1 + 1).to(cuda) if affine else None
+    bt = (torch.randn(1280, generator=g) * 0.1).to(cuda) if affine else None
+
+    def call():
+        y, mean, rstd = group_norm_fwd(x, wt, bt, 32, 1e-6, "silu")
+        return (y, mean, rstd,
+                *group_norm_bwd(x, dy, wt, bt, mean, rstd, 32, "silu"))
+
+    first, second = call(), call()
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_softmax_and_group_norm_never_take_the_twin_on_the_card(
