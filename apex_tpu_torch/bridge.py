@@ -7,7 +7,11 @@ variables)`` — onto the state dict of ``apex_tpu_torch.models.GPTModel``;
 ``llama_params_from_flax`` for ``LlamaModel``, ``t5_params_from_flax``
 for ``T5Model`` and ``resnet_params_from_flax`` for the ImageNet example's
 ``ResNet`` (its convolutions change layout: HWIO to OIHW) and
-``group_norm_params_from_flax`` for ``contrib.group_norm.GroupNorm``. All
+``group_norm_params_from_flax`` for ``contrib.group_norm.GroupNorm``,
+``multihead_attn_params_from_flax`` for ``contrib.multihead_attn``'s two
+modules and ``nmt_params_from_flax`` for the NMT example's
+``NMTTransformer`` (its FFN kernels change layout: ``(in, out)`` to
+``nn.Linear``'s ``(out, in)``). All
 sides keep the reference's weight layouts (GPT's and Llama's ``(out, in)``
 linears, BERT's ``(in, out)`` ``x @ W``), so every tensor maps one to one;
 only the names change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes
@@ -265,4 +269,118 @@ def group_norm_params_from_flax(variables) -> dict:
             raise KeyError(f"flax leaf {path!r} has no counterpart in the "
                            f"port's GroupNorm")
         sd[path] = _tensor(leaf)
+    return sd
+
+
+#: the leaves of ``SelfMultiheadAttn`` / ``EncdecMultiheadAttn``, kept in
+#: torch's ``(out, in)`` layout by the reference, so they map as they are
+_MHA_NORM = ("lyr_nrm_gamma_weights", "lyr_nrm_beta_weights")
+_MHA_LEAVES = ("qkv_weight", "q_weight", "k_weight", "v_weight", "kv_weight",
+               "qkv_bias", "q_bias", "k_bias", "v_bias", "out_proj_weight",
+               "out_proj_bias") + _MHA_NORM
+
+
+def _mha_want(leaves) -> set:
+    """The leaf set an attention module with ``leaves`` must have: the
+    output projection, one layout of the input projections (packed QKV,
+    q + packed KV, or separate q/k/v), their biases if any bias is there,
+    and both norm parameters if either is."""
+    have = set(leaves)
+    want = {"out_proj_weight"}
+    if "kv_weight" in have:
+        want |= {"q_weight", "kv_weight"}
+    elif "qkv_weight" in have:
+        want.add("qkv_weight")
+    else:
+        want |= {"q_weight", "k_weight", "v_weight"}
+    if have & {"qkv_bias", "q_bias", "k_bias", "v_bias", "out_proj_bias"}:
+        want.add("out_proj_bias")
+        want |= ({"qkv_bias"} if "qkv_weight" in want
+                 else {"q_bias", "k_bias", "v_bias"})
+    if have & set(_MHA_NORM):
+        want |= set(_MHA_NORM)
+    return want
+
+
+def multihead_attn_params_from_flax(variables) -> dict:
+    """``{flax params}`` (or ``{"params": ...}``) of the reference's
+    ``SelfMultiheadAttn`` or ``EncdecMultiheadAttn`` -> the port module's
+    state dict, names and layouts unchanged. A leaf with no counterpart, or
+    one missing from the module's layout, raises ``KeyError``."""
+    params = variables.get("params", variables)
+    sd = {}
+    for path, leaf in _flat_paths(params):
+        if path not in _MHA_LEAVES:
+            raise KeyError(f"flax leaf {path!r} has no counterpart in the "
+                           f"port's multihead attention modules")
+        sd[path] = _tensor(leaf)
+    missing = sorted(_mha_want(sd) - set(sd))
+    if missing:
+        raise KeyError(f"flax tree lacks {missing}")
+    return sd
+
+
+#: an NMT layer's leaves outside its attention modules (flax path ->
+#: port name; a ``kernel`` is transposed)
+_NMT_FFN = {"ffn_norm/weight": "ffn_norm.weight",
+            "ffn_norm/bias": "ffn_norm.bias",
+            "fc1/kernel": "fc1.weight", "fc1/bias": "fc1.bias",
+            "fc2/kernel": "fc2.weight", "fc2/bias": "fc2.bias"}
+_NMT_TOP = ("embed", "pos", "enc_norm/weight", "enc_norm/bias",
+            "dec_norm/weight", "dec_norm/bias")
+#: the attention modules of an encoder and a decoder layer, and their
+#: leaves (both ``include_norm_add``, no bias, packed projections)
+_NMT_ATTN = {"enc": {"self_attn": ("qkv_weight", "out_proj_weight")
+                     + _MHA_NORM},
+             "dec": {"self_attn": ("qkv_weight", "out_proj_weight")
+                     + _MHA_NORM,
+                     "cross_attn": ("q_weight", "kv_weight",
+                                    "out_proj_weight") + _MHA_NORM}}
+
+
+def _nmt_name(path: str) -> str:
+    """A flax path of ``NMTTransformer`` -> the port's name, or
+    ``KeyError``."""
+    if path in _NMT_TOP:
+        return path.replace("/", ".")
+    head, _, rest = path.partition("/")
+    side, _, idx = head.partition("_")
+    if side in _NMT_ATTN and idx.isdigit():
+        prefix = f"{side}_layers.{int(idx)}."
+        if rest in _NMT_FFN:
+            return prefix + _NMT_FFN[rest]
+        mod, _, leaf = rest.partition("/")
+        if leaf in _NMT_ATTN[side].get(mod, ()):
+            return prefix + f"{mod}.{leaf}"
+    raise KeyError(f"flax leaf {path!r} has no counterpart in the port's "
+                   f"NMTTransformer")
+
+
+def nmt_params_from_flax(variables) -> dict:
+    """``{flax params}`` (or ``{"params": ...}``) of the reference
+    example's ``NMTTransformer`` (``examples/nmt/main.py``) -> the state
+    dict of ``apex_tpu_torch.examples.nmt.main.NMTTransformer``: the FFN
+    kernels ``(in, out)`` -> ``(out, in)``, every other leaf as it is. A
+    leaf with no counterpart, or a missing one, raises ``KeyError``."""
+    params = variables.get("params", variables)
+    sd, layers = {}, {"enc": set(), "dec": set()}
+    for path, leaf in _flat_paths(params):
+        name = _nmt_name(path)
+        t = _tensor(leaf)
+        if path.endswith("/kernel"):
+            t = t.t().contiguous()
+        sd[name] = t
+        side, _, idx = path.partition("/")[0].partition("_")
+        if side in layers and idx.isdigit():
+            layers[side].add(int(idx))
+    want = {p.replace("/", ".") for p in _NMT_TOP}
+    for side, mods in _NMT_ATTN.items():
+        n = max(layers[side], default=-1) + 1
+        for i in range(n):
+            want |= {f"{side}_layers.{i}.{v}" for v in _NMT_FFN.values()}
+            want |= {f"{side}_layers.{i}.{mod}.{leaf}"
+                     for mod, leaves in mods.items() for leaf in leaves}
+    missing = sorted(want - set(sd))
+    if missing:
+        raise KeyError(f"flax tree lacks {missing}")
     return sd

@@ -1,3 +1,3 @@
 """Counterpart of ``apex_tpu.contrib``: the subpackages ported so far
-(``xentropy``, ``group_norm``). Import them explicitly, as with the
-reference's optional builds."""
+(``xentropy``, ``group_norm``, ``multihead_attn``, ``sparsity``). Import
+them explicitly, as with the reference's optional builds."""

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s twelve paths at full width with seeded random
+Drives ``apex_tpu_torch``'s fourteen paths at full width with seeded random
 weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (into ``apex_tpu_torch/_build/``): GPT-2-small greedy paged decode through
 ``PagedDecodeEngine``; the same decode with quantized weights
@@ -36,8 +36,13 @@ on a long sequence with ring-attention context parallelism
 context_parallel_size_=4)``, ``LlamaModel(mistral_7b_config(num_layers=2,
 context_parallel=True))``, both layouts), the four ranks of the ring
 emulated in one process (one card is one NCCL rank), which runs the flash
-kernels' causal-offset and dropout-origin branches. Phases, one JSON line
-each,
+kernels' causal-offset and dropout-origin branches; and BASELINE's
+config #3, the NMT Transformer over ``contrib.multihead_attn``
+(``examples.nmt.main``: ``NMTTransformer`` at Transformer-big's widths,
+``SelfMultiheadAttn``/``EncdecMultiheadAttn``, ``SoftmaxCrossEntropyLoss``,
+``FusedAdam``, amp O1), and config #5, ASP 2:4 structured-sparse
+BERT-Large (``contrib.sparsity.ASP.prune_trained_model`` with
+``FusedAdam``). Phases, one JSON line each,
 ``t_s`` giving the seconds since the start:
 
 1. ``device``: the card, its power limit, the kernels' build time and
@@ -116,7 +121,11 @@ each,
    cross-attention without a bias at Sq = 1 and 114 against Sk = 512; the
    windowed bias branches at 1 x 8 x 1024 x 64, window 256; the library
    call ``scaled_dot_product_attention`` with the bias as a float mask and
-   its backward. The ResNet-50 rows (``check_resnet_optim``, by
+   its backward. The NMT rows (``check_flash_nmt``, by ``queued_ms``,
+   bf16 within ``RMS_ATOL`` of the twin's RMS): the three flash kernels at
+   the NMT step's 32 x 16 x 128 x 64, dropout 0.1, with the decoder's fp32
+   causal -1e9 table (1, 1, 128, 128) under the bf16 q and without a bias.
+   The ResNet-50 rows (``check_resnet_optim``, by
    ``queued_ms``, fp32 within ``OPT_TOL`` and ``RMS_ATOL`` of the twin's
    RMS): SGD over ResNet-50's flat buffers (25,021 x 1024, 161 segments)
    at momentum 0.9 with decay 1e-4 at steps 1 and 2, momentum 0, Nesterov
@@ -322,6 +331,41 @@ each,
    114 targets, bf16 over fp32, FusedAdam(lr=1e-4, weight_decay=0.01): step ms,
    tokens/s, FLOPs (formula in the line) and MFU, launches per step
    asserted, a falling finite loss.
+   The NMT and ASP phases run after ``bert_bf16`` and free their models:
+   ``nmt_fp32`` (the bar): ``NMTTransformer`` at Transformer-big's widths
+   (``NMT_BIG``) cut to 2 + 2 layers, 4 x 64 tokens, attention dropout 0.1
+   (the counter-based keep masks, their seeds from a CPU generator, so
+   both sides draw the same), card against CPU: the loss within 1e-4
+   relative, every gradient within atol 1e-4 / rtol 1e-3, then three
+   ``FusedAdam(lr=3e-4)`` steps and a loss after them, each within 1e-4
+   relative, the launches of one forward and backward exact; then the
+   example's ``run_training`` at its command line's defaults (30 steps, 32
+   x 32) on the card: the loss falls, its first 3 losses within 1e-4
+   relative of the CPU's. ``nmt_bf16``: Transformer-big uncut (6 + 6
+   layers, vocab 37000), 32 x 128 source and target tokens, amp O1 bf16:
+   3 warm steps, then 10 timed: step ms, target tokens/s, the step's bound
+   from the widths (``nmt_bound``), peak memory, launches per step
+   asserted, finite losses, the first batch's loss before the steps
+   within 1e-2 relative of the same weights' fp32 loss; an fp32 witness
+   (the same weights, amp off, the same batches and dropout seeds): the O1
+   first-batch gradients within ``NMT_O1_GRAD_REL`` of its own (the
+   largest relative 2-norm error over the parameters), a control with the
+   bf16 flash calls' fp32 bias dropped beyond that bar, and every step's
+   O1 loss within 1e-2 relative of the witness's (the first batch's loss
+   after the steps reported for both: lr 3e-4 with no warm-up need not
+   lower it in 13 steps); ``nmt_bf16_profile``: one profiled
+   step, device ms by class. ``asp_bert_fp32``: ``bert_fp32``'s cut (4
+   layers, 2 x 128), ``prune_trained_model`` with FusedAdam, card against
+   CPU: the masks bit-equal and 2:4, the loss and every gradient at
+   ``bert_fp32``'s bars, three masked steps and a loss after them within
+   1e-4 relative, every pruned weight exactly 0 after every step on both
+   sides. ``asp_bert_bf16``: BERT-Large uncut at ``bert_bf16``'s batch, 2
+   warm and 10 timed masked steps: every mask 2:4, every pruned weight
+   exactly 0 after every step, step ms and tokens/s, launches per step
+   asserted (Adam 1, no stats or LAMB pass); then the hook's cost: steps
+   with it and with the optimizer's own ``step`` in turns A, B, B, A, one
+   profiled step of each (wall and device busy ms), and its two
+   multiplies' time by ``queued_ms``.
 10. ``engine_bf16_profile``, ``spec_bf16_round_profile`` (one
    speculative round, not a run, traced with the host's ops),
    ``engine_quant_bf16_profile``,
@@ -372,7 +416,9 @@ exits non-zero at once. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import hashlib
 import importlib
 import itertools
@@ -439,6 +485,50 @@ BERT_HEADS, BERT_MLM_K = 16, 80       # K = 0.15 S rounded up to 8
 # seconds; a larger lr than the timed run's so that two steps move the loss
 BERT_FP32_BATCH, BERT_FP32_SEQ, BERT_FP32_LAYERS = 2, 128, 4
 BERT_FP32_LR = 1e-3
+
+#: the NMT slice (BASELINE.md config #3, ``examples/nmt/main.py``):
+#: Transformer-big (Vaswani et al. 2017, Table 3 "big"; ``NMTTransformer``'s
+#: own fields): E 1024, 16 heads of 64, FFN 4096, 6 + 6 layers, the
+#: shared en-de BPE vocabulary of about 37000, label smoothing and
+#: attention dropout 0.1; 32 x 128 source and target tokens under amp O1
+#: bf16; card against CPU in fp32 at 2 + 2 layers and 4 x 64 (the CPU
+#: side's fp32 steps), three FusedAdam steps; then the example's own
+#: ``run_training`` at its command line's defaults
+NMT_BIG = dict(vocab_size=37000, embed_dim=1024, num_heads=16, ffn_dim=4096,
+               num_layers=6, dropout=0.1)
+NMT_BATCH, NMT_SEQ, NMT_WARM, NMT_TIMED = 32, 128, 3, 10
+NMT_LS, NMT_LR = 0.1, 3e-4
+NMT_FP32_LAYERS, NMT_FP32_BATCH, NMT_FP32_SEQ, NMT_FP32_STEPS = 2, 4, 64, 3
+NMT_EXAMPLE = dict(steps=30, batch=32, seq=32)
+#: the O1 step's loss against the same weights' fp32 loss, relative: the
+#: bf16 GEMMs and flash kernels of 6 + 6 attention layers round to 2^-9
+NMT_O1_REL = 1e-2
+#: the O1 first-batch gradients against the fp32 witness's, the largest
+#: relative 2-norm error over the parameters: 0.128 on the H100 (the last
+#: decoder layer's cross-attention q weight, whose gradient at init is a
+#: small difference of near-uniform attention terms), 0.93 with the bf16
+#: flash calls' bias dropped; the bar lies between with room each side
+NMT_O1_GRAD_REL = 0.3
+#: ``asp_bert_bf16``'s A/B of steps with and without the ASP hook: rounds
+#: of turns A, B, B, A, each turn this many steps
+ASP_AB_ROUNDS, ASP_AB_STEPS = 2, 3
+#: the kernels of an NMT training step
+NMT_KERNELS = ("flash_fwd", "flash_fwd_bias", "flash_bwd_dq",
+               "flash_bwd_dq_bias", "flash_bwd_dkdv", "flash_bwd_dkdv_bias",
+               "layer_norm_fwd", "layer_norm_bwd", "xentropy_fwd",
+               "xentropy_bwd", "adam")
+#: device ms by class in ``nmt_bf16_profile``, by kernel name fragments:
+#: cuBLAS's GEMMs split by their names' fp32 marks (the FFN and the tied
+#: projection run in fp32 under O1, the attention projections in bf16,
+#: cuBLAS's ``nvjet_*_h_*`` kernels)
+NMT_FP32_GEMM = ("f32f32", "sgemm")
+NMT_KERNEL_CLASSES = (
+    ("flash", ("flash_",)), ("layer_norm", ("layer_norm_",)),
+    ("xentropy", ("xentropy_",)), ("adam", ("adam_kernel",)),
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "cublas")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("reduction", ("reduce_kernel",)), ("index", ("index", "gather",
+                                                 "scatter")))
 
 # the quantized serving slice: the int4 group, GPT-2-small's block linears
 # (in, out), the rows of a decode step and of a prefill; fp8 values carry
@@ -1615,7 +1705,12 @@ def check_xentropy(gen, dev):
     """Forward and backward at the gathered MLM head (640 x 30528; fp32 on
     the path, where the logits are cast before the loss) and the NSP head
     (8 x 2, padding_idx -1), smoothing 0 and 0.1, every seventh MLM row
-    padded."""
+    padded; and at the NMT step's logits (``nmt_bf16``: 32 x 128 targets x
+    37000, fp32, smoothing 0.1, no padded row). Kernel, twin and library
+    call are timed by ``queued_ms`` over copies of the logits that
+    together exceed the L2 cache (``copies_for``; BERT's bf16 logits, 39
+    MB, fit in it), outputs held until their copy comes round again
+    (``rotating``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1623,62 +1718,74 @@ def check_xentropy(gen, dev):
 
     out = []
     mlm_rows, vocab = BERT_BATCH * BERT_MLM_K, 30528
-    cases = ((mlm_rows, vocab, 0.0, 0), (mlm_rows, vocab, 0.1, 0),
-             (BERT_BATCH, 2, 0.0, -1))
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows, width, smoothing, pad in cases:
-            x = (torch.randn(rows, width, generator=gen) * 3).to(dev, dtype)
-            labels = torch.randint(0, width, (rows,), generator=gen,
-                                   dtype=torch.int32)
-            if pad == 0:
-                labels[::7] = 0
-            labels = labels.to(dev)
-            dy = torch.randn(rows, generator=gen).to(dev)
-            loss, lse = xe.xentropy_fwd(x, labels, smoothing, pad)
-            dx = xe.xentropy_bwd(x, labels, lse, dy, smoothing, pad)
-            torch.cuda.synchronize()
-            rloss, rlse = xe.xentropy_fwd_reference(x, labels, smoothing, pad)
-            rdx = xe.xentropy_bwd_reference(x, labels, rlse, dy, smoothing,
-                                            pad)
-            dn = str(dtype).split(".")[1]
-            err_fwd = max(compare("xentropy_fwd loss", loss, rloss,
-                                  "float32"),
-                          compare("xentropy_fwd lse", lse, rlse, "float32"))
-            err_bwd = compare("xentropy_bwd dx", dx, rdx, dn,
-                              XENT_DX_TOL[dn])
-            if pad == 0 and ((loss[::7] != 0).any() or (dx[::7] != 0).any()):
-                raise AssertionError("xentropy: a padded row must give loss "
-                                     "0 and dx 0")
-            n, elt = rows * width, x.element_size()
-            lib_kw = dict(reduction="none", ignore_index=pad,
-                          label_smoothing=smoothing)
-            xl = x.detach().requires_grad_()
-            ll = F.cross_entropy(xl, labels.long(), **lib_kw)
-            common = dict(dtype=dn, shape=[rows, width], smoothing=smoothing,
-                          padding_idx=pad, path="bert")
-            for name, err, fn, plain, nbytes, lib, lib_name in (
-                    ("xentropy_fwd", err_fwd,
-                     partial(xe.xentropy_fwd, x, labels, smoothing, pad),
-                     partial(xe.xentropy_fwd_reference, x, labels, smoothing,
-                             pad),
-                     n * elt + 3 * rows * 4,
-                     partial(F.cross_entropy, x, labels.long(), **lib_kw),
-                     "F.cross_entropy(reduction='none', ignore_index, "
-                     "label_smoothing)"),
-                    ("xentropy_bwd", err_bwd,
-                     partial(xe.xentropy_bwd, x, labels, lse, dy, smoothing,
-                             pad),
-                     partial(xe.xentropy_bwd_reference, x, labels, lse, dy,
-                             smoothing, pad),
-                     2 * n * elt + 3 * rows * 4,
-                     partial(torch.autograd.grad, ll, xl, dy,
-                             retain_graph=True),
-                     "backward of the same F.cross_entropy")):
-                bms, by = bound_ms(nbytes, 4 * n, "float32")
-                out.append((dict(
-                    name=name, **common, max_abs_err=err, ms=time_ms(fn),
-                    plain_ms=time_ms(plain), library_ms=time_ms(lib),
-                    library=lib_name, bound_ms=bms, bound_by=by), fn))
+    cases = [(dtype, rows, width, smoothing, pad, "bert")
+             for dtype in (torch.float32, torch.bfloat16)
+             for rows, width, smoothing, pad in (
+                 (mlm_rows, vocab, 0.0, 0), (mlm_rows, vocab, 0.1, 0),
+                 (BERT_BATCH, 2, 0.0, -1))]
+    cases.append((torch.float32, NMT_BATCH * NMT_SEQ, NMT_BIG["vocab_size"],
+                  NMT_LS, 0, "nmt"))
+    for dtype, rows, width, smoothing, pad, path in cases:
+        x = (torch.randn(rows, width, generator=gen) * 3).to(dev, dtype)
+        low = 2 if path == "nmt" else 0      # the copy task draws no 0
+        labels = torch.randint(low, width, (rows,), generator=gen,
+                               dtype=torch.int32)
+        if pad == 0 and path == "bert":
+            labels[::7] = 0
+        labels = labels.to(dev)
+        dy = torch.randn(rows, generator=gen).to(dev)
+        loss, lse = xe.xentropy_fwd(x, labels, smoothing, pad)
+        dx = xe.xentropy_bwd(x, labels, lse, dy, smoothing, pad)
+        torch.cuda.synchronize()
+        rloss, rlse = xe.xentropy_fwd_reference(x, labels, smoothing, pad)
+        rdx = xe.xentropy_bwd_reference(x, labels, rlse, dy, smoothing, pad)
+        dn = str(dtype).split(".")[1]
+        err_fwd = max(compare("xentropy_fwd loss", loss, rloss, "float32"),
+                      compare("xentropy_fwd lse", lse, rlse, "float32"))
+        err_bwd = compare("xentropy_bwd dx", dx, rdx, dn, XENT_DX_TOL[dn])
+        if pad == 0 and path == "bert" and ((loss[::7] != 0).any()
+                                            or (dx[::7] != 0).any()):
+            raise AssertionError("xentropy: a padded row must give loss "
+                                 "0 and dx 0")
+        del loss, dx, rloss, rlse, rdx
+        n, elt = rows * width, x.element_size()
+        lib_kw = dict(reduction="none", ignore_index=pad,
+                      label_smoothing=smoothing)
+        xs = [x] + [x.clone() for _ in range(copies_for(2 * n * elt) - 1)]
+        graphs = []
+        for xc in xs:
+            xl = xc.detach().requires_grad_()
+            graphs.append((F.cross_entropy(xl, labels.long(), **lib_kw),
+                           xl))
+        common = dict(dtype=dn, shape=[rows, width], smoothing=smoothing,
+                      padding_idx=pad, path=path, x_copies=len(xs))
+        for name, err, fn, plain, args, nbytes, lib, lib_args, lib_name in (
+                ("xentropy_fwd", err_fwd, xe.xentropy_fwd,
+                 xe.xentropy_fwd_reference,
+                 [(xc, labels, smoothing, pad) for xc in xs],
+                 n * elt + 3 * rows * 4,
+                 lambda xc: F.cross_entropy(xc, labels.long(), **lib_kw),
+                 [(xc,) for xc in xs],
+                 "F.cross_entropy(reduction='none', ignore_index, "
+                 "label_smoothing)"),
+                ("xentropy_bwd", err_bwd, xe.xentropy_bwd,
+                 xe.xentropy_bwd_reference,
+                 [(xc, labels, lse, dy, smoothing, pad) for xc in xs],
+                 2 * n * elt + 3 * rows * 4,
+                 lambda ll, xl: torch.autograd.grad(ll, xl, dy,
+                                                    retain_graph=True),
+                 graphs, "backward of the same F.cross_entropy")):
+            bms, by = bound_ms(nbytes, 4 * n, "float32")
+            kernel = rotating(fn, args)
+            ms = queued_ms(kernel)
+            out.append((dict(
+                name=name, **common, max_abs_err=err, ms=ms,
+                plain_ms=queued_ms(rotating(plain, args)),
+                library_ms=queued_ms(rotating(lib, lib_args)),
+                library=lib_name, bound_ms=bms, bound_by=by,
+                bound_share=bms / ms),
+                None if path == "nmt" else kernel))
+        del graphs
     return out
 
 
@@ -2631,6 +2738,107 @@ def check_flash_bias(gen, dev):
                             + ("" if name == fwd_name else
                                "; its backward: dq, dk and dv together"),
                     bound_ms=bms, bound_by=by), kernel))
+    return out
+
+
+def check_flash_nmt(gen, dev):
+    """The three flash kernels at the NMT step's shape under amp O1
+    (``nmt_bf16``: 32 x 16 heads x 128 x 64, bf16 q/k/v, ``scale``
+    d^-0.5, not causal, dropout 0.1), each against its twin at
+    ``RMS_ATOL`` of the twin's RMS: the decoder's self-attention with the
+    causal mask as the fp32 -1e9 table ``(1, 1, 128, 128)`` that
+    ``masks_to_bias`` builds (the bf16 kernels' fp32-bias branch), and the
+    encoder's self and the cross attention without a bias. Timed by
+    ``queued_ms``; the bound counts the fp32 table once and one add per
+    pair; the library call is ``scaled_dot_product_attention`` with the
+    same dropout rate (its own keep mask) and the table rounded to bf16 as
+    its ``attn_mask`` (the library takes no fp32 mask under a bf16 q)."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+
+    out = []
+    b, s = NMT_BATCH, NMT_SEQ
+    h = NMT_BIG["num_heads"]
+    d = NMT_BIG["embed_dim"] // h
+    rate = NMT_BIG["dropout"]
+    masking = fa.Masking(causal=False, dropout_rate=rate, dropout_seed=SEED)
+    pos = torch.arange(s, device=dev)
+    table = torch.where(pos[:, None] >= pos[None, :], 0.0, -1e9).to(
+        torch.float32)[None, None]
+    dn, elt = "bfloat16", 2
+    for use, bias in (("decoder self-attention", table),
+                      ("encoder self and cross attention", None)):
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen).to(
+            dev, torch.bfloat16) for _ in range(4))
+        kw = dict(scale=d ** -0.5, masking=masking, bias=bias)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        names = [fa.launch_name(n, masking, bias, s, s) for n in
+                 ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")]
+        fwd_name, dq_name, dkdv_name = names
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+        errs = {fwd_name: compare(f"{fwd_name} (nmt)", o, ro, dn,
+                                  rms_atol=True)}
+        compare(f"{fwd_name} (nmt) lse", lse, rlse, "float32")
+        out_rms = {fwd_name: [rms_of(ro)]}
+        args = (q, k, v, do, rlse, fa.flash_bwd_delta(ro, do))
+        del o, lse, ro
+        dq = fa.flash_bwd_dq(*args, **kw)
+        dk, dv = fa.flash_bwd_dkdv(*args, **kw)
+        torch.cuda.synchronize()
+        rdq = fa.flash_bwd_dq_reference(*args, **kw)
+        rdk, rdv = fa.flash_bwd_dkdv_reference(*args, **kw)
+        errs[dq_name] = compare(f"{dq_name} (nmt)", dq, rdq, dn,
+                                rms_atol=True)
+        errs[dkdv_name] = max(
+            compare(f"{dkdv_name} (nmt) dk", dk, rdk, dn, rms_atol=True),
+            compare(f"{dkdv_name} (nmt) dv", dv, rdv, dn, rms_atol=True))
+        out_rms.update({dq_name: [rms_of(rdq)],
+                        dkdv_name: [rms_of(rdk), rms_of(rdv)]})
+        del dq, dk, dv, rdq, rdk, rdv
+        lib_mask = None if bias is None else bias.to(torch.bfloat16)
+        library = {fwd_name: queued_ms(partial(
+            F.scaled_dot_product_attention, q, k, v, attn_mask=lib_mask,
+            dropout_p=rate))}
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=lib_mask,
+                                            dropout_p=rate)
+        library[dq_name] = library[dkdv_name] = queued_ms(partial(
+            torch.autograd.grad, ol, (ql, kl, vl), do, retain_graph=True))
+        del ol, ql, kl, vl
+        pairs = b * h * s * s
+        bias_bytes = 0 if bias is None else bias.numel() * 4
+        tile, row_stats = b * h * s * d * elt, b * h * s * 4
+        for name, fn, plain, nbytes, flops in (
+                (fwd_name, fa.flash_fwd, fa.flash_attention_reference,
+                 4 * tile + row_stats + bias_bytes, 4 * pairs * d + pairs),
+                (dq_name, fa.flash_bwd_dq, fa.flash_bwd_dq_reference,
+                 5 * tile + 2 * row_stats + bias_bytes,
+                 6 * pairs * d + pairs),
+                (dkdv_name, fa.flash_bwd_dkdv, fa.flash_bwd_dkdv_reference,
+                 6 * tile + 2 * row_stats + bias_bytes,
+                 8 * pairs * d + pairs)):
+            call = (q, k, v) if name == fwd_name else args
+            bms, by = bound_ms(nbytes, flops, dn)
+            kernel = partial(fn, *call, **kw)
+            ms = queued_ms(kernel)
+            out.append((dict(
+                name=name, dtype=dn, shape=[b, h, s, d], sk=s, causal=False,
+                path="nmt", use=use, dropout=rate,
+                bias_shape=None if bias is None else list(bias.shape),
+                bias_dtype=None if bias is None else "float32",
+                max_abs_err=errs[name], out_rms=out_rms[name], ms=ms,
+                tflops=achieved_tflops(flops, ms),
+                plain_ms=queued_ms(partial(plain, *call, **kw)),
+                library_ms=library[name],
+                library="scaled_dot_product_attention(dropout_p"
+                        + (")" if bias is None else
+                           ", the table in bf16 as attn_mask)")
+                        + ("" if name == fwd_name else
+                           "; its backward: dq, dk and dv together"),
+                bound_ms=bms, bound_by=by), kernel))
     return out
 
 
@@ -4202,6 +4410,530 @@ def bert_bf16(smi):
          / 2 ** 30, earlier_phases_live_gib=live / 2 ** 30,
          nvidia_smi=smi, card_after=card_state())
     return step, launches
+
+
+# --- BASELINE configs #3 and #5: the NMT Transformer, ASP 2:4 BERT --------
+
+
+def nmt_launches(layers: int, optimizer: bool = True) -> dict:
+    """Launches of one NMT forward and backward (and ``optimizer``: its
+    FusedAdam step): the encoder's self and the decoder's cross attention
+    without a bias, the decoder's causal mask as an additive bias; per
+    encoder layer 2 norms, per decoder layer 3, and the two final norms."""
+    return {"flash_fwd": 2 * layers, "flash_fwd_bias": layers,
+            "flash_bwd_dq": 2 * layers, "flash_bwd_dq_bias": layers,
+            "flash_bwd_dkdv": 2 * layers, "flash_bwd_dkdv_bias": layers,
+            "layer_norm_fwd": 5 * layers + 2,
+            "layer_norm_bwd": 5 * layers + 2, "xentropy_fwd": 1,
+            "xentropy_bwd": 1, "adam": int(optimizer)}
+
+
+def nmt_bound(cfg: dict, batch: int, seq: int) -> dict:
+    """The least time of one NMT training step from the widths, forward
+    and backward at 3x the forward's products: the fp32 GEMMs (the FFN's
+    two on every token of each side, the tied projection on the targets)
+    over the fp32 peak, the bf16 ones (the attention projections: 4 e^2
+    per token of each self attention, q and out on the targets and k, v on
+    the sources of the cross attention) and the flash cores (4 B H S^2 d
+    forward, 3.5x that with the backward's recompute, 3 L calls) over the
+    bf16 peak."""
+    e, f, v, layers = (cfg["embed_dim"], cfg["ffn_dim"], cfg["vocab_size"],
+                       cfg["num_layers"])
+    tokens = batch * seq
+    fp32 = 3 * (4 * e * f * layers * 2 * tokens + 2 * e * v * tokens)
+    proj = 3 * 2 * 12 * e * e * layers * tokens
+    cores = 3 * layers * 14 * batch * cfg["num_heads"] * seq * seq * (
+        e // cfg["num_heads"])
+    ms = (fp32 / PEAK_FLOPS["float32"]
+          + (proj + cores) / PEAK_FLOPS["bfloat16"]) * 1e3
+    return dict(bound_ms=ms, fp32_gemm_flops=fp32, bf16_gemm_flops=proj,
+                flash_flops=cores,
+                bound_formula="3 (4 e f 2 L B S + 2 e V B S) / 67e12 + (3 "
+                              "24 e^2 L B S + 3 L 14 B H S^2 d) / 989e12")
+
+
+def nmt_model(cfg: dict, dev):
+    from apex_tpu_torch.examples.nmt import main as nmt
+
+    import torch
+
+    return nmt.NMTTransformer(**cfg, device=dev, dropout_seed=SEED,
+                              generator=torch.Generator().manual_seed(SEED))
+
+
+def nmt_side(cfg: dict, dev) -> dict:
+    """One side of ``nmt_fp32``: the loss and gradients of the first
+    batch, then three FusedAdam steps (the first on those gradients) and
+    the loss after them, dropout off."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch.examples.nmt import main as nmt
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model = nmt_model(cfg, dev)
+    rng = np.random.default_rng(SEED)
+    batches = [nmt.synthetic_copy_batch(rng, NMT_FP32_BATCH, NMT_FP32_SEQ,
+                                        cfg["vocab_size"], dev)
+               for _ in range(NMT_FP32_STEPS + 1)]
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    loss = nmt.nmt_loss(model, *batches[0], label_smoothing=NMT_LS)
+    loss.backward()
+    launches = dict(_build.launches)
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters()}
+    losses = [loss.item()]
+    opt = FusedAdam(model.named_parameters(), lr=NMT_LR)  # keeps the grads
+    opt.step()
+    for batch in batches[1:NMT_FP32_STEPS]:
+        losses.append(nmt.train_step(model, opt, batch, NMT_LS).item())
+    with torch.no_grad():
+        losses.append(nmt.nmt_loss(model, *batches[NMT_FP32_STEPS],
+                                   label_smoothing=NMT_LS,
+                                   train=False).item())
+    return dict(losses=losses, grads=grads, launches=launches,
+                adam=_build.launches["adam"])
+
+
+def nmt_fp32() -> None:
+    """Card against CPU at Transformer-big's widths, 2 + 2 layers, with
+    attention dropout; then the example's ``run_training`` on the card
+    against its first steps on the CPU."""
+    from apex_tpu_torch.examples.nmt import main as nmt
+
+    cfg = dict(NMT_BIG, num_layers=NMT_FP32_LAYERS)
+    card = nmt_side(cfg, DEV)
+    cpu = nmt_side(cfg, "cpu")
+    check_launches("nmt_fp32", card["launches"],
+                   nmt_launches(NMT_FP32_LAYERS, optimizer=False))
+    if card["adam"] != NMT_FP32_STEPS:
+        raise AssertionError(f"nmt_fp32: {card['adam']} adam launches, want "
+                             f"{NMT_FP32_STEPS}")
+    grad_err = 0.0
+    for n, g in card["grads"].items():
+        grad_err = max(grad_err, compare(f"nmt_fp32 grad {n}", g,
+                                         cpu["grads"][n], "float32",
+                                         (1e-4, 1e-3)))
+    for i, (a, b) in enumerate(zip(card["losses"], cpu["losses"])):
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"nmt_fp32: loss {i} differs: card {a} "
+                                 f"vs CPU {b}")
+    quiet = lambda *a: None                              # noqa: E731
+    example = nmt.run_training(**NMT_EXAMPLE, device=DEV, verbose=quiet,
+                               seed=SEED)
+    first = nmt.run_training(**dict(NMT_EXAMPLE, steps=3), device="cpu",
+                             verbose=quiet, seed=SEED)
+    for i, (a, b) in enumerate(zip(example, first)):
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"nmt_fp32: run_training loss {i} differs: "
+                                 f"card {a} vs CPU {b}")
+    if not all(map(math.isfinite, example)) or not example[-1] < example[0]:
+        raise AssertionError(f"nmt_fp32: run_training's loss not finite "
+                             f"and falling: {example}")
+    emit("nmt_fp32", batch=NMT_FP32_BATCH, seq=NMT_FP32_SEQ,
+         layers=NMT_FP32_LAYERS, layers_cut_from=NMT_BIG["num_layers"],
+         depth_cut="the CPU side's fp32 forward, backward and Adam steps",
+         embed_dim=cfg["embed_dim"], heads=cfg["num_heads"],
+         ffn_dim=cfg["ffn_dim"], vocab=cfg["vocab_size"],
+         attention_dropout=cfg["dropout"], label_smoothing=NMT_LS,
+         adam_lr=NMT_LR, losses_card=card["losses"],
+         losses_cpu=cpu["losses"], max_grad_abs_err=grad_err,
+         params_with_grad=len(card["grads"]), launches=card["launches"],
+         run_training=dict(NMT_EXAMPLE, losses=example,
+                           cpu_first_losses=first))
+
+
+def nmt_grads(model, opt, batch, amp_state) -> dict:
+    """The gradients of one loss on ``batch`` under ``amp_state``, by
+    parameter name, without a step: the model's dropout generator is put
+    back, so the steps after draw the seeds they would have drawn."""
+    import torch
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.nmt import main as nmt
+
+    seeds = model.dropout_generator.get_state()
+    with amp.scope(amp_state):
+        opt.zero_grad()
+        nmt.nmt_loss(model, *batch, label_smoothing=NMT_LS).backward()
+    model.dropout_generator.set_state(seeds)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    opt.zero_grad()
+    torch.cuda.synchronize()
+    return grads
+
+
+def nmt_grad_rel(got: dict, want: dict) -> dict:
+    """``|got - want| / |want|`` (2-norms) of each parameter's gradient."""
+    return {n: ((got[n] - w).norm() / w.norm()).item()
+            for n, w in want.items()}
+
+
+@contextlib.contextmanager
+def nmt_bias_dropped():
+    """The multihead_attn core's flash calls with a bf16 q lose their
+    bias: a bf16 path that ignores the fp32 mask, for the control."""
+    import torch
+
+    core = importlib.import_module(
+        "apex_tpu_torch.contrib.multihead_attn._core")
+    real = core.flash_attention
+
+    def dropped(q, k, v, bias=None, **kw):
+        return real(q, k, v, bias=None if q.dtype == torch.bfloat16
+                    else bias, **kw)
+
+    core.flash_attention = dropped
+    try:
+        yield
+    finally:
+        core.flash_attention = real
+
+
+def nmt_bf16(smi):
+    """Transformer-big uncut under amp O1 bf16: the first batch's
+    gradients against an fp32 witness's (and a control's), warm steps,
+    timed steps with exact launches per step, the step against its bound,
+    the witness's losses on the same batches, then one profiled step by
+    class. Returns the timed steps' launches."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.nmt import main as nmt
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    live = phase_memory_start()
+    model = nmt_model(NMT_BIG, DEV)
+    opt = FusedAdam(model.named_parameters(), lr=NMT_LR)
+    with amp.scope():
+        amp.initialize(model, opt, opt_level="O1",
+                       half_dtype=torch.bfloat16)
+        state = amp.active_state()
+    rng = np.random.default_rng(SEED)
+    data = [nmt.synthetic_copy_batch(rng, NMT_BATCH, NMT_SEQ,
+                                     NMT_BIG["vocab_size"], DEV)
+            for _ in range(NMT_WARM + NMT_TIMED)]
+    batches = itertools.cycle(data)
+
+    def step():
+        with amp.scope(state):
+            return nmt.train_step(model, opt, next(batches), NMT_LS)
+
+    def eval_loss(amp_state=state):
+        """The first batch's loss, dropout off, under ``amp_state``."""
+        with amp.scope(amp_state), torch.no_grad():
+            return nmt.nmt_loss(model, *data[0], label_smoothing=NMT_LS,
+                                train=False).item()
+
+    # the O1 forward against the same weights in fp32 (amp off): the
+    # attention modules' bf16 GEMMs and flash kernels round to 2^-9
+    first, first_fp32 = eval_loss(), eval_loss((None, ()))
+    if not abs(first - first_fp32) <= NMT_O1_REL * abs(first_fp32):
+        raise AssertionError(f"nmt_bf16: the O1 loss {first} is not within "
+                             f"{NMT_O1_REL} of the fp32 loss {first_fp32}")
+    # the fp32 witness: the same weights, amp off, its own optimizer; the
+    # first batch's gradients of both, and of the O1 model with the bf16
+    # flash calls' bias dropped (the control the bar must reject)
+    witness = nmt_model(NMT_BIG, DEV)
+    wopt = FusedAdam(witness.named_parameters(), lr=NMT_LR)
+    want = nmt_grads(witness, wopt, data[0], (None, ()))
+    grad_rel = nmt_grad_rel(nmt_grads(model, opt, data[0], state), want)
+    with nmt_bias_dropped():
+        control_rel = nmt_grad_rel(nmt_grads(model, opt, data[0], state),
+                                   want)
+    worst, control = max(grad_rel.values()), max(control_rel.values())
+    if not worst <= NMT_O1_GRAD_REL < control:
+        raise AssertionError(
+            f"nmt_bf16: the O1 gradients' largest relative error against "
+            f"fp32 is {worst:.3e} ({max(grad_rel, key=grad_rel.get)}), the "
+            f"control's (bf16 bias dropped) {control:.3e}; the bar "
+            f"{NMT_O1_GRAD_REL} must lie between them")
+    losses = [step() for _ in range(NMT_WARM)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(NMT_TIMED)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    check_launches("nmt_bf16", launches,
+                   nmt_launches(NMT_BIG["num_layers"]), per=NMT_TIMED)
+    losses = [x.item() for x in losses]
+    final = eval_loss()
+    if not all(map(math.isfinite, losses + [final])):
+        raise AssertionError(f"nmt_bf16: loss not finite: {losses}, then "
+                             f"{final}")
+    # the witness takes the same steps on the same batches (its dropout
+    # seeds drawn in the same order); O1's losses held to its own
+    witness_losses = [nmt.train_step(witness, wopt, b, NMT_LS).item()
+                      for b in data]
+    with torch.no_grad():
+        witness_final = nmt.nmt_loss(witness, *data[0],
+                                     label_smoothing=NMT_LS,
+                                     train=False).item()
+    del witness, wopt, want
+    for i, (a, b) in enumerate(zip(losses, witness_losses)):
+        if not abs(a - b) <= NMT_O1_REL * abs(b):
+            raise AssertionError(f"nmt_bf16: step {i}'s O1 loss {a} is not "
+                                 f"within {NMT_O1_REL} of fp32's {b}")
+    step_s = elapsed / NMT_TIMED
+    bound = nmt_bound(NMT_BIG, NMT_BATCH, NMT_SEQ)
+    emit("nmt_bf16", batch=NMT_BATCH, src_tokens=NMT_SEQ,
+         tgt_tokens=NMT_SEQ, **NMT_BIG, label_smoothing=NMT_LS,
+         parameters=sum(p.numel() for p in model.parameters()),
+         timed_steps=NMT_TIMED, step_ms=step_s * 1e3,
+         tokens_per_s=NMT_BATCH * NMT_SEQ / step_s, **bound,
+         bound_share=bound["bound_ms"] / (step_s * 1e3),
+         first_batch_loss_before=first,
+         first_batch_loss_before_fp32=first_fp32,
+         first_batch_loss_after=final,
+         first_batch_loss_after_fp32=witness_final,
+         grad_rel_max=worst, grad_rel_bar=NMT_O1_GRAD_REL,
+         grad_rel_by_tensor=grad_rel, control_grad_rel_max=control,
+         control="the bf16 flash calls' fp32 bias dropped",
+         losses=losses, losses_fp32=witness_losses, launches_per_step={k: launches[k] / NMT_TIMED
+                            for k in NMT_KERNELS}, launches=launches,
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live)
+         / 2 ** 30, earlier_phases_live_gib=live / 2 ** 30,
+         nvidia_smi=smi, card_after=card_state())
+    wall, acts = device_profile(step)
+    busy = sum(t for t, _ in acts.values())
+    by_class = {}
+    for k, (t, _) in acts.items():
+        low = k.lower()
+        cls = next((c for c, frags in NMT_KERNEL_CLASSES
+                    if any(f in low for f in frags)), "other")
+        if cls == "gemm":
+            cls = ("gemm_fp32" if any(f in low for f in NMT_FP32_GEMM)
+                   else "gemm_half")
+        by_class[cls] = by_class.get(cls, 0.0) + t
+    top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:20]
+    emit("nmt_bf16_profile", wall_s=wall, device_busy_s=busy / 1e3,
+         device_idle_share=1.0 - busy / 1e3 / wall if wall else None,
+         device_ms_by_class=by_class,
+         top_device=[dict(name=k[:120], ms=t, count=c)
+                     for k, (t, c) in top])
+    del model, opt, step, batches, data
+    gc.collect()        # the later phases need this phase's room at once
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pruned_flat(opt, masks):
+    """1 where a weight is pruned and 0 elsewhere, fp32, in ``opt``'s flat
+    layout: built here from the masks, apart from ASP's own."""
+    import torch
+
+    from apex_tpu_torch.ops import flat_buffer
+
+    flat = torch.zeros_like(opt.master)
+    views = flat_buffer.unflatten(flat, opt.spec)
+    for name, mask in masks.items():
+        views[name].copy_(~mask)
+    return flat
+
+
+def asp_check_masks(phase: str, masks) -> None:
+    """Every mask 2:4 along the last dimension."""
+    bad = [n for n, m in masks.items()
+           if not bool((m.reshape(-1, 4).sum(-1) == 2).all())]
+    if bad or not masks:
+        raise AssertionError(f"{phase}: masks not 2:4: {bad or 'none'}")
+
+
+def asp_optimizer(model, lr: float):
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    return FusedAdam(model.named_parameters(), lr=lr, weight_decay=BERT_WD,
+                     exclude_from_weight_decay=bert_no_decay)
+
+
+def asp_side(cfg, dev) -> dict:
+    """One side of ``asp_bert_fp32``: ``prune_trained_model`` on the
+    seeded model, the loss and gradients of step 0, then three masked
+    FusedAdam steps (the pruned weights' largest |value| after each) and a
+    loss after them."""
+    import torch
+
+    from apex_tpu_torch.contrib.sparsity import ASP
+    from apex_tpu_torch.models import BertForPreTraining, bert_pretrain_loss_fn
+    from apex_tpu_torch.ops import _build
+
+    model = BertForPreTraining(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    batch = bert_batch(cfg, BERT_FP32_BATCH, BERT_FP32_SEQ, dev,
+                       pad_tail=BERT_FP32_SEQ // 4)
+    opt = asp_optimizer(model, BERT_FP32_LR)
+    ASP.prune_trained_model(model, opt)
+    masks = ASP.masks()
+    pruned = pruned_flat(opt, masks)
+    _build.reset_launches()
+    losses, left = [], []
+    grads = None
+    for i in range(3):
+        opt.zero_grad()
+        loss = bert_pretrain_loss_fn(model, batch, SEED + i)
+        loss.backward()
+        if grads is None:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        losses.append(loss.item())
+        left.append((opt.master * pruned).abs().max().item())
+    launches = dict(_build.launches)
+    with torch.no_grad():
+        losses.append(bert_pretrain_loss_fn(model, batch, SEED + 3).item())
+    out = dict(losses=losses, grads=grads, left=left,
+               masks={n: m.cpu() for n, m in masks.items()},
+               launches=launches)
+    ASP.reset()
+    return out
+
+
+def asp_bert_fp32() -> None:
+    """ASP on ``bert_fp32``'s cut, card against CPU: masks bit-equal,
+    ``bert_fp32``'s bars over three masked FusedAdam steps, every pruned
+    weight exactly 0 after every step on both sides."""
+    import torch
+
+    from apex_tpu_torch.models import bert_large_config
+
+    cfg = bert_large_config(num_layers=BERT_FP32_LAYERS, dtype=torch.float32,
+                            hidden_dropout=0.0,
+                            attention_dropout=BERT_DROPOUT)
+    card = asp_side(cfg, DEV)
+    cpu = asp_side(cfg, "cpu")
+    asp_check_masks("asp_bert_fp32", card["masks"])
+    if card["masks"].keys() != cpu["masks"].keys() or any(
+            not torch.equal(m, cpu["masks"][n])
+            for n, m in card["masks"].items()):
+        raise AssertionError("asp_bert_fp32: masks differ between card and "
+                             "CPU")
+    if any(card["left"]) or any(cpu["left"]):
+        raise AssertionError(f"asp_bert_fp32: pruned weights not 0 after a "
+                             f"step: card {card['left']}, CPU {cpu['left']}")
+    grad_err = 0.0
+    for n, g in card["grads"].items():
+        grad_err = max(grad_err, compare(f"asp_bert_fp32 grad {n}", g,
+                                         cpu["grads"][n], "float32",
+                                         (1e-4, 1e-3)))
+    for i, (a, b) in enumerate(zip(card["losses"], cpu["losses"])):
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"asp_bert_fp32: loss {i} differs: card {a} "
+                                 f"vs CPU {b}")
+    want = {"flash_fwd": 3 * cfg.num_layers, "adam": 3, "lamb_phase1": 0,
+            "segment_stats": 0}
+    check_launches("asp_bert_fp32", card["launches"], want)
+    emit("asp_bert_fp32", batch=BERT_FP32_BATCH, seq=BERT_FP32_SEQ,
+         layers=cfg.num_layers, layers_cut_from=24, adam_lr=BERT_FP32_LR,
+         pruned_tensors=len(card["masks"]),
+         pruned_weights=sum(int((~m).sum()) for m in card["masks"].values()),
+         masks_bit_equal=True, losses_card=card["losses"],
+         losses_cpu=cpu["losses"], max_grad_abs_err=grad_err,
+         pruned_max_abs_after_steps=card["left"], launches=card["launches"])
+
+
+def asp_bert_bf16(smi):
+    """BERT-Large uncut at ``bert_bf16``'s batch, ``prune_trained_model``
+    with FusedAdam: warm and timed masked steps (every pruned weight 0
+    after each), exact launches per step; then the hook's cost: steps
+    with and without it (the optimizer's own ``step``) in turns A, B, B, A,
+    ``ASP_AB_ROUNDS`` times, one profiled step of each, and the hook's two
+    multiplies by ``queued_ms``. Returns the timed masked steps'
+    launches."""
+    import torch
+
+    from apex_tpu_torch.contrib.sparsity import ASP
+    from apex_tpu_torch.models import (BertForPreTraining, bert_large_config,
+                                       bert_pretrain_loss_fn)
+    from apex_tpu_torch.ops import _build
+
+    live = phase_memory_start()
+    cfg = bert_large_config()
+    model = BertForPreTraining(cfg, device=DEV,
+                               generator=torch.Generator().manual_seed(SEED))
+    opt = asp_optimizer(model, BERT_LR)
+    own_step = opt.step
+    batch = bert_batch(cfg, BERT_BATCH, BERT_SEQ, DEV)
+    ASP.prune_trained_model(model, opt)
+    hooked_step = opt.step
+    masks = ASP.masks()
+    asp_check_masks("asp_bert_bf16", masks)
+    pruned = pruned_flat(opt, masks)
+    seeds = iter(range(10 ** 9))
+
+    def step(update=hooked_step):
+        opt.zero_grad()
+        loss = bert_pretrain_loss_fn(model, batch, next(seeds))
+        loss.backward()
+        update()
+        return loss.detach(), (opt.master * pruned).abs().amax()
+
+    def timed(n, update=hooked_step):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = [step(update) for _ in range(n)]
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / n, dict(_build.launches)
+
+    warm = [step() for _ in range(BERT_WARM)]
+    run, step_s, launches = timed(BERT_TIMED)
+    left = [float(x) for _, x in warm + run]
+    if any(left):
+        raise AssertionError(f"asp_bert_bf16: pruned weights not 0 after a "
+                             f"step: {left}")
+    layers = cfg.num_layers
+    check_launches("asp_bert_bf16", launches, {
+        "flash_fwd": layers, "flash_bwd_dq": layers,
+        "flash_bwd_dkdv": layers, "layer_norm_fwd": 2 * layers + 2,
+        "layer_norm_bwd": 2 * layers + 2, "xentropy_fwd": 2,
+        "xentropy_bwd": 2, "adam": 1, "segment_stats": 0, "lamb_phase1": 0,
+        "lamb_phase2": 0}, per=BERT_TIMED)
+    losses = [float(x) for x, _ in warm + run]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"asp_bert_bf16: loss not finite and falling: "
+                             f"{losses}")
+    keep = 1.0 - pruned
+    hook_ms = queued_ms(lambda: (opt.grads.mul_(keep), opt.master.mul_(keep)),
+                        iters=20)
+    turns = {"hook": [], "own": []}
+    for _ in range(ASP_AB_ROUNDS):
+        for name in ("hook", "own", "own", "hook"):
+            turns[name].append(timed(ASP_AB_STEPS, hooked_step if name ==
+                                     "hook" else own_step)[1] * 1e3)
+    profiles = {}
+    for name, update in (("hook", hooked_step), ("own", own_step)):
+        wall, acts = device_profile(partial(step, update))
+        profiles[name] = dict(wall_ms=wall * 1e3, device_busy_ms=sum(
+            t for t, _ in acts.values()))
+    ASP.reset()
+    tokens = BERT_BATCH * BERT_SEQ
+    emit("asp_bert_bf16", batch=BERT_BATCH, seq=BERT_SEQ, layers=layers,
+         pruned_tensors=len(masks),
+         pruned_weights=sum(int((~m).sum()) for m in masks.values()),
+         params=sum(p.numel() for p in model.parameters()),
+         timed_steps=BERT_TIMED, step_ms=step_s * 1e3,
+         tokens_per_s=tokens / step_s, ab_step_ms=turns,
+         hook_cost_ms=(sum(turns["hook"]) - sum(turns["own"]))
+         / len(turns["hook"]), hook_multiplies_ms=hook_ms,
+         hook_bytes=3 * 2 * opt.master.numel() * 4, profiled_step=profiles,
+         losses=losses, pruned_max_abs_after_steps=left,
+         launches_per_step={k: launches[k] / BERT_TIMED
+                            for k in BERT_KERNELS + ("adam",)},
+         launches=launches,
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live)
+         / 2 ** 30, earlier_phases_live_gib=live / 2 ** 30,
+         nvidia_smi=smi, card_after=card_state())
+    del model, opt, step, masks, pruned, keep, own_step, hooked_step
+    gc.collect()        # the later phases need this phase's room at once
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --- the Mistral-7B training phases ----------------------------------------
@@ -6234,7 +6966,8 @@ def main() -> int:
               + check_flash_bwd_window(gen, DEV)
               + check_paged_block(gen, DEV) + check_flash_bias(gen, DEV)
               + check_resnet_optim(gen, DEV) + check_scaled_softmax(gen, DEV)
-              + check_group_norm(gen, DEV) + check_flash_ring(gen, DEV))
+              + check_group_norm(gen, DEV) + check_flash_ring(gen, DEV)
+              + check_flash_nmt(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, rms_atol=RMS_ATOL,
          card_before=card_before,
@@ -6305,6 +7038,12 @@ def main() -> int:
     train_step, train_launches = train_bf16(smi)
     bert_fp32()
     bert_step, bert_launches = bert_bf16(smi)
+    # BASELINE configs #3 and #5 after BERT: each frees its model, so the
+    # later phases find the room they had
+    nmt_fp32()
+    nmt_train_launches = nmt_bf16(smi)
+    asp_bert_fp32()
+    asp_launches = asp_bert_bf16(smi)
     # ResNet-50 before T5 and the Mistral-7B training phases: its 256-image
     # batch needs the room that their live models take
     resnet_fp32()
@@ -6339,7 +7078,7 @@ def main() -> int:
         if row.get("path") in ("quant_serving", "mistral", "mistral_train",
                                "spec_chunked", "t5", "t5_train",
                                "window_bias", "resnet", "megatron_softmax",
-                               "unet_group_norm", "ring"):
+                               "unet_group_norm", "ring", "nmt"):
             continue                  # timed by queued_ms already
         ms, seen, split = kernel_device_ms(
             fn, kernel_symbol(row["name"], row["dtype"]))
@@ -6480,7 +7219,8 @@ def main() -> int:
                "ring_attention_zigzag": ring_attn_launches["zigzag"],
                "ring_train": ring_train["ring"],
                "ring_train_zigzag": ring_train["zigzag"],
-               "ring_gpt": ring_gpt_launches}
+               "ring_gpt": ring_gpt_launches,
+               "nmt_train": nmt_train_launches, "asp_bert": asp_launches}
     # the windowed block has no engine path (the reference refuses both
     # modes for windowed models), so its launches read 0
     block_path = {"paged_attention_block": "spec",
@@ -6570,6 +7310,22 @@ def main() -> int:
                      **{k: r[k] for k in timing if k in r})
                 for r in rows if r["name"] == name and r is not row
                 and r["dtype"] != "float32"]
+        if name in ("xentropy_fwd", "xentropy_bwd"):
+            nm = next(r for r in rows if r["name"] == name
+                      and r.get("path") == "nmt")
+            entry["nmt_train"] = dict(
+                shape=nm["shape"], dtype=nm["dtype"],
+                smoothing=nm["smoothing"],
+                launches=nmt_train_launches[name],
+                **{k: nm[k] for k in timing + ("bound_share",) if k in nm})
+        if name in NMT_KERNELS and name.startswith("flash_"):
+            nm = next(r for r in rows if r["name"] == name
+                      and r.get("path") == "nmt")
+            entry["nmt_train"] = dict(
+                {k: nm[k] for k in ("shape", "dtype", "use", "dropout",
+                                    "bias_shape", "bias_dtype", "out_rms")},
+                launches=nmt_train_launches[name],
+                **{k: nm[k] for k in timing if k in nm})
         if name == "multi_tensor_scale":
             bf = next(r for r in rows if r["name"] == name
                       and r["dtype"] == "bfloat16")

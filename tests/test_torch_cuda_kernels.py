@@ -1127,6 +1127,47 @@ def test_flash_bias_kernels_match_twin(cuda, dtype, b, h, hkv, sq, sk, d,
         _bwd_close(a, r, dtype)
 
 
+#: (batch, heads, S, bias kind, dropout rate) of an fp32 bias under a bf16
+#: q, as amp O1 hands the multihead_attn modules' masks to the kernels: the
+#: NMT decoder's causal -1e9 table (1, 1, S, S) with and without dropout,
+#: and a key-padding bias (B, 1, 1, S) with dropout
+FP32_BIAS_CASES = [
+    (2, 4, 128, "causal", 0.0),
+    (2, 4, 128, "causal", 0.1),
+    (2, 4, 96, "padding", 0.1),
+]
+
+
+@pytest.mark.parametrize("b,h,s,kind,rate", FP32_BIAS_CASES)
+def test_flash_fp32_bias_under_bf16_q_matches_twin(cuda, b, h, s, kind,
+                                                    rate):
+    """The bf16 kernels' fp32-bias branch (the bias read as fp32, not
+    rounded to q's dtype) against the twins: forward, LSE, dq, dk, dv."""
+    g = torch.Generator().manual_seed(23)
+    q, k, v, do = (torch.randn(b, h, s, 64, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(4))
+    if kind == "causal":
+        pos = torch.arange(s)
+        bias = torch.where(pos[:, None] >= pos[None, :], 0.0, -1e9)[
+            None, None]
+    else:
+        bias = _bias_for("padding", b, h, s, s, g)
+    bias = bias.to(cuda, torch.float32)
+    masking = Masking(causal=False, dropout_rate=rate, dropout_seed=5)
+    kw = dict(scale=64 ** -0.5, masking=masking, bias=bias)
+    o, lse = flash_attention_reference(q, k, v, **kw)
+    before = dict(_build.launches)
+    ko, klse = flash_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        assert _build.launches[name + "_bias"] == before[name + "_bias"] + 1
+    _close(ko, o, torch.bfloat16)
+    _close(klse, lse, torch.float32)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    for a, r in zip(got, want):
+        _bwd_close(a, r, torch.bfloat16)
+
+
 def test_flash_bias_batch_stride_on_the_card(cuda):
     """A (1, H, S, S) bias serving B = 3 equals the same bias repeated over
     the batch, and a non-contiguous fp32 bias under a bf16 q equals its
