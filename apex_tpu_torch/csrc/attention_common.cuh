@@ -185,22 +185,11 @@ __device__ __forceinline__ void row_init(RowState& st) {
   for (int r = 0; r < kDimsPerLane; ++r) st.acc[r] = 0.f;
 }
 
-// Fold the tile's keys into the row: `valid` says whether this lane's key is
-// visible to the row, `bias` is its additive bias (AttnMask::bias_at; 0
-// leaves the score scale * dot bit for bit), `keep` is its dropout factor
-// (AttnMask::keep). The
-// denominator l sums the undropped probabilities; only the PV product sees
-// p * keep, as in the reference. Warp-uniform control flow throughout.
-__device__ __forceinline__ void row_fold(RowState& st, const float* qrow, const float* ks,
-                                         const float* vs, int d, bool valid, float scale,
-                                         int lane, float keep, float bias = 0.f) {
-  float s = -INFINITY;
-  if (valid) {
-    const float* krow = ks + lane * kTileStride;
-    float dot = 0.f;
-    for (int i = 0; i < d; ++i) dot = fmaf(qrow[i], krow[i], dot);
-    s = __fadd_rn(__fmul_rn(dot, scale), bias);
-  }
+// The fold of row_fold below once this lane's score s is known (-inf where
+// not valid): vs holds the tile's V rows (stride kTileStride) over d
+// columns.
+__device__ __forceinline__ void row_fold_scored(RowState& st, float s, const float* vs, int d,
+                                                bool valid, int lane, float keep) {
   const float tmax = warp_max(s);
   if (tmax == -INFINITY) return;  // no visible key in this tile
   const float m_new = fmaxf(st.m, tmax);
@@ -221,6 +210,25 @@ __device__ __forceinline__ void row_fold(RowState& st, const float* qrow, const 
       if (c < d) st.acc[r] = fmaf(pj, vrow[c], st.acc[r]);
     }
   }
+}
+
+// Fold the tile's keys into the row: `valid` says whether this lane's key is
+// visible to the row, `bias` is its additive bias (AttnMask::bias_at; 0
+// leaves the score scale * dot bit for bit), `keep` is its dropout factor
+// (AttnMask::keep). The
+// denominator l sums the undropped probabilities; only the PV product sees
+// p * keep, as in the reference. Warp-uniform control flow throughout.
+__device__ __forceinline__ void row_fold(RowState& st, const float* qrow, const float* ks,
+                                         const float* vs, int d, bool valid, float scale,
+                                         int lane, float keep, float bias = 0.f) {
+  float s = -INFINITY;
+  if (valid) {
+    const float* krow = ks + lane * kTileStride;
+    float dot = 0.f;
+    for (int i = 0; i < d; ++i) dot = fmaf(qrow[i], krow[i], dot);
+    s = __fadd_rn(__fmul_rn(dot, scale), bias);
+  }
+  row_fold_scored(st, s, vs, d, valid, lane, keep);
 }
 
 // Write the normalized row; returns the row's log-sum-exp (kMaskValue for a

@@ -802,6 +802,255 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- head dims above 128, both dtypes on the CUDA cores ---------------------
+
+// d > 128 (any d): the output's 128-wide column chunks go on the grid, as
+// the forward's flash_fwd_wide_kernel. A block owns the fp32 kernels' 32
+// rows (dq) or keys (dk/dv) and one chunk c of the output's columns; for
+// each tile it forms the scores and dP over the full d a 128-column chunk
+// of every operand at a time (each dot runs over the columns in order, as
+// dot2's one loop), then stages the chunk-c columns that the products with
+// ds and p read. Every chunk's block recomputes the same P and dS. fp32
+// and bf16 both take these kernels (bf16 widened to fp32 in shared
+// memory); the d <= 128 kernels above are unchanged.
+constexpr int kWideCols = 128;
+constexpr int kWideLd = kWideCols + 1;
+constexpr int kWideSmem = 4 * kOwn * kWideLd * static_cast<int>(sizeof(float)) + 2 * kTile * 4;
+
+// rows [0, rows) x columns [0, w) of src (row stride d) into a tile of row
+// stride kWideLd
+template <typename T>
+__device__ __forceinline__ void load_cols(float* dst, const T* src, int rows, int w, int d) {
+  for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+    const int r = i / w, c = i - r * w;
+    dst[r * kWideLd + c] = to_f32<T>(src[(long)r * d + c]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         T* __restrict__ dq, AttnMask mask, int heads, int kv_heads, int sq,
+                         int sk, int d, float scale) {
+  extern __shared__ float smem[];
+  float* qs = smem;                 // [kOwn][kWideLd]: a column chunk of the rows
+  float* dos = qs + kOwn * kWideLd;
+  float* ks = dos + kOwn * kWideLd;  // [kTile][kWideLd]
+  float* vs = ks + kTile * kWideLd;
+
+  const int nc = (d + kWideCols - 1) / kWideCols;
+  const int q0 = blockIdx.x * kOwn, h = blockIdx.y / nc, b = blockIdx.z;
+  const int c0 = (blockIdx.y % nc) * kWideCols, dc = min(kWideCols, d - c0);
+  const int hk = h / (heads / kv_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nq = min(kOwn, sq - q0);
+  const uint32_t bh = static_cast<uint32_t>(b * heads + h);
+  const long row0 = (long)(b * heads + h) * sq + q0;
+  const T* kb = k + (long)(b * kv_heads + hk) * sk * d;
+  const T* vb = v + (long)(b * kv_heads + hk) * sk * d;
+
+  float row_lse[kPerWarp], row_delta[kPerWarp], acc[kPerWarp][kDims];
+#pragma unroll
+  for (int rr = 0; rr < kPerWarp; ++rr) {
+    const int r = warp + rr * kWarps;
+    row_lse[rr] = r < nq ? lse[row0 + r] : 0.f;
+    row_delta[rr] = r < nq ? delta[row0 + r] : 0.f;
+#pragma unroll
+    for (int c4 = 0; c4 < kDims; ++c4) acc[rr][c4] = 0.f;
+  }
+
+  const int k_end = mask.key_end(sk, q0 + nq);
+  const int k_begin = mask.first_key(q0, kTile);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
+    const int nk = min(kTile, k_end - k0);
+    float sd[kPerWarp], pd[kPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kPerWarp; ++rr) sd[rr] = pd[rr] = 0.f;
+    for (int cc = 0; cc < d; cc += kWideCols) {
+      const int w = min(kWideCols, d - cc);
+      __syncthreads();
+      load_cols<T>(qs, q + row0 * d + cc, nq, w, d);
+      load_cols<T>(dos, dout + row0 * d + cc, nq, w, d);
+      load_cols<T>(ks, kb + (long)k0 * d + cc, nk, w, d);
+      load_cols<T>(vs, vb + (long)k0 * d + cc, nk, w, d);
+      __syncthreads();
+      if (lane < nk) {
+#pragma unroll
+        for (int rr = 0; rr < kPerWarp; ++rr) {
+          const int r = warp + rr * kWarps;
+          if (r >= nq) continue;
+          float x = sd[rr], y = pd[rr];
+          for (int i = 0; i < w; ++i) {
+            x = fmaf(qs[r * kWideLd + i], ks[lane * kWideLd + i], x);
+            y = fmaf(dos[r * kWideLd + i], vs[lane * kWideLd + i], y);
+          }
+          sd[rr] = x;
+          pd[rr] = y;
+        }
+      }
+    }
+    __syncthreads();
+    load_cols<T>(ks, kb + (long)k0 * d + c0, nk, dc, d);  // the columns dq takes
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kPerWarp; ++rr) {
+      const int r = warp + rr * kWarps;
+      if (r >= nq) continue;  // warp-uniform
+      const bool valid = lane < nk && mask.visible(b, sq, sk, q0 + r, k0 + lane);
+      float ds = 0.f;
+      if (valid) {
+        const float p = expf(mask.score(sd[rr], scale, b, h, q0 + r, k0 + lane) - row_lse[rr]);
+        ds = p * (pd[rr] * mask.keep(bh, q0 + r, k0 + lane) - row_delta[rr]) * scale;
+      }
+#pragma unroll 1
+      for (int j = 0; j < kTile; ++j) {
+        const float dsj = __shfl_sync(0xffffffffu, ds, j);
+        if (dsj == 0.f) continue;
+        const float* kr = ks + j * kWideLd;
+#pragma unroll
+        for (int c4 = 0; c4 < kDims; ++c4) {
+          const int c = lane + 32 * c4;
+          if (c < dc) acc[rr][c4] = fmaf(dsj, kr[c], acc[rr][c4]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kPerWarp; ++rr) {
+    const int r = warp + rr * kWarps;
+    if (r >= nq) continue;
+    T* out = dq + (row0 + r) * d + c0;
+#pragma unroll
+    for (int c4 = 0; c4 < kDims; ++c4) {
+      const int c = lane + 32 * c4;
+      if (c < dc) out[c] = from_f32<T>(acc[rr][c4]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, AttnMask mask, int heads,
+                           int kv_heads, int sq, int sk, int d, float scale) {
+  extern __shared__ float smem[];
+  float* ks = smem;                  // [kOwn][kWideLd]: a column chunk of the keys
+  float* vs = ks + kOwn * kWideLd;
+  float* qs = vs + kOwn * kWideLd;   // [kTile][kWideLd]
+  float* dos = qs + kTile * kWideLd;
+  float* ls = dos + kTile * kWideLd;  // [kTile] lse of the tile's rows
+  float* dl = ls + kTile;             // [kTile] delta of the tile's rows
+
+  const int nc = (d + kWideCols - 1) / kWideCols;
+  const int k0 = blockIdx.x * kOwn, hk = blockIdx.y / nc, b = blockIdx.z;
+  const int c0 = (blockIdx.y % nc) * kWideCols, dc = min(kWideCols, d - c0);
+  const int rep = heads / kv_heads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nk = min(kOwn, sk - k0);
+  const long key0 = (long)(b * kv_heads + hk) * sk + k0;
+
+  float dk_acc[kPerWarp][kDims], dv_acc[kPerWarp][kDims];
+#pragma unroll
+  for (int kk = 0; kk < kPerWarp; ++kk)
+#pragma unroll
+    for (int c4 = 0; c4 < kDims; ++c4) dk_acc[kk][c4] = dv_acc[kk][c4] = 0.f;
+
+  const int q_begin = mask.first_row(k0);
+  const int q_end = mask.last_row(sq, k0 + nk - 1);
+  for (int g = 0; g < rep; ++g) {
+    const int h = hk * rep + g;
+    const uint32_t bh = static_cast<uint32_t>(b * heads + h);
+    const long hrow0 = (long)(b * heads + h) * sq;
+    for (int q0 = q_begin; q0 < q_end; q0 += kTile) {
+      const int nq = min(kTile, q_end - q0);
+      float sd[kPerWarp], pd[kPerWarp];
+#pragma unroll
+      for (int kk = 0; kk < kPerWarp; ++kk) sd[kk] = pd[kk] = 0.f;
+      for (int cc = 0; cc < d; cc += kWideCols) {
+        const int w = min(kWideCols, d - cc);
+        __syncthreads();
+        load_cols<T>(ks, k + key0 * d + cc, nk, w, d);
+        load_cols<T>(vs, v + key0 * d + cc, nk, w, d);
+        load_cols<T>(qs, q + (hrow0 + q0) * d + cc, nq, w, d);
+        load_cols<T>(dos, dout + (hrow0 + q0) * d + cc, nq, w, d);
+        if (cc == 0 && threadIdx.x < kTile) {
+          const int t = threadIdx.x;
+          ls[t] = t < nq ? lse[hrow0 + q0 + t] : 0.f;
+          dl[t] = t < nq ? delta[hrow0 + q0 + t] : 0.f;
+        }
+        __syncthreads();
+        if (lane < nq) {
+#pragma unroll
+          for (int kk = 0; kk < kPerWarp; ++kk) {
+            const int j = warp + kk * kWarps;
+            if (j >= nk) continue;
+            float x = sd[kk], y = pd[kk];
+            for (int i = 0; i < w; ++i) {
+              x = fmaf(ks[j * kWideLd + i], qs[lane * kWideLd + i], x);
+              y = fmaf(vs[j * kWideLd + i], dos[lane * kWideLd + i], y);
+            }
+            sd[kk] = x;
+            pd[kk] = y;
+          }
+        }
+      }
+      __syncthreads();
+      load_cols<T>(qs, q + (hrow0 + q0) * d + c0, nq, dc, d);  // the columns dk, dv take
+      load_cols<T>(dos, dout + (hrow0 + q0) * d + c0, nq, dc, d);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kPerWarp; ++kk) {
+        const int j = warp + kk * kWarps;
+        if (j >= nk) continue;  // warp-uniform
+        const bool valid = lane < nq && mask.visible(b, sq, sk, q0 + lane, k0 + j);
+        float p = 0.f, ds = 0.f;
+        if (valid) {
+          const float pr = expf(mask.score(sd[kk], scale, b, h, q0 + lane, k0 + j) - ls[lane]);
+          const float keep = mask.keep(bh, q0 + lane, k0 + j);
+          p = pr * keep;
+          ds = pr * (pd[kk] * keep - dl[lane]) * scale;
+        }
+        for (int i = 0; i < kTile; ++i) {
+          const float pi = __shfl_sync(0xffffffffu, p, i);
+          const float dsi = __shfl_sync(0xffffffffu, ds, i);
+          if (pi == 0.f && dsi == 0.f) continue;
+          const float* qr = qs + i * kWideLd;
+          const float* dr = dos + i * kWideLd;
+#pragma unroll
+          for (int c4 = 0; c4 < kDims; ++c4) {
+            const int c = lane + 32 * c4;
+            if (c < dc) {
+              dv_acc[kk][c4] = fmaf(pi, dr[c], dv_acc[kk][c4]);
+              dk_acc[kk][c4] = fmaf(dsi, qr[c], dk_acc[kk][c4]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int kk = 0; kk < kPerWarp; ++kk) {
+    const int j = warp + kk * kWarps;
+    if (j >= nk) continue;
+    T* dko = dk + (key0 + j) * d + c0;
+    T* dvo = dv + (key0 + j) * d + c0;
+#pragma unroll
+    for (int c4 = 0; c4 < kDims; ++c4) {
+      const int c = lane + 32 * c4;
+      if (c < dc) {
+        dko[c] = from_f32<T>(dk_acc[kk][c4]);
+        dvo[c] = from_f32<T>(dv_acc[kk][c4]);
+      }
+    }
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= kStaticSmem) return cudaSuccess;
@@ -875,13 +1124,46 @@ cudaError_t launch_dkdv_mma(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dq, const AttnMask& mask,
+                           int batch, int heads, int kv_heads, int sq, int sk, int d, float scale,
+                           cudaStream_t s) {
+  cudaError_t err = allow_smem(flash_bwd_dq_wide_kernel<T>, kWideSmem);
+  if (err != cudaSuccess) return err;
+  const int nc = (d + kWideCols - 1) / kWideCols;
+  dim3 grid((sq + kOwn - 1) / kOwn, heads * nc, batch);
+  flash_bwd_dq_wide_kernel<T><<<grid, kThreads, kWideSmem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), mask, heads, kv_heads, sq, sk,
+      d, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkdv_wide(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, void* dk, void* dv,
+                             const AttnMask& mask, int batch, int heads, int kv_heads, int sq,
+                             int sk, int d, float scale, cudaStream_t s) {
+  cudaError_t err = allow_smem(flash_bwd_dkdv_wide_kernel<T>, kWideSmem);
+  if (err != cudaSuccess) return err;
+  const int nc = (d + kWideCols - 1) / kWideCols;
+  dim3 grid((sk + kOwn - 1) / kOwn, kv_heads * nc, batch);
+  flash_bwd_dkdv_wide_kernel<T><<<grid, kThreads, kWideSmem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), mask,
+      heads, kv_heads, sq, sk, d, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed, threshold and
 // keep_scale are read only when dropout is set (the forward's values, the
 // origins folded into the seed); window 0 = none (the wrapper passes one only with
-// causal); offset and bias as the forward's (apex_flash_fwd). bf16 takes
-// the tensor-core kernels (d <= 128), fp32 the CUDA-core ones.
+// causal); offset and bias as the forward's (apex_flash_fwd). d <= 128:
+// bf16 takes the tensor-core kernels, fp32 the CUDA-core ones; d > 128: the
+// wide kernels, either dtype.
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, const void* q_seg,
                                  const void* kv_seg, int causal, int dropout, unsigned seed,
@@ -897,8 +1179,13 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v, co
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
                       dropout, seed, threshold, keep_scale, window, bias, bias_bf16, bias_sb,
                       bias_sh, bias_sq, bias_sk, offset};
+  if (d > kMaxHeadDim)
+    return static_cast<int>(
+        dtype == APEX_BF16 ? launch_dq_wide<bf16>(q, k, v, dout, l, dl, dq, mask, batch, heads,
+                                                  kv_heads, sq, sk, d, scale, s)
+                           : launch_dq_wide<float>(q, k, v, dout, l, dl, dq, mask, batch, heads,
+                                                   kv_heads, sq, sk, d, scale, s));
   if (dtype == APEX_BF16) {
-    if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         d <= 64 ? launch_dq_mma<64>(q, k, v, dout, l, dl, dq, mask, batch, heads, kv_heads, sq,
                                     sk, d, scale, s)
@@ -925,8 +1212,14 @@ extern "C" int apex_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
                       dropout, seed, threshold, keep_scale, window, bias, bias_bf16, bias_sb,
                       bias_sh, bias_sq, bias_sk, offset};
+  if (d > kMaxHeadDim)
+    return static_cast<int>(
+        dtype == APEX_BF16
+            ? launch_dkdv_wide<bf16>(q, k, v, dout, l, dl, dk, dv, mask, batch, heads, kv_heads,
+                                     sq, sk, d, scale, s)
+            : launch_dkdv_wide<float>(q, k, v, dout, l, dl, dk, dv, mask, batch, heads, kv_heads,
+                                      sq, sk, d, scale, s));
   if (dtype == APEX_BF16) {
-    if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         d <= 64 ? launch_dkdv_mma<64>(q, k, v, dout, l, dl, dk, dv, mask, batch, heads,
                                       kv_heads, sq, sk, d, scale, s)

@@ -438,6 +438,111 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
       static_cast<T*>(o), lse, mask, heads, kv_heads, sq, sk, d, scale);
 }
 
+// ---- head dims above 128, both dtypes on the CUDA cores ---------------------
+
+// d > 128 (any d): the reference pads d to a multiple of 128 and runs its
+// one kernel; here the output's 128-wide column chunks go on the grid. A
+// block of 4 warps owns 16 query rows of one head and one chunk c of O's
+// columns; it walks tiles of 32 keys, and for each forms the scores over
+// the full d a 128-column chunk of q and k at a time (the dot of a lane's
+// key runs over the columns in order, as flash_fwd_kernel's one loop), then
+// folds V's chunk c into the row's online softmax (row_fold_scored). Every
+// chunk's block computes the same scores, m and l, so the chunks of a row
+// agree; only chunk 0 writes the LSE. fp32 and bf16 both take it (bf16
+// widened to fp32 in shared memory): a simple kernel, far from the tensor
+// cores' bound, and the d <= 128 instances above are unchanged.
+constexpr int kWideCols = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, float* __restrict__ lse, AttnMask mask, int heads,
+                      int kv_heads, int sq, int sk, int d, float scale) {
+  __shared__ float qs[kQRows * kTileStride];
+  __shared__ float ks[kTileKeys * kTileStride];
+  __shared__ float vs[kTileKeys * kTileStride];
+
+  const int nc = (d + kWideCols - 1) / kWideCols;
+  const int q0 = blockIdx.x * kQRows;
+  const int h = blockIdx.y / nc;
+  const int c0 = (blockIdx.y % nc) * kWideCols;  // this block's columns of O
+  const int dc = min(kWideCols, d - c0);
+  const int b = blockIdx.z;
+  const int hk = h / (heads / kv_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nq = min(kQRows, sq - q0);
+  const uint32_t bh = static_cast<uint32_t>(b * heads + h);
+
+  const T* qb = q + ((long)(b * heads + h) * sq + q0) * d;
+  const T* kb = k + (long)(b * kv_heads + hk) * sk * d;
+  const T* vb = v + (long)(b * kv_heads + hk) * sk * d;
+
+  RowState st[kRowsPerWarp];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) row_init(st[rr]);
+
+  const int k_end = mask.key_end(sk, q0 + nq);
+  const int k_begin = mask.first_key(q0, kTileKeys);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTileKeys) {
+    const int nk = min(kTileKeys, k_end - k0);
+    float dot[kRowsPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) dot[rr] = 0.f;
+    for (int cc = 0; cc < d; cc += kWideCols) {  // the scores, a column chunk at a time
+      const int w = min(kWideCols, d - cc);
+      __syncthreads();  // the previous chunk (or tile) is consumed
+      load_tile<T>(qs, qb + cc, nq, w, d);
+      load_tile<T>(ks, kb + (long)k0 * d + cc, nk, w, d);
+      __syncthreads();
+      if (lane < nk) {
+#pragma unroll
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+          const int r = warp + rr * kWarps;
+          if (r >= nq) continue;
+          const float* qrow = qs + r * kTileStride;
+          const float* krow = ks + lane * kTileStride;
+          float x = dot[rr];
+          for (int i = 0; i < w; ++i) x = fmaf(qrow[i], krow[i], x);
+          dot[rr] = x;
+        }
+      }
+    }
+    load_tile<T>(vs, vb + (long)k0 * d + c0, nk, dc, d);
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp + rr * kWarps;
+      if (r >= nq) continue;  // warp-uniform
+      const int key = k0 + lane;
+      const bool valid = lane < nk && mask.visible(b, sq, sk, q0 + r, key);
+      const float keep = valid ? mask.keep(bh, q0 + r, key) : 0.f;
+      const float s = valid ? mask.score(dot[rr], scale, b, h, q0 + r, key) : -INFINITY;
+      row_fold_scored(st[rr], s, vs, dc, valid, lane, keep);
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = warp + rr * kWarps;
+    if (r >= nq) continue;
+    const long row = (long)(b * heads + h) * sq + q0 + r;
+    const float l = row_store<T>(st[rr], o + row * d + c0, dc, lane);
+    if (lane == 0 && c0 == 0) lse[row] = l;
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                const AttnMask& mask, int batch, int heads, int kv_heads, int sq, int sk, int d,
+                float scale, cudaStream_t stream) {
+  const int nc = (d + kWideCols - 1) / kWideCols;
+  dim3 grid((sq + kQRows - 1) / kQRows, heads * nc, batch);
+  flash_fwd_wide_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, mask, heads, kv_heads, sq, sk, d, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q_seg/kv_seg: int32 [B, Sq] / [B, Sk], or null; seed (with the dropout
@@ -446,8 +551,8 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // window 0 = none (the wrapper passes one only with causal); offset: the
 // causal diagonal (Sk - Sq unless the caller gave one); bias: null, or fp32
 // / bf16 (bias_bf16) read at b * sb + h * sh + row * sq + key * sk
-// (AttnMask). bf16 takes the tensor-core kernel (d <= 128), fp32 the
-// CUDA-core one.
+// (AttnMask). d <= 128: bf16 takes the tensor-core kernel, fp32 the
+// CUDA-core one; d > 128: flash_fwd_wide_kernel, either dtype.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               const void* q_seg, const void* kv_seg, int causal, int dropout,
                               unsigned seed, unsigned threshold, float keep_scale, int window,
@@ -460,8 +565,12 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, void*
   const AttnMask mask{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), causal,
                       dropout, seed, threshold, keep_scale, window, bias, bias_bf16, bias_sb,
                       bias_sh, bias_sq, bias_sk, offset};
+  if (d > kMaxHeadDim)
+    return dtype == APEX_BF16
+               ? launch_wide<bf16>(q, k, v, o, l, mask, batch, heads, kv_heads, sq, sk, d, scale, s)
+               : launch_wide<float>(q, k, v, o, l, mask, batch, heads, kv_heads, sq, sk, d, scale,
+                                    s);
   if (dtype == APEX_BF16) {
-    if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
     return d <= 64 ? launch_mma<64>(q, k, v, o, l, mask, batch, heads, kv_heads, sq, sk, d,
                                     scale, s)
                    : launch_mma<128>(q, k, v, o, l, mask, batch, heads, kv_heads, sq, sk, d,

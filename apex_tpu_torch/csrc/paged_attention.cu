@@ -783,6 +783,91 @@ paged_merge_kernel(PagedArgs a) {
   }
 }
 
+// ---- head dims above 128 -------------------------------------------------------
+
+// d > 128 (any d), every branch (fp32 or bf16 over its own pool, either q
+// over an int8 or e4m3 pool, s >= 1, a window): the pool keeps its true d
+// and is read in place. A warp takes one row (query i of group member g of
+// kv head hk in slot b) and one 128-wide chunk of the output's columns (the
+// grid's second axis: kv heads x chunks). It walks the row's visible
+// positions 32 at a time, lane j scoring position p0 + j over the full d
+// (its page through the block table, the k scale folded into the score
+// scale as the split kernels fold it), and folds V's chunk into an online
+// softmax (p times the page's v scale into PV, l summing the unscaled p).
+// Positions run in order, so a row has the same bits alone and in any
+// batch; every chunk of a row computes the same scores. One launch, no
+// split and no merge: a simple kernel; the d <= 128 instances are
+// unchanged. (A warp reading each key row coalesced and reducing the dot
+// across its lanes ran 1.3-2x slower on the H100: PERF.md row 1.)
+constexpr int kWideCols = 128;
+
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads)
+paged_wide_kernel(PagedArgs a) {
+  const int nc = (a.d + kWideCols - 1) / kWideCols;
+  const int rep = a.heads / a.kv_heads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = blockIdx.x * kWarps + warp;
+  const int hk = blockIdx.y / nc, b = blockIdx.z;
+  const int c0 = (blockIdx.y % nc) * kWideCols, dc = min(kWideCols, a.d - c0);
+  if (r >= a.s * rep) return;
+  const int i = r / rep, g = r - i * rep;
+  const int len = max(a.lengths[b], 0);
+  const int qpos = len - a.s + i;
+  const long qoff = (((long)b * a.heads + (long)hk * rep + g) * a.s + i) * a.d;
+  const T* qr = static_cast<const T*>(a.q) + qoff;
+  const int hi = min(qpos, min(len, a.max_pages * a.page_size) - 1);
+  const int lo = a.window > 0 ? max(qpos - a.window + 1, 0) : 0;
+  float m = -INFINITY, l = 0.f, acc[kWideCols / 32];
+#pragma unroll
+  for (int j = 0; j < kWideCols / 32; ++j) acc[j] = 0.f;
+  for (int p0 = lo; p0 <= hi; p0 += 32) {  // warp-uniform
+    const int pos = p0 + lane;
+    const bool valid = pos <= hi;
+    float sc = -INFINITY, v_scale = 1.f;
+    long long base = 0;
+    if (valid) {
+      const int page = a.block_tables[(long)b * a.max_pages + pos / a.page_size];
+      base = (((long long)page * a.kv_heads + hk) * a.page_size + pos % a.page_size) * a.d;
+      const P* kr = static_cast<const P*>(a.k_pages) + base;
+      float dot = 0.f;
+      for (int e = 0; e < a.d; ++e) dot = fmaf(to_f32<T>(qr[e]), to_f32<P>(kr[e]), dot);
+      float score_scale = a.scale;
+      if (a.k_scales != nullptr) {
+        score_scale = a.scale * a.k_scales[(long)page * a.kv_heads + hk];
+        v_scale = a.v_scales[(long)page * a.kv_heads + hk];
+      }
+      sc = __fmul_rn(dot, score_scale);
+    }
+    const float tmax = warp_max(sc);
+    const float m_new = fmaxf(m, tmax);
+    const float alpha = m == -INFINITY ? 0.f : expf(m - m_new);
+    const float p = valid ? expf(sc - m_new) : 0.f;
+    l = l * alpha + warp_sum(p);
+    m = m_new;
+#pragma unroll
+    for (int j = 0; j < kWideCols / 32; ++j) acc[j] *= alpha;
+    const float pv = p * v_scale;
+    for (int j = 0; j < 32; ++j) {
+      const float pj = __shfl_sync(0xffffffffu, pv, j);
+      const long long bj = __shfl_sync(0xffffffffu, base, j);
+      if (pj == 0.f) continue;
+      const P* vr = static_cast<const P*>(a.v_pages) + bj + c0;
+#pragma unroll
+      for (int c4 = 0; c4 < kWideCols / 32; ++c4) {
+        const int c = lane + 32 * c4;
+        if (c < dc) acc[c4] = fmaf(pj, to_f32<P>(vr[c]), acc[c4]);
+      }
+    }
+  }
+  T* out = static_cast<T*>(a.out) + qoff + c0;
+#pragma unroll
+  for (int c4 = 0; c4 < kWideCols / 32; ++c4) {
+    const int c = lane + 32 * c4;
+    if (c < dc) out[c] = from_f32<T>(l == 0.f ? 0.f : acc[c4] / l);
+  }
+}
+
 // ---- launches ----------------------------------------------------------------
 
 // Opt a kernel into the most dynamic shared memory any block of it takes
@@ -849,6 +934,12 @@ int launch_split(const PagedArgs& a, dim3 grid, int rows_last, cudaStream_t st) 
 template <typename T, typename P>
 int run(PagedArgs a, int batch, cudaStream_t st) {
   const int rows = a.s * (a.heads / a.kv_heads);
+  if (a.d > 128) {  // one launch: paged_wide_kernel
+    const int nc = (a.d + kWideCols - 1) / kWideCols;
+    paged_wide_kernel<T, P>
+        <<<dim3((rows + kWarps - 1) / kWarps, a.kv_heads * nc, batch), kThreads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   a.groups = (rows + kBlockRows - 1) / kBlockRows;
   a.block_rows = min(rows, kBlockRows);
   if (a.split_pages < 1 || a.split_pages > kMaxSplitPages || a.grid_splits < 1 || a.d > 128)

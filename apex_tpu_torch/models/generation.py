@@ -6,9 +6,21 @@ slices run: the contiguous cache (``init_cache``, ``layer_cache``,
 ``cached_attention``, banded under a sliding window and with an additive
 bias; the reference's rolling cache is not ported), the paged-cache write
 (``is_paged``, ``update_paged_layer_cache``, with the quantized pool's
-requantize-on-grow append), the greedy token, greedy lock-step
-``generate`` — the token-identity oracle of the serving engine — and
-greedy lock-step ``speculative_generate`` with its ``rollback_cache``.
+requantize-on-grow append), the greedy token, sampling (``filter_logits``,
+``sample_noise``, ``_sample_token``, ``validate_sampling``,
+``decode_loop``), lock-step ``generate`` greedy or sampled — the
+token-identity oracle of the serving engine — beam search
+(``repeat_cache``, ``_gather_beam_cache``, ``beam_search_loop``,
+``generate_beam``) and greedy lock-step ``speculative_generate`` with its
+``rollback_cache``.
+
+Sampling filters as the reference does (temperature, then top-k, then
+top-p against the exclusive cumulative mass) and draws ``argmax(filtered
++ gumbel)``, what ``jax.random.categorical`` computes. The Gumbel noise of
+token ``i`` of stream ``r`` (a batch row, or a serving request) is a
+counter-based hash of ``(seed, r, i)``: draws are scheduling-invariant by
+construction. They follow threefry's distribution, not its bits; ``rng``
+is an int seed (the reference's is a PRNG key).
 
 Cache structure, as in the reference::
 
@@ -67,6 +79,28 @@ def is_static_prefill(lc, s: int) -> bool:
     block then attends with the flash kernel instead of the dense cached
     path."""
     return isinstance(lc["len"], int) and lc["len"] == 0 and s > 1
+
+
+def is_flash_tail(lc, s: int) -> bool:
+    """True when this chunk continues a contiguous cache whose layers are
+    marked ``flash_tail`` (a shared-prefix admission's uncached tail): the
+    block then attends with the flash kernel over the buffer's first ``len
+    + s`` keys, as the cold prefill would, instead of the dense cached
+    path."""
+    return bool(lc.get("flash_tail")) and s > 1
+
+
+def flash_tail_attention(q, lc, s: int, *, window: Optional[int] = None):
+    """The flash kernel over the buffer's keys ``[0, len + s)`` for the
+    ``(b, h, s, d)`` chunk at positions ``[len, len + s)`` (the chunk's K/V
+    already written): causal at the default diagonal, so each row sees
+    the keys the cold prefill shows it, and its output is that prefill's
+    row bit for bit given the same K/V."""
+    from apex_tpu_torch.ops.flash_attention import flash_attention
+
+    t = lc["len"] + s
+    return flash_attention(q, lc["k"][:, :, :t], lc["v"][:, :, :t],
+                           causal=True, window=window)
 
 
 def check_chunk_bounds(cache, s: int, max_position_embeddings: int) -> int:
@@ -246,6 +280,138 @@ def _greedy_token(logits):
     return torch.argmax(logits.float(), dim=-1).to(torch.int32)
 
 
+# --- sampling ------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """The murmur3 finalizer on int64 values in ``[0, 2^32)``."""
+    from apex_tpu_torch.ops.flash_attention import _mul32
+
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def sample_noise(seed: int, streams: torch.Tensor, index,
+                 vocab: int) -> torch.Tensor:
+    """fp32 ``(b, vocab)`` standard Gumbel noise, row ``r`` a function of
+    ``(seed, streams[r], index[r])`` and the column alone: a counter-based
+    hash (murmur3 finalizer rounds over the four, in int64 torch ops, the
+    same bits on the CPU and the card) to a uniform in ``(0, 1)``, then
+    ``-log(-log(u))`` in fp64. ``streams`` are int64 request (or batch-row)
+    ids, ``index`` the token's index in that stream (an int or an int64
+    ``(b,)`` tensor). The reference draws ``jax.random.gumbel`` from
+    ``fold_in(key, i)``; threefry's bits are not reproduced, so the draws
+    follow its distribution, not its values."""
+    from apex_tpu_torch.ops.flash_attention import _mul32
+
+    dev = streams.device
+    streams = streams.to(torch.int64) & _M32
+    index = torch.as_tensor(index, dtype=torch.int64,
+                            device=dev).expand_as(streams) & _M32
+    seed = int(seed)
+    key = _fmix32(_fmix32(streams) ^ (seed & _M32))
+    key = _fmix32((key + _mul32(index, 0x9E3779B1)) & _M32)
+    key = _fmix32(key ^ ((seed >> 32) & _M32))
+    cols = torch.arange(vocab, dtype=torch.int64, device=dev)
+    bits = _fmix32((key[:, None] + _mul32(cols, 0x85EBCA77)[None, :])
+                   & _M32)
+    bits = _fmix32(bits ^ 0x5BD1E995)
+    u = (bits.double() + 0.5) * (1.0 / 4294967296.0)
+    return (-torch.log(-torch.log(u))).float()
+
+
+def filter_logits(logits, *, temperature: float, top_k: Optional[int] = None,
+                  top_p: Optional[float] = None) -> torch.Tensor:
+    """The reference's filtering (``_sample_token``), on fp32 logits:
+    divided by ``temperature``, then under ``top_k`` every logit below the
+    k-th largest set to ``-inf``, then under ``top_p`` every logit below
+    the cutoff of the nucleus: the sorted distribution's smallest prefix
+    whose EXCLUSIVE cumulative mass stays below ``top_p`` (the first token
+    always survives)."""
+    logits = logits.float() / temperature
+    if top_k is not None:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    if top_p is not None:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        mass_before = torch.cumsum(probs, dim=-1) - probs
+        cutoff_idx = (mass_before < top_p).to(torch.int64).sum(
+            dim=-1, keepdim=True) - 1
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+        logits = torch.where(logits < cutoff, float("-inf"), logits)
+    return logits
+
+
+def _sample_token(last_logits, seed, streams, index, *, temperature,
+                  top_k=None, top_p=None):
+    """One token per row of ``(b, V)`` final-position logits: greedy at
+    temperature 0, else ``argmax(filter_logits(...) + noise)`` with the
+    Gumbel noise of :func:`sample_noise` (what ``jax.random.categorical``
+    computes, ``argmax(logits + gumbel)``)."""
+    if not temperature:
+        return _greedy_token(last_logits)
+    logits = filter_logits(last_logits, temperature=temperature, top_k=top_k,
+                           top_p=top_p)
+    noise = sample_noise(seed, streams, index, logits.shape[-1])
+    return torch.argmax(noise.to(logits.device) + logits,
+                        dim=-1).to(torch.int32)
+
+
+def validate_sampling(temperature, top_k, top_p, rng) -> int:
+    """The reference's knob checks; returns the effective seed. ``rng`` is
+    an int seed here (the reference's a PRNG key): sampling needs one, and
+    sampling knobs at temperature 0 raise rather than go unused."""
+    if temperature and rng is None:
+        raise ValueError("sampling (temperature > 0) needs an explicit rng")
+    if not temperature and (top_k is not None or top_p is not None
+                            or rng is not None):
+        raise ValueError("top_k/top_p/rng require temperature > 0 (greedy "
+                         "decoding at temperature=0 ignores them)")
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if rng is not None and not isinstance(rng, int):
+        raise TypeError(f"rng must be an int seed in this port, got "
+                        f"{type(rng).__name__}")
+    return 0 if rng is None else rng
+
+
+def decode_loop(step_apply, prefill_logits, cache, max_new_tokens: int, *,
+                temperature, top_k, top_p, rng, eos_token_id):
+    """The shared decode loop of the decoder-only and encoder-decoder
+    models: ``step_apply(tok (b,), cache) -> (logits (b, 1, V), cache)``.
+    Token ``i`` of batch row ``r`` samples with the noise of stream ``r``,
+    index ``i``; EOS rows keep emitting EOS. Returns the ``(b,
+    max_new_tokens)`` int32 generated tokens."""
+    b = prefill_logits.shape[0]
+    streams = torch.arange(b, dtype=torch.int64,
+                           device=prefill_logits.device)
+
+    def sample(last, i):
+        return _sample_token(last, rng, streams, i, temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+
+    tok = sample(prefill_logits[:, -1], 0)
+    done = (tok == eos_token_id) if eos_token_id is not None else None
+    out = [tok]
+    for i in range(1, max_new_tokens):
+        logits, cache = step_apply(tok, cache)
+        nxt = sample(logits[:, 0], i)
+        if eos_token_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
+            done = done | (nxt == eos_token_id)
+        out.append(nxt)
+        tok = nxt
+    return torch.stack(out, dim=1)
+
+
 def validate_decode_bounds(s0: int, max_new_tokens: int,
                            max_position_embeddings: int, max_len=None) -> int:
     total = s0 + int(max_new_tokens)
@@ -264,16 +430,17 @@ def validate_decode_bounds(s0: int, max_new_tokens: int,
 @torch.no_grad()
 def generate(model, prompt_ids, max_new_tokens: int, *,
              max_len: Optional[int] = None, temperature: float = 0.0,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             rng: Optional[int] = None,
              eos_token_id: Optional[int] = None):
-    """Greedy lock-step decoding: prefill the prompt (flash kernel), then
-    ``max_new_tokens - 1`` single-token steps over the contiguous cache.
-    Returns ``(batch, prompt_len + max_new_tokens)`` int32 ids, prompt
-    included; after ``eos_token_id`` a row keeps emitting EOS."""
-    if temperature:
-        raise NotImplementedError(
-            "sampled decode (temperature > 0) is not ported yet (ROADMAP "
-            "queue A item 6: sampled decode); JAX threefry draws cannot be "
-            "matched, so it will be held to scheduling invariance")
+    """Lock-step decoding: prefill the prompt (flash kernel), then
+    ``max_new_tokens - 1`` single-token steps over the contiguous cache,
+    greedy at temperature 0, else sampled (``temperature``, ``top_k``,
+    ``top_p`` and an int seed ``rng``; row ``r``'s token ``i`` draws the
+    noise of stream ``r``, index ``i``). Returns ``(batch, prompt_len +
+    max_new_tokens)`` int32 ids, prompt included; after ``eos_token_id`` a
+    row keeps emitting EOS."""
+    rng = validate_sampling(temperature, top_k, top_p, rng)
     cfg = model.config
     device = model.device
     prompt_ids = torch.as_tensor(prompt_ids, device=device).to(torch.int32)
@@ -282,18 +449,151 @@ def generate(model, prompt_ids, max_new_tokens: int, *,
                                    cfg.max_position_embeddings, max_len)
     cache = init_cache(cfg, b, t_max, device=device)
     logits, cache = model(prompt_ids, cache=cache)
-    tok = _greedy_token(logits[:, -1])
-    done = (tok == eos_token_id) if eos_token_id is not None else None
-    out = [tok]
-    for _ in range(1, max_new_tokens):
-        logits, cache = model(tok[:, None], cache=cache)
-        nxt = _greedy_token(logits[:, 0])
+    gen = decode_loop(lambda tok, c: model(tok[:, None], cache=c), logits,
+                      cache, max_new_tokens, temperature=temperature,
+                      top_k=top_k, top_p=top_p, rng=rng,
+                      eos_token_id=eos_token_id)
+    return torch.cat([prompt_ids, gen], dim=1)
+
+
+# --- beam search -------------------------------------------------------------
+
+
+def repeat_cache(cache, times: int):
+    """Every per-sequence cache tensor repeated ``times`` along the leading
+    dim (rows ``[b0 x times, b1 x times, ...]``): beam search prefills once
+    at batch b and fans the cache out to b * W."""
+    def rep(t):
+        return (t.repeat_interleave(times, dim=0)
+                if torch.is_tensor(t) and t.ndim >= 1 else t)
+
+    return dict(cache, layers=[{k: rep(v) for k, v in lc.items()}
+                               for lc in cache["layers"]])
+
+
+def _gather_beam_cache(cache, parent, batch: int, num_beams: int):
+    """Every ``(batch * num_beams)``-leading cache tensor reordered by the
+    chosen parents: surviving beams inherit their parent's K/V (and
+    extras such as T5's cross ``ck``/``cv``)."""
+    flat = (torch.arange(batch, device=parent.device)[:, None] * num_beams
+            + parent).reshape(-1)
+    bw = batch * num_beams
+
+    def reorder(t):
+        return (t[flat] if torch.is_tensor(t) and t.ndim >= 1
+                and t.shape[0] == bw else t)
+
+    return dict(cache, layers=[{k: reorder(v) for k, v in lc.items()}
+                               for lc in cache["layers"]])
+
+
+def _gathered_log_softmax(logits):
+    return torch.log_softmax(logits.float(), dim=-1)
+
+
+def _top_k(x, k: int):
+    """``lax.top_k`` over the last axis: the k largest, the lower index
+    first among equal values (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def beam_search_loop(step_apply, prefill_logits, cache, max_new_tokens: int,
+                     *, batch: int, num_beams: int, eos_token_id=None,
+                     length_penalty: float = 1.0, length_offset: int = 0):
+    """Beam search over a ``(batch * num_beams)``-row cache, the
+    reference's: beams fold into the batch, so a step is one batched
+    forward and a reorder a gather over the cache's leading dim; the
+    (token, parent) backpointers unwind after the loop. Finished beams
+    extend only with EOS at no added score. The final ranking divides by
+    ``(length_offset + gen_length) ** length_penalty``, ``gen_length`` the
+    generated tokens up to and including the first EOS. Returns
+    ``(sequences (batch, num_beams, max_new_tokens), scores (batch,
+    num_beams))``, best beam first. ``prefill_logits`` hold the prompt's
+    last logits replicated per beam (rows ``[b0 x W, b1 x W, ...]``)."""
+    b, w = batch, num_beams
+    neg = -1e30            # -inf breaks top_k ties; large-negative is safe
+    logp0 = _gathered_log_softmax(prefill_logits[:, -1])
+    vocab = logp0.shape[-1]
+    dev = logp0.device
+    logp0 = logp0.reshape(b, w, vocab)
+    # every beam starts identical: only beam 0 may seed
+    seed_mask = torch.where(torch.arange(w, device=dev)[None, :, None] == 0,
+                            0.0, neg)
+    scores, idx = _top_k((logp0 + seed_mask).reshape(b, w * vocab), w)
+    tok = tok0 = (idx % vocab).to(torch.int32)
+    done = ((tok == eos_token_id) if eos_token_id is not None
+            else torch.zeros((b, w), dtype=torch.bool, device=dev))
+    toks, parents = [], []
+    if eos_token_id is not None:
+        eos_only = torch.full((vocab,), neg, device=dev)
+        eos_only[eos_token_id] = 0.0
+    for _ in range(max_new_tokens - 1):
+        logits, cache = step_apply(tok.reshape(b * w), cache)
+        logp = _gathered_log_softmax(logits[:, 0]).reshape(b, w, vocab)
         if eos_token_id is not None:
-            nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
-            done = done | (nxt == eos_token_id)
-        out.append(nxt)
-        tok = nxt
-    return torch.cat([prompt_ids, torch.stack(out, dim=1)], dim=1)
+            # finished beams: EOS-extension only, at no cost
+            logp = torch.where(done[..., None], eos_only[None, None], logp)
+        cand = (scores[..., None] + logp).reshape(b, w * vocab)
+        scores, idx = _top_k(cand, w)
+        tok = (idx % vocab).to(torch.int32)
+        parent = idx // vocab
+        done = torch.gather(done, 1, parent)
+        if eos_token_id is not None:
+            done = done | (tok == eos_token_id)
+        cache = _gather_beam_cache(cache, parent, b, w)
+        toks.append(tok)
+        parents.append(parent)
+    # unwind the backpointers
+    seq = [None] * max_new_tokens
+    beam_idx = torch.arange(w, device=dev)[None].expand(b, w)
+    for t in range(max_new_tokens - 1, 0, -1):
+        seq[t] = torch.gather(toks[t - 1], 1, beam_idx)
+        beam_idx = torch.gather(parents[t - 1], 1, beam_idx)
+    seq[0] = torch.gather(tok0, 1, beam_idx)
+    seqs = torch.stack(seq, dim=-1)                          # (b, w, T)
+    if eos_token_id is not None and length_penalty:
+        is_eos = seqs == eos_token_id
+        # the length up to and including the first EOS; all when none
+        first_eos = is_eos.to(torch.int32).argmax(dim=-1) + 1
+        lengths = torch.where(is_eos.any(dim=-1), first_eos, max_new_tokens)
+    else:
+        lengths = torch.full((b, w), max_new_tokens, device=dev)
+    lengths = lengths + length_offset
+    final = scores / (lengths.float() ** length_penalty)
+    order = torch.argsort(-final, dim=1, stable=True)
+    seqs = torch.gather(seqs, 1, order[..., None].expand_as(seqs))
+    return seqs, torch.gather(final, 1, order)
+
+
+@torch.no_grad()
+def generate_beam(model, prompt_ids, max_new_tokens: int, *, num_beams: int,
+                  eos_token_id: Optional[int] = None,
+                  length_penalty: float = 1.0,
+                  max_len: Optional[int] = None):
+    """Beam-search decoding for the decoder-only families: prefill the
+    prompt once at batch b, replicate the cache and the last logits per
+    beam, run :func:`beam_search_loop`. Returns ``(sequences (b,
+    num_beams, prompt + max_new_tokens), scores (b, num_beams))``, best
+    beam first, prompt included."""
+    cfg = model.config
+    device = model.device
+    prompt_ids = torch.as_tensor(prompt_ids, device=device).to(torch.int32)
+    b, s0 = prompt_ids.shape
+    if num_beams < 1:
+        raise ValueError("num_beams must be >= 1")
+    t_max = validate_decode_bounds(s0, max_new_tokens,
+                                   cfg.max_position_embeddings, max_len)
+    cache = init_cache(cfg, b, t_max, device=device)
+    logits, cache = model(prompt_ids, cache=cache)
+    cache = repeat_cache(cache, num_beams)
+    logits = logits[:, -1:].repeat_interleave(num_beams, dim=0)
+    seqs, scores = beam_search_loop(
+        lambda tok, c: model(tok[:, None], cache=c), logits, cache,
+        max_new_tokens, batch=b, num_beams=num_beams,
+        eos_token_id=eos_token_id, length_penalty=length_penalty)
+    prompt_rep = prompt_ids[:, None].expand(b, num_beams, s0)
+    return torch.cat([prompt_rep, seqs], dim=-1), scores
 
 
 # --- speculative decoding ----------------------------------------------------

@@ -42,6 +42,8 @@ from torch import nn
 from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.models.generation import (advance_cache, cached_attention,
                                               check_chunk_bounds, is_paged,
+                                              flash_tail_attention,
+                                              is_flash_tail,
                                               is_static_prefill, layer_cache,
                                               update_layer_cache,
                                               update_paged_layer_cache)
@@ -148,6 +150,8 @@ class ParallelDecoderBlock(nn.Module):
             if prefill:
                 ctx = flash_attention(to_bhsd(q), to_bhsd(k), to_bhsd(v),
                                       causal=True)
+            elif is_flash_tail(cache, s):
+                ctx = flash_tail_attention(to_bhsd(q), cache, s)
             else:
                 ctx = cached_attention(to_bhsd(q), cache)
         elif (ring := cp_ring(cfg)) is not None:

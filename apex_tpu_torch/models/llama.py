@@ -52,6 +52,8 @@ from torch.utils.checkpoint import checkpoint
 from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.models.generation import (advance_cache, cached_attention,
                                               check_chunk_bounds, is_paged,
+                                              flash_tail_attention,
+                                              is_flash_tail,
                                               is_static_prefill, layer_cache,
                                               update_layer_cache,
                                               update_paged_layer_cache)
@@ -235,6 +237,8 @@ class LlamaDecoderBlock(nn.Module):
             cache = update_layer_cache(cache, k, v)
             if prefill:
                 ctx = flash_attention(q, k, v, causal=True, window=window)
+            elif is_flash_tail(cache, s):
+                ctx = flash_tail_attention(q, cache, s, window=window)
             else:
                 ctx = cached_attention(q, cache, window=window)
         elif (ring := cp_ring(cfg)) is not None:

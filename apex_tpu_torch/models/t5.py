@@ -444,19 +444,33 @@ def _validate_t5_decode(cfg: T5Config, max_new_tokens: int) -> None:
 
 @torch.no_grad()
 def t5_generate(model: T5Model, encoder_ids, max_new_tokens: int, *,
-                temperature: float = 0.0,
+                temperature: float = 0.0, top_k: Optional[int] = None,
+                top_p: Optional[float] = None, rng: Optional[int] = None,
                 eos_token_id: Optional[int] = None):
-    """Greedy decode: encode once, prefill the ``decoder_start_token_id``
-    (a one-token chunk, so the dense cached path), then
-    ``max_new_tokens - 1`` single-token steps; after ``eos_token_id`` a row
-    keeps emitting EOS. Returns the ``(batch, max_new_tokens)`` int32
-    decoder tokens (the start token not included)."""
-    if temperature:
-        raise NotImplementedError(
-            "sampled decode (temperature > 0) is not ported yet (ROADMAP "
-            "queue A item 6: sampled decode)")
+    """Encode once, prefill the ``decoder_start_token_id`` (a one-token
+    chunk, so the dense cached path), then ``max_new_tokens - 1``
+    single-token steps through ``generation.decode_loop``: greedy at
+    temperature 0, else sampled as ``generate`` samples (an int seed
+    ``rng``); after ``eos_token_id`` a row keeps emitting EOS. Returns the
+    ``(batch, max_new_tokens)`` int32 decoder tokens (the start token not
+    included)."""
+    from apex_tpu_torch.models.generation import (decode_loop,
+                                                  validate_sampling)
+
     cfg = model.config
     _validate_t5_decode(cfg, max_new_tokens)
+    rng = validate_sampling(temperature, top_k, top_p, rng)
+    enc, logits, cache = _t5_prefill(model, encoder_ids, max_new_tokens)
+    return decode_loop(lambda tok, c: model.decode(tok[:, None], enc, c),
+                       logits, cache, max_new_tokens,
+                       temperature=temperature, top_k=top_k, top_p=top_p,
+                       rng=rng, eos_token_id=eos_token_id)
+
+
+def _t5_prefill(model: T5Model, encoder_ids, max_new_tokens: int):
+    """The encoder output, the start token's logits and the decoder cache
+    after it, at the encoder batch."""
+    cfg = model.config
     encoder_ids = torch.as_tensor(encoder_ids, device=model.device).to(
         torch.int32)
     b = encoder_ids.shape[0]
@@ -465,15 +479,32 @@ def t5_generate(model: T5Model, encoder_ids, max_new_tokens: int, *,
     start = torch.full((b, 1), cfg.decoder_start_token_id, dtype=torch.int32,
                        device=model.device)
     logits, cache = model.decode(start, enc, cache)
-    tok = _greedy_token(logits[:, -1])
-    done = (tok == eos_token_id) if eos_token_id is not None else None
-    out = [tok]
-    for _ in range(1, max_new_tokens):
-        logits, cache = model.decode(tok[:, None], enc, cache)
-        nxt = _greedy_token(logits[:, 0])
-        if eos_token_id is not None:
-            nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
-            done = done | (nxt == eos_token_id)
-        out.append(nxt)
-        tok = nxt
-    return torch.stack(out, dim=1)
+    return enc, logits, cache
+
+
+@torch.no_grad()
+def t5_beam_search(model: T5Model, encoder_ids, max_new_tokens: int, *,
+                   num_beams: int, eos_token_id: Optional[int] = None,
+                   length_penalty: float = 1.0):
+    """Beam-search decode of the encoder-decoder family: encode and prefill
+    the start token once at batch b, replicate the cache (its cross
+    ``ck``/``cv`` included) and the encoder output per beam, run
+    ``generation.beam_search_loop`` (``length_offset`` 0: the start token
+    is not counted). Returns ``(sequences (b, num_beams, max_new_tokens),
+    scores (b, num_beams))``, best beam first."""
+    from apex_tpu_torch.models.generation import (beam_search_loop,
+                                                  repeat_cache)
+
+    cfg = model.config
+    if num_beams < 1:
+        raise ValueError("num_beams must be >= 1")
+    _validate_t5_decode(cfg, max_new_tokens)
+    enc, logits, cache = _t5_prefill(model, encoder_ids, max_new_tokens)
+    b = enc.shape[0]
+    cache = repeat_cache(cache, num_beams)
+    logits = logits.repeat_interleave(num_beams, dim=0)
+    enc_rep = enc.repeat_interleave(num_beams, dim=0)
+    return beam_search_loop(
+        lambda tok, c: model.decode(tok[:, None], enc_rep, c), logits, cache,
+        max_new_tokens, batch=b, num_beams=num_beams,
+        eos_token_id=eos_token_id, length_penalty=length_penalty)

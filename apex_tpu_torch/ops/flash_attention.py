@@ -59,7 +59,11 @@ On the card each kernel routes by dtype: bf16 runs on the tensor cores
 (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
 ``flash_bwd_dkdv_mma_kernel``), fp32 on the CUDA cores
 (``flash_fwd_kernel``, ``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``),
-each under the same launch names.
+each under the same launch names. A head dim above 128 (any d, as the
+reference pads to a multiple of 128) runs ``flash_fwd_wide_kernel``,
+``flash_bwd_dq_wide_kernel`` and ``flash_bwd_dkdv_wide_kernel`` in either
+dtype: the output's 128-column chunks on the grid, the scores formed over
+the full d a chunk at a time, on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -347,9 +351,6 @@ def _flash_fwd_kernel(q, k, v, scale: float, masking: Masking = CAUSAL,
                       bias=None):
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d > 128:
-        raise NotImplementedError(f"flash kernel takes head_dim <= 128, "
-                                  f"got {d}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
@@ -451,10 +452,6 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, scale: float,
 
 
 def _bwd_operands(q, k, v, do, lse, delta, masking, bias):
-    d = q.shape[3]
-    if d > 128:
-        raise NotImplementedError(f"flash kernel takes head_dim <= 128, "
-                                  f"got {d}")
     if not (q.dtype == k.dtype == v.dtype == do.dtype):
         raise TypeError(f"q/k/v/do dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}, {do.dtype}")

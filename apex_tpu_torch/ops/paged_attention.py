@@ -31,6 +31,10 @@ launches from decode steps. A call counts once under its name, though the
 kernel is two launches: the split pass and the merge
 (:func:`paged_split_plan` says how a slot's page walk is split).
 
+A head dim above 128 runs ``paged_wide_kernel`` (one launch, the pool read
+in place at its true d, a warp a row and a 128-column chunk of the output,
+every branch above) under the same launch names.
+
 A tensor on the CPU takes the twin; a CUDA tensor always takes the kernel.
 """
 
@@ -188,9 +192,6 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
     allocated here."""
     _, kv, page_size, d = k_pages.shape
     b, h, s = q.shape[0], q.shape[1], q.shape[2]
-    if d > 128:
-        raise NotImplementedError(
-            f"paged kernel takes head_dim <= 128, got d={d}")
     quant = k_scales is not None
     if k_pages.dtype != v_pages.dtype or (
             not quant and q.dtype != k_pages.dtype):
@@ -205,9 +206,10 @@ def _paged_kernel(q, k_pages, v_pages, block_tables, lengths, scale,
         return out
     plan = paged_split_plan(page_size, d, s, h // kv, int(window or 0),
                             bt.shape[1])
-    part = torch.empty(b * kv * plan.groups * plan.grid_splits
-                       * plan.block_rows * (d + 2), dtype=torch.float32,
-                       device=q.device)
+    # (a head dim above 128 runs the one-launch wide kernel: no partials)
+    part = torch.empty(0 if d > 128 else b * kv * plan.groups
+                       * plan.grid_splits * plan.block_rows * (d + 2),
+                       dtype=torch.float32, device=q.device)
     P, I, F = _build.P, _build.I, _build.F
     shape = (b, h, kv, s, page_size, d, bt.shape[1], float(scale),
              int(window or 0), plan.split_pages, plan.grid_splits)

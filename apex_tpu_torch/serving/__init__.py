@@ -1,18 +1,31 @@
-"""Paged-KV continuous-batching serving (greedy, single GPU), over a
-full-precision or a quantized page pool, with in-engine speculative decode
-and chunked prefill."""
+"""Paged-KV continuous-batching serving on one GPU: greedy and sampled
+decode over a full-precision or quantized page pool, the shared-prefix
+cache, in-engine speculative decode and chunked prefill, driven by the
+streaming :class:`ServingFrontend` (priorities, deadlines, preemption,
+backpressure); ``PagedDecodeEngine.run`` is a closed-loop wrapper over
+it."""
 
-from apex_tpu_torch.serving.kv_pool import (alloc_slot, drop_slot_pages,
+from apex_tpu_torch.serving.frontend import (ServingError, ServingFrontend,
+                                             StreamHandle)
+from apex_tpu_torch.serving.kv_pool import (alloc_slot, alloc_slot_shared,
+                                            defrag, defrag_map,
+                                            drop_slot_pages,
                                             free_page_count, free_slot,
                                             init_paged_cache,
                                             max_slots_for_pool_bytes,
                                             page_bytes, pages_for,
                                             prefill_into_pages, release_slot)
+from apex_tpu_torch.serving.policy import PriorityDeadlinePolicy
+from apex_tpu_torch.serving.prefix_cache import PrefixCache
 from apex_tpu_torch.serving.scheduler import (PagedDecodeEngine, Request,
-                                              generate_paged, prompt_bucket)
+                                              generate_paged,
+                                              make_shared_admit,
+                                              prompt_bucket)
 
-__all__ = ["PagedDecodeEngine", "Request", "alloc_slot", "drop_slot_pages",
-           "free_page_count", "free_slot", "generate_paged",
-           "init_paged_cache",
+__all__ = ["PagedDecodeEngine", "PrefixCache", "PriorityDeadlinePolicy",
+           "Request", "ServingError", "ServingFrontend", "StreamHandle",
+           "alloc_slot", "alloc_slot_shared", "defrag", "defrag_map",
+           "drop_slot_pages", "free_page_count", "free_slot",
+           "generate_paged", "init_paged_cache", "make_shared_admit",
            "max_slots_for_pool_bytes", "page_bytes", "pages_for",
            "prefill_into_pages", "prompt_bucket", "release_slot"]

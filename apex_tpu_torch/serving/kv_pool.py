@@ -1,10 +1,14 @@
-"""Paged KV pool: page-granular cache storage, block tables and the free
-stack (unshared), full-precision or quantized.
+"""Paged KV pool: page-granular cache storage, block tables, the free
+stack and page sharing, full-precision or quantized.
 
 Counterpart of ``apex_tpu/serving/kv_pool.py`` (``init_paged_cache``,
-``alloc_slot``, ``release_slot``, ``free_slot``, ``drop_slot_pages``,
-``prefill_into_pages``, ``pages_for``, ``free_page_count``, ``page_bytes``,
-``max_slots_for_pool_bytes``). Layout::
+``alloc_slot``, ``alloc_slot_shared``, ``release_slot``, ``free_slot``,
+``drop_slot_pages``, ``push_free_pages``, ``defrag_map``, ``defrag``,
+``observe_pool``,
+``prefill_into_pages``, ``pages_for``, ``free_page_count``,
+``page_bytes``, ``max_slots_for_pool_bytes``; the host tier's
+``gather_pages``/``promote_pages``/``evict_pages`` are not ported).
+Layout::
 
     pcache = {
       "layers": [{"k_pages": (num_pages, kv, page_size, d),
@@ -15,9 +19,17 @@ Counterpart of ``apex_tpu/serving/kv_pool.py`` (``init_paged_cache``,
       "block_tables": (num_slots, max_pages_per_seq) int32,   # device
       "len":          (num_slots,) int32,  # tokens written per slot, device
       "alloc_pages":  (num_slots,) int32,  # pages OWNED per slot, host
+      "shared_pages": (num_slots,) int32,  # leading SHARED entries, host
+      "page_ref":     (num_pages,) int32,  # slots reading a shared page, host
       "free_stack":   (num_pages,) int32,  # stack[0:free_top] free, host
       "free_top":     int,                 # host
     }
+
+A slot's row is ``[shared cached pages | private pages | null...]``: the
+first ``shared_pages[slot]`` entries are prefix-cache pages the slot only
+reads (every write lands at or past the slot's length, which is past
+them), and ``page_ref`` counts their readers; the prefix cache frees a
+cached page only at refcount 0.
 
 The page pool, block tables and lengths live on the device, where the
 kernels read them; the free-list bookkeeping that only the host scheduler
@@ -118,6 +130,8 @@ def init_paged_cache(config, num_slots: int, *, num_pages: int,
                                     dtype=torch.int32, device=device),
         "len": torch.zeros((num_slots,), dtype=torch.int32, device=device),
         "alloc_pages": torch.zeros((num_slots,), dtype=torch.int32),
+        "shared_pages": torch.zeros((num_slots,), dtype=torch.int32),
+        "page_ref": torch.zeros((num_pages,), dtype=torch.int32),
         # pages 1..num_pages-1 free; popped from the top of the stack
         "free_stack": torch.arange(1, num_pages + 1,
                                    dtype=torch.int32) % num_pages,
@@ -127,6 +141,24 @@ def init_paged_cache(config, num_slots: int, *, num_pages: int,
 
 def free_page_count(cache) -> int:
     return cache["free_top"]
+
+
+def observe_pool(cache, labels: Optional[dict] = None) -> dict:
+    """Publish the pool's health gauges, as the reference's:
+    ``kv_pool.free_pages``, ``kv_pool.pages_total`` (usable: the null page
+    left out), ``kv_pool.shared_pages_active`` (pages a live slot shares)
+    and ``kv_pool.page_refs_total``; host reads only. ``labels`` keeps two
+    engines' pools apart. Returns the values."""
+    from apex_tpu_torch.utils import metrics
+
+    refs = cache["page_ref"]
+    vals = {"kv_pool.free_pages": int(cache["free_top"]),
+            "kv_pool.pages_total": num_pages_of(cache) - 1,
+            "kv_pool.shared_pages_active": int((refs > 0).sum()),
+            "kv_pool.page_refs_total": int(refs.sum())}
+    for name, v in vals.items():
+        metrics.gauge(name, labels=labels).set(v)
+    return vals
 
 
 def is_quantized(cache) -> bool:
@@ -164,33 +196,81 @@ def alloc_slot(cache, slot: int, n_pages: int):
     row = row.to(cache["block_tables"].device)
     cache["block_tables"][slot] = row
     cache["alloc_pages"][slot] = n_pages
+    cache["shared_pages"][slot] = 0
     _reset_page_scales(cache, row.long())
     return cache
 
 
-def release_slot(cache, slot: int, keep):
-    """Retire slot ``slot``: every owned table entry with ``keep[j]`` False
-    returns to the free stack (in table order); entries with ``keep[j]``
-    True leave the slot without touching the stack. Resets the slot's row,
-    length and ownership."""
-    row = cache["block_tables"][slot].cpu()
-    idx = torch.arange(row.shape[0])
-    keep = torch.as_tensor(keep, dtype=torch.bool)
-    freeable = (idx < int(cache["alloc_pages"][slot])) & ~keep & (row != 0)
-    pages = row[freeable]
+def alloc_slot_shared(cache, slot: int, shared_row, n_shared: int,
+                      n_private: int):
+    """Install slot ``slot``'s row as ``[shared cached pages | freshly
+    popped private pages | null...]``: the first ``n_shared`` entries come
+    from ``shared_row`` (pages the prefix cache holds: refcount +1 each,
+    not popped), the next ``n_private`` pop off the free stack as in
+    :func:`alloc_slot`. Only the private pages' scales are zeroed: shared
+    pages keep their scales. The caller ensures ``free_page_count(cache)
+    >= n_private``."""
+    top = cache["free_top"]
+    max_pages = cache["block_tables"].shape[1]
+    if n_private > top:
+        raise ValueError(f"alloc of {n_private} pages with {top} free")
+    if n_shared + n_private > max_pages:
+        raise ValueError(f"{n_shared} + {n_private} pages exceed "
+                         f"max_pages_per_seq={max_pages}")
+    shared = torch.as_tensor(shared_row, dtype=torch.int32).cpu()[:n_shared]
+    row = torch.zeros((max_pages,), dtype=torch.int32)
+    row[:n_shared] = shared
+    priv = cache["free_stack"][top - n_private:top].flip(0)
+    row[n_shared:n_shared + n_private] = priv
+    cache["free_top"] = top - n_private
+    cache["block_tables"][slot] = row.to(cache["block_tables"].device)
+    cache["alloc_pages"][slot] = n_private
+    cache["shared_pages"][slot] = n_shared
+    cache["page_ref"][shared.long()] += 1
+    _reset_page_scales(cache, priv.long().to(cache["block_tables"].device))
+    return cache
+
+
+def push_free_pages(cache, pages):
+    """Push the listed physical pages onto the free stack, in order (the
+    prefix cache's LRU eviction returns refcount-0 pages this way)."""
+    pages = torch.as_tensor(pages, dtype=torch.int32).reshape(-1).cpu()
     top = cache["free_top"]
     cache["free_stack"][top:top + pages.shape[0]] = pages
     cache["free_top"] = top + pages.shape[0]
+    return cache
+
+
+def release_slot(cache, slot: int, keep):
+    """Retire slot ``slot``: every table entry in its shared + owned range
+    with ``keep[j]`` False returns to the free stack (in table order);
+    entries with ``keep[j]`` True leave the slot without touching the
+    stack (they are, or just became, prefix-cache property). The leading
+    ``shared_pages[slot]`` entries also drop their ``page_ref`` by one.
+    Entries a sliding window already dropped (null) are skipped. Resets
+    the slot's row, length, ownership and sharing."""
+    row = cache["block_tables"][slot].cpu()
+    idx = torch.arange(row.shape[0])
+    keep = torch.as_tensor(keep, dtype=torch.bool)
+    sh = int(cache["shared_pages"][slot])
+    total = sh + int(cache["alloc_pages"][slot])
+    freeable = (idx < total) & ~keep & (row != 0)
+    push_free_pages(cache, row[freeable])
+    shared = row[(idx < sh) & (row != 0)]
+    cache["page_ref"][shared.long()] -= 1
     cache["block_tables"][slot] = 0
     cache["len"][slot] = 0
     cache["alloc_pages"][slot] = 0
+    cache["shared_pages"][slot] = 0
     return cache
 
 
 def free_slot(cache, slot: int):
     """Retire slot ``slot`` and push ALL its owned pages (not only those
-    its length reached) back onto the free stack."""
-    keep = torch.zeros((cache["block_tables"].shape[1],), dtype=torch.bool)
+    its length reached) back onto the free stack; its shared leading
+    entries stay cache property and only drop their refcount."""
+    keep = torch.arange(cache["block_tables"].shape[1]) < int(
+        cache["shared_pages"][slot])
     return release_slot(cache, slot, keep)
 
 
@@ -215,12 +295,60 @@ def drop_slot_pages(cache, slot: int, upto: int):
     return cache
 
 
-def prefill_into_pages(cache, slot: int, contig_layers, s0: int):
+def defrag_map(cache, extra_live=None):
+    """Compact the live pages to the low end of the pool (stable order),
+    rebuild the free stack from actual liveness and return ``(cache,
+    new_idx)``, ``new_idx[old_page] = new_page``: the remap a host-side
+    prefix cache follows. A page no slot's table reaches returns to the
+    free stack even if an earlier free miscounted (a leak collector).
+    ``extra_live``: a ``(num_pages,)`` bool mask of pages live for
+    reasons no table shows (the prefix cache's refcount-0 pages). A page's
+    scales move with it, so its contents stay bit-identical."""
+    bt = cache["block_tables"].cpu().long()
+    num_pages = num_pages_of(cache)
+    max_pages = bt.shape[1]
+    n_used = (cache["shared_pages"] + cache["alloc_pages"]).long()
+    used = torch.arange(max_pages)[None, :] < n_used[:, None]
+    live = torch.zeros((num_pages,), dtype=torch.bool)
+    live[torch.where(used, bt, 0)] = True
+    if extra_live is not None:
+        live |= torch.as_tensor(extra_live, dtype=torch.bool).cpu()
+    live[0] = True                               # the null page stays 0
+    n_live = int(live.sum())
+    li = live.to(torch.int64)
+    new_idx = torch.where(live, torch.cumsum(li, 0) - 1,
+                          n_live + torch.cumsum(1 - li, 0) - 1)
+    old_of_new = torch.empty_like(new_idx)
+    old_of_new[new_idx] = torch.arange(num_pages)
+    dev = cache["block_tables"].device
+    perm = old_of_new.to(dev)
+    for lc in cache["layers"]:
+        for key in lc:
+            lc[key].copy_(lc[key][perm])
+    cache["block_tables"].copy_(torch.where(used, new_idx[bt], 0).to(
+        torch.int32).to(dev))
+    cache["page_ref"] = cache["page_ref"][old_of_new]
+    idx = torch.arange(num_pages)
+    cache["free_stack"] = torch.where(idx < num_pages - n_live, n_live + idx,
+                                      0).to(torch.int32)
+    cache["free_top"] = num_pages - n_live
+    return cache, new_idx.to(torch.int32)
+
+
+def defrag(cache, extra_live=None):
+    """:func:`defrag_map` without the remap."""
+    return defrag_map(cache, extra_live)[0]
+
+
+def prefill_into_pages(cache, slot: int, contig_layers, s0: int, *,
+                       start: int = 0):
     """Scatter a contiguous prefill cache (per-layer ``k``/``v`` of shape
     ``(1, kv, len_bucket, d)``) into slot ``slot``'s allocated pages and
     set its length to ``s0``. Position ``p`` lands in table entry
     ``p // page_size`` at offset ``p % page_size``; bucket padding
-    (``p >= s0``) goes to the null page.
+    (``p >= s0``) goes to the null page, and so do the positions below
+    ``start``: a shared-prefix admission writes only its uncached tail,
+    never the shared pages it reads.
 
     A quantized pool quantizes on write: each written table entry's scale
     per kv head is SET (alloc zeroed it) to the amax of its valid tokens
@@ -230,7 +358,7 @@ def prefill_into_pages(cache, slot: int, contig_layers, s0: int):
     max_pages = bt.shape[1]
     len_bucket = contig_layers[0]["k"].shape[2]
     pos = torch.arange(len_bucket, device=bt.device)
-    valid = pos < s0
+    valid = (pos >= start) & (pos < s0)
     row = bt[slot].long()
     phys = torch.where(valid, row[(pos // ps).clamp(0, max_pages - 1)], 0)
     off = pos % ps

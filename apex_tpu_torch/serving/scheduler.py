@@ -1,24 +1,25 @@
-"""Continuous-batching greedy decode engine over the paged KV pool.
+"""Continuous-batching decode engine over the paged KV pool.
 
 Counterpart of ``apex_tpu/serving/scheduler.py`` (``Request``,
-``prompt_bucket``, ``make_prefill_chunk``, ``PagedDecodeEngine``,
-``generate_paged``) with the host loop of ``apex_tpu/serving/frontend.py``
-reduced to its closed FIFO form: every request is queued at the start, in
-order; no prefix cache, preemption, eviction or defrag.
+``prompt_bucket``, ``make_shared_admit``, ``make_prefill_chunk``,
+``PagedDecodeEngine``, ``generate_paged``). The engine owns the STATE (the
+pool, the prefix cache, the device programs, the observability identity);
+the host scheduling loop is :class:`~apex_tpu_torch.serving.frontend.
+ServingFrontend`, and :meth:`PagedDecodeEngine.run` is a thin closed-loop
+wrapper over it, as the reference's is, so ``run()`` takes the streaming
+server's code path.
 
 A fixed array of ``num_slots`` decode slots advances one token per engine
 step. Admission prefills a prompt through the model's contiguous flash
 path at its page-rounded bucket, scatters the K/V into freshly allocated
-pages and takes the greedy first token. A decode chunk runs ``sync_every``
+pages and takes the first token. A decode chunk runs ``sync_every``
 single-token steps over all slots; done and idle slots keep their length
-frozen and emit the EOS fill. The loop is the reference pump's, in its
+frozen and emit the EOS fill. The frontend's pump runs the reference's
 order: dispatch the next chunk, then harvest the previous one (retire
-finished slots, whose pages return to the free stack at once), feed the
-mid-prefill slots, and admit queued requests into the vacancies while the
-free pages cover each one's whole demand, ``pages_for(prompt +
-max_new_tokens)``, head-of-line. A slot that finishes in chunk N is thus
-harvested after chunk N + 1 ran with it done, and its successor joins
-chunk N + 2, as in the reference.
+finished slots), drop window pages, feed the mid-prefill slots, and admit
+queued requests into the vacancies, head-of-line in the policy's order.
+A slot that finishes in chunk N is thus harvested after chunk N + 1 ran
+with it done, and its successor joins chunk N + 2, as in the reference.
 
 The order is there for token parity with the reference, not for overlap.
 In eager PyTorch the harvest's read of chunk N's tokens is queued on the
@@ -28,6 +29,26 @@ refill it. What the order fixes is which decode chunks run between a
 mid-prefill slot's pieces: over a quantized pool each of them writes at
 the slot's frozen length and may requantize the page the next piece lands
 on, so any other order changes that slot's tokens.
+
+Sampled decode (``temperature``, ``top_k``, ``top_p`` and an int seed
+``rng``) draws request ``r``'s token ``i`` with the noise of stream ``r``,
+index ``i`` (``models/generation.sample_noise``), so its outputs are
+SCHEDULING-INVARIANT: they depend on the request and the seed, not on the
+slot, the step or the batch around it; across a preemption the draws
+continue (a resume continues the stream at its token index, ``samp0``),
+and the tokens with them up to the numerics of the resume's re-prefilled
+tail (exact in fp32; in bf16 a near-tied choice can flip).
+
+``prefix_cache=True`` adds cross-request KV reuse over a radix tree of
+whole cached pages (``serving/prefix_cache.py``): admission points the
+slot's table at the matched pages (refcounted, read-only) and prefills
+only the uncached tail through :func:`make_shared_admit`, whose tail
+attends through the flash kernel over the gathered prefix and itself (the
+reference's tail takes the dense cached path); retirement moves the
+request's full pages into the tree, and admission evicts refcount-0 pages
+LRU-first when the free stack is short. Greedy outputs equal the
+cache-off engine's: the shared pages replay stored K/V, and the tail's
+rows attend as the cold prefill's do.
 
 ``kv_dtype="int8"`` or ``"fp8"`` serves over a quantized pool (int8 or
 fp8 e4m3 pages with per-(page, kv head) scales); a model built with a
@@ -62,30 +83,135 @@ pool, so first tokens match the full-precision pool's).
 from __future__ import annotations
 
 import dataclasses
-import time
-from collections import deque
+import itertools
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
-from apex_tpu_torch.models.generation import _greedy_token, init_cache
+from apex_tpu_torch.models.generation import (_greedy_token, _sample_token,
+                                              init_cache,
+                                              validate_sampling)
+from apex_tpu_torch.obs.events import EventLog
+from apex_tpu_torch.obs.spans import SpanTracer
 from apex_tpu_torch.ops.quant import resolve_kv_dtype
 from apex_tpu_torch.serving import kv_pool
+from apex_tpu_torch.serving.prefix_cache import PrefixCache
+
+#: run() counters in the instrument registry (``serving.<name>``); a run's
+#: stats are the deltas of these across it
+_RUN_COUNTERS = ("admitted", "retired", "decode_steps", "busy_slot_steps",
+                 "prefix_hits", "prefill_tokens_total",
+                 "prefill_tokens_computed", "evicted_pages",
+                 "deferred_admissions", "defrag_runs",
+                 "preemptions", "resumes", "backpressure_spills",
+                 "deadline_misses",
+                 "tpot_slo_misses", "window_dropped_pages",
+                 "spec_rounds", "spec_tokens", "chunked_prefills",
+                 "prefill_chunks", "generated_tokens")
+
+#: per-request latency histograms (``serving.<name>``, log-bucketed ms)
+_RUN_HISTOGRAMS = ("ttft_ms", "tpot_ms", "queue_wait_ms", "decode_step_ms")
+
+#: per-process engine ids, the ``engine`` label on run counters
+_ENGINE_IDS = itertools.count()
 
 
 @dataclasses.dataclass
 class Request:
-    """One decode request: a 1-D int prompt and its token budget."""
+    """One decode request: a 1-D int prompt and its token budget, plus the
+    frontend's scheduling fields (the reference's): ``priority`` (larger
+    is more important; the queue is served highest first and a blocked
+    request may preempt strictly lower-priority running work),
+    ``deadline_ms`` (a TTFT objective from ``arrival_time``: breaks ties
+    inside a priority class and arms preemption; a miss is counted, never
+    dropped), ``arrival_time`` (``time.perf_counter`` timebase; None:
+    stamped at submit), ``tpot_slo_ms`` (a time-per-output-token objective
+    checked at retirement) and ``trace_id`` (32 hex chars; None: minted at
+    submit)."""
 
     prompt: Any                      # (s0,) int array
     max_new_tokens: int
+    priority: int = 0
+    deadline_ms: Optional[float] = None
+    arrival_time: Optional[float] = None
+    tpot_slo_ms: Optional[float] = None
+    trace_id: Optional[str] = None
 
 
 def prompt_bucket(s0: int, page_size: int, max_positions: int) -> int:
     """Admission bucket for a raw prompt length: padded up to a whole page,
     capped at the position table."""
     return min(kv_pool.round_up(max(s0, 1), page_size), max_positions)
+
+
+def _bucket_match_pages(m: int) -> int:
+    """A radix match depth rounded DOWN to a power of two pages, as the
+    reference rounds it (there to bound its admission compile keys; kept
+    so the port's hits and skipped tokens equal the reference's)."""
+    return 1 << (m.bit_length() - 1) if m > 0 else 0
+
+
+def make_shared_admit(model, *, t_start: int, tail_bucket: int):
+    """The shared-prefix admission: ``admit(cache, tail_ids, s0, slot,
+    shared_row, n_private)`` gathers the matched prefix (``t_start`` tokens
+    = ``t_start / page_size`` whole cached pages, dequantized from a
+    quantized pool) from the pool into a contiguous buffer, runs the model
+    over the ``(1, tail_bucket)`` zero-padded uncached tail with that
+    buffer as its cache at length ``t_start`` (the prefix costs no forward
+    FLOPs), installs the slot's row (shared pages,
+    then ``n_private`` private ones) and scatters the tail's K/V into the
+    private pages (``prefill_into_pages(start=t_start)``: shared pages are
+    never written; the boundary page is always private). Returns ``(cache,
+    last)``, the logits of prompt position ``s0 - 1``.
+
+    The tail attends through the flash kernel over the buffer's first
+    ``t_start + tail_bucket`` keys (``generation.flash_tail_attention``),
+    where the reference takes its dense cached path: a row's flash output
+    depends only on its query, the keys it sees and the key tiling from
+    position 0, so a tail row gets the cold prefill's bits for it given
+    the same K/V. The dense path's other summation order moved four of 24
+    requests' bf16 tokens from the cache-off run's on the H100."""
+    cfg = model.config
+    if t_start < 1 or tail_bucket < 1:
+        raise ValueError("shared admission needs t_start >= 1 matched "
+                         "tokens and tail_bucket >= 1 tail tokens")
+    bucket = t_start + tail_bucket
+
+    def admit(cache, tail_ids, s0: int, slot: int, shared_row,
+              n_private: int):
+        ps = kv_pool.page_size_of(cache)
+        if t_start % ps:
+            raise ValueError(f"t_start={t_start} must be a page multiple "
+                             f"({ps})")
+        m = t_start // ps
+        dev = cache["block_tables"].device
+        pages = torch.as_tensor(shared_row[:m], dtype=torch.long,
+                                device=dev)
+        contig = init_cache(cfg, 1, bucket, device=dev)
+
+        def gathered(pool_lc, name, dst):
+            tiles = pool_lc[name + "_pages"][pages]         # (m, kv, ps, d)
+            if name + "_scales" in pool_lc:
+                tiles = (tiles.float()
+                         * pool_lc[name + "_scales"][pages][:, :, None,
+                                                            None])
+            kv, d = tiles.shape[1], tiles.shape[3]
+            dst[:, :, :t_start] = tiles.transpose(0, 1).reshape(
+                1, kv, t_start, d).to(dst.dtype)
+            return dst
+
+        layers = [{"k": gathered(pool_lc, "k", lc["k"]),
+                   "v": gathered(pool_lc, "v", lc["v"]), "flash_tail": True}
+                  for pool_lc, lc in zip(cache["layers"], contig["layers"])]
+        logits, contig = model(tail_ids, cache={"layers": layers,
+                                                "len": t_start})
+        kv_pool.alloc_slot_shared(cache, slot, shared_row, m, n_private)
+        kv_pool.prefill_into_pages(cache, slot, contig["layers"], s0,
+                                   start=t_start)
+        return cache, logits[:, s0 - t_start - 1]
+
+    return admit
 
 
 def make_prefill_chunk(model, *, chunk: int):
@@ -96,7 +222,7 @@ def make_prefill_chunk(model, *, chunk: int):
     row and length), so the K/V lands in the slot's pages, and advances
     the slot's length by the true count ``valid``: padded positions stay
     above the length and are never read. Returns ``(cache, last)``, the
-    logits of position ``valid - 1``, whose argmax is the first token on
+    logits of position ``valid - 1``, whose sample is the first token on
     the prompt's final piece."""
     if chunk < 1:
         raise ValueError("prefill chunk must be >= 1 token")
@@ -112,47 +238,28 @@ def make_prefill_chunk(model, *, chunk: int):
     return prefill_step
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
-@dataclasses.dataclass
-class _Entry:
-    """One admitted request in its slot: ``toks`` its generated tokens,
-    ``joined`` the first decode chunk whose tokens are its own,
-    ``pf_pos`` the prompt tokens fed so far while a chunked prefill is in
-    progress (None once it decodes), ``dropped`` its leading table entries
-    already window-dropped."""
-
-    req: int
-    toks: list = dataclasses.field(default_factory=list)
-    joined: int = 0
-    pf_pos: Optional[int] = None
-    dropped: int = 0
-
-
 class PagedDecodeEngine:
-    """Continuous-batching greedy decode over ``num_slots`` slots.
+    """Continuous-batching greedy or sampled decode over ``num_slots``
+    slots.
 
-    ``run(requests)`` drains the queue and returns ``(outputs, stats)``:
-    ``outputs[i]`` is request ``i``'s generated tokens (up to and including
-    its first EOS) and ``stats`` counts ``decode_steps``, ``admitted``,
-    ``retired``, ``generated_tokens``, ``window_dropped_pages``,
-    ``spec_rounds`` (slot rounds that emitted), ``spec_tokens``,
-    ``mean_acceptance_len``, ``chunked_prefills`` and ``prefill_chunks``,
-    with ``ttft_ms_p50``/``ttft_ms_p95``, the wall time from ``run()``'s
-    start to each request's first token; ``ttft_ms`` keeps the last run's
-    times by request.
+    ``run(requests)`` drains the queue through a fresh
+    :class:`~apex_tpu_torch.serving.frontend.ServingFrontend` and returns
+    ``(outputs, stats)``: ``outputs[i]`` is request ``i``'s generated tokens
+    (up to and including its first EOS) and ``stats`` the frontend's
+    ``stats()`` (the reference's keys, ``generated_tokens`` beside them);
+    ``ttft_ms`` keeps the last run's time to first token by request.
     """
 
     def __init__(self, model, *, num_slots: int, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  max_pages_per_seq: Optional[int] = None,
                  eos_token_id: Optional[int] = None,
-                 temperature: float = 0.0, sync_every: int = 1,
-                 prefix_cache: bool = False, draft_model=None,
-                 draft_len: int = 0, prefill_chunk: Optional[int] = None,
-                 kv_dtype=None, draft_kv_dtype="match",
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, rng: Optional[int] = None,
+                 sync_every: int = 1, prefix_cache: bool = False,
+                 draft_model=None, draft_len: int = 0,
+                 prefill_chunk: Optional[int] = None, kv_dtype=None,
+                 draft_kv_dtype="match",
                  host_tier_bytes: Optional[int] = None):
         cfg = model.config
         if num_slots < 1:
@@ -172,10 +279,21 @@ class PagedDecodeEngine:
                 f"share the target pool's kv_dtype (target "
                 f"{kv_dtype!r}, draft {draft_kv_dtype!r}) — the pools "
                 f"mirror each other slot-for-slot and page-for-page")
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.rng = validate_sampling(temperature, top_k, top_p, rng)
         # a config exposing sliding_window promises that its model's paged
         # branch bands paged_attention to the window: the engine frees
         # pages below the band, which an unbanded read would then reach
         self.window = getattr(cfg, "sliding_window", None)
+        if prefix_cache and self.window is not None:
+            raise ValueError(
+                "prefix_cache does not compose with sliding-window "
+                "models: the engine drops a windowed slot's pages once "
+                "they fall below the attention band, and a dropped page "
+                "cannot be shared radix-cache property (decode windowed "
+                "models with prefix_cache=False)")
         if draft_len < 0:
             raise ValueError("draft_len must be >= 0")
         if draft_len > 0:
@@ -219,12 +337,11 @@ class PagedDecodeEngine:
                     "models yet: in-progress chunks hold positions the "
                     "window-page dropper would free mid-prefill (use "
                     "monolithic admission for windowed models)")
-        if temperature:
-            raise _not_ported("sampled decode",
-                              "queue A item 6: sampled decode")
-        if prefix_cache or host_tier_bytes:
-            raise _not_ported("the prefix cache and host tier",
-                              "queue A item 6: host side of serving")
+        if host_tier_bytes:
+            raise NotImplementedError(
+                "the host tier (host_tier_bytes) is not ported yet "
+                "(ROADMAP queue A item 9: the host tier, with its "
+                "promote/demote path)")
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -253,15 +370,38 @@ class PagedDecodeEngine:
                             else None)
         self._prefill_step = (make_prefill_chunk(model, chunk=prefill_chunk)
                               if prefill_chunk is not None else None)
+        # observability: the engine-lifetime event ring, the last run's
+        # span tracer, and the ``engine`` label on every serving/pool/
+        # prefix instrument, so two engines never mix their counts
+        self.events = EventLog(capacity=4096)
+        self.tracer: Optional[SpanTracer] = None
+        self.obs_labels = {"engine": str(next(_ENGINE_IDS))}
+        self.prefix = (PrefixCache(page_size,
+                                   metrics_labels=self.obs_labels)
+                       if prefix_cache else None)
         self.ttft_ms: list = []
+
+    # --- request-key sampling (scheduling-invariant streams) ----------------
+
+    def _first_token(self, last, stream: int, samp0: int = 0) -> int:
+        """The token after a prompt from its last logits ``(1, V)``:
+        greedy, or sampled with the noise of request stream ``stream`` at
+        index ``samp0`` (0 at a cold admission, the resume point after a
+        preemption)."""
+        streams = torch.tensor([stream], dtype=torch.int64,
+                               device=last.device)
+        return int(_sample_token(last, self.rng, streams, samp0,
+                                 temperature=self.temperature,
+                                 top_k=self.top_k, top_p=self.top_p)[0])
 
     # --- device programs ----------------------------------------------------
 
-    def _admit(self, prompt: np.ndarray, slot: int, n_pages: int) -> int:
+    def _admit(self, prompt: np.ndarray, slot: int, n_pages: int,
+               stream: int = 0, samp0: int = 0) -> int:
         """Contiguous flash prefill at the prompt's bucket, page alloc +
-        scatter, greedy first token; a speculative engine prefills the
-        draft pool too (the same pages: the pools mirror each other). The
-        first token is always the target's."""
+        scatter, the first token; a speculative engine prefills the draft
+        pool too (the same pages: the pools mirror each other). The first
+        token is always the target's."""
         s0 = prompt.shape[0]
         bucket = prompt_bucket(s0, self.page_size,
                                self.cfg.max_position_embeddings)
@@ -279,18 +419,44 @@ class PagedDecodeEngine:
             kv_pool.alloc_slot(self.draft_cache, slot, n_pages)
             kv_pool.prefill_into_pages(self.draft_cache, slot,
                                        contig["layers"], s0)
-        return int(_greedy_token(logits[:, s0 - 1])[0])
+        return self._first_token(logits[:, s0 - 1], stream, samp0)
 
-    def _chunk_admit(self, slot: int, n_pages: int) -> None:
+    def _admit_shared(self, prompt: np.ndarray, slot: int, shared_row,
+                      m: int, n_private: int, stream: int = 0,
+                      samp0: int = 0) -> int:
+        """The shared-prefix admission (:func:`make_shared_admit`) over the
+        ``m`` matched pages of ``shared_row``: only the tail past them is
+        prefilled."""
+        s0, ps = prompt.shape[0], self.page_size
+        t_start = m * ps
+        tail_bucket = min(kv_pool.round_up(s0 - t_start, ps),
+                          self.cfg.max_position_embeddings - t_start)
+        ids = torch.zeros((1, tail_bucket), dtype=torch.int32)
+        ids[0, :s0 - t_start] = torch.from_numpy(prompt[t_start:])
+        admit = make_shared_admit(self.model, t_start=t_start,
+                                  tail_bucket=tail_bucket)
+        self.cache, last = admit(self.cache, ids.to(self.device), s0, slot,
+                                 shared_row, n_private)
+        return self._first_token(last, stream, samp0)
+
+    def _chunk_admit(self, slot: int, n_pages: int, shared_row=None,
+                     m: int = 0) -> None:
         """Chunked admission: the slot's whole page demand is allocated at
-        once, at length 0; the pieces advance the length as they land."""
-        kv_pool.alloc_slot(self.cache, slot, n_pages)
-        self.cache["len"][slot] = 0
+        once (after its ``m`` shared pages, if any), its length set to the
+        shared prefix; the pieces advance the length as they land."""
+        if m:
+            kv_pool.alloc_slot_shared(self.cache, slot, shared_row, m,
+                                      n_pages)
+        else:
+            kv_pool.alloc_slot(self.cache, slot, n_pages)
+        self.cache["len"][slot] = m * self.page_size
 
-    def _decode_chunk(self, tok, done, n_left):
+    def _decode_chunk(self, tok, done, n_left, streams, samp_i):
         """``sync_every`` single-token steps over every slot; returns the
-        updated ``(tok, done, n_left)`` and the ``(sync_every, slots)``
-        tokens emitted."""
+        updated ``(tok, done, n_left, samp_i)`` and the ``(sync_every,
+        slots)`` tokens emitted. Slot ``s``'s token samples with the noise
+        of stream ``streams[s]`` at its request's token index
+        ``samp_i[s]``."""
         fill = self.eos_token_id if self.eos_token_id is not None else 0
         toks = []
         for _ in range(self.sync_every):
@@ -300,15 +466,18 @@ class PagedDecodeEngine:
             # not creep
             cache["len"] = torch.where(done, len_before, cache["len"])
             self.cache = cache
-            nxt = _greedy_token(logits[:, 0])
+            nxt = _sample_token(logits[:, 0], self.rng, streams, samp_i,
+                                temperature=self.temperature,
+                                top_k=self.top_k, top_p=self.top_p)
             nxt = torch.where(done, torch.full_like(nxt, fill), nxt)
             n_left = torch.where(done, n_left, n_left - 1)
+            samp_i = samp_i + 1
             if self.eos_token_id is not None:
                 done = done | (nxt == self.eos_token_id)
             done = done | (n_left <= 0)
             toks.append(nxt)
             tok = nxt
-        return tok, done, n_left, torch.stack(toks)
+        return tok, done, n_left, samp_i, torch.stack(toks)
 
     def _spec_chunk(self, tok, done, n_left):
         """``sync_every`` speculative rounds over every slot. A round runs
@@ -363,6 +532,35 @@ class PagedDecodeEngine:
             counts.append(e)
         return tok, done, n_left, torch.stack(preds_all), torch.stack(counts)
 
+    # --- pool maintenance ---------------------------------------------------
+
+    def _leak_suspected(self, free: int, active) -> bool:
+        """True when the host's liveness count says more pages should be
+        free than the stack shows (a free miscount somewhere): ``defrag``
+        rebuilds the stack from actual liveness and recovers them.
+        ``active``: the frontend's slot -> entry map (entries expose
+        ``n_private``, the pages the slot owns)."""
+        owned = sum(rec.n_private for rec in active.values())
+        cached = len(self.prefix) if self.prefix is not None else 0
+        usable = kv_pool.num_pages_of(self.cache) - 1    # the null page
+        return usable - owned - cached > free
+
+    def _defrag_now(self) -> None:
+        """``defrag_map`` with the prefix cache's pages as extra liveness
+        (they sit in no block table but must survive), then the radix tree
+        remapped through the returned permutation; a speculative engine's
+        draft pool, which mirrors the target's call for call, compacts in
+        the same pass."""
+        num_pages = kv_pool.num_pages_of(self.cache)
+        extra = torch.zeros((num_pages,), dtype=torch.bool)
+        if self.prefix is not None:
+            extra[self.prefix.pages()] = True
+        self.cache, new_idx = kv_pool.defrag_map(self.cache, extra)
+        if self.prefix is not None:
+            self.prefix.remap(new_idx.numpy())
+        if self.draft_len:
+            self.draft_cache = kv_pool.defrag(self.draft_cache)
+
     # --- the host loop ------------------------------------------------------
 
     def _validate_request(self, r: Request) -> int:
@@ -407,196 +605,56 @@ class PagedDecodeEngine:
         return need
 
     @torch.no_grad()
-    def run(self, requests: Sequence[Request]):
-        """Drain the request queue (closed FIFO loop); returns
-        ``(outputs, stats)``."""
-        needs = [self._validate_request(r) for r in requests]
-        prompts = [np.asarray(r.prompt, np.int32).reshape(-1)
-                   for r in requests]
-        dev, n_slots, ps = self.device, self.num_slots, self.page_size
-        max_pages = self.cache["block_tables"].shape[1]
-        eos = self.eos_token_id
-        state = {"tok": torch.zeros((n_slots,), dtype=torch.int32,
-                                    device=dev),
-                 "done": torch.ones((n_slots,), dtype=torch.bool, device=dev),
-                 "n_left": torch.zeros((n_slots,), dtype=torch.int32,
-                                       device=dev)}
-        pending = deque(range(len(requests)))
-        active: dict[int, _Entry] = {}
-        outputs: list = [None] * len(requests)
-        self.ttft_ms = [None] * len(requests)
-        stats = {"decode_steps": 0, "admitted": 0, "retired": 0,
-                 "generated_tokens": 0, "window_dropped_pages": 0,
-                 "spec_rounds": 0, "spec_tokens": 0, "chunked_prefills": 0,
-                 "prefill_chunks": 0}
-        chunk_idx = 0
-        t_start = time.perf_counter()
+    def run(self, requests: Sequence[Request], *, tracer=None,
+            policy=None):
+        """Drain the request queue; returns ``(outputs, stats)``: a thin
+        closed-loop wrapper over a fresh
+        :class:`~apex_tpu_torch.serving.frontend.ServingFrontend` (its
+        tracer and stats are run-scoped), pumped synchronously until every
+        request retired, so ``run()`` takes the streaming server's path.
+        ``policy`` defaults to ``PriorityDeadlinePolicy()``, which on plain
+        requests (priority 0, no deadlines) is FIFO and never preempts.
+        The whole batch is validated first: a bad request raises before
+        any of its siblings start."""
+        from apex_tpu_torch.serving.frontend import ServingFrontend
 
-        def retire(slot):
-            e = active.pop(slot)
-            kv_pool.free_slot(self.cache, slot)
-            if self.draft_len:
-                kv_pool.free_slot(self.draft_cache, slot)
-            outputs[e.req] = np.asarray(e.toks, np.int32)
-            stats["retired"] += 1
-            stats["generated_tokens"] += len(e.toks)
-
-        def finished(e):
-            return ((eos is not None and e.toks[-1] == eos)
-                    or len(e.toks) >= requests[e.req].max_new_tokens)
-
-        def start_decode(slot, e, tok0):
-            """The first token arrived: the slot decodes from the next
-            chunk on (or retires at once)."""
-            self.ttft_ms[e.req] = (time.perf_counter() - t_start) * 1e3
-            e.toks, e.joined, e.pf_pos = [tok0], chunk_idx + 1, None
-            if finished(e):
-                retire(slot)
-                return
-            state["tok"][slot] = tok0
-            state["done"][slot] = False
-            state["n_left"][slot] = requests[e.req].max_new_tokens - 1
-
-        def harvest(idx, payload):
-            if self.draft_len:
-                preds, counts = (t.cpu().numpy() for t in payload)
-                emitted = [[preds[r, slot, :counts[r, slot]]
-                            for r in range(preds.shape[0])]
-                           for slot in range(n_slots)]
-            else:
-                toks = payload.cpu().numpy()
-                emitted = [[toks[:, slot]] for slot in range(n_slots)]
-            for slot in list(active):
-                e = active[slot]
-                if e.pf_pos is not None or e.joined > idx:
-                    continue     # mid-prefill, or admitted after the chunk
-                done = False
-                for run_toks in emitted[slot]:
-                    if self.draft_len and run_toks.shape[0]:
-                        stats["spec_rounds"] += 1
-                        stats["spec_tokens"] += int(run_toks.shape[0])
-                    for t in run_toks:
-                        e.toks.append(int(t))
-                        if finished(e):
-                            done = True
-                            break
-                    if done:
-                        break
-                if done:
-                    retire(slot)
-                    state["done"][slot] = True
-
-        def drop_window_pages():
-            """Free each active slot's table entries wholly below the band
-            of its next query position ``nxt`` (the device length at the
-            last harvested chunk: prompt plus every decode step run):
-            entry ``j`` is dead once ``(j + 1) * page_size - 1 <= nxt -
-            window``."""
-            for slot, e in active.items():
-                nxt = prompts[e.req].shape[0] + len(e.toks) - 1
-                upto = max((nxt + 1 - self.window) // ps, 0)
-                if upto > e.dropped:
-                    kv_pool.drop_slot_pages(self.cache, slot, upto)
-                    stats["window_dropped_pages"] += upto - e.dropped
-                    e.dropped = upto
-
-        def feed(slot, e):
-            """One ``prefill_chunk``-token piece of the slot's prompt, the
-            last one zero-padded (``make_prefill_chunk``)."""
-            p = prompts[e.req]
-            t = e.pf_pos
-            valid = min(self.prefill_chunk, p.shape[0] - t)
-            ids = torch.zeros((1, self.prefill_chunk), dtype=torch.int32)
-            ids[0, :valid] = torch.from_numpy(p[t:t + valid])
-            self.cache, last = self._prefill_step(self.cache, ids.to(dev),
-                                                  slot, valid)
-            e.pf_pos = t + valid
-            stats["prefill_chunks"] += 1
-            if e.pf_pos >= p.shape[0]:
-                start_decode(slot, e, int(_greedy_token(last)[0]))
-
-        def admission():
-            admitted = 0
-            while pending:
-                vacant = [s for s in range(n_slots) if s not in active]
-                i = pending[0]
-                if not vacant or kv_pool.free_page_count(self.cache) \
-                        < needs[i]:
-                    break                     # head-of-line
-                pending.popleft()
-                slot = vacant[0]
-                admitted += 1
-                stats["admitted"] += 1
-                s0 = prompts[i].shape[0]
-                c = self.prefill_chunk
-                if (c is not None and s0 > c
-                        and s0 + c - 1 <= max_pages * ps):
-                    # chunked: no decode tokens until the last piece lands
-                    self._chunk_admit(slot, needs[i])
-                    stats["chunked_prefills"] += 1
-                    e = active[slot] = _Entry(i, pf_pos=0)
-                    feed(slot, e)             # the first piece rides now
-                    continue
-                tok0 = self._admit(prompts[i], slot, needs[i])
-                e = active[slot] = _Entry(i)
-                start_decode(slot, e, tok0)
-            return admitted
-
-        inflight = None
-        while True:
-            prev, inflight = inflight, None
-            if any(e.pf_pos is None for e in active.values()):
-                chunk_idx += 1
-                stats["decode_steps"] += self.sync_every
-                carry = (state["tok"], state["done"], state["n_left"])
-                if self.draft_len:
-                    tok, done, n_left, preds, counts = self._spec_chunk(
-                        *carry)
-                    payload = (preds, counts)
-                else:
-                    tok, done, n_left, payload = self._decode_chunk(*carry)
-                state.update(tok=tok, done=done, n_left=n_left)
-                inflight = (chunk_idx, payload)
-            if prev is not None:
-                harvest(*prev)
-            if self.window is not None:
-                drop_window_pages()
-            for slot, e in list(active.items()):
-                if e.pf_pos is not None:       # mid-prefill: its next piece
-                    feed(slot, e)
-            admitted = admission()
-            if pending and not active and inflight is None \
-                    and not admitted:
-                raise RuntimeError(
-                    "scheduler deadlock: a queued request cannot be "
-                    "admitted with every slot vacant")
-            if not (pending or active or inflight is not None):
-                break
-        stats["mean_acceptance_len"] = (stats["spec_tokens"]
-                                        / max(stats["spec_rounds"], 1))
-        if self.ttft_ms:
-            stats["ttft_ms_p50"] = float(np.percentile(self.ttft_ms, 50))
-            stats["ttft_ms_p95"] = float(np.percentile(self.ttft_ms, 95))
-        return outputs, stats
+        for r in requests:
+            self._validate_request(r)
+        frontend = ServingFrontend(self, policy=policy, tracer=tracer)
+        handles = [frontend.submit(r, request_id=i)
+                   for i, r in enumerate(requests)]
+        frontend.drain()
+        outputs = [np.asarray(h.result(timeout=0), np.int32)
+                   for h in handles]
+        lives = frontend.tracer.lifecycles()
+        self.ttft_ms = [lives.get(i, {}).get("ttft_ms")
+                        for i in range(len(requests))]
+        return outputs, frontend.stats()
 
 
 @torch.no_grad()
 def generate_paged(model, prompt_ids, max_new_tokens: int, *,
                    eos_token_id: Optional[int] = None,
+                   temperature: float = 0.0, top_k: Optional[int] = None,
+                   top_p: Optional[float] = None, rng: Optional[int] = None,
                    num_slots: Optional[int] = None, page_size: int = 16,
                    num_pages: Optional[int] = None, sync_every: int = 1,
-                   kv_dtype=None, return_stats: bool = False):
+                   prefix_cache: bool = False, kv_dtype=None,
+                   return_stats: bool = False):
     """``generate``-shaped front end over the engine: a rectangular
     ``(batch, s0)`` prompt array returns ``(batch, s0 + max_new_tokens)``
     ids with EOS padding after a row finishes; a list of 1-D prompts of
-    mixed lengths returns a list of 1-D outputs."""
+    mixed lengths returns a list of 1-D outputs. Row ``i`` is request
+    ``i``: sampled, it draws stream ``i`` as lock-step ``generate``'s row
+    ``i`` does."""
     rect = hasattr(prompt_ids, "ndim") and prompt_ids.ndim == 2
     prompts = [np.asarray(torch.as_tensor(p).cpu(), np.int32).reshape(-1)
                for p in prompt_ids]
     engine = PagedDecodeEngine(
         model, num_slots=num_slots if num_slots is not None else len(prompts),
         page_size=page_size, num_pages=num_pages, eos_token_id=eos_token_id,
-        sync_every=sync_every, kv_dtype=kv_dtype)
+        temperature=temperature, top_k=top_k, top_p=top_p, rng=rng,
+        sync_every=sync_every, prefix_cache=prefix_cache, kv_dtype=kv_dtype)
     outs, stats = engine.run([Request(p, max_new_tokens) for p in prompts])
     fill = eos_token_id if eos_token_id is not None else 0
     full = [torch.from_numpy(np.concatenate(

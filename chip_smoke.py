@@ -182,7 +182,7 @@ BERT-Large (``contrib.sparsity.ASP.prune_trained_model`` with
    ``ring_train_bf16`` (Mistral-7B, 2 layers, 1 x 16384 tokens, window
    4096, bf16 over fp32, FusedAdam, both layouts: step ms, tokens/s, MFU,
    peak memory, launches per step, the ``_window_ring`` ones above 0, a
-   profiled step); ``ring_train_fp32`` (the bar: full width, 2 layers,
+   profiled step); ``ring_train_fp32`` (the bar: full width, 1 layer,
    window 96 below S_loc = 128, 1 x 512, fp32: each layout against the CPU
    through the same ring and against the plain model on the card, every
    gradient within 4 x the CPU's one-rounding floor, two FusedAdam steps);
@@ -273,7 +273,7 @@ BERT-Large (``contrib.sparsity.ASP.prune_trained_model`` with
    ms, tokens/s, FLOPs per step by ``bench.py``'s formula and MFU, the
    phase's own peak memory (above what earlier phases keep live), the
    launches of each kernel per step (asserted), and a falling finite loss.
-9. ``mistral_train_fp32``: Mistral-7B at full width, 2 layers, window cut
+9. ``mistral_train_fp32``: Mistral-7B at full width, 1 layer, window cut
    to 128, B = 1, S = 512, fp32, card against CPU from the same seeded
    weights: the loss and every gradient (atol 1e-4 / rtol 1e-3), two
    ``FusedAdam`` steps and a third forward (losses within 1e-4 relative),
@@ -535,6 +535,8 @@ NMT_KERNEL_CLASSES = (
 # 3 mantissa bits, so a quantized page value is within 1/16 of |x| plus
 # half the smallest subnormal step (scale / 1024) of the value written
 QUANT_GS = 128
+#: the depth of engine_quant_fp32's int8 / int4 weight models
+QUANT_FP32_LAYERS = 4
 QUANT_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 QUANT_ROWS = (NUM_SLOTS, 128)
 #: ROADMAP C2's shapes: (kind, group size, in, out), int4 groups below 16
@@ -580,7 +582,7 @@ NORM_BWD_ROWS = (MISTRAL_TRAIN_SEQ, 77)
 NORM_BWD_WIDE = (2048, 8192)
 FLASH_BWD_WINDOW_CASES = ((4224, MISTRAL_WINDOW), (6016, MISTRAL_WINDOW),
                           (MISTRAL_TRAIN_SEQ, MISTRAL_WINDOW), (1024, 256))
-MISTRAL_TRAIN_FP32 = dict(layers=2, window=128, batch=1, seq=512)
+MISTRAL_TRAIN_FP32 = dict(layers=1, window=128, batch=1, seq=512)
 MISTRAL_TRAIN_WARM, MISTRAL_TRAIN_TIMED = 2, 3
 
 # the s > 1 query blocks: the verify of draft_len = 3 proposals (s = 4) and
@@ -727,7 +729,7 @@ PATH_REL_BAR = 1e-2
 #: the ring against one unsharded call, fp32 within RING_ATTN_TOL (merge
 #: order only). ``ring_train_bf16``: Mistral-7B, RING_TRAIN_LAYERS deep
 #: (32 need 116 GB), 1 x RING_TRAIN_SEQ tokens, window 4096.
-#: ``ring_train_fp32``: full width, 2 layers, window 96 below S_loc = 128
+#: ``ring_train_fp32``: full width, 1 layer, window 96 below S_loc = 128
 #: (S_h = 64), 1 x 512, card against CPU and against the plain model, each
 #: gradient within RING_FLOOR_FACTOR times the CPU's one-rounding floor
 RING_CP, RING_CHUNK, RING_DROPOUT = 4, 4096, 0.1
@@ -738,7 +740,7 @@ RING_ATTN = dict(batch=1, heads=MISTRAL_HEADS, kv_heads=MISTRAL_KV_HEADS,
 RING_ATTN_TOL = 1e-4
 RING_TRAIN_LAYERS, RING_TRAIN_SEQ = 2, 16384
 RING_TRAIN_WARM, RING_TRAIN_TIMED = 2, 3
-RING_TRAIN_FP32 = dict(layers=2, window=96, batch=1, seq=512)
+RING_TRAIN_FP32 = dict(layers=1, window=96, batch=1, seq=512)
 RING_FLOOR_FACTOR = 4.0
 #: the flash kernels' ring branches (a diagonal other than Sk - Sq, or
 #: dropout at a non-zero origin)
@@ -2741,6 +2743,231 @@ def check_flash_bias(gen, dev):
     return out
 
 
+#: head dims above 128 (ROADMAP C3): the wide kernels at every branch of
+#: the d <= 128 ones, small shapes (correctness, ``queued_ms`` over
+#: ``HEAD_DIM_ITERS`` calls), then one timed row a kernel, d and dtype at a
+#: d-256 model's attention (16 heads; causal prefill of
+#: ``HEAD_DIM_SEQ``; decode over an 8-slot pool of 16 heads on 8 kv heads)
+HEAD_DIMS = (160, 192, 256)
+HEAD_DIM_SEQ = 2048
+HEAD_DIM_ITERS = 10
+#: (b, h, hkv, sq, sk, Masking keywords, bias kind, segments)
+HEAD_DIM_FLASH = {
+    "causal": (2, 4, 2, 77, 77, dict(causal=True), None, False),
+    "noncausal": (2, 4, 4, 40, 97, dict(causal=False), None, False),
+    "window": (1, 4, 2, 100, 100, dict(causal=True, window=20), None, False),
+    "bias": (2, 4, 2, 77, 77, dict(causal=True), "table", False),
+    "fp32_bias": (2, 4, 4, 64, 64, dict(causal=False, dropout_rate=0.1),
+                  "padding", False),
+    "segments_dropout": (2, 4, 2, 64, 64, dict(causal=False,
+                                               dropout_rate=0.1), None,
+                         True),
+    "dropout": (2, 4, 2, 70, 70, dict(causal=True, dropout_rate=0.1), None,
+                False),
+    "ring": (1, 4, 2, 64, 64, dict(causal=True, causal_offset=40,
+                                   dropout_rate=0.1, dropout_row0=64), None,
+             False),
+}
+HEAD_DIM_PAGED = ("fp", "window", "int8", "fp8", "int8_window")
+
+
+def head_dim_flash_rows(gen, dev, d, dtype, branch, shape=None):
+    """Rows of the three flash kernels at head dim ``d`` on one branch
+    (``HEAD_DIM_FLASH``; ``shape`` ``(b, h, sq)`` overrides the causal
+    branch's for the timed row): each held against its twin, timed by
+    ``queued_ms`` beside its twin, its bound and, for the timed causal
+    forward, ``scaled_dot_product_attention``'s time (None on the small
+    rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    b, h, hkv, sq, sk, kw, bias_kind, segs = HEAD_DIM_FLASH[branch]
+    if shape is not None:
+        b, h, sq = shape
+        hkv, sk = h, sq
+    q, do = (torch.randn(b, h, sq, d, generator=gen).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, sk, d, generator=gen).to(dev, dtype)
+            for _ in range(2))
+    if segs:
+        seg = (torch.arange(sq)[None, :]
+               < torch.tensor([sq, sq - 9])[:, None]).int().to(dev)
+        kw = dict(kw, segment_ids=seg, kv_segment_ids=seg)
+    masking = fa.Masking(dropout_seed=7, **kw)
+    bias = None
+    if bias_kind == "table":
+        bias = torch.randn(1, h, sq, sk, generator=gen).to(dev, dtype)
+    elif bias_kind == "padding":
+        keep = torch.arange(sk)[None, :] < torch.randint(
+            sk // 2, sk + 1, (b,), generator=gen)[:, None]
+        bias = torch.where(keep, 0.0, -1e9)[:, None, None, :].to(
+            dev, torch.float32)
+    kwargs = dict(scale=d ** -0.5, masking=masking, bias=bias)
+    dn = str(dtype).split(".")[1]
+    iters = 20 if shape is not None else HEAD_DIM_ITERS
+    o, lse = fa.flash_fwd(q, k, v, **kwargs)
+    ro, rlse = fa.flash_attention_reference(q, k, v, **kwargs)
+    err = compare(f"flash_fwd d={d} {branch}", o, ro, dn)
+    compare(f"flash_fwd lse d={d} {branch}", lse, rlse, "float32")
+    delta = fa.flash_bwd_delta(ro, do)
+    args = (q, k, v, do, rlse, delta)
+    dq = fa.flash_bwd_dq(*args, **kwargs)
+    dk, dv = fa.flash_bwd_dkdv(*args, **kwargs)
+    err_dq = compare(f"flash_bwd_dq d={d} {branch}", dq,
+                     fa.flash_bwd_dq_reference(*args, **kwargs), dn)
+    rdk, rdv = fa.flash_bwd_dkdv_reference(*args, **kwargs)
+    err_dkdv = max(compare(f"flash_bwd_dkdv dk d={d} {branch}", dk, rdk, dn),
+                   compare(f"flash_bwd_dkdv dv d={d} {branch}", dv, rdv, dn))
+    same_bits(f"flash_fwd d={d} {branch}", (o,),
+              (fa.flash_fwd(q, k, v, **kwargs)[0],))
+    pairs = int(masking.visible(sq, sk, dev).expand(b, 1, sq, sk).sum()) * h
+    elt = q.element_size()
+    q_tile, kv_tile = b * h * sq * d * elt, b * hkv * sk * d * elt
+    bias_bytes = 0 if bias is None else bias.numel() * bias.element_size()
+    library_ms = None
+    if shape is not None:                 # the timed causal row, no GQA
+        library_ms = queued_ms(partial(
+            F.scaled_dot_product_attention, q, k, v, is_causal=True),
+            iters=iters)
+    rows = []
+    for name, kernel_fn, plain_fn, e, n_bytes, flops in (
+            ("flash_fwd", fa.flash_fwd, fa.flash_attention_reference, err,
+             2 * q_tile + 2 * kv_tile + b * h * sq * 4, 4 * pairs * d),
+            ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference,
+             err_dq, 3 * q_tile + 2 * kv_tile + 2 * b * h * sq * 4,
+             6 * pairs * d),
+            ("flash_bwd_dkdv", fa.flash_bwd_dkdv,
+             fa.flash_bwd_dkdv_reference, err_dkdv,
+             2 * q_tile + 4 * kv_tile + 2 * b * h * sq * 4, 8 * pairs * d)):
+        call = (q, k, v) if name == "flash_fwd" else args
+        kernel = partial(kernel_fn, *call, **kwargs)
+        bms, by = bound_ms(n_bytes + bias_bytes, flops, dn)
+        ms = queued_ms(kernel, iters=iters)
+        rows.append((dict(
+            name=fa.launch_name(name, masking, bias, sq, sk), dtype=dn,
+            path="head_dim", kind="head_dim", branch=branch, d=d,
+            shape=[b, h, sq, d], sk=sk, kv_heads=hkv,
+            causal_offset=masking.offset(sq, sk),
+            visible_pairs=pairs, max_abs_err=e, ms=ms,
+            tflops=achieved_tflops(flops, ms),
+            plain_ms=queued_ms(partial(plain_fn, *call, **kwargs),
+                               iters=iters),
+            library_ms=library_ms if name == "flash_fwd" else None,
+            library=("F.scaled_dot_product_attention(is_causal=True)"
+                     if name == "flash_fwd" and library_ms is not None
+                     else None),
+            bound_ms=bms, bound_by=by), kernel))
+    return rows
+
+
+def head_dim_paged_row(gen, dev, d, dtype, branch, s, rep, slots=6,
+                       kv=2, maxp=48, lengths=None, timed=False):
+    """One paged row at head dim ``d``: a shuffled pool of page 16 with
+    page 0 poisoned (1e4), entries below a window's band nulled, lengths on
+    page edges; the twin at ``TOL``, leading rows of short slots exactly 0,
+    the same bits in a second call."""
+    import torch
+
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    quant = importlib.import_module("apex_tpu_torch.ops.quant")
+    ps = PAGE_SIZE
+    window = 300 if "window" in branch else None
+    kv_dtype = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
+                "int8_window": torch.int8}.get(branch)
+    if lengths is None:
+        lengths = [0, 1, s, 129, 400, maxp * ps][:slots]
+    slots = len(lengths)
+    num_pages = 1 + slots * maxp
+    perm = torch.randperm(num_pages - 1, generator=gen) + 1
+    bt = torch.zeros(slots, maxp, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        bt[i, :-(-n // ps)] = perm[i * maxp:i * maxp - (-n // ps)]
+        if window is not None:
+            bt[i, :max(n - s - window + 1, 0) // ps] = 0
+    pages = [torch.randn(num_pages, kv, ps, d, generator=gen) * 2
+             for _ in range(2)]
+    for pg in pages:
+        pg[0] = 1e4
+    kw = {} if window is None else dict(window=window)
+    if kv_dtype is None:
+        kp, vp = (pg.to(dev, dtype) for pg in pages)
+    else:
+        qmax = 127.0 if kv_dtype == torch.int8 else 448.0
+        (kp, ksc), (vp, vsc) = (quant.kv_quantize(pg, kv_dtype, qmax,
+                                                  axes=(2, 3))
+                                for pg in pages)
+        kp, vp = kp.to(dev), vp.to(dev)
+        kw.update(k_scales=ksc[:, :, 0, 0].to(dev),
+                  v_scales=vsc[:, :, 0, 0].to(dev))
+    q = torch.randn(slots, rep * kv, s, d, generator=gen).to(dev, dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    args = (q, kp, vp, bt.to(dev), ln)
+    o = pa.paged_attention(*args, **kw)
+    dn = str(dtype).split(".")[1]
+    name = ("paged_attention_quant" if kv_dtype is not None
+            else "paged_attention_window" if window else "paged_attention")
+    name += "_block" if s > 1 else ""
+    err = compare(f"{name} d={d}", o, pa.paged_attention_reference(*args,
+                                                                   **kw), dn)
+    for i, n in enumerate(lengths):
+        if n < s and (o[i, :, :s - n] != 0).any():
+            raise AssertionError(f"{name} d={d}: rows before slot {i}'s "
+                                 f"start must be exactly 0")
+    n_pos = sum(min(n, maxp * ps) if window is None
+                else min(n, s + window - 1) for n in lengths)
+    elt = kp.element_size()
+    nbytes = (2 * n_pos * kv * d * elt + 2 * q.numel() * q.element_size()
+              + slots * maxp * 4)
+    bms, by = bound_ms(nbytes, 4 * n_pos * rep * kv * s * d, dn)
+    kernel = partial(pa.paged_attention, *args, **kw)
+    iters = 50 if timed else HEAD_DIM_ITERS
+    same_bits(f"{name} d={d}", (o,), (kernel(),))
+    ms = queued_ms(kernel, iters=iters)
+    return (dict(name=name, dtype=dn, path="head_dim", kind="head_dim",
+                 branch=branch, d=d, s=s, kv_heads=kv,
+                 shape=[slots, rep * kv, ps, d, maxp], lengths=lengths,
+                 window=window, max_abs_err=err, ms=ms,
+                 tb_s=nbytes / ms / 1e9,
+                 plain_ms=queued_ms(partial(pa.paged_attention_reference,
+                                            *args, **kw), iters=iters),
+                 library_ms=None, bound_ms=bms, bound_by=by), kernel)
+
+
+def check_head_dim(gen, dev):
+    """ROADMAP C3 on the card: the flash forward, dq and dk/dv kernels and
+    the paged kernel at head dims 160, 192 and 256, fp32 and bf16, on
+    every branch the d <= 128 instances take (flash: causal, non-causal,
+    window, a bias table in q's dtype, an fp32 bias under bf16 q, segment
+    ids with dropout, dropout, ring attention's offset and dropout origin;
+    paged: s = 1 and s = 4, fp, window, int8 and fp8 pools, int8 under a
+    window), each against its twin; then the timed rows: the causal
+    prefill at 1 x 16 x ``HEAD_DIM_SEQ`` and an 8-slot decode step (16
+    heads over 8 kv heads, lengths up to 2048)."""
+    import torch
+
+    out = []
+    for d in HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for branch in HEAD_DIM_FLASH:
+                out += head_dim_flash_rows(gen, dev, d, dtype, branch)
+            for branch in HEAD_DIM_PAGED:
+                for s, rep in ((1, 2), (4, 2)):
+                    out.append(head_dim_paged_row(gen, dev, d, dtype, branch,
+                                                  s, rep))
+            timed = head_dim_flash_rows(gen, dev, d, dtype, "causal",
+                                        shape=(1, 16, HEAD_DIM_SEQ))
+            for row, _ in timed:
+                row["use"] = "timed"
+            out += timed
+            row = head_dim_paged_row(
+                gen, dev, d, dtype, "fp", 1, 2, kv=8, maxp=128,
+                lengths=[1, 17, 100, 256, 511, 1024, 1500, 2048], timed=True)
+            row[0]["use"] = "timed"
+            out.append(row)
+    return out
+
+
 def check_flash_nmt(gen, dev):
     """The three flash kernels at the NMT step's shape under amp O1
     (``nmt_bf16``: 32 x 16 heads x 128 x 64, bf16 q/k/v, ``scale``
@@ -3403,19 +3630,22 @@ def time_engine_steps(engine, into: dict) -> None:
 
 
 def drive_engine(model, prompts, new_tokens, kernels=SERVING_KERNELS,
-                 kv_dtype=None, step_times=None, **engine_kw):
+                 kv_dtype=None, step_times=None, num_slots=NUM_SLOTS,
+                 **engine_kw):
     """One engine run over the workload, the launch counts set to 0 just
     before it and read just after; it fails if a kernel of ``kernels`` was
     not launched or a pool (the draft pool too) leaked. ``engine_kw`` sizes
     the pool or sets the engine's mode; ``step_times``, a dict, receives
-    ``time_engine_steps``' sums. Returns ``(engine, outputs, stats,
-    seconds, launches)``."""
+    ``time_engine_steps``' sums. With a prefix cache the pages the tree
+    still caches are not a leak: the free stack must hold every usable
+    page but those. Returns ``(engine, outputs, stats, seconds,
+    launches)``."""
     import torch
 
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.serving import PagedDecodeEngine, Request
 
-    engine = PagedDecodeEngine(model, num_slots=NUM_SLOTS,
+    engine = PagedDecodeEngine(model, num_slots=num_slots,
                                page_size=PAGE_SIZE, kv_dtype=kv_dtype,
                                **engine_kw)
     if step_times is not None:
@@ -3436,18 +3666,25 @@ def drive_engine(model, prompts, new_tokens, kernels=SERVING_KERNELS,
             continue
         free = pool["free_top"]
         usable = pool["layers"][0]["k_pages"].shape[0] - 1
+        if pool is engine.cache and engine.prefix is not None:
+            usable -= len(engine.prefix)
         if free != usable:
             raise AssertionError(f"pool leaked: {free} free of {usable} "
                                  f"pages")
     return engine, outs, stats, elapsed, launches
 
 
-def build_model(dtype):
+def build_model(dtype, layers=None, device=None):
+    """GPT-2-small at full width (``layers`` deep when given), seeded
+    random weights drawn on the CPU, on ``device`` (the card by
+    default)."""
     import torch
 
     from apex_tpu_torch.models import GPTModel, gpt2_small_config
 
-    return GPTModel(gpt2_small_config(dtype=dtype), device=DEV,
+    depth = {} if layers is None else dict(num_layers=layers)
+    return GPTModel(gpt2_small_config(dtype=dtype, **depth),
+                    device=device or DEV,
                     generator=torch.Generator().manual_seed(SEED)).eval()
 
 
@@ -3548,7 +3785,9 @@ def common_prefix(a, b) -> int:
 
 def engine_quant_fp32(model, prompts, new_tokens, fp_outs):
     """(a), (b): int8 and int4 weights over an fp pool, token identity with
-    lock-step ``generate`` of the same quantized model; (c), (d): int8 and
+    lock-step ``generate`` of the same quantized model, at full width and
+    ``QUANT_FP32_LAYERS`` deep (the bar is the engine against lock-step
+    decode of one model, which depth does not change); (c), (d): int8 and
     fp8 pools over the fp model, first tokens equal to ``engine_fp32``'s,
     and the pool's error bound after one admission."""
     import numpy as np
@@ -3557,8 +3796,9 @@ def engine_quant_fp32(model, prompts, new_tokens, fp_outs):
     from apex_tpu_torch.models import generate
 
     results = {}
+    shallow = build_model(torch.float32, layers=QUANT_FP32_LAYERS)
     for label, kind in (("w8", "int8"), ("w4", "int4")):
-        qmodel = build_quant_model(model, kind)
+        qmodel = build_quant_model(shallow, kind)
         outs, stats, elapsed, launches = drive_engine(
             qmodel, prompts, new_tokens, kernels=quant_kernels(kind))[1:]
         for i, (p, n, o) in enumerate(zip(prompts, new_tokens, outs)):
@@ -3568,9 +3808,11 @@ def engine_quant_fp32(model, prompts, new_tokens, fp_outs):
                 raise AssertionError(f"{label}: request {i}: engine tokens "
                                      f"differ from lock-step generate")
         results[label] = dict(weights=kind, pool="fp32",
+                              layers=QUANT_FP32_LAYERS,
                               requests=len(outs), token_identical=True,
                               launches=launches, seconds=elapsed, **stats)
         del qmodel
+    del shallow
     for label, kv_dtype in (("kv8", "int8"), ("kv_fp8", "fp8")):
         bound = pool_error(model, prompts[0], new_tokens[0], kv_dtype)
         outs, stats, elapsed, launches = drive_engine(
@@ -3682,12 +3924,13 @@ def block_launches(launches) -> dict:
     return {k: launches[k] for k in BLOCK_KERNELS}
 
 
-def fp64_divergence(model, prompt, got, want) -> dict:
+def fp64_divergence(model, prompt, got, want,
+                    with_logits: bool = False) -> dict:
     """Where ``got`` first leaves ``want`` (the reference tokens), with the
     fp64 logits there: the final norm's fp32 output at the last position
     of a no-cache forward of the prompt and the reference tokens before,
     times the tied embedding in fp64; the two tokens' logits and the fp64
-    top-2 margin."""
+    top-2 margin (``with_logits``: the fp64 logits too)."""
     import numpy as np
     import torch
 
@@ -3707,6 +3950,8 @@ def fp64_divergence(model, prompt, got, want) -> dict:
     top = logits.topk(2).values
     out = dict(step=int(step), lengths=[len(got), len(want)],
                fp64_top2_margin=(top[0] - top[1]).item())
+    if with_logits:
+        out["logits"] = logits.cpu()
     for label, toks in (("got", got), ("want", want)):
         if step < len(toks):
             out[f"{label}_token"] = int(toks[step])
@@ -6926,6 +7171,411 @@ def ring_gpt(smi) -> dict:
     return launches
 
 
+# --- the host side of serving (ROADMAP A6) -----------------------------------
+
+#: sampled decode: the knobs, the seed, and the (num_slots, sync_every)
+#: runs whose tokens must equal the timed run's
+SAMPLE_KW = dict(temperature=0.8, top_k=50, top_p=0.95, rng=SEED)
+SAMPLE_INVARIANCE = ((3, 1), (NUM_SLOTS, 4))
+#: the shared-prefix trace: system prompts of 3-6 pages, requests adding
+#: private tails of 8-64 tokens, PREFIX_NEW new tokens each
+PREFIX_SYSTEM_PAGES = (3, 4, 5, 6)
+PREFIX_REQUESTS, PREFIX_NEW = 24, 32
+#: forced preemption: PREEMPT_LOW low-priority requests fill the slots,
+#: PREEMPT_HIGH high-priority ones with a TTFT deadline arrive after
+#: PREEMPT_WARM pump iterations
+PREEMPT_LOW, PREEMPT_HIGH, PREEMPT_WARM = NUM_SLOTS, 4, 6
+PREEMPT_NEW_LOW, PREEMPT_NEW_HIGH, PREEMPT_DEADLINE_MS = 64, 24, 50.0
+#: beam search: GPT-2-small (2 prompts of 24 tokens) and t5-small (2
+#: encoder inputs of 64 tokens), 4 beams, BEAM_NEW tokens, fp32
+BEAM_WIDTH, BEAM_NEW, BEAM_PROMPT, BEAM_ENC = 4, 16, 24, 64
+BEAM_SCORE_RTOL = 1e-4
+#: the bf16 bar of two runs that compute a token by other kernels (a
+#: shared prefix's tail against the cold prefill, a resumed request's
+#: re-prefilled tail against its decode steps): at a request's first
+#: differing token, the reference run's two candidates' fp64 logits (their
+#: perturbed scores when sampled) within this many bf16 ulps of the larger
+#: logit; fp32 holds the same runs to token identity
+NEAR_TIE_BF16_ULPS = 2
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``|x|`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def near_tie_check(phase: str, model, prompts, got, want, streams=None
+                   ) -> dict:
+    """Requests whose tokens ``got`` leave ``want``'s (the reference run),
+    each held to a bf16 near tie at its first differing token
+    (``NEAR_TIE_BF16_ULPS`` bf16 ulps of the larger of the two tokens'
+    logits, ``bar``): the fp64 logits there from a no-cache forward of the
+    prompt and ``want``'s tokens before (``fp64_divergence``), greedy
+    within ``bar`` of each other. Sampled (``streams``: each request's
+    noise stream) the choice is ``SAMPLE_KW``'s filter, then the argmax of
+    logit / T plus the Gumbel noise of the token's index, so a near tie is
+    either the two perturbed scores within ``bar / T``, or one of the two
+    tokens at the filter's edge: its logit / T within ``bar / T`` of the
+    top-k cut, or the fp64 mass before it within ``bar / T`` of ``top_p``.
+    Returns the divergences by request."""
+    import torch
+
+    from apex_tpu_torch.models.generation import sample_noise
+
+    out = {}
+    for i, (p, o, r) in enumerate(zip(prompts, got, want)):
+        if o.shape == r.shape and (o == r).all():
+            continue
+        dv = fp64_divergence(model, p, o, r, with_logits=True)
+        if "got_token" not in dv or "want_token" not in dv:
+            raise AssertionError(f"{phase}: request {i}: one run's tokens "
+                                 f"end where the other's go on ({dv})")
+        a, b = dv["want_fp64_logit"], dv["got_fp64_logit"]
+        bar = NEAR_TIE_BF16_ULPS * bf16_ulp(max(abs(a), abs(b)))
+        if streams is None:
+            dv.update(margin=abs(a - b), bar=bar, kind="argmax")
+            near = abs(a - b) <= bar
+        else:
+            t, k, top_p = (SAMPLE_KW[n] for n in ("temperature", "top_k",
+                                                  "top_p"))
+            x = dv.pop("logits") / t
+            bar /= t
+            g = sample_noise(SAMPLE_KW["rng"], torch.tensor(
+                [streams[i]], dtype=torch.int64), dv["step"],
+                x.shape[0])[0].double()
+            wt, gt = dv["want_token"], dv["got_token"]
+            margin = abs((x[wt] + g[wt]) - (x[gt] + g[gt])).item()
+            top = torch.sort(x, descending=True)
+            kth = top.values[k - 1].item()
+            edge_k = min(abs(x[wt].item() - kth), abs(x[gt].item() - kth))
+            kept = top.values[:k]
+            prob = torch.softmax(kept, dim=0)
+            before = torch.cumsum(prob, dim=0) - prob
+            rank = {int(tok): n for n, tok in enumerate(top.indices[:k])}
+            edge_p = min((abs(before[rank[tok]].item() - top_p)
+                          for tok in (wt, gt) if tok in rank),
+                         default=float("inf"))
+            dv.update(margin=margin, top_k_edge=edge_k, top_p_edge=edge_p,
+                      bar=bar)
+            near = min(margin, edge_k, edge_p) <= bar
+        dv.pop("logits", None)
+        if not near:
+            raise AssertionError(f"{phase}: request {i} leaves the "
+                                 f"reference past the bf16 near-tie bar "
+                                 f"({dv})")
+        out[i] = dv
+    return out
+
+
+def prefix_workload(vocab: int):
+    """``PREFIX_REQUESTS`` prompts, request ``i`` system prompt ``i % 4``
+    (``PREFIX_SYSTEM_PAGES`` pages) plus a private tail of 8-64 tokens
+    (numpy seed ``SEED``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 21)
+    systems = [rng.integers(0, vocab, n * PAGE_SIZE).astype(np.int32)
+               for n in PREFIX_SYSTEM_PAGES]
+    return [np.concatenate([systems[i % len(systems)], rng.integers(
+        0, vocab, int(rng.integers(8, 65))).astype(np.int32)])
+        for i in range(PREFIX_REQUESTS)]
+
+
+def engine_sampled_bf16(model, prompts, new_tokens, smi) -> dict:
+    """Sampled decode (``SAMPLE_KW``) on ``engine_bf16``'s requests: a warm
+    run, a timed one at ``NUM_SLOTS`` slots (tokens/s, host ms a decode
+    step), then the runs of ``SAMPLE_INVARIANCE``, whose tokens must equal
+    the timed run's (the draws depend on the request and the seed alone).
+    Returns the timed run's launches."""
+    drive_engine(model, prompts, new_tokens, **SAMPLE_KW)      # warm
+    steps = {}
+    outs, stats, elapsed, launches = drive_engine(
+        model, prompts, new_tokens, step_times=steps, **SAMPLE_KW)[1:]
+    runs = {}
+    for slots, sync in SAMPLE_INVARIANCE:
+        got, st = drive_engine(model, prompts, new_tokens, num_slots=slots,
+                               sync_every=sync, **SAMPLE_KW)[1:3]
+        bad = [i for i, (a, b) in enumerate(zip(got, outs))
+               if a.shape != b.shape or (a != b).any()]
+        if bad:
+            raise AssertionError(f"engine_sampled_bf16: num_slots {slots}, "
+                                 f"sync_every {sync}: requests {bad} draw "
+                                 f"other tokens than at {NUM_SLOTS} slots")
+        runs[f"slots{slots}_sync{sync}"] = dict(
+            decode_steps=st["decode_steps"], token_identical=True)
+    emit("engine_sampled_bf16", requests=len(prompts), num_slots=NUM_SLOTS,
+         layers=model.config.num_layers,
+         sampling={k: v for k, v in SAMPLE_KW.items() if k != "rng"},
+         seed=SAMPLE_KW["rng"],
+         tokens_per_s=stats["generated_tokens"] / elapsed, seconds=elapsed,
+         host_ms_per_decode_step=steps["chunk_host_s"]
+         / stats["decode_steps"] * 1e3,
+         synced_ms_per_decode_step=steps["chunk_s"]
+         / stats["decode_steps"] * 1e3,
+         invariance=runs, launches=launches, nvidia_smi=smi,
+         decode_steps=stats["decode_steps"],
+         generated_tokens=stats["generated_tokens"])
+    return launches
+
+
+def prefix_run(model, prompts, prefix_cache: bool):
+    """One engine run of the shared-prefix trace; returns ``(engine,
+    outputs, stats, seconds, launches)`` (``drive_engine``, whose pool
+    check counts the tree's cached pages as held)."""
+    return drive_engine(model, prompts, [PREFIX_NEW] * len(prompts),
+                        prefix_cache=prefix_cache)
+
+
+def check_prefix_stats(phase: str, engine, stats) -> dict:
+    """The prefix cache's counters and the pool after the drain: hits and
+    skipped prefill tokens above 0, no page referenced, and the free stack
+    exactly ``num_pages - 1 - (pages the tree caches)``."""
+    if not (stats["prefix_hits"] > 0 and stats["prefill_tokens_skipped"] > 0):
+        raise AssertionError(f"{phase}: no prefix hits ({stats})")
+    usable = engine.cache["layers"][0]["k_pages"].shape[0] - 1
+    cached = len(engine.prefix)
+    free = engine.cache["free_top"]
+    if free != usable - cached or int(engine.cache["page_ref"].sum()) != 0:
+        raise AssertionError(f"{phase}: {free} pages free of {usable}, "
+                             f"{cached} cached")
+    return dict(prefix_hits=stats["prefix_hits"],
+                prefill_tokens_total=stats["prefill_tokens_total"],
+                prefill_tokens_skipped=stats["prefill_tokens_skipped"],
+                evicted_pages=stats["evicted_pages"],
+                free_pages_after=free, usable_pages=usable,
+                cached_pages_after=cached,
+                free_check="free_top == usable - cached pages, "
+                           "sum(page_ref) == 0")
+
+
+def engine_prefix_fp32(model) -> dict:
+    """The shared-prefix trace in fp32 on the card with the prefix cache
+    off and on, then on the CPU port with it on over the same weights: the
+    three runs' tokens equal; hits and skipped tokens above 0; the pool
+    after the drain holds every usable page but the cached ones. Returns
+    the card's prefix-on launches."""
+    import torch
+
+    prompts = prefix_workload(model.config.vocab_size)
+    off = prefix_run(model, prompts, False)
+    eng, outs, stats, elapsed, launches = prefix_run(model, prompts, True)
+    cpu = build_model(torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_eng = None
+    from apex_tpu_torch.serving import PagedDecodeEngine, Request
+
+    cpu_eng = PagedDecodeEngine(cpu, num_slots=NUM_SLOTS,
+                                page_size=PAGE_SIZE, prefix_cache=True)
+    cpu_outs, cpu_stats = cpu_eng.run([Request(p, PREFIX_NEW)
+                                       for p in prompts])
+    for label, other in (("prefix off", off[1]), ("the CPU port", cpu_outs)):
+        bad = [i for i, (a, b) in enumerate(zip(outs, other))
+               if a.shape != b.shape or (a != b).any()]
+        if bad:
+            raise AssertionError(f"engine_prefix_fp32: requests {bad}: "
+                                 f"prefix-on tokens differ from {label}'s")
+    line = check_prefix_stats("engine_prefix_fp32", eng, stats)
+    for key in ("prefix_hits", "prefill_tokens_skipped", "evicted_pages"):
+        if cpu_stats[key] != stats[key]:
+            raise AssertionError(f"engine_prefix_fp32: {key} {stats[key]} "
+                                 f"on the card, {cpu_stats[key]} on the CPU")
+    del cpu, cpu_eng
+    emit("engine_prefix_fp32", requests=len(prompts),
+         system_pages=list(PREFIX_SYSTEM_PAGES), new_tokens=PREFIX_NEW,
+         layers=model.config.num_layers, token_identical_off=True,
+         token_identical_cpu=True, seconds=elapsed,
+         seconds_prefix_off=off[3], launches=launches,
+         decode_steps=stats["decode_steps"], **line)
+    return launches
+
+
+def engine_prefix_bf16(model, smi) -> dict:
+    """The shared-prefix trace in bf16: prefix on gives the tokens of
+    prefix off but at bf16 near ties (``near_tie_check``: the tail's GEMMs
+    run at other row counts than the cold prefill's, so a near-tied argmax
+    may flip, as the reference notes for bf16); counters and pool as in
+    fp32; tokens/s and prefill tokens both ways (a warm run first).
+    Returns the prefix-on launches."""
+    prompts = prefix_workload(model.config.vocab_size)
+    prefix_run(model, prompts, True)                          # warm
+    off = prefix_run(model, prompts, False)
+    eng, outs, stats, elapsed, launches = prefix_run(model, prompts, True)
+    ties = near_tie_check("engine_prefix_bf16", model, prompts, outs,
+                          off[1])
+    line = check_prefix_stats("engine_prefix_bf16", eng, stats)
+    emit("engine_prefix_bf16", requests=len(prompts),
+         system_pages=list(PREFIX_SYSTEM_PAGES), new_tokens=PREFIX_NEW,
+         layers=model.config.num_layers,
+         token_identical_off=len(prompts) - len(ties),
+         near_ties=ties, near_tie_ulps=NEAR_TIE_BF16_ULPS,
+         tokens_per_s=stats["generated_tokens"] / elapsed,
+         tokens_per_s_prefix_off=off[2]["generated_tokens"] / off[3],
+         seconds=elapsed, seconds_prefix_off=off[3],
+         prefill_tokens_computed=stats["prefill_tokens_computed"],
+         prefill_tokens_computed_off=off[2]["prefill_tokens_computed"],
+         ttft_ms_p50=stats["ttft_ms_p50"], ttft_ms_p95=stats["ttft_ms_p95"],
+         launches=launches, nvidia_smi=smi, **line)
+    return launches
+
+
+def preempt_run(model, preempt: bool, sampled: bool):
+    """``PREEMPT_LOW`` low-priority requests fill the slots; after
+    ``PREEMPT_WARM`` pump iterations ``PREEMPT_HIGH`` priority-5 requests
+    with a ``PREEMPT_DEADLINE_MS`` TTFT deadline arrive; the frontend
+    (prefix cache on, so a victim's pages spill into the tree) drains.
+    ``preempt``: ``PriorityDeadlinePolicy(preempt_on_priority=True)``, else
+    ``preemption=False``. Returns ``(frontend, outputs, launches,
+    prompts)``, the requests in id order."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.serving import (PagedDecodeEngine,
+                                        PriorityDeadlinePolicy, Request,
+                                        ServingFrontend)
+
+    rng = np.random.default_rng(SEED + 31)
+    vocab = model.config.vocab_size
+    low = [Request(rng.integers(0, vocab, int(rng.integers(32, 97))).astype(
+        np.int32), PREEMPT_NEW_LOW) for _ in range(PREEMPT_LOW)]
+    high = [Request(rng.integers(0, vocab, int(rng.integers(16, 65))).astype(
+        np.int32), PREEMPT_NEW_HIGH, priority=5,
+        deadline_ms=PREEMPT_DEADLINE_MS) for _ in range(PREEMPT_HIGH)]
+    engine = PagedDecodeEngine(model, num_slots=NUM_SLOTS,
+                               page_size=PAGE_SIZE, prefix_cache=True,
+                               **(SAMPLE_KW if sampled else {}))
+    policy = (PriorityDeadlinePolicy(preempt_on_priority=True) if preempt
+              else PriorityDeadlinePolicy(preemption=False))
+    fe = ServingFrontend(engine, policy=policy)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    handles = [fe.submit(r, request_id=i) for i, r in enumerate(low)]
+    for _ in range(PREEMPT_WARM):
+        fe.pump()
+    handles += [fe.submit(r, request_id=PREEMPT_LOW + i)
+                for i, r in enumerate(high)]
+    fe.drain()
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    missing = [k for k in SERVING_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"frontend_preempt_bf16: no launch of {missing}")
+    return (fe, [h.result(timeout=0) for h in handles], launches,
+            [r.prompt for r in low + high])
+
+
+def frontend_preempt_bf16(model, smi) -> dict:
+    """Forced preemption through ``ServingFrontend``, greedy and sampled:
+    each run with preemption on gives the tokens of the same schedule with
+    it off but at bf16 near ties (``near_tie_check``: a resume re-prefills
+    its last page's tokens, which the undisturbed run computed in decode
+    steps at other row counts and through the paged kernel); preemptions
+    > 0 and resumes == preemptions; TTFT p50/p95 of both, and the
+    high-priority requests' alone. Returns the greedy preempting run's
+    launches."""
+    lines, launches_out = {}, None
+    for sampled in (False, True):
+        off = preempt_run(model, False, sampled)
+        fe, outs, launches, prompts = preempt_run(model, True, sampled)
+        mode = "sampled" if sampled else "greedy"
+        ties = near_tie_check(f"frontend_preempt_bf16 {mode}", model,
+                              prompts, outs, off[1],
+                              streams=(list(range(len(prompts)))
+                                       if sampled else None))
+        st, st_off = fe.stats(), off[0].stats()
+        if not (st["preemptions"] > 0
+                and st["resumes"] == st["preemptions"]):
+            raise AssertionError(f"frontend_preempt_bf16 {mode}: "
+                                 f"{st['preemptions']} preemptions, "
+                                 f"{st['resumes']} resumes")
+        lives = fe.tracer.lifecycles()
+        hi_ttft = sorted(lives[i]["ttft_ms"] for i in range(
+            PREEMPT_LOW, PREEMPT_LOW + PREEMPT_HIGH))
+        hi_off = sorted(off[0].tracer.lifecycles()[i]["ttft_ms"] for i in
+                        range(PREEMPT_LOW, PREEMPT_LOW + PREEMPT_HIGH))
+        lines[mode] = dict(
+            token_identical=len(prompts) - len(ties), near_ties=ties,
+            preemptions=st["preemptions"],
+            resumes=st["resumes"], deadline_misses=st["deadline_misses"],
+            deadline_misses_off=st_off["deadline_misses"],
+            ttft_ms_p50=st["ttft_ms_p50"], ttft_ms_p95=st["ttft_ms_p95"],
+            ttft_ms_p50_off=st_off["ttft_ms_p50"],
+            ttft_ms_p95_off=st_off["ttft_ms_p95"],
+            high_priority_ttft_ms=hi_ttft,
+            high_priority_ttft_ms_off=hi_off,
+            prefill_tokens_skipped=st["prefill_tokens_skipped"],
+            decode_steps=st["decode_steps"],
+            decode_steps_off=st_off["decode_steps"])
+        if not sampled:
+            launches_out = launches
+    emit("frontend_preempt_bf16", low=PREEMPT_LOW, high=PREEMPT_HIGH,
+         new_tokens=[PREEMPT_NEW_LOW, PREEMPT_NEW_HIGH],
+         deadline_ms=PREEMPT_DEADLINE_MS, num_slots=NUM_SLOTS,
+         layers=model.config.num_layers, runs=lines, nvidia_smi=smi,
+         launches=launches_out)
+    return launches_out
+
+
+def beam_fp32(model) -> dict:
+    """Beam search in fp32, card against the CPU port on the same weights:
+    ``generate_beam`` on GPT-2-small and ``t5_beam_search`` on t5-small,
+    ``BEAM_WIDTH`` beams, ``BEAM_NEW`` tokens, an EOS and length penalty 1;
+    the sequences equal, the scores within ``BEAM_SCORE_RTOL`` relative.
+    Returns the card's launches of the GPT run."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch.models import generate_beam, t5_beam_search
+    from apex_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(SEED + 41)
+    cpu = build_model(torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    prompts = torch.from_numpy(rng.integers(
+        0, model.config.vocab_size, (2, BEAM_PROMPT)).astype(np.int32))
+    kw = dict(num_beams=BEAM_WIDTH, eos_token_id=int(prompts[0, -1]),
+              length_penalty=1.0)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    seqs, scores = generate_beam(model, prompts.to(DEV), BEAM_NEW, **kw)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    if not (launches["flash_fwd"] and launches["layer_norm_fwd"]):
+        raise AssertionError(f"beam_fp32: the kernels of the path did not "
+                             f"launch ({launches})")
+    c_seqs, c_scores = generate_beam(cpu, prompts, BEAM_NEW, **kw)
+    lines = {}
+
+    def hold(label, got, want):
+        (s, sc), (cs, csc) = got, want
+        if not torch.equal(s.cpu(), cs):
+            raise AssertionError(f"beam_fp32 {label}: the card's beams "
+                                 f"differ from the CPU port's")
+        rel = ((sc.cpu() - csc).abs() / csc.abs()).max().item()
+        if rel > BEAM_SCORE_RTOL:
+            raise AssertionError(f"beam_fp32 {label}: scores differ by "
+                                 f"{rel:.3e} relative")
+        lines[label] = dict(sequences_equal=True, score_max_rel_err=rel,
+                            best_scores=sc[:, 0].tolist())
+
+    hold("gpt2_small", (seqs, scores), (c_seqs, c_scores))
+    del cpu
+    t5 = build_t5(torch.float32).eval()
+    t5_cpu = build_t5(torch.float32, device="cpu").eval()
+    t5_cpu.load_state_dict({k: v.cpu() for k, v in t5.state_dict().items()})
+    enc = torch.from_numpy(rng.integers(
+        0, t5.config.vocab_size, (2, BEAM_ENC)).astype(np.int32))
+    t5_kw = dict(num_beams=BEAM_WIDTH, eos_token_id=1, length_penalty=1.0)
+    hold("t5_small", t5_beam_search(t5, enc.to(DEV), BEAM_NEW, **t5_kw),
+         t5_beam_search(t5_cpu, enc, BEAM_NEW, **t5_kw))
+    del t5, t5_cpu
+    torch.cuda.empty_cache()
+    emit("beam_fp32", beams=BEAM_WIDTH, new_tokens=BEAM_NEW,
+         gpt2_prompt=[2, BEAM_PROMPT], t5_encoder=[2, BEAM_ENC],
+         score_rtol=BEAM_SCORE_RTOL, runs=lines, launches=launches)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6967,7 +7617,7 @@ def main() -> int:
               + check_paged_block(gen, DEV) + check_flash_bias(gen, DEV)
               + check_resnet_optim(gen, DEV) + check_scaled_softmax(gen, DEV)
               + check_group_norm(gen, DEV) + check_flash_ring(gen, DEV)
-              + check_flash_nmt(gen, DEV))
+              + check_flash_nmt(gen, DEV) + check_head_dim(gen, DEV))
     rows = [row for row, _ in checks]
     emit("kernels", tolerances=TOL, rms_atol=RMS_ATOL,
          card_before=card_before,
@@ -7006,6 +7656,8 @@ def main() -> int:
     engine_quant_fp32(model, prompts, new_tokens, outs)
     spec_fp32(model, prompts, new_tokens, outs, launches32)
     chunked_fp32(model)
+    prefix_launches32 = engine_prefix_fp32(model)
+    beam_launches = beam_fp32(model)
     del model
     torch.cuda.empty_cache()
 
@@ -7027,6 +7679,9 @@ def main() -> int:
          lockstep_steps_fifo=lockstep_steps(new_tokens, fifo=True),
          launches=launches, nvidia_smi=smi, card_after=card_state(),
          **stats)
+    sampled_launches = engine_sampled_bf16(model, prompts, new_tokens, smi)
+    prefix_launches = engine_prefix_bf16(model, smi)
+    preempt_launches = frontend_preempt_bf16(model, smi)
     spec_launches = spec_bf16(model, prompts, new_tokens,
                               (timed[0][0], stats, elapsed), smi)
     chunk_launches, chunk_kv8_launches = chunked_bf16(model, smi)
@@ -7078,7 +7733,8 @@ def main() -> int:
         if row.get("path") in ("quant_serving", "mistral", "mistral_train",
                                "spec_chunked", "t5", "t5_train",
                                "window_bias", "resnet", "megatron_softmax",
-                               "unet_group_norm", "ring", "nmt"):
+                               "unet_group_norm", "ring", "nmt",
+                               "head_dim"):
             continue                  # timed by queued_ms already
         ms, seen, split = kernel_device_ms(
             fn, kernel_symbol(row["name"], row["dtype"]))
@@ -7220,7 +7876,12 @@ def main() -> int:
                "ring_train": ring_train["ring"],
                "ring_train_zigzag": ring_train["zigzag"],
                "ring_gpt": ring_gpt_launches,
-               "nmt_train": nmt_train_launches, "asp_bert": asp_launches}
+               "nmt_train": nmt_train_launches, "asp_bert": asp_launches,
+               "serving_sampled": sampled_launches,
+               "serving_prefix": prefix_launches,
+               "serving_prefix_fp32": prefix_launches32,
+               "serving_preempt": preempt_launches,
+               "beam": beam_launches}
     # the windowed block has no engine path (the reference refuses both
     # modes for windowed models), so its launches read 0
     block_path = {"paged_attention_block": "spec",
@@ -7290,7 +7951,20 @@ def main() -> int:
                 dict({k: r[k] for k in ("kind", "dtype", "shape",
                                         "causal_offset", "visible_pairs")},
                      **{k: r[k] for k in timing if k in r})
-                for r in rows if r["name"] == name and r is not row]
+                for r in rows if r["name"] == name and r is not row
+                and r.get("path") != "head_dim"]
+        hd = [r for r in rows if r["name"] == name
+              and r.get("path") == "head_dim"]
+        if hd:
+            # the head dims above 128 (C3): every branch's row; no main
+            # path of the repo runs d > 128, so these carry no launches
+            entry["head_dim"] = [
+                dict({k: r[k] for k in ("branch", "d", "dtype", "shape")},
+                     **{k: r[k] for k in ("use", "s", "kv_heads", "sk",
+                                          "window", "library")
+                        if r.get(k) is not None},
+                     **{k: r[k] for k in timing if k in r})
+                for r in hd]
         if name == "segment_stats":
             rn = next(r for r in rows if r["name"] == name
                       and r.get("path") == "resnet")

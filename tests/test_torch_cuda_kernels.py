@@ -1819,25 +1819,60 @@ def test_bf16_flash_fwd_unaligned_rows_take_element_loads(cuda, d):
     assert torch.equal(ao, o) and torch.equal(alse, lse)
 
 
+@pytest.fixture(scope="module")
+def profile_worker():
+    """One ``tests/_torch_profile_worker.py`` process for the module: the
+    routing tests' profiler sessions run there, in a process that only
+    profiles (in this one, after the tests above, most sessions see no
+    device activity; PERF.md §7). Stopped, with a bounded wait, at the
+    module's end."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only on "
+                    "the card)")
+    here = Path(__file__).resolve().parent
+    path = os.pathsep.join(p for p in (str(here.parent),
+                                       os.environ.get("PYTHONPATH")) if p)
+    proc = subprocess.Popen(
+        [sys.executable, str(here / "_torch_profile_worker.py")],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+        cwd=str(here.parent), env=dict(os.environ, PYTHONPATH=path))
+    yield proc
+    proc.stdin.close()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def _worker_profile(proc, kind: str, dtype):
+    """The CUDA activity names of one profiled call in the worker; the
+    worker's own launch count of the call is 1 a kernel (the port's
+    counters beside the profiler's names)."""
+    import json
+
+    proc.stdin.write(f"{kind} {str(dtype).split('.')[-1]}\n")
+    proc.stdin.flush()
+    line = proc.stdout.readline()
+    assert line, "the profiling worker died"
+    out = json.loads(line)
+    assert out["launches"] == (1 if kind == "flash_fwd" else 2), out
+    return out["names"]
+
+
 @pytest.mark.parametrize("dtype,symbol", [
     (torch.bfloat16, "flash_fwd_mma_kernel"),
     (torch.float32, "flash_fwd_kernel<float>")])
-def test_flash_fwd_routes_by_dtype(cuda, dtype, symbol):
+def test_flash_fwd_routes_by_dtype(cuda, profile_worker, dtype, symbol):
     """A bf16 forward runs the tensor-core kernel and nothing else on the
     card (no library attention, no GEMM); an fp32 one the CUDA-core
     kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    g = torch.Generator().manual_seed(43)
-    q, k, v = (torch.randn(1, 4, 256, 64, generator=g).to(cuda, dtype)
-               for _ in range(3))
-    flash_attention_with_lse(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flash_attention_with_lse(q, k, v, causal=True)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA")]
+    names = _worker_profile(profile_worker, "flash_fwd", dtype)
     kernels = [n for n in names if "flash_fwd" in n]
     assert len(kernels) == 1 and symbol in kernels[0], names
     assert not [n for n in names if "flash_fwd" not in n
@@ -1963,23 +1998,10 @@ def test_bf16_flash_bwd_unaligned_rows_take_element_loads(cuda, d):
     (torch.bfloat16, ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")),
     (torch.float32, ("flash_bwd_dq_kernel<float>",
                      "flash_bwd_dkdv_kernel<float>"))])
-def test_flash_bwd_routes_by_dtype(cuda, dtype, symbols):
+def test_flash_bwd_routes_by_dtype(cuda, profile_worker, dtype, symbols):
     """A bf16 backward runs the two tensor-core kernels and no library
     attention or GEMM on the card; an fp32 one the CUDA-core kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    g = torch.Generator().manual_seed(46)
-    q, k, v, do = (torch.randn(1, 4, 256, 64, generator=g).to(cuda, dtype)
-                   for _ in range(4))
-    o, lse = flash_attention_with_lse(q, k, v, causal=True)
-    kw = dict(scale=0.125, masking=Masking(causal=True))
-    flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA")]
+    names = _worker_profile(profile_worker, "flash_bwd", dtype)
     kernels = [n for n in names if "flash_bwd" in n]
     assert len(kernels) == 2, names
     for symbol in symbols:
@@ -2103,3 +2125,93 @@ def test_segment_stats_one_row_and_long_segments_match_twin(cuda, counts,
                                rtol=1e-6)
     again = segment_stats(a, seg, len(counts), b if with_b else None)
     assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(got))
+
+
+# --- head dims above 128 (the wide kernels) ----------------------------------
+
+WIDE_DIMS = [160, 192, 256]
+#: every branch the d <= 128 flash kernels take: (b, h, hkv, sq, sk, masking
+#: keywords, bias kind)
+WIDE_FLASH_BRANCHES = {
+    "causal": (2, 4, 2, 77, 77, dict(causal=True), None),
+    "noncausal": (2, 4, 4, 40, 97, dict(causal=False), None),
+    "window": (1, 4, 2, 100, 100, dict(causal=True, window=20), None),
+    "bias": (2, 4, 2, 77, 77, dict(causal=True), "table"),
+    "fp32_bias": (2, 4, 4, 64, 64, dict(causal=False, dropout_rate=0.1),
+                  "padding_fp32"),
+    "segments_dropout": (2, 4, 2, 64, 64, dict(causal=False,
+                                               dropout_rate=0.1), None),
+    "dropout": (2, 4, 2, 70, 70, dict(causal=True, dropout_rate=0.1), None),
+    "ring": (1, 4, 2, 64, 64, dict(causal=True, causal_offset=40,
+                                   dropout_rate=0.1, dropout_row0=64), None),
+}
+
+
+def _wide_flash_case(cuda, dtype, branch, d, seed=61):
+    b, h, hkv, sq, sk, kw, bias_kind = WIDE_FLASH_BRANCHES[branch]
+    g = torch.Generator().manual_seed(seed + d)
+    q, do = (torch.randn(b, h, sq, d, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, sk, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    if branch == "segments_dropout":
+        seg = (torch.arange(sq)[None, :]
+               < torch.tensor([sq, sq - 9])[:, None]).int().to(cuda)
+        kw = dict(kw, segment_ids=seg, kv_segment_ids=seg)
+    masking = Masking(dropout_seed=7, **kw)
+    bias = None
+    if bias_kind == "table":
+        bias = _bias_for("table", b, h, sq, sk, g).to(cuda, dtype)
+    elif bias_kind == "padding_fp32":
+        bias = _bias_for("padding", b, h, sq, sk, g).to(cuda, torch.float32)
+    return (q, k, v, do), dict(scale=d ** -0.5, masking=masking, bias=bias)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("branch", list(WIDE_FLASH_BRANCHES))
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_flash_kernels_match_twin(cuda, dtype, branch, d):
+    """Head dims 160, 192 and 256 on every flash branch: the forward, its
+    LSE and the backward's dq, dk, dv against the twins, one launch each
+    under the branch's name and no other, the same bits in a second call."""
+    (q, k, v, do), kw = _wide_flash_case(cuda, dtype, branch, d)
+    o, lse = flash_attention_reference(q, k, v, **kw)
+    before = dict(_build.launches)
+    ko, klse = flash_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        full = launch_name(name, kw["masking"], kw["bias"], q.shape[2],
+                           k.shape[2])
+        assert _build.launches[full] == before[full] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 3
+    _close(ko, o, dtype)
+    _close(klse, lse, torch.float32)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    for a, r in zip(got, want):
+        _bwd_close(a, r, dtype)
+    assert torch.equal(flash_fwd(q, k, v, **kw)[0], ko)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("branch", SPLIT_BRANCHES)
+@pytest.mark.parametrize("s,rep", [(1, 1), (1, 4), (4, 2), (16, 1)])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_paged_kernel_matches_twin(cuda, dtype, branch, s, rep, d):
+    """Head dims 160, 192 and 256 on every paged branch (fp, window, int8,
+    fp8, int8 with a window) at s = 1 and s > 1: the twin at ``TOL``, one
+    launch under the branch's name, leading rows of short slots exactly 0,
+    the same bits in a second call and for a slot alone."""
+    args, kw, name = _split_case(cuda, dtype, branch, s, rep, d,
+                                 seed=71 + s + rep + d)
+    before = dict(_build.launches)
+    got = paged_attention(*args, **kw)
+    assert _build.launches[name] == before[name] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 1
+    _close(got, paged_attention_reference(*args, **kw), dtype)
+    for i, n in enumerate(args[4].tolist()):
+        if n < s:
+            assert (got[i, :, :s - n] == 0).all()
+    assert torch.equal(paged_attention(*args, **kw), got)
+    q, kp, vp, bt, ln = args
+    alone = paged_attention(q[7:8], kp, vp, bt[7:8], ln[7:8], **kw)
+    assert torch.equal(alone, got[7:8])

@@ -143,7 +143,8 @@ def test_single_token_prompt_generate_matches(pair):
 
 def test_sampling_and_tensor_parallel_raise(pair):
     _, _, tm = pair
-    with pytest.raises(NotImplementedError, match="sampled decode"):
+    # sampled decode is ported; as in the reference it needs a seed
+    with pytest.raises(ValueError, match="explicit rng"):
         generate(tm, torch.zeros((1, 3), dtype=torch.int32), 2,
                  temperature=1.0)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):

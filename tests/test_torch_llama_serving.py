@@ -164,9 +164,9 @@ def test_drop_slot_pages_matches_jax_pool():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    pytest.param(dict(prefix_cache=True), NotImplementedError,
-                 "prefix cache", id="kw0-prefix cache"),
-    # the reference's ValueErrors: neither mode composes with the window
+    # the reference's ValueErrors: no mode composes with the window
+    pytest.param(dict(prefix_cache=True), ValueError, "sliding-window",
+                 id="kw0-prefix cache"),
     pytest.param(dict(prefill_chunk=4), ValueError, "sliding-window",
                  id="kw1-chunked prefill"),
     pytest.param(dict(draft_len=2, draft=True), ValueError,

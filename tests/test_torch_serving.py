@@ -158,8 +158,9 @@ def test_prompt_bucket_matches(s0):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    pytest.param(dict(prefix_cache=True), NotImplementedError,
-                 "prefix cache", id="kw0-prefix cache"),
+    # the prefix cache is ported; its host tier is not (A9)
+    pytest.param(dict(prefix_cache=True, host_tier_bytes=1 << 20),
+                 NotImplementedError, "host tier", id="kw0-prefix cache"),
     # the reference's refusals of the speculative and chunked modes
     pytest.param(dict(draft_kv_dtype="int8", draft_len=2, draft=True),
                  ValueError, "kv-dtype-mismatch", id="kw1-quantized"),
@@ -167,14 +168,16 @@ def test_prompt_bucket_matches(s0):
                  "query-block limit", id="kw2-speculative"),
     pytest.param(dict(prefill_chunk=9), ValueError, "1..page_size",
                  id="kw3-chunked prefill"),
-    pytest.param(dict(temperature=0.7), NotImplementedError, "sampled",
+    # sampled decode is ported; as in the reference it needs a seed
+    pytest.param(dict(temperature=0.7), ValueError, "explicit rng",
                  id="kw4-sampled"),
 ])
 def test_unported_engine_modes_raise_at_construction(setup, kw, exc, match):
-    """What the engine refuses when built: the unported prefix cache and
-    sampled decode (``NotImplementedError``), and the reference's
+    """What the engine refuses when built: the unported host tier under
+    the prefix cache (``NotImplementedError``), and the reference's
     ``ValueError``s for a draft pool of another kv dtype, a draft block
-    longer than a page and a prefill chunk outside ``1..page_size``."""
+    longer than a page, a prefill chunk outside ``1..page_size`` and
+    sampling without a seed."""
     tm = setup[0]
     kw = dict(kw)
     if kw.pop("draft", False):
@@ -185,7 +188,7 @@ def test_unported_engine_modes_raise_at_construction(setup, kw, exc, match):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(draft_len=2), "needs a draft_model"),
-    (dict(draft_len=2, draft=True, temperature=0.5), "greedy-only"),
+    (dict(draft_len=2, draft=True, temperature=0.5, rng=0), "greedy-only"),
     (dict(draft_len=2, draft=True, prefix_cache=True), "prefix_cache"),
     (dict(draft_len=2, draft=True, prefill_chunk=4), "mutually exclusive"),
     (dict(draft_len=-1), "draft_len must be >= 0"),
