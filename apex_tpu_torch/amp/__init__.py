@@ -1,18 +1,25 @@
-"""apex.amp for the port: opt levels O0 and O1 as a dtype policy, and the
-dynamic loss scaler fused into the optimizer's step.
+"""apex.amp for the port: opt levels O0-O3 as a dtype policy, half model
+copies beside the fp32 master, and the dynamic loss scaler fused into the
+optimizer's step.
 
 Counterpart of ``apex_tpu/amp/__init__.py``. ``initialize`` sets the
 policy that modules read through ``resolve_compute_dtype`` (the reference's
-O1 seam), and attaches a ``LossScaler`` to each fused optimizer when the
-scaler does anything (dynamic, or a static scale other than 1): the
-optimizer's step then unscales, skips on a non-finite gradient and updates
-the scale on the device. O2 and O3 keep half-precision copies of the model
-beside the fp32 master, which the port's optimizers do not hold yet: they
-raise (ROADMAP queue A item 11).
+O1 seam). Under O2 and O3 (or any ``cast_model_type``) it also casts each
+module's floating parameters to the policy's parameter dtype in place,
+keeping fp32 the norm parameters (O2's ``keep_batchnorm_fp32``; the names
+``keep_fp32_predicate`` selects, by default ``is_norm_param_name``), and
+tells each fused optimizer its model's dtypes: the optimizer keeps its fp32
+master and makes the half parameters views of its half copy of it
+(``FusedOptimizerBase.set_output_dtypes``). O3 casts the norms too and
+still keeps the optimizer's fp32 master, as the reference. Buffers (the
+norms' running statistics) are not cast. It attaches a ``LossScaler`` to
+each fused optimizer when the scaler does anything (dynamic, or a static
+scale other than 1): the optimizer's step then unscales, skips on a
+non-finite gradient and updates the scale on the device.
 
 Typical use:
 
-    model, optimizer = amp.initialize(model, optimizer, opt_level="O1")
+    model, optimizer = amp.initialize(model, optimizer, opt_level="O2")
     with amp.scale_loss(loss, optimizer) as scaled_loss:
         scaled_loss.backward()
     optimizer.step()      # unscale + overflow skip fused
@@ -34,13 +41,10 @@ from apex_tpu_torch.amp.scaler import LossScaler, ScalerState
 __all__ = ["initialize", "scale_loss", "unscale_and_combine", "master_params",
            "current_policy", "loss_scalers", "active_state", "scope",
            "reset", "state_dict", "load_state_dict", "Policy", "make_policy",
+           "cast_params",
            "LossScaler", "ScalerState", "NORM_NAME_TOKENS",
            "is_norm_param_name", "resolve_compute_dtype"]
 
-_HALF_MODELS = ("opt levels O2 and O3 keep half-precision model copies "
-                "beside the fp32 master, which the port's optimizers do not "
-                "hold yet (ROADMAP queue A item 11: O2/O3 half model "
-                "copies)")
 
 def current_policy() -> Optional[Policy]:
     """The active Policy (modules consult it for compute dtypes)."""
@@ -76,6 +80,27 @@ def _device_of(models):
     return None
 
 
+@torch.no_grad()
+def cast_params(model, policy: Policy, keep_fp32_predicate=None) -> None:
+    """Cast ``model``'s floating parameters in place to the policy's
+    parameter dtype (their ``.grad`` with them), keeping fp32 those whose
+    name ``keep_fp32_predicate`` (by default ``is_norm_param_name``) takes
+    while ``keep_norm_fp32`` holds, as the reference's ``cast_params``.
+    Buffers are left as they are."""
+    keep = keep_fp32_predicate or is_norm_param_name
+    for name, p in model.named_parameters():
+        if not p.is_floating_point():
+            continue
+        dt = (torch.float32 if policy.keep_norm_fp32 and keep(name)
+              else policy.param_dtype)
+        if p.dtype == dt:
+            continue
+        grad, p.grad = p.grad, None
+        p.data = p.data.to(dt)
+        if grad is not None:
+            p.grad = grad.to(dt)
+
+
 def initialize(models, optimizers=None, enabled=True, opt_level="O1",
                cast_model_type=None, patch_torch_functions=None,
                keep_batchnorm_fp32=None, master_weights=None, loss_scale=None,
@@ -84,16 +109,17 @@ def initialize(models, optimizers=None, enabled=True, opt_level="O1",
                half_dtype=torch.bfloat16, keep_fp32_predicate=None,
                hysteresis=1):
     """The reference's ``initialize`` over ``nn.Module``s (one or a list)
-    and fused optimizers. Sets the policy, makes ``num_losses`` scalers on
-    the models' device, and attaches scaler ``i`` to optimizer ``i`` when it
-    is dynamic or its scale is not 1. With several dynamically scaled losses
-    on one optimizer no scaler is attached: combine the gradients with
-    ``unscale_and_combine`` and pass its ``noop`` to ``step`` (the optimizer
-    refuses to step without it). Returns the models and optimizers as they
-    were given (O0 and O1 cast no parameter). Torch-only knobs of the
-    reference are accepted and ignored."""
+    and fused optimizers. Sets the policy; under a half parameter dtype
+    casts the models' parameters (``cast_params``) and gives optimizer
+    ``i`` the dtypes of model ``min(i, len - 1)``; makes ``num_losses``
+    scalers on the models' device, and attaches scaler ``i`` to optimizer
+    ``i`` when it is dynamic or its scale is not 1. With several
+    dynamically scaled losses on one optimizer no scaler is attached:
+    combine the gradients with ``unscale_and_combine`` and pass its
+    ``noop`` to ``step`` (the optimizer refuses to step without it).
+    Returns the models and optimizers it was given, the models cast in
+    place. Torch-only knobs of the reference are accepted and ignored."""
     del patch_torch_functions, cast_model_outputs, verbosity
-    del keep_fp32_predicate
     if not enabled:
         return models if optimizers is None else (models, optimizers)
 
@@ -101,12 +127,11 @@ def initialize(models, optimizers=None, enabled=True, opt_level="O1",
                          cast_model_type=cast_model_type,
                          keep_batchnorm_fp32=keep_batchnorm_fp32,
                          master_weights=master_weights, loss_scale=loss_scale)
-    if policy.param_dtype != torch.float32:
-        raise NotImplementedError(f"amp {policy.opt_level} "
-                                  f"(param dtype {policy.param_dtype}): "
-                                  f"{_HALF_MODELS}")
     single_model = not isinstance(models, (list, tuple))
     model_list = [models] if single_model else list(models)
+    if policy.param_dtype != torch.float32:
+        for m in model_list:
+            cast_params(m, policy, keep_fp32_predicate)
     device = _device_of(model_list)
     scalers = [
         LossScaler(policy.loss_scale, min_loss_scale=min_loss_scale,
@@ -133,6 +158,12 @@ def initialize(models, optimizers=None, enabled=True, opt_level="O1",
             opt.attach_amp_scaler(scaler)
         # assigned every time, so that a re-initialize clears a stale flag
         opt._amp_require_noop = multi_loss_dynamic_single_opt
+        if (hasattr(opt, "set_output_dtypes")
+                and policy.param_dtype != torch.float32):
+            dtypes = {id(p): p.dtype for p in
+                      model_list[min(i, len(model_list) - 1)].parameters()}
+            opt.set_output_dtypes([dtypes.get(id(p), p.dtype)
+                                   for p in opt.params])
     return out_models, (opt_list[0] if single_opt else opt_list)
 
 

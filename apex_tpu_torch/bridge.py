@@ -9,9 +9,10 @@ for ``T5Model`` and ``resnet_params_from_flax`` for the ImageNet example's
 ``ResNet`` (its convolutions change layout: HWIO to OIHW) and
 ``group_norm_params_from_flax`` for ``contrib.group_norm.GroupNorm``,
 ``multihead_attn_params_from_flax`` for ``contrib.multihead_attn``'s two
-modules and ``nmt_params_from_flax`` for the NMT example's
+modules, ``nmt_params_from_flax`` for the NMT example's
 ``NMTTransformer`` (its FFN kernels change layout: ``(in, out)`` to
-``nn.Linear``'s ``(out, in)``). All
+``nn.Linear``'s ``(out, in)``) and ``dcgan_params_from_flax`` for the DCGAN
+example's ``Generator`` and ``Discriminator``. All
 sides keep the reference's weight layouts (GPT's and Llama's ``(out, in)``
 linears, BERT's ``(in, out)`` ``x @ W``), so every tensor maps one to one;
 only the names change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes
@@ -383,4 +384,20 @@ def nmt_params_from_flax(variables) -> dict:
     missing = sorted(want - set(sd))
     if missing:
         raise KeyError(f"flax tree lacks {missing}")
+    return sd
+
+
+def dcgan_params_from_flax(variables) -> dict:
+    """``{flax params}`` (or ``{"params": ...}``) of the reference DCGAN
+    example's ``Generator`` or ``Discriminator`` (``Dense_i`` layers) ->
+    the state dict of the port's module of the same name: ``Dense_i/kernel``
+    and ``Dense_i/bias`` keep their names and layouts. Any other leaf
+    raises ``KeyError``."""
+    sd = {}
+    for path, leaf in _flat_paths(variables.get("params", variables)):
+        mod, _, leaf_name = path.partition("/")
+        if not (mod.startswith("Dense_") and leaf_name in ("kernel", "bias")):
+            raise KeyError(f"flax leaf {path!r} has no counterpart in the "
+                           f"port's DCGAN modules")
+        sd[f"{mod}.{leaf_name}"] = _tensor(leaf)
     return sd

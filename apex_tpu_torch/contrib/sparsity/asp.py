@@ -125,8 +125,11 @@ class ASP:
                     loss = closure()
             optimizer._gather_grads()
             optimizer.grads.mul_(mask)
+            for h in optimizer.half.values():     # amp O2/O3 half copies
+                h.grads.mul_(mask)
             cls.__orig_step(None, **kwargs)
             optimizer.master.mul_(mask)
+            optimizer.sync_half_params()
             return loss
 
         optimizer.step = masked_step

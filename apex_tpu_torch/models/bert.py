@@ -19,26 +19,30 @@ dtype is ``BertConfig.dtype``, or the amp policy's after
 Hidden dropout (after the embeddings, the attention output and the MLP)
 draws from a ``torch.Generator`` on the model's device, seeded from the
 step's dropout seed: it cannot match flax's threefry bits, only their rate
-and scale.
+and scale. ``BertConfig(remat=True)`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, not reentrant, as the reference's
+``nn.remat(BertLayer)``); the recompute replays the generator's state at the
+layer's start, so it draws the forward's masks and the gradients equal
+those without remat.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
 
-_REMAT = ("BertConfig(remat=True) is not ported yet (ROADMAP queue A item "
-          "11: per-layer rematerialization)")
 _PARTITION = ("param_partition_specs is not ported yet (ROADMAP queue A "
               "items 10 and 12: tensor parallelism, parallel/)")
 
@@ -175,6 +179,21 @@ class BertLayer(nn.Module):
         return self.mlp_norm(x + mlp_out)
 
 
+def _replaying(run, generator: Optional[torch.Generator]):
+    """``run`` with ``generator``'s state as it stands now put back at each
+    call: the forward draws as it would, and the recompute under remat
+    draws the forward's hidden-dropout masks again (checkpoint's
+    ``preserve_rng_state`` saves only the default generators)."""
+    if generator is None:
+        return run
+    state = generator.get_state()
+
+    def replay(*args):
+        generator.set_state(state)
+        return run(*args)
+    return replay
+
+
 class BertForPreTraining(nn.Module):
     """Embeddings + encoder + MLM head + NSP head.
 
@@ -190,8 +209,6 @@ class BertForPreTraining(nn.Module):
     def __init__(self, config: BertConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.remat:
-            raise NotImplementedError(_REMAT)
         cfg, e, v = config, config.hidden_size, config.vocab_size
         self.config = cfg
         norm = dict(param_dtype=cfg.param_dtype, device=device)
@@ -259,10 +276,16 @@ class BertForPreTraining(nn.Module):
         # queries (the reference's varlen semantics)
         segment_ids = (attention_mask.to(torch.int32)
                        if attention_mask is not None else None)
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, segment_ids, deterministic,
-                      dropout_seed=layer_dropout_seed(dropout_seed, i),
-                      generator=gen)
+            run = partial(layer, deterministic=deterministic,
+                          dropout_seed=layer_dropout_seed(dropout_seed, i),
+                          generator=gen)
+            if remat:
+                x = checkpoint(_replaying(run, gen), x, segment_ids,
+                               use_reentrant=False)
+            else:
+                x = run(x, segment_ids)
 
         x_head = x
         if masked_positions is not None:

@@ -1,19 +1,29 @@
 """Shared machinery of the fused optimizers: flat fp32 buffers over the
-parameters.
+parameters, and half model copies beside them.
 
 Counterpart of ``apex_tpu/optimizers/common.py::FusedOptimizerBase`` in
 PyTorch's idiom. The optimizer takes ``model.named_parameters()`` (any
 iterable of ``(name, parameter)`` pairs) and lays them out once in a
 flat fp32 ``(rows, LANE)`` master buffer (``ops.flat_buffer``), with flat
-gradient and state buffers of the same layout. Every parameter then IS a
+gradient and state buffers of the same layout. An fp32 parameter then IS a
 view into the master buffer (``p.data``), and its ``.grad`` a view into the
 gradient buffer, so autograd accumulates straight into the flat layout and
 one kernel launch updates all parameters in place: no copy in or out per
 step. A gradient that is not the view (one that existed when the optimizer
 was built, or a ``.grad`` replaced since) is copied in, at construction and
 at ``step()``; a missing gradient counts as zero, as ``jax.grad`` returns
-zeros. Parameters must be fp32: the master copy is the
-parameter itself.
+zeros.
+
+A bf16 or fp16 parameter (amp O2/O3, or given half) is a view into a flat
+half buffer of the same layout, its dtype's copy of the master, and its
+``.grad`` a view into a flat half gradient buffer: the reference's
+``set_output_dtypes`` and ``unflatten(..., dtypes=out_dtypes)``. Each step
+casts the half gradients' rows into the fp32 gradient buffer (one
+``torch.where`` a half dtype, so the fp32 tensors' rows keep their own
+gradients), runs the unchanged kernel over the master, then casts the whole
+master into the half buffer (one copy a half dtype; the rows of fp32
+tensors there are never read). The half copies therefore equal
+``master.to(dtype)`` bit for bit after every step, a skipped one included.
 
 Weight-decay exclusion (apex param groups with decay 0 on biases and norms)
 is a predicate over parameter names, turned into a per-tensor 0/1 mask that
@@ -30,11 +40,24 @@ tensor parallelism (ROADMAP queue A item 10).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from apex_tpu_torch.ops import flat_buffer, optim_kernels
+
+
+#: the dtypes a parameter may have: fp32 (its own master view) or a half
+#: type (a view into that type's copy of the master)
+MODEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+class HalfCopy(NamedTuple):
+    """One half dtype's flat buffers, in the master's layout."""
+
+    params: torch.Tensor   # the model's copies: ``master.to(dtype)``
+    grads: torch.Tensor    # their gradients
+    rows: torch.Tensor     # bool (rows, 1): the rows of this dtype's tensors
 
 
 class FusedOptimizerBase:
@@ -51,16 +74,18 @@ class FusedOptimizerBase:
         if not named:
             raise ValueError("optimizer got an empty parameter list")
         for name, p in named:
-            if p.dtype != torch.float32:
+            if p.dtype not in MODEL_DTYPES:
                 raise TypeError(f"parameter {name} is {p.dtype}: the fused "
-                                f"optimizers keep fp32 parameters as their "
-                                f"own master copy")
+                                f"optimizers take fp32, bf16 or fp16 "
+                                f"parameters")
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self.model_dtypes = [p.dtype for p in self.params]
         self.defaults = dict(defaults)
         self.param_groups = [dict(defaults, params=self.params)]
         self.spec = flat_buffer.build_spec(named)
         device = self.params[0].device
+        grads_in = [p.grad for p in self.params]
         with torch.no_grad():
             self.master = flat_buffer.flatten(named, self.spec)
         self.grads = torch.zeros_like(self.master)
@@ -74,18 +99,60 @@ class FusedOptimizerBase:
             self.decay_mask = torch.tensor(
                 [0.0 if exclude_from_weight_decay(n) else 1.0
                  for n in self.names], dtype=torch.float32, device=device)
-        self._grad_views = list(
-            flat_buffer.unflatten(self.grads, self.spec).values())
-        for p, view in zip(self.params,
-                           flat_buffer.unflatten(self.master,
-                                                 self.spec).values()):
-            p.data = view
-        self._gather_grads()
+        self._bind()
+        with torch.no_grad():
+            for view, g in zip(self._grad_views, grads_in):
+                if g is not None:
+                    view.copy_(g)
         self._amp_scaler = None
         #: set by ``amp.initialize`` when several dynamically scaled losses
         #: share this optimizer: ``step`` then needs the ``noop`` of
         #: ``amp.unscale_and_combine``
         self._amp_require_noop = False
+
+    @torch.no_grad()
+    def _bind(self) -> None:
+        """Point every parameter at its flat view for its entry of
+        ``model_dtypes`` (fp32: the master; a half type: that type's copy,
+        made from the master) and its ``.grad`` at the matching gradient
+        buffer, which starts as ``self.grads`` in that dtype."""
+        seg = self.seg_rows.long()
+        self.half = {}
+        for dt in dict.fromkeys(self.model_dtypes):
+            if dt == torch.float32:
+                continue
+            of_dt = torch.tensor([d == dt for d in self.model_dtypes],
+                                 device=self.master.device)
+            self.half[dt] = HalfCopy(self.master.to(dt), self.grads.to(dt),
+                                     of_dt[seg][:, None])
+        flats = {torch.float32: (self.master, self.grads),
+                 **{dt: (h.params, h.grads) for dt, h in self.half.items()}}
+        views = {dt: [list(flat_buffer.unflatten(b, self.spec).values())
+                      for b in bufs] for dt, bufs in flats.items()}
+        self._grad_views = []
+        for i, (p, dt) in enumerate(zip(self.params, self.model_dtypes)):
+            param_view, grad_view = views[dt][0][i], views[dt][1][i]
+            p.grad = None
+            p.data = param_view
+            p.grad = grad_view
+            self._grad_views.append(grad_view)
+
+    def set_output_dtypes(self, dtypes) -> None:
+        """Called by ``amp.initialize`` under O2/O3 (the reference's
+        ``set_output_dtypes``): parameter ``i`` becomes a view of the master
+        in ``dtypes[i]``; the master, the state and the gradients so far
+        are kept."""
+        dtypes = list(dtypes)
+        if len(dtypes) != len(self.params):
+            raise ValueError(f"{len(dtypes)} dtypes for "
+                             f"{len(self.params)} parameters")
+        bad = [d for d in dtypes if d not in MODEL_DTYPES]
+        if bad:
+            raise TypeError(f"output dtypes {bad}: the fused optimizers "
+                            f"take fp32, bf16 or fp16")
+        self._gather_grads(repoint=False)   # amp may have cast the params
+        self.model_dtypes = dtypes
+        self._bind()
 
     @property
     def wd_per_segment(self) -> Optional[torch.Tensor]:
@@ -108,10 +175,17 @@ class FusedOptimizerBase:
         gradients stay views into the flat buffer either way."""
         del set_to_none
         self.grads.zero_()
+        for h in self.half.values():
+            h.grads.zero_()
         for p, view in zip(self.params, self._grad_views):
             p.grad = view
 
-    def _gather_grads(self) -> None:
+    @torch.no_grad()
+    def _gather_grads(self, repoint: bool = True) -> None:
+        """Every ``.grad`` into its flat view (and, with ``repoint``, the
+        ``.grad`` pointed at it), then the half gradients' rows cast into
+        the fp32 gradient buffer: afterwards ``self.grads`` holds every
+        gradient in fp32."""
         for p, view in zip(self.params, self._grad_views):
             if p.grad is None:
                 view.zero_()
@@ -119,7 +193,17 @@ class FusedOptimizerBase:
                 view.copy_(p.grad)
             else:
                 continue
-            p.grad = view
+            if repoint:
+                p.grad = view
+        for h in self.half.values():
+            torch.where(h.rows, h.grads, self.grads, out=self.grads)
+
+    @torch.no_grad()
+    def sync_half_params(self) -> None:
+        """Each half copy from the master (after a step, a load, or a
+        change made to the master in place)."""
+        for h in self.half.values():
+            h.params.copy_(self.master)
 
     # -- state dict ------------------------------------------------------
     def state_dict(self) -> dict:
@@ -130,6 +214,7 @@ class FusedOptimizerBase:
 
     def load_state_dict(self, sd: dict) -> None:
         self.master.copy_(sd["master"])
+        self.sync_half_params()
         for k, v in sd["state"].items():
             self.state[k].copy_(v)
         self.step_count.copy_(sd["step"])
@@ -173,6 +258,7 @@ class FusedOptimizerBase:
             noop = optim_kernels.fp32_scalar(noop, self.master.device)
             self.step_count += (noop <= 0.0).to(self.step_count.dtype)
         self._update(grad_scale, noop)
+        self.sync_half_params()
         return loss
 
     def _amp_unscale(self, scaler, grad_scale, noop):

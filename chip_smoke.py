@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``apex_tpu_torch``'s fourteen paths at full width with seeded random
+Drives ``apex_tpu_torch``'s paths at full width with seeded random
 weights, after building every CUDA kernel from ``apex_tpu_torch/csrc``
 (into ``apex_tpu_torch/_build/``): GPT-2-small greedy paged decode through
 ``PagedDecodeEngine``; the same decode with quantized weights
@@ -273,6 +273,29 @@ BERT-Large (``contrib.sparsity.ASP.prune_trained_model`` with
    ms, tokens/s, FLOPs per step by ``bench.py``'s formula and MFU, the
    phase's own peak memory (above what earlier phases keep live), the
    launches of each kernel per step (asserted), and a falling finite loss.
+   Then the amp O2 and remat paths (A11) on the same workload, each
+   freeing its model: ``bert_o2_bf16`` (the same weights, batch and seeds
+   under ``amp.initialize(opt_level="O2")``: every non-norm parameter a
+   bf16 copy of the fp32 master, every norm an fp32 master view, each
+   copy ``master.to(bf16)`` bit for bit after every step, ``bert_bf16``'s
+   launches per step, the losses within ``O2_DRIFT`` nats of
+   ``bert_bf16``'s; step ms, tokens/s and MFU beside ``bert_bf16``'s, the
+   two half-copy casts by ``queued_ms`` and the ``_to_copy`` casts a step
+   dispatches beside ``bert_bf16``'s) and ``bert_remat_bf16`` (24 layers,
+   dropout 0.1, one forward and backward with ``remat`` and one without:
+   loss and every gradient bit-equal, the peak memory lower with remat,
+   the flash and LayerNorm forwards once more a layer; forward-backward
+   ms of both). After ``resnet_bf16``, ``resnet_o2_bf16`` (its workload
+   under O2: conv and fc bf16, BatchNorm fp32, the copies checked after
+   every step, losses within ``O2_DRIFT`` of ``resnet_bf16``'s, step ms,
+   images/s, MFU beside; one O3 step with every parameter bf16), then
+   ``dcgan_fp16`` (the DCGAN multi-loss example at O2 fp16, two dynamic
+   scalers, against the CPU port: the scales and step counts at every
+   step equal, one inf sample in step ``DCGAN_POISON``'s real batch skips
+   only the discriminator's optimizer and halves only its scale, the
+   losses within ``DCGAN_FLOOR_FACTOR`` times the CPU's own fp16 floor)
+   and ``transforms`` (the four optax-style transforms at ResNet-50's 161
+   tensors against the CPU's, with their launches).
 9. ``mistral_train_fp32``: Mistral-7B at full width, 1 layer, window cut
    to 128, B = 1, S = 512, fp32, card against CPU from the same seeded
    weights: the loss and every gradient (atol 1e-4 / rtol 1e-3), two
@@ -676,6 +699,17 @@ T5_TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
 RESNET_IMAGE, RESNET_CLASSES, RESNET_LR = 224, 1000, 0.1
 RESNET_BATCH, RESNET_WARM, RESNET_TIMED = 256, 3, 10
 RESNET_FP32_BATCH, RESNET_NVG_STEPS = 8, 3
+# amp O2/O3 (A11): the losses' largest drift from the O1 run's at the same
+# weights, batch and seeds, in nats (the reference's L1 check,
+# tests/test_examples.py:143)
+O2_DRIFT = 0.25
+# BERT remat: its depth (the whole model) and the timed forward-backwards
+BERT_REMAT_LAYERS, BERT_REMAT_TIMED = 24, 3
+# the DCGAN example (reference batch 32, 20 steps), the step whose real
+# batch holds an inf sample, and the CPU floor's relative perturbation of
+# the fp32 masters (one fp16 rounding is 2^-11 relative) and its factor
+DCGAN_STEPS, DCGAN_BATCH, DCGAN_POISON = 20, 32, 10
+DCGAN_PERTURB, DCGAN_FLOOR_FACTOR = 2.0 ** -11, 4.0
 # ResNet-50 at its random init amplifies rounding: on a CPU, one rounding
 # of every parameter (``perturbed``) moved the gradients by 2.4% median
 # and 3.1% at worst (relative Frobenius norm per tensor; full width, 8
@@ -4623,38 +4657,326 @@ def bert_bf16(smi):
         final = bert_pretrain_loss_fn(model, batch, 0).item()
     losses = [x.item() for x in losses]
     layers = cfg.num_layers
-    want = {"flash_fwd": layers, "flash_bwd_dq": layers,
-            "flash_bwd_dkdv": layers, "layer_norm_fwd": 2 * layers + 2,
-            "layer_norm_bwd": 2 * layers + 2, "xentropy_fwd": 2,
-            "xentropy_bwd": 2, "segment_stats": 1, "lamb_phase1": 1,
-            "lamb_phase2": 1}
-    per_step = {k: launches[k] / BERT_TIMED for k in want}
-    wrong = {k: n for k, n in per_step.items() if n != want[k]}
-    if wrong:
-        raise AssertionError(f"bert_bf16: launches per step {wrong}, want "
-                             f"{want}")
+    per_step = check_bert_launches("bert_bf16", launches, layers)
     if not all(map(math.isfinite, losses + [final])) or not final < losses[0]:
         raise AssertionError(f"bert_bf16: loss not finite and falling: "
                              f"{losses} then {final}")
     step_s = elapsed / BERT_TIMED
-    tokens = BERT_BATCH * BERT_SEQ
-    per_token = bert_flops_per_token(cfg, BERT_SEQ, mlm_k)
-    flops = per_token * tokens
+    rates = bert_rates(cfg, step_s, mlm_k)
+    casts = cast_ops(step)
     emit("bert_bf16", batch=BERT_BATCH, seq=BERT_SEQ, layers=layers,
          hidden=cfg.hidden_size, heads=cfg.num_heads, vocab=cfg.vocab_size,
          mlm_k=mlm_k, params=sum(p.numel() for p in model.parameters()),
          segments=opt.spec.num_tensors, timed_steps=BERT_TIMED,
-         step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
-         flops_per_token=per_token, flops_per_step=flops,
-         flops_formula="bench.py model_flops_per_token: 3 (L (8 e^2 + 4 S e "
-                       "+ 4 e i) + (2 e^2 + 2 e V) K / S) per token",
-         mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
-         peak_flops=PEAK_FLOPS["bfloat16"], losses=losses,
+         **rates, peak_flops=PEAK_FLOPS["bfloat16"], losses=losses,
          loss_after=final, launches_per_step=per_step, launches=launches,
+         cast_ops_per_step=casts,
          peak_memory_gib=(torch.cuda.max_memory_allocated() - live)
          / 2 ** 30, earlier_phases_live_gib=live / 2 ** 30,
          nvidia_smi=smi, card_after=card_state())
-    return step, launches
+    return step, launches, dict(losses=losses, casts=casts, **rates)
+
+
+def bert_train_launches(layers: int, remat: bool = False) -> dict:
+    """The kernels one BERT training step launches (a LAMB step included);
+    under ``remat`` each layer's forward runs again in the backward: its
+    flash forward and its two LayerNorm forwards once more."""
+    again = layers if remat else 0
+    return {"flash_fwd": layers + again, "flash_bwd_dq": layers,
+            "flash_bwd_dkdv": layers,
+            "layer_norm_fwd": 2 * layers + 2 + 2 * again,
+            "layer_norm_bwd": 2 * layers + 2, "xentropy_fwd": 2,
+            "xentropy_bwd": 2, "segment_stats": 1, "lamb_phase1": 1,
+            "lamb_phase2": 1}
+
+
+def check_bert_launches(phase: str, launches, layers: int, steps: int =
+                        BERT_TIMED, remat: bool = False,
+                        optimizer: bool = True) -> dict:
+    """``launches`` over ``steps`` steps must be ``bert_train_launches``
+    a step (without ``optimizer``: no stats or LAMB launch); returns the
+    launches per step."""
+    want = bert_train_launches(layers, remat)
+    if not optimizer:
+        want.update(segment_stats=0, lamb_phase1=0, lamb_phase2=0)
+    per_step = {k: launches[k] / steps for k in want}
+    wrong = {k: n for k, n in per_step.items() if n != want[k]}
+    if wrong:
+        raise AssertionError(f"{phase}: launches per step {wrong}, want "
+                             f"{want}")
+    return per_step
+
+
+def bert_rates(cfg, step_s: float, mlm_k: int) -> dict:
+    """Step ms, tokens/s and MFU of a ``BERT_BATCH`` x ``BERT_SEQ`` step
+    (bench.py's FLOPs, ``bert_flops_per_token``)."""
+    tokens = BERT_BATCH * BERT_SEQ
+    per_token = bert_flops_per_token(cfg, BERT_SEQ, mlm_k)
+    flops = per_token * tokens
+    return dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                flops_per_token=per_token, flops_per_step=flops,
+                flops_formula="bench.py model_flops_per_token: 3 (L (8 e^2 "
+                              "+ 4 S e + 4 e i) + (2 e^2 + 2 e V) K / S) per "
+                              "token",
+                mfu=flops / step_s / PEAK_FLOPS["bfloat16"])
+
+
+def cast_ops(step) -> dict:
+    """The dtype casts one call of ``step`` dispatches (``aten._to_copy``
+    between floating dtypes, forward and backward): count and bytes read
+    and written. One untimed step under a dispatch mode that counts; the
+    casts the optimizer's O2 half copies make (``torch.where``,
+    ``copy_``) are not ``_to_copy`` and are timed by their phase."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n, nbytes = 0, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func is torch.ops.aten._to_copy.default
+                    and isinstance(out, torch.Tensor)
+                    and out.is_floating_point()
+                    and args[0].is_floating_point()
+                    and out.dtype != args[0].dtype):
+                self.n += 1
+                self.nbytes += (out.numel() * out.element_size()
+                                + args[0].numel() * args[0].element_size())
+            return out
+
+    with Count() as c:
+        step()
+    torch.cuda.synchronize()
+    return dict(count=c.n, gb=c.nbytes / 1e9)
+
+
+def half_copy_mismatches(opt):
+    """0-d int64 on the card: the entries of every half copy of ``opt``
+    that differ from ``master.to(dtype)`` (rows of the copy's own tensors
+    only); no host read."""
+    import torch
+
+    bad = torch.zeros((), dtype=torch.int64, device=opt.master.device)
+    for dt, h in opt.half.items():
+        bad += ((h.params != opt.master.to(dt)) & h.rows).sum()
+    return bad
+
+
+def half_cast_times(opt) -> dict:
+    """The two casts an O2 step adds, each by ``queued_ms`` over the bf16
+    copy's whole buffer, beside its bound: the half gradients' rows into
+    the fp32 gradients (``torch.where``: bf16 and fp32 read, fp32 written)
+    and the master into the half copy (fp32 read, bf16 written)."""
+    import torch
+
+    h = opt.half[torch.bfloat16]
+    n = opt.master.numel()
+    return dict(
+        grads_where_ms=queued_ms(lambda: torch.where(
+            h.rows, h.grads, opt.grads, out=opt.grads), iters=10),
+        grads_where_bound_ms=bound_ms(n * (2 + 4 + 4), 0, "float32")[0],
+        params_copy_ms=queued_ms(lambda: h.params.copy_(opt.master),
+                                 iters=10),
+        params_copy_bound_ms=bound_ms(n * (4 + 2), 0, "float32")[0])
+
+
+def check_o2_dtypes(phase: str, model, opt, level: str = "O2") -> dict:
+    """Under O2 every floating parameter whose name is not a norm's is bf16
+    and every norm's fp32, a view of the optimizer's master (O3: every
+    parameter bf16); returns the counts."""
+    import torch
+
+    from apex_tpu_torch import amp
+
+    master = opt.master
+    lo = master.data_ptr()
+    hi = lo + master.numel() * master.element_size()
+    counts = {"bfloat16": 0, "float32": 0}
+    for name, p in model.named_parameters():
+        norm = level == "O2" and amp.is_norm_param_name(name)
+        want = torch.float32 if norm else torch.bfloat16
+        in_master = lo <= p.data_ptr() < hi
+        if p.dtype != want or in_master != norm:
+            raise AssertionError(f"{phase}: {name} is {p.dtype} (master "
+                                 f"view: {in_master}), want {want}")
+        counts[str(want).split(".")[-1]] += 1
+    return counts
+
+
+def timed_steps(step, warm: int, timed: int, check=None):
+    """``warm`` then ``timed`` calls of ``step``, each followed by
+    ``check()`` (a 0-d device count of mismatches, summed on the card);
+    returns ``(losses, seconds of the timed calls, mismatches)``."""
+    import torch
+
+    from apex_tpu_torch.ops import _build
+
+    bad = []
+    losses = []
+    for i in range(warm + timed):
+        if i == warm:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+        losses.append(step())
+        if check is not None:
+            bad.append(check())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return ([x.item() for x in losses], elapsed,
+            int(sum(b.item() for b in bad)) if bad else 0)
+
+
+def bert_o2_bf16(smi, ref: dict):
+    """``bert_bf16``'s workload (the same seeded weights, batch and dropout
+    seeds) under amp O2 with FusedLAMB: every non-norm parameter a bf16
+    copy of the fp32 master, every norm fp32 (a master view); after every
+    step each half copy equals ``master.to(bf16)`` bit for bit; the
+    launches per step ``bert_bf16``'s; the losses finite, falling, and
+    within ``O2_DRIFT`` nats of ``ref``'s (``bert_bf16``'s) at every step.
+    Step ms, tokens/s, MFU beside ``bert_bf16``'s; the two half-copy casts
+    timed alone (``queued_ms``) with their bound; the dtype casts a step
+    dispatches beside ``bert_bf16``'s. Returns the timed steps'
+    launches."""
+    import torch
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import (BertForPreTraining, bert_large_config,
+                                       bert_pretrain_loss_fn)
+    from apex_tpu_torch.ops import _build
+
+    phase = "bert_o2_bf16"
+    live = phase_memory_start()
+    cfg = bert_large_config()
+    model = BertForPreTraining(cfg, device=DEV,
+                               generator=torch.Generator().manual_seed(SEED))
+    opt = make_lamb(model, BERT_LR)
+    with amp.scope():
+        amp.initialize(model, opt, opt_level="O2")
+        state = amp.active_state()
+    dtypes = check_o2_dtypes(phase, model, opt)
+    batch = bert_batch(cfg, BERT_BATCH, BERT_SEQ, DEV)
+    mlm_k = batch["mlm_positions"].shape[1]
+    seeds = iter(range(10 ** 9))     # the step index is the dropout seed
+
+    def step():
+        with amp.scope(state):
+            opt.zero_grad()
+            loss = bert_pretrain_loss_fn(model, batch, next(seeds))
+            loss.backward()
+            opt.step()
+        return loss.detach()
+
+    losses, elapsed, bad = timed_steps(step, BERT_WARM, BERT_TIMED,
+                                       partial(half_copy_mismatches, opt))
+    launches = dict(_build.launches)
+    per_step = check_bert_launches(phase, launches, cfg.num_layers)
+    with torch.no_grad(), amp.scope(state):
+        final = bert_pretrain_loss_fn(model, batch, 0).item()
+    if bad:
+        raise AssertionError(f"{phase}: {bad} half-copy entries differ from "
+                             f"master.to(bf16)")
+    drift = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+    if (not all(map(math.isfinite, losses + [final]))
+            or not final < losses[0] or drift > O2_DRIFT):
+        raise AssertionError(f"{phase}: losses {losses} then {final}, "
+                             f"drift {drift} from bert_bf16's "
+                             f"{ref['losses']} (bar {O2_DRIFT})")
+    half_casts = half_cast_times(opt)
+    casts = cast_ops(step)
+    rates = bert_rates(cfg, elapsed / BERT_TIMED, mlm_k)
+    emit(phase, batch=BERT_BATCH, seq=BERT_SEQ, layers=cfg.num_layers,
+         params_by_dtype=dtypes, timed_steps=BERT_TIMED, **rates,
+         bert_bf16={k: ref[k] for k in ("step_ms", "tokens_per_s", "mfu")},
+         losses=losses, losses_bert_bf16=ref["losses"], loss_after=final,
+         max_loss_drift=drift, drift_bar=O2_DRIFT,
+         half_copy_mismatches=bad, launches_per_step=per_step,
+         launches=launches,
+         half_casts=half_casts, cast_ops_per_step=casts, cast_ops_per_step_bert_bf16=ref["casts"],
+         peak_memory_gib=(torch.cuda.max_memory_allocated() - live)
+         / 2 ** 30, nvidia_smi=smi, card_after=card_state())
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bert_remat_bf16(smi) -> dict:
+    """BERT-Large at full width (``BERT_REMAT_LAYERS`` deep), bf16 compute,
+    hidden and attention dropout 0.1, ``bench.py``'s 8 x 512 batch: one
+    forward and backward with ``remat`` off and one with it on, the same
+    weights, batch and dropout seed. The loss and every gradient must be
+    bit-equal (the recompute replays each layer's dropout generator;
+    attention dropout is counter-based); the peak memory above the weights
+    and gradients lower with remat; then ``BERT_REMAT_TIMED`` timed
+    forward-backward steps each (no optimizer). Returns the launches of
+    remat's timed steps."""
+    import torch
+
+    from apex_tpu_torch.models import (BertForPreTraining, bert_large_config,
+                                       bert_pretrain_loss_fn)
+    from apex_tpu_torch.ops import _build
+
+    phase = "bert_remat_bf16"
+    cfg = bert_large_config(num_layers=BERT_REMAT_LAYERS)
+    model = BertForPreTraining(cfg, device=DEV,
+                               generator=torch.Generator().manual_seed(SEED))
+    batch = bert_batch(cfg, BERT_BATCH, BERT_SEQ, DEV)
+    for p in model.parameters():        # in the base of both peaks
+        p.grad = torch.zeros_like(p)
+    runs = {}
+    for remat in (False, True):
+        set_config(model, dataclasses.replace(cfg, remat=remat))
+        model.zero_grad(set_to_none=False)
+        base = phase_memory_start()
+        _build.reset_launches()
+        loss = bert_pretrain_loss_fn(model, batch, SEED)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated() - base
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+
+        def step():
+            model.zero_grad(set_to_none=False)
+            loss = bert_pretrain_loss_fn(model, batch, SEED + 1)
+            loss.backward()
+            return loss.detach()
+
+        _, elapsed, _ = timed_steps(step, 0, BERT_REMAT_TIMED)
+        runs[remat] = dict(loss=loss.item(), grads=grads, peak=peak,
+                           step_ms=elapsed / BERT_REMAT_TIMED * 1e3,
+                           launches=launches,
+                           launches_timed=dict(_build.launches))
+    off, on = runs[False], runs[True]
+    for remat, run in runs.items():
+        check_bert_launches(phase, run["launches"], cfg.num_layers, 1,
+                            remat=remat, optimizer=False)
+    unequal = [n for n, g in off["grads"].items()
+               if not torch.equal(g, on["grads"][n])]
+    if off["loss"] != on["loss"] or unequal:
+        raise AssertionError(f"{phase}: remat loss {on['loss']} against "
+                             f"{off['loss']}; {len(unequal)} gradients not "
+                             f"bit-equal, e.g. {unequal[:3]}")
+    if not on["peak"] < off["peak"]:
+        raise AssertionError(f"{phase}: peak memory with remat "
+                             f"{on['peak']} not below {off['peak']}")
+    emit(phase, batch=BERT_BATCH, seq=BERT_SEQ, layers=cfg.num_layers,
+         layers_cut_from=24, hidden=cfg.hidden_size,
+         hidden_dropout=cfg.hidden_dropout,
+         attention_dropout=cfg.attention_dropout, loss=on["loss"],
+         loss_bit_equal=True, grads_bit_equal=len(off["grads"]),
+         peak_gib=off["peak"] / 2 ** 30, peak_gib_remat=on["peak"] / 2 ** 30,
+         fwd_bwd_ms=off["step_ms"], fwd_bwd_ms_remat=on["step_ms"],
+         timed_steps=BERT_REMAT_TIMED,
+         launches_per_step=off["launches"],
+         launches_per_step_remat=on["launches"], nvidia_smi=smi)
+    timed = on["launches_timed"]
+    del model, runs, off, on
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timed
 
 
 # --- BASELINE configs #3 and #5: the NMT Transformer, ASP 2:4 BERT --------
@@ -6297,7 +6619,272 @@ def resnet_bf16(smi, optimizer: str = "sgd"):
         peak_memory_gib=(torch.cuda.max_memory_allocated() - live) / 2 ** 30,
         earlier_phases_live_gib=live / 2 ** 30)
     emit(phase, **fields, nvidia_smi=smi, card_after=card_state())
-    return step, launches
+    return step, launches, dict(losses=losses, step_ms=step_s * 1e3,
+                                images_per_s=RESNET_BATCH / step_s,
+                                mfu=fields["mfu"])
+
+
+def resnet_o2_bf16(smi, ref: dict) -> dict:
+    """``resnet_bf16``'s workload (the same seeded weights and batch,
+    FusedSGD, ``RESNET_WARM`` + ``RESNET_TIMED`` steps) under amp O2 bf16
+    through the example's ``build_training``: every conv and fc parameter a
+    bf16 copy of the fp32 master, every BatchNorm parameter fp32 (a master
+    view); after every step each half copy equals ``master.to(bf16)`` bit
+    for bit; one SGD launch a step and no stats pass; the losses finite
+    and within ``O2_DRIFT`` nats of ``ref``'s (``resnet_bf16``'s) at every
+    step. Step ms, images/s and MFU beside ``resnet_bf16``'s. Then one O3
+    step (every parameter bf16, the norms too, beside the fp32 master) on a
+    fresh model, its loss within ``O2_DRIFT`` of ``ref``'s first. Returns
+    the O2 timed steps' launches."""
+    import torch
+
+    from apex_tpu_torch.examples.imagenet import main_amp as rn
+    from apex_tpu_torch.ops import _build
+
+    phase = "resnet_o2_bf16"
+    live = phase_memory_start()
+    model, opt, _, _, train_step = resnet_side(DEV, "sgd", "O2",
+                                               torch.bfloat16)
+    dtypes = check_o2_dtypes(phase, model, opt)
+    x, y = resnet_batch(RESNET_BATCH, DEV)
+    step = partial(train_step, x, y)
+    losses, elapsed, bad = timed_steps(step, RESNET_WARM, RESNET_TIMED,
+                                       partial(half_copy_mismatches, opt))
+    launches = dict(_build.launches)
+    check_launches(phase, launches, resnet_train_launches("sgd"),
+                   per=RESNET_TIMED)
+    if bad:
+        raise AssertionError(f"{phase}: {bad} half-copy entries differ from "
+                             f"master.to(bf16)")
+    drift = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+    if not all(map(math.isfinite, losses)) or drift > O2_DRIFT:
+        raise AssertionError(f"{phase}: losses {losses}, drift {drift} from "
+                             f"resnet_bf16's {ref['losses']} (bar "
+                             f"{O2_DRIFT})")
+    step_s = elapsed / RESNET_TIMED
+    flops = rn.resnet_train_flops(model, RESNET_BATCH, RESNET_IMAGE)
+    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+    half_casts = half_cast_times(opt)
+    del model, opt, train_step, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, opt, _, _, train_step = resnet_side(DEV, "sgd", "O3",
+                                               torch.bfloat16)
+    o3_dtypes = check_o2_dtypes(phase + " O3", model, opt, level="O3")
+    _build.reset_launches()
+    o3_loss = train_step(x, y).item()
+    o3_bad = half_copy_mismatches(opt).item()
+    o3_launches = dict(_build.launches)
+    check_launches(phase + " O3", o3_launches, resnet_train_launches("sgd"))
+    if (not math.isfinite(o3_loss) or o3_bad
+            or abs(o3_loss - ref["losses"][0]) > O2_DRIFT):
+        raise AssertionError(f"{phase}: the O3 step's loss {o3_loss} (O1's "
+                             f"{ref['losses'][0]}), {o3_bad} half-copy "
+                             f"entries off")
+    emit(phase, batch=RESNET_BATCH, image=RESNET_IMAGE, opt_level="O2",
+         half_dtype="bfloat16", params_by_dtype=dtypes,
+         timed_steps=RESNET_TIMED, step_ms=step_s * 1e3,
+         images_per_s=RESNET_BATCH / step_s,
+         mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+         resnet_bf16={k: ref[k] for k in ("step_ms", "images_per_s", "mfu")},
+         losses=losses, losses_resnet_bf16=ref["losses"],
+         max_loss_drift=drift, drift_bar=O2_DRIFT, half_copy_mismatches=bad,
+         launches_per_step={k: launches[k] / RESNET_TIMED
+                            for k in ("sgd", "novograd", "segment_stats")},
+         launches=launches, peak_memory_gib=peak, half_casts=half_casts,
+         o3=dict(params_by_dtype=o3_dtypes, loss=o3_loss,
+                 half_copy_mismatches=o3_bad,
+                 launches={k: o3_launches[k] for k in
+                           ("sgd", "novograd", "segment_stats")}),
+         nvidia_smi=smi, card_after=card_state())
+    del model, opt, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --- the DCGAN multi-loss example and the optimizer transforms -------------
+
+
+def dcgan_side(dev, poison_step: int, perturb: float = 0.0) -> dict:
+    """The DCGAN example at O2 fp16 (two dynamic scalers) on ``dev``:
+    ``DCGAN_STEPS`` steps of ``build_training``'s step on the reference's
+    batches, the real batch of step ``poison_step`` holding one inf sample.
+    ``perturb``: both optimizers' masters first multiplied by ``1 +
+    perturb * N(0, 1)`` (seeded), the half copies refreshed. Returns per
+    step the two losses, the scales after it, and the two step counts."""
+    import torch
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.dcgan import main_amp as dc
+    from apex_tpu_torch.ops import _build
+
+    g = dc.Generator(device=dev, seed=SEED)
+    d = dc.Discriminator(device=dev, seed=SEED + 1)
+    with amp.scope():
+        g_opt, d_opt, step = dc.build_training(
+            g, d, opt_level="O2", half_dtype=torch.float16)
+        state = amp.active_state()
+    if perturb:
+        gen = torch.Generator().manual_seed(SEED + 7)
+        with torch.no_grad():
+            for opt in (g_opt, d_opt):
+                opt.master.mul_(1 + perturb * torch.randn(
+                    opt.master.shape, generator=gen).to(dev))
+                opt.sync_half_params()
+    batches = dc.synthetic_batches(SEED, DCGAN_STEPS, DCGAN_BATCH, 32, dev)
+    z, real = batches[poison_step]
+    real = real.clone()
+    real[5, 0] = float("inf")
+    batches[poison_step] = (z, real)
+    out = {k: [] for k in ("d_loss", "g_loss", "scale_g", "scale_d",
+                           "count_g", "count_d", "mismatches")}
+    _build.reset_launches()
+    with amp.scope(state):
+        for z, real in batches:
+            dl, gl = step(z, real)
+            out["d_loss"].append(dl.item())
+            out["g_loss"].append(gl.item())
+            for key, sc in zip(("scale_g", "scale_d"), state[1]):
+                out[key].append(sc.state.scale.item())
+            out["count_g"].append(int(g_opt.step_count))
+            out["count_d"].append(int(d_opt.step_count))
+            out["mismatches"].append(int(half_copy_mismatches(g_opt))
+                                     + int(half_copy_mismatches(d_opt)))
+    out["launches"] = dict(_build.launches)
+    out["dtypes"] = sorted({str(p.dtype) for m in (g, d)
+                            for p in m.parameters()})
+    return out
+
+
+def dcgan_fp16(smi) -> dict:
+    """The DCGAN multi-loss example (``examples.dcgan.main_amp``, BASELINE's
+    amp pattern: two FusedAdams, ``num_losses=2``, ``scale_loss(...,
+    loss_id=)``) at O2 fp16, where both scalers are dynamic, on the card and
+    on the CPU port from the same seeds, one inf sample in the real batch
+    of step ``DCGAN_POISON``: every parameter fp16; after every step each
+    half copy equals its master in fp16; the per-loss scales and both step
+    counts equal the CPU's at every step; at the poisoned step only the
+    discriminator's optimizer skips and only its scale (loss 1) halves;
+    the losses within ``DCGAN_FLOOR_FACTOR`` times the CPU's own fp16
+    floor (the CPU again with both masters moved by ``DCGAN_PERTURB``
+    relative noise, about one fp16 rounding), relative, at every step but
+    the poisoned one's non-finite D loss. Returns the card's launches."""
+    phase = "dcgan_fp16"
+    card = dcgan_side(DEV, DCGAN_POISON)
+    cpu = dcgan_side("cpu", DCGAN_POISON)
+    floor = dcgan_side("cpu", DCGAN_POISON, perturb=DCGAN_PERTURB)
+    for key in ("scale_g", "scale_d", "count_g", "count_d"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"{phase}: {key} {card[key]} on the card, "
+                                 f"{cpu[key]} on the CPU")
+    i = DCGAN_POISON                  # >= 1: step i - 1 is clean
+
+    def moved(k):
+        return card[k][i], card[k][i - 1]
+    pattern = dict(
+        d_skipped=moved("count_d")[0] == moved("count_d")[1],
+        g_stepped=moved("count_g")[0] == moved("count_g")[1] + 1,
+        d_scale_halved=moved("scale_d")[0] * 2 == moved("scale_d")[1],
+        g_scale_kept=moved("scale_g")[0] == moved("scale_g")[1],
+        d_loss_nonfinite=not math.isfinite(card["d_loss"][i]))
+    if not all(pattern.values()) or any(card["mismatches"]) \
+            or card["dtypes"] != ["torch.float16"]:
+        raise AssertionError(f"{phase}: the forced overflow {pattern}, "
+                             f"half-copy mismatches {card['mismatches']}, "
+                             f"dtypes {card['dtypes']}")
+    rel = {}
+    for key in ("d_loss", "g_loss"):
+        pairs = [(a, b, c) for j, (a, b, c) in enumerate(
+            zip(card[key], cpu[key], floor[key]))
+            if not (key == "d_loss" and j == i)]
+        err = max(abs(a - b) / abs(b) for a, b, _ in pairs)
+        fl = max(abs(c - b) / abs(b) for _, b, c in pairs)
+        rel[key] = dict(card_vs_cpu=err, cpu_floor=fl,
+                        bar=DCGAN_FLOOR_FACTOR * fl)
+        if not err <= DCGAN_FLOOR_FACTOR * fl:
+            raise AssertionError(f"{phase}: {key} off the CPU's by {err:.3e} "
+                                 f"relative, over {DCGAN_FLOOR_FACTOR} x the "
+                                 f"CPU's floor {fl:.3e}")
+    launches = card["launches"]
+    per_step = {k: launches[k] / DCGAN_STEPS
+                for k in ("adam", "segment_stats")}
+    if per_step != {"adam": 2, "segment_stats": 2}:
+        raise AssertionError(f"{phase}: launches per step {per_step}, want "
+                             f"adam 2, segment_stats 2")
+    emit(phase, steps=DCGAN_STEPS, batch=DCGAN_BATCH, opt_level="O2",
+         half_dtype="float16", poisoned_step=i, forced_overflow=pattern,
+         scales_g=card["scale_g"], scales_d=card["scale_d"],
+         counts_g=card["count_g"], counts_d=card["count_d"],
+         pattern_equal_cpu=True, d_losses=card["d_loss"],
+         g_losses=card["g_loss"], loss_rel_err=rel,
+         floor_perturb=DCGAN_PERTURB, launches_per_step=per_step,
+         launches=launches, nvidia_smi=smi)
+    return launches
+
+
+def transforms_phase(smi) -> dict:
+    """The optax-style transforms (``optimizers.transforms``) once each at
+    ResNet-50's 161 tensors (25,557,032 parameters), on the card against
+    the same update on the CPU (the twins): the updated parameters
+    (parameters + deltas) and the state within ``OPT_TOL`` (atol cut to
+    ``RMS_ATOL`` of the twin's RMS), and each transform's kernel
+    launches. Returns the launches of the four."""
+    import torch
+
+    from apex_tpu_torch.optimizers import transforms as tx
+    from apex_tpu_torch.ops import _build
+
+    named, _ = resnet_spec()
+    gen = torch.Generator().manual_seed(SEED)
+    params = {n: torch.randn(p.shape, generator=gen) for n, p in named}
+    grads = {n: torch.randn(p.shape, generator=gen) * 1e-2
+             for n, p in named}
+    cases = {"fused_adam": (tx.fused_adam(1e-3, weight_decay=1e-2),
+                            {"adam": 1}),
+             "fused_lamb": (tx.fused_lamb(1e-3),
+                            {"segment_stats": 1, "lamb_phase1": 1,
+                             "lamb_phase2": 1}),
+             "fused_sgd": (tx.fused_sgd(0.1, momentum=0.9,
+                                        weight_decay=1e-4), {"sgd": 1}),
+             "fused_novograd": (tx.fused_novograd(1e-2, weight_decay=1e-3),
+                                {"segment_stats": 1, "novograd": 1})}
+    rows, total = {}, {}
+    for name, (t, want) in cases.items():
+        sides = {}
+        for side, dev in (("card", DEV), ("cpu", "cpu")):
+            p = {k: v.to(dev) for k, v in params.items()}
+            g = {k: v.to(dev) for k, v in grads.items()}
+            state = t.init(p)
+            _build.reset_launches()
+            sides[side] = t.update(g, state, p)
+            if side == "card":
+                torch.cuda.synchronize()
+                launches = dict(_build.launches)
+                ms = time_ms(partial(t.update, g, state, p), iters=3)
+        wrong = {k: launches[k] for k in want if launches[k] != want[k]}
+        if wrong:
+            raise AssertionError(f"transforms: {name} launches {wrong}, "
+                                 f"want {want}")
+        (d_card, s_card), (d_cpu, s_cpu) = sides["card"], sides["cpu"]
+        # the updated parameters: a delta alone carries the rounding of
+        # the parameter it moves, far above its own RMS
+        err = max(opt_compare(f"transforms {name} params {k}",
+                              params[k] + d.cpu(), params[k] + d_cpu[k])
+                  for k, d in d_card.items())
+        for f in ("m", "v"):
+            err = max(err, opt_compare(f"transforms {name} {f}",
+                                       getattr(s_card, f).cpu(),
+                                       getattr(s_cpu, f)))
+        if not int(s_card.count) == int(s_cpu.count) == 1:
+            raise AssertionError(f"transforms: {name} count")
+        rows[name] = dict(max_abs_err=err, update_ms=ms, launches=want)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    emit("transforms", tensors=len(named),
+         params=sum(p.numel() for _, p in named), results=rows,
+         nvidia_smi=smi)
+    return total
 
 
 # --- the Megatron softmax and UNet GroupNorm paths ---------------------------
@@ -7181,6 +7768,7 @@ SAMPLE_INVARIANCE = ((3, 1), (NUM_SLOTS, 4))
 #: private tails of 8-64 tokens, PREFIX_NEW new tokens each
 PREFIX_SYSTEM_PAGES = (3, 4, 5, 6)
 PREFIX_REQUESTS, PREFIX_NEW = 24, 32
+PREFIX_CPU_REQUESTS = 12      # the CPU side's share of the trace (S18)
 #: forced preemption: PREEMPT_LOW low-priority requests fill the slots,
 #: PREEMPT_HIGH high-priority ones with a TTFT deadline arrive after
 #: PREEMPT_WARM pump iterations
@@ -7359,31 +7947,37 @@ def engine_prefix_fp32(model) -> dict:
     prompts = prefix_workload(model.config.vocab_size)
     off = prefix_run(model, prompts, False)
     eng, outs, stats, elapsed, launches = prefix_run(model, prompts, True)
+    # the CPU side serves the first PREFIX_CPU_REQUESTS (ROADMAP S18), the
+    # card again the same ones
+    few = prompts[:PREFIX_CPU_REQUESTS]
+    few_outs, few_stats = prefix_run(model, few, True)[1:3]
     cpu = build_model(torch.float32, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu_eng = None
     from apex_tpu_torch.serving import PagedDecodeEngine, Request
 
     cpu_eng = PagedDecodeEngine(cpu, num_slots=NUM_SLOTS,
                                 page_size=PAGE_SIZE, prefix_cache=True)
     cpu_outs, cpu_stats = cpu_eng.run([Request(p, PREFIX_NEW)
-                                       for p in prompts])
-    for label, other in (("prefix off", off[1]), ("the CPU port", cpu_outs)):
-        bad = [i for i, (a, b) in enumerate(zip(outs, other))
+                                       for p in few])
+    for label, got, other in (("prefix off", outs, off[1]),
+                              ("the CPU port", few_outs, cpu_outs)):
+        bad = [i for i, (a, b) in enumerate(zip(got, other))
                if a.shape != b.shape or (a != b).any()]
         if bad:
             raise AssertionError(f"engine_prefix_fp32: requests {bad}: "
                                  f"prefix-on tokens differ from {label}'s")
     line = check_prefix_stats("engine_prefix_fp32", eng, stats)
     for key in ("prefix_hits", "prefill_tokens_skipped", "evicted_pages"):
-        if cpu_stats[key] != stats[key]:
-            raise AssertionError(f"engine_prefix_fp32: {key} {stats[key]} "
-                                 f"on the card, {cpu_stats[key]} on the CPU")
+        if cpu_stats[key] != few_stats[key] or not cpu_stats["prefix_hits"]:
+            raise AssertionError(
+                f"engine_prefix_fp32: {key} {few_stats[key]} on the card, "
+                f"{cpu_stats[key]} on the CPU ({len(few)} requests)")
     del cpu, cpu_eng
     emit("engine_prefix_fp32", requests=len(prompts),
          system_pages=list(PREFIX_SYSTEM_PAGES), new_tokens=PREFIX_NEW,
          layers=model.config.num_layers, token_identical_off=True,
-         token_identical_cpu=True, seconds=elapsed,
+         token_identical_cpu=True, cpu_requests=len(few),
+         cpu_prefix_hits=cpu_stats["prefix_hits"], seconds=elapsed,
          seconds_prefix_off=off[3], launches=launches,
          decode_steps=stats["decode_steps"], **line)
     return launches
@@ -7692,7 +8286,10 @@ def main() -> int:
     train_fp32()
     train_step, train_launches = train_bf16(smi)
     bert_fp32()
-    bert_step, bert_launches = bert_bf16(smi)
+    bert_step, bert_launches, bert_run = bert_bf16(smi)
+    # amp O2 and remat on the same workload (A11): each frees its model
+    bert_o2_launches = bert_o2_bf16(smi, bert_run)
+    remat_launches = bert_remat_bf16(smi)
     # BASELINE configs #3 and #5 after BERT: each frees its model, so the
     # later phases find the room they had
     nmt_fp32()
@@ -7702,8 +8299,11 @@ def main() -> int:
     # ResNet-50 before T5 and the Mistral-7B training phases: its 256-image
     # batch needs the room that their live models take
     resnet_fp32()
-    resnet_step, resnet_launches = resnet_bf16(smi)
+    resnet_step, resnet_launches, resnet_run = resnet_bf16(smi)
+    resnet_o2_launches = resnet_o2_bf16(smi, resnet_run)
     nvg_launches = resnet_bf16(smi, optimizer="novograd")[1]
+    dcgan_launches = dcgan_fp16(smi)
+    transforms_launches = transforms_phase(smi)
     torch.cuda.empty_cache()
     # T5 before the Mistral-7B training phases, whose step (18 GB of
     # parameters and Adam state) stays live for its profile: the T5 batch
@@ -7881,7 +8481,11 @@ def main() -> int:
                "serving_prefix": prefix_launches,
                "serving_prefix_fp32": prefix_launches32,
                "serving_preempt": preempt_launches,
-               "beam": beam_launches}
+               "beam": beam_launches, "bert_o2_train": bert_o2_launches,
+               "bert_remat_fwd_bwd": remat_launches,
+               "resnet_o2_train": resnet_o2_launches,
+               "dcgan_fp16": dcgan_launches,
+               "transforms": transforms_launches}
     # the windowed block has no engine path (the reference refuses both
     # modes for windowed models), so its launches read 0
     block_path = {"paged_attention_block": "spec",

@@ -7,7 +7,8 @@ or its scale is not 1; the fused skip step with an ``inf`` gradient (and
 the steps around it) under FusedAdam, FusedSGD and FusedNovoGrad, against
 the JAX optimizers; FusedSGD under a dynamic scaler with ``scale_loss``,
 which steps on the still-scaled gradients as the reference's does (its
-kernel has no grad-scale slot); ``unscale_and_combine``; O2/O3 refused;
+kernel has no grad-scale slot); ``unscale_and_combine``; the parameters O2, O3 and ``cast_model_type``
+cast, against JAX's;
 and the amp seam of the ported GPT and BERT. fp32 atol = rtol = 1e-6; the
 scaler's state exactly equal.
 
@@ -263,10 +264,22 @@ def test_unscale_and_combine_matches_jax():
 @pytest.mark.parametrize("level,kw", [
     ("O2", {}), ("O3", {}), ("O1", dict(cast_model_type=torch.float16))])
 def test_half_model_levels_raise_naming_the_roadmap_item(level, kw):
-    module = _port_module(_jax_params())
-    with pytest.raises(NotImplementedError, match="item 11: O2/O3"):
-        amp.initialize(module, opt_level=level, **kw)
-    assert amp.current_policy() is None
+    """The half model levels once raised here; now they cast as JAX's
+    ``initialize`` does: each parameter in the dtype of its JAX leaf, and
+    the same policy."""
+    params = _jax_params()
+    module = _port_module(params)
+    jcast = jamp.initialize({k: jnp.asarray(v) for k, v in params.items()},
+                            opt_level=level, **{
+                                k: getattr(jnp, _name(v))
+                                for k, v in kw.items()})
+    assert amp.initialize(module, opt_level=level, **kw) is module
+    for k, p in module.named_parameters():
+        assert _name(p.dtype) == _name(jcast[k].dtype), k
+        np.testing.assert_array_equal(p.detach().float().numpy(),
+                                      np.asarray(jcast[k], np.float32))
+    assert _name(amp.current_policy().param_dtype) == \
+        _name(jamp.current_policy().param_dtype) != "float32"
 
 
 def test_amp_state_dict_round_trip_and_master_params():

@@ -211,7 +211,74 @@ def test_hidden_dropout_is_seeded_and_on_only_in_training():
 
 
 def test_unported_surface_raises():
-    with pytest.raises(NotImplementedError, match="remat"):
-        BertForPreTraining(bert_tiny_config(remat=True), device="cpu")
+    """``remat`` (once refused here) builds and runs; the partition specs
+    still wait for tensor parallelism."""
+    model = BertForPreTraining(bert_tiny_config(remat=True), device="cpu")
+    assert model(torch.ones(1, 8, dtype=torch.int32))[1].shape == (1, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_bert.param_partition_specs({})
+
+
+def _loss_and_grads(model, batch, seed, deterministic=False):
+    positions = batch["mlm_positions"]
+    mlm, nsp = model(batch["input_ids"], batch["token_type_ids"],
+                     batch["attention_mask"], deterministic=deterministic,
+                     dropout_seed=seed, masked_positions=positions)
+    loss = bert_pretrain_loss(mlm, nsp, batch["mlm_gathered_labels"],
+                              batch["nsp_labels"])
+    loss.backward()
+    return loss.item(), {n: p.grad.clone()
+                         for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("replay", [True, False],
+                         ids=["replayed", "control_without_replay"])
+def test_remat_replays_hidden_dropout(ref, replay, monkeypatch):
+    """Remat against no remat, hidden and attention dropout 0.1: the same
+    loss and every gradient bit for bit, because the recompute replays
+    the layer's generator state. The control drops the replay (the
+    recompute then draws new masks) and must differ."""
+    if not replay:
+        monkeypatch.setattr(port_bert, "_replaying", lambda run, gen: run)
+    out = []
+    for remat in (False, True):
+        cfg = bert_tiny_config(attention_dropout=0.1, hidden_dropout=0.1,
+                               remat=remat)
+        model = BertForPreTraining(cfg, device="cpu")
+        model.load_state_dict(bert_params_from_flax(ref["params"]))
+        batch = {k: torch.from_numpy(np.array(v))
+                 for k, v in ref["batch"].items()}
+        out.append(_loss_and_grads(model, batch, SEED))
+    (l0, g0), (l1, g1) = out
+    assert l0 == l1
+    same = [torch.equal(g0[n], g1[n]) for n in g0]
+    assert all(same) if replay else not all(same)
+
+
+def test_remat_matches_jax_remat_deterministic(ref):
+    """``remat=True`` with dropout off against JAX's ``nn.remat`` model:
+    the loss (1e-5) and every gradient (atol 1e-4 / rtol 1e-3)."""
+    cfg = jax_tiny(remat=True)
+    model = JaxBert(cfg)
+    batch = {k: jnp.asarray(v) for k, v in ref["batch"].items()}
+
+    def loss_fn(p):
+        mlm, nsp = model.apply(
+            {"params": p}, batch["input_ids"], batch["token_type_ids"],
+            batch["attention_mask"], deterministic=True,
+            masked_positions=batch["mlm_positions"])
+        return jax_pretrain_loss(mlm, nsp, batch["mlm_gathered_labels"],
+                                 batch["nsp_labels"])
+
+    params = jax.tree.map(jnp.asarray, ref["params"])
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    port = BertForPreTraining(bert_tiny_config(remat=True), device="cpu")
+    port.load_state_dict(bert_params_from_flax(ref["params"]))
+    tbatch = {k: torch.from_numpy(np.array(v))
+              for k, v in ref["batch"].items()}
+    loss, grads = _loss_and_grads(port, tbatch, 0, deterministic=True)
+    np.testing.assert_allclose(loss, float(want_loss), atol=1e-5, rtol=1e-5)
+    named = bert_params_from_flax(jax.tree.map(np.asarray, want_grads))
+    for n, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), named[n].numpy(), atol=1e-4,
+                                   rtol=1e-3, err_msg=n)

@@ -2215,3 +2215,92 @@ def test_wide_paged_kernel_matches_twin(cuda, dtype, branch, s, rep, d):
     q, kp, vp, bt, ln = args
     alone = paged_attention(q[7:8], kp, vp, bt[7:8], ln[7:8], **kw)
     assert torch.equal(alone, got[7:8])
+
+
+# --- amp O2 half copies and BERT remat (A11) --------------------------------
+
+O2_OPTIMIZERS = {"adam": ("FusedAdam", dict(lr=1e-2, weight_decay=0.01),
+                          {"adam": 1}),
+                 "lamb": ("FusedLAMB", dict(lr=1e-2),
+                          {"segment_stats": 1, "lamb_phase1": 1,
+                           "lamb_phase2": 1}),
+                 "sgd": ("FusedSGD", dict(lr=0.1, momentum=0.9),
+                         {"sgd": 1}),
+                 "novograd": ("FusedNovoGrad", dict(lr=1e-2),
+                              {"segment_stats": 1, "novograd": 1})}
+
+
+@pytest.mark.parametrize("half", ["bfloat16", "float16"])
+@pytest.mark.parametrize("kind", sorted(O2_OPTIMIZERS))
+def test_o2_half_copies_are_written_back_on_the_card(cuda, kind, half):
+    """amp O2 on the card: after each of three steps every half parameter
+    equals ``master.to(dtype)`` bit for bit, the norm stays an fp32 view of
+    the master, the kernels launch once a step each, and the master equals
+    the same three steps on the CPU (fp32 1e-5)."""
+    from apex_tpu_torch import amp, optimizers
+
+    cls_name, kw, want = O2_OPTIMIZERS[kind]
+    dtype = getattr(torch, half)
+    gen = torch.Generator().manual_seed(0)
+    init = {"a_weight": torch.randn(6, 500, generator=gen),
+            "b_norm_weight": torch.randn(300, generator=gen),
+            "c_kernel": torch.randn(2100, generator=gen)}
+    grads = [{k: torch.randn(v.shape, generator=gen) for k, v in
+              init.items()} for _ in range(3)]
+    masters = {}
+    for dev in ("cpu", cuda):
+        module = torch.nn.ParameterDict({k: torch.nn.Parameter(v.to(dev))
+                                         for k, v in init.items()})
+        opt = getattr(optimizers, cls_name)(list(module.named_parameters()),
+                                            **kw)
+        with amp.scope():
+            amp.initialize(module, opt, opt_level="O2", half_dtype=dtype,
+                           loss_scale=1.0)
+        assert module["b_norm_weight"].dtype == torch.float32
+        assert module["a_weight"].dtype == dtype
+        for g in grads:
+            for k, p in module.named_parameters():
+                p.grad = g[k].to(dev, p.dtype)
+            _build.reset_launches()
+            opt.step()
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert {k: _build.launches[k] for k in want} == want
+            master = amp.master_params(opt)
+            for k, p in module.named_parameters():
+                assert torch.equal(p.detach(), master[k].to(p.dtype)), k
+            assert module["b_norm_weight"].data_ptr() == \
+                master["b_norm_weight"].data_ptr()
+        masters[str(dev)] = {k: v.cpu() for k, v in master.items()}
+    for k, v in masters["cpu"].items():
+        torch.testing.assert_close(masters["cuda"][k], v, atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_bert_remat_replays_dropout_on_the_card(cuda):
+    """Tiny BERT on the card, bf16 compute, hidden and attention dropout
+    0.1: remat gives the loss and every gradient of no remat bit for bit
+    (the recompute replays the layer's CUDA generator state)."""
+    from apex_tpu_torch.models import (BertForPreTraining,
+                                       bert_pretrain_loss_fn,
+                                       bert_tiny_config, synthetic_batch)
+    import numpy as np
+
+    out = []
+    for remat in (False, True):
+        cfg = bert_tiny_config(hidden_dropout=0.1, attention_dropout=0.1,
+                               dtype=torch.bfloat16, remat=remat)
+        model = BertForPreTraining(cfg, device=cuda)
+        batch = synthetic_batch(np.random.default_rng(0), cfg, 2, 64,
+                                device=cuda)
+        _build.reset_launches()
+        loss = bert_pretrain_loss_fn(model, batch, 3)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert _build.launches["flash_fwd"] == cfg.num_layers * (1 + remat)
+        out.append((loss.item(), {n: p.grad.clone()
+                                  for n, p in model.named_parameters()}))
+    (l0, g0), (l1, g1) = out
+    assert l0 == l1
+    for n, g in g0.items():
+        assert torch.equal(g, g1[n]), n

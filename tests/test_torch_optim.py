@@ -267,15 +267,37 @@ def test_grads_present_at_construction_are_kept():
 
 
 def test_unsupported_fused_adam_options_raise():
+    """AMSGrad and non-float parameters raise; a bf16 parameter (once
+    refused) steps beside its fp32 master, as the reference's FusedAdam
+    over bf16 params (``tests/test_fused_optimizers.py:72``): the master
+    and the returned bf16 params against JAX's."""
+    import jax
+
+    import apex_tpu.amp as jamp
+    from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
+
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(_params(), amsgrad=True)
-    # amp's O0/O1 attach a scaler now; the levels with half model copies
-    # beside the fp32 master are what FusedAdam cannot take yet
-    from apex_tpu_torch import amp
-
-    opt = FusedAdam(_params())
-    module = torch.nn.ParameterList([p for _, p in _params()])
-    with pytest.raises(NotImplementedError, match="item 11: O2/O3"):
-        amp.initialize(module, opt, opt_level="O2")
-    with pytest.raises(TypeError, match="fp32"):
-        FusedAdam([("h", torch.nn.Parameter(torch.zeros(3).bfloat16()))])
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        FusedAdam([("i", torch.nn.Parameter(torch.zeros(3).double()))])
+    named = [(n, torch.nn.Parameter(p.detach().bfloat16()))
+             for n, p in _params()]
+    jparams = {n: jnp.asarray(p.detach().float().numpy()).astype(jnp.bfloat16)
+               for n, p in named}
+    opt = FusedAdam(named, lr=1e-3)
+    jopt = JaxFusedAdam(jparams, lr=1e-3)
+    assert opt.master.dtype == torch.float32
+    for _ in range(2):
+        for _, p in named:
+            p.grad = torch.full_like(p, 0.1)
+        opt.step()
+        out = jopt.step(jax.tree.map(lambda p: jnp.ones_like(p) * 0.1,
+                                     jparams))
+    got = flat_buffer.unflatten(opt.master, opt.spec)
+    for n, p in named:
+        assert p.dtype == torch.bfloat16 and out[n].dtype == jnp.bfloat16
+        np.testing.assert_allclose(got[n].numpy(),
+                                   np.asarray(jamp.master_params(jopt)[n]),
+                                   atol=1e-6, rtol=1e-6, err_msg=n)
+        np.testing.assert_array_equal(p.detach().float().numpy(),
+                                      np.asarray(out[n], np.float32))

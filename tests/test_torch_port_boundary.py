@@ -45,7 +45,9 @@ def test_scan_covers_the_port():
                 ("transformer", "functional", "fused_rope.py"),
                 ("ops", "ring_attention.py"),
                 ("transformer", "parallel_state.py"),
-                ("examples", "long_context", "train_ring_attention.py")):
+                ("examples", "long_context", "train_ring_attention.py"),
+                ("optimizers", "transforms.py"),
+                ("examples", "dcgan", "main_amp.py")):
         assert ROOT.joinpath("apex_tpu_torch", *new) in files
 
 
