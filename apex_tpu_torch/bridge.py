@@ -16,7 +16,9 @@ example's ``Generator`` and ``Discriminator``. All
 sides keep the reference's weight layouts (GPT's and Llama's ``(out, in)``
 linears, BERT's ``(in, out)`` ``x @ W``), so every tensor maps one to one;
 only the names change (``layer_i`` -> ``layers.i``, ``/`` -> ``.``). Takes
-numpy, so it imports nothing of JAX.
+numpy, so it imports nothing of JAX. ``shard_gpt_params`` cuts a tp = 1 GPT
+state dict into one tensor-parallel rank's shard, and
+``unshard_gpt_params`` puts the ranks' shards back together.
 
 A quantized GPT or Llama tree (a reference model built with a weight
 policy) maps too: narrow leaves keep their dtype (int8; uint8, the packed
@@ -86,6 +88,48 @@ def gpt_params_from_flax(variables) -> dict:
                            f"port's GPTModel")
         sd[name] = _tensor(leaf)
     return sd
+
+
+def _gpt_specs(names) -> dict:
+    """The split layout of a tp = 1 GPT state dict with these ``names``:
+    ``partition_specs`` of a ``GPTModel`` of as many layers, built on the
+    meta device, so the model's layers alone define it. A name the model
+    does not have raises ``KeyError``."""
+    from apex_tpu_torch.models.gpt import GPTModel, gpt_tiny_config
+    from apex_tpu_torch.transformer.tensor_parallel.layers import (
+        partition_specs)
+
+    names = list(names)
+    layers = {n.split(".")[1] for n in names if n.startswith("layers.")}
+    specs = partition_specs(GPTModel(gpt_tiny_config(num_layers=len(layers)),
+                                     device="meta"))
+    unknown = sorted(set(names) - set(specs))
+    if unknown:
+        raise KeyError(f"{unknown} are not tensors of the port's GPTModel")
+    return specs
+
+
+def shard_gpt_params(params: dict, tp: int, rank: int) -> dict:
+    """Rank ``rank``'s shard, at ``tp`` tensor-parallel ranks, of the tp = 1
+    GPT state dict ``params`` (from :func:`gpt_params_from_flax`, or a
+    port model's ``state_dict()``): the fused QKV weight and bias
+    interleaved per chunk first (the rank's heads' q, k and v, as the
+    reference's ``_interleave_fused``), the other column-parallel tensors
+    and the vocab table cut along dim 0, the row-parallel weights along
+    dim 1, the rest whole."""
+    from apex_tpu_torch.transformer.tensor_parallel.layers import (
+        shard_state_dict)
+
+    return shard_state_dict(params, _gpt_specs(params), tp, rank)
+
+
+def unshard_gpt_params(shards) -> dict:
+    """The tp = 1 GPT state dict from every rank's shard, in rank order: the
+    inverse of :func:`shard_gpt_params` (also for gradients, by name)."""
+    from apex_tpu_torch.transformer.tensor_parallel.layers import (
+        unshard_state_dict)
+
+    return unshard_state_dict(shards, _gpt_specs(shards[0]))
 
 
 #: LlamaModel's leaves outside the decoder blocks, flax paths

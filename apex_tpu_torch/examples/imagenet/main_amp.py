@@ -1,5 +1,5 @@
 """ImageNet-style ResNet-50 training with amp, SyncBatchNorm, DDP and
-FusedSGD, on one GPU.
+FusedSGD, on one GPU or over data-parallel ranks.
 
 Counterpart of ``examples/imagenet/main_amp.py`` of the JAX package (the
 reference's ``examples/imagenet/main_amp.py``): ResNet-v1 with bottleneck
@@ -15,6 +15,12 @@ parameters, and the norms in fp32. Convolutions, pooling, ``fc`` and
 ``log_softmax`` are cuDNN, cuBLAS and torch ops, as the reference leaves
 them to XLA.
 
+Over ``N`` data-parallel ranks (``--ranks N``, which starts them, or
+``torchrun --nproc-per-node N``) each rank takes its ``batch_size / N``
+images of the synthetic batch; the norms' statistics are summed over the
+ranks (``SyncBatchNorm``) and ``allreduce_gradients`` averages the
+gradients, so the ranks step as one rank on the whole batch would.
+
 Run:  python -m apex_tpu_torch.examples.imagenet.main_amp --steps 20
 """
 
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 from typing import Sequence
 
@@ -229,11 +236,15 @@ def nll_loss(logits, labels):
 
 
 def build_training(model: ResNet, *, opt_level: str = "O1", lr: float = 0.1,
-                   half_dtype=torch.bfloat16, optimizer: str = "sgd"):
+                   half_dtype=torch.bfloat16, optimizer: str = "sgd",
+                   loss_scale=None):
     """``(optimizer, ddp, step)`` for ``model`` (on its device): the fused
-    optimizer over its parameters, ``amp.initialize``, the DDP facade, and
-    ``step(images, labels)``, one training step returning the loss as a
-    device tensor (no host read)."""
+    optimizer over its parameters, ``amp.initialize`` (``loss_scale``
+    overrides the level's), the DDP facade, and ``step(images, labels,
+    grad_hook=None)``, one training step returning the loss as a device
+    tensor (no host read): the backward of the amp-scaled loss, then
+    ``grad_hook()`` when given, the gradients' reduction over the ranks and
+    the optimizer's step (its fused unscale and overflow skip)."""
     named = list(model.named_parameters())
     if optimizer == "sgd":
         opt = FusedSGD(named, lr=lr, momentum=0.9, weight_decay=1e-4)
@@ -242,13 +253,16 @@ def build_training(model: ResNet, *, opt_level: str = "O1", lr: float = 0.1,
     else:
         raise ValueError(f"optimizer {optimizer!r}: 'sgd' or 'novograd'")
     model, opt = amp.initialize(model, opt, opt_level=opt_level,
-                                half_dtype=half_dtype)
+                                half_dtype=half_dtype, loss_scale=loss_scale)
     ddp = DistributedDataParallel(model)
 
-    def step(images, labels):
+    def step(images, labels, grad_hook=None):
         opt.zero_grad()
         loss = nll_loss(ddp(images), labels)
-        loss.backward()
+        with amp.scale_loss(loss, opt) as scaled:
+            scaled.backward()
+        if grad_hook is not None:
+            grad_hook()
         ddp.allreduce_gradients()
         opt.step()
         return loss.detach()
@@ -263,9 +277,17 @@ def run_training(model: ResNet, *, steps: int = 10, batch_size: int = 8,
     """The example's train loop, importable for tests: ``model`` moved to
     ``device``, ``steps`` steps on one synthetic batch; returns the
     losses."""
+    from apex_tpu_torch import collectives as coll
+    from apex_tpu_torch.parallel import data_parallel_group
+
     rng = np.random.default_rng(seed)
     images, labels = synthetic_batch(rng, batch_size, image_size,
                                      model.num_classes, device=device)
+    group = data_parallel_group()
+    per = batch_size // coll.world_size(group)
+    me = coll.rank(group)
+    images, labels = (images[me * per:(me + 1) * per],
+                      labels[me * per:(me + 1) * per])
     model.to(device)
     model.train()
     _, _, step = build_training(model, opt_level=opt_level, lr=lr)
@@ -281,6 +303,81 @@ def run_training(model: ResNet, *, steps: int = 10, batch_size: int = 8,
     return losses
 
 
+def rank_steps(rank: int, world: int, *, batch_size: int, image_size: int,
+               arch: str = "resnet50", num_classes: int = 1000,
+               steps: int = 2, opt_level="O1",
+               half_dtype=torch.bfloat16, loss_scale=None, lr: float = 0.1,
+               seed: int = 0, poison=None, perturb=None, device="cuda"):
+    """This data-parallel rank's side of ``steps`` steps of
+    :func:`build_training`'s step on ResNet-50 (``arch``; seeded init) and
+    its ``batch_size / world`` images of the synthetic batch, for a
+    comparison across rank counts: each step's loss (the mean over the
+    ranks), the first step's averaged gradients and the running statistics
+    after it, and, per step, whether the parameters stayed bit for bit, the
+    loss scale and the step count. ``poison=(step, rank)`` writes an inf
+    into that rank's first gradient at that step before the reduction;
+    ``perturb=(seed, eps)`` multiplies every parameter by ``1 + eps * N(0,
+    1)`` first. cuDNN and cuBLAS run as the process's backend flags say
+    (``run_ranks`` gives every rank its parent's). Returns floats, CPU
+    tensors and the kernel launches of the steps."""
+    from apex_tpu_torch import collectives as coll
+    from apex_tpu_torch.ops import _build, flat_buffer
+    from apex_tpu_torch.parallel import data_parallel_group
+
+    make = resnet50 if arch == "resnet50" else resnet_tiny
+    model = make(num_classes=num_classes, device=device, seed=seed)
+    if perturb is not None:
+        gen = torch.Generator().manual_seed(perturb[0])
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_((1 + perturb[1] * torch.randn(
+                    p.shape, generator=gen)).to(p.device))
+    images, labels = synthetic_batch(np.random.default_rng(seed),
+                                     batch_size, image_size, num_classes,
+                                     device=device)
+    group = data_parallel_group()
+    per = batch_size // coll.world_size(group)
+    me = coll.rank(group)
+    x, y = images[me * per:(me + 1) * per], labels[me * per:(me + 1) * per]
+
+    def poison_grad():
+        first = next(p for p in model.parameters() if p.grad is not None)
+        first.grad.view(-1)[0] = float("inf")
+
+    with amp.scope():
+        opt, _, step = build_training(model, opt_level=opt_level, lr=lr,
+                                      half_dtype=half_dtype,
+                                      loss_scale=loss_scale)
+        out = dict(losses=[], steps=[])
+        _build.reset_launches()
+        for i in range(steps):
+            before = opt.master.clone()
+            loss = step(x, y, grad_hook=(poison_grad if poison == (i, rank)
+                                         else None))
+            if i == 0:
+                # the step leaves the reduced fp32 gradients in opt.grads
+                out["grads"] = {k: v.detach().cpu().clone() for k, v in
+                                flat_buffer.unflatten(opt.grads,
+                                                      opt.spec).items()}
+                out["buffers"] = {k: v.detach().cpu().clone()
+                                  for k, v in model.named_buffers()}
+            scaler = opt._amp_scaler
+            out["losses"].append(float(coll.all_reduce(loss, group, "mean")))
+            out["steps"].append(dict(
+                unchanged=bool(torch.equal(opt.master, before)),
+                loss_scale=(float(scaler.state.scale)
+                            if scaler is not None else None),
+                step_count=int(opt.step_count)))
+    out["launches"] = dict(_build.launches)
+    return out
+
+
+def rank_runs(rank: int, world: int, runs):
+    """:func:`rank_steps` for each keyword dict of ``runs`` in order, in
+    one set of rank processes; returns their results."""
+    return [rank_steps(rank, world, **kw) for kw in runs]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=20)
@@ -292,14 +389,42 @@ def main(argv=None):
     p.add_argument("--arch", default="resnet50",
                    choices=["resnet50", "resnet_tiny"])
     p.add_argument("--device", default="cuda")
+    p.add_argument("--ranks", type=int, default=1)
     args = p.parse_args(argv)
+    if "RANK" in os.environ:                     # started by torchrun
+        import torch.distributed as dist
+
+        from apex_tpu_torch.parallel import init_ranks
+
+        init_ranks(args.device)
+        try:
+            print(_rank(dist.get_rank(), dist.get_world_size(), args))
+        finally:
+            dist.destroy_process_group()
+    elif args.ranks > 1:
+        from apex_tpu_torch.examples.imagenet import main_amp
+        from apex_tpu_torch.parallel import run_ranks
+
+        for line in run_ranks(main_amp._rank, args.ranks, (args,),
+                              device=args.device):
+            print(line)
+    else:
+        print(_rank(0, 1, args))
+
+
+def _rank(rank, world, args):
+    """One rank of ``main``: its final loss line."""
+    from apex_tpu_torch import collectives as coll
+
     make = resnet50 if args.arch == "resnet50" else resnet_tiny
     losses = run_training(make(device=args.device), steps=args.steps,
                           batch_size=args.batch_size,
                           image_size=args.image_size,
                           opt_level=args.opt_level, lr=args.lr,
-                          device=args.device)
-    print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
+                          device=args.device,
+                          verbose=print if rank == 0 else lambda *_: None)
+    return (f"rank {rank} of {world} (backend {coll.backend()}): final "
+            f"loss {losses[-1]:.4f} (start {losses[0]:.4f})")
 
 
 if __name__ == "__main__":

@@ -8,11 +8,12 @@ bias; the reference's rolling cache is not ported), the paged-cache write
 (``is_paged``, ``update_paged_layer_cache``, with the quantized pool's
 requantize-on-grow append), the greedy token, sampling (``filter_logits``,
 ``sample_noise``, ``_sample_token``, ``validate_sampling``,
-``decode_loop``), lock-step ``generate`` greedy or sampled — the
-token-identity oracle of the serving engine — beam search
-(``repeat_cache``, ``_gather_beam_cache``, ``beam_search_loop``,
-``generate_beam``) and greedy lock-step ``speculative_generate`` with its
-``rollback_cache``.
+``decode_loop``; the vocab-parallel logits of a model at
+``tensor_parallel_size`` > 1 are gathered first, ``gather_vocab``),
+lock-step ``generate`` greedy or sampled — the token-identity oracle of
+the serving engine — beam search (``repeat_cache``,
+``_gather_beam_cache``, ``beam_search_loop``, ``generate_beam``) and
+greedy lock-step ``speculative_generate`` with its ``rollback_cache``.
 
 Sampling filters as the reference does (temperature, then top-k, then
 top-p against the exclusive cumulative mass) and draws ``argmax(filtered
@@ -44,13 +45,17 @@ import torch
 
 from apex_tpu_torch.amp.policy import resolve_compute_dtype
 from apex_tpu_torch.ops.quant import kv_cast, kv_inverse, kv_qmax
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    gather_from_tensor_model_parallel_region)
 
 
 def init_cache(config, batch: int, max_len: int, *, dtype=None,
                device="cuda"):
     """All-zeros contiguous KV cache for ``batch`` sequences of up to
-    ``max_len`` tokens."""
-    kv_heads = getattr(config, "num_kv_heads", config.num_heads)
+    ``max_len`` tokens, of this rank's ``kv_heads / tensor_parallel_size``
+    heads."""
+    kv_heads = (getattr(config, "num_kv_heads", config.num_heads)
+                // getattr(config, "tensor_parallel_size", 1))
     dt = (dtype if dtype is not None
           else resolve_compute_dtype(config.dtype))
     shape = (batch, kv_heads, max_len, config.head_dim)
@@ -275,9 +280,29 @@ def cached_attention(q, lc, *, window: Optional[int] = None, bias=None,
     return ctx.reshape(b, h, s, d).to(q.dtype)
 
 
-def _greedy_token(logits):
-    """fp32 argmax over the last axis (first index on ties, as in JAX)."""
-    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+def is_vocab_parallel(model) -> bool:
+    """True when ``model`` returns vocab-parallel logits, each rank its
+    shard of the vocab: its config's ``tensor_parallel_size`` is above 1.
+    The model decides, not the process's installed groups."""
+    return getattr(model.config, "tensor_parallel_size", 1) > 1
+
+
+def gather_vocab(logits, vocab_parallel: bool):
+    """The full-vocab logits: ``vocab_parallel`` logits (see
+    :func:`is_vocab_parallel`) have the ranks' vocab shards all-gathered
+    along the last axis (the reference's
+    ``gather_from_tensor_model_parallel_region`` before every token
+    choice), so that every rank picks the same token; else ``logits``."""
+    if vocab_parallel:
+        return gather_from_tensor_model_parallel_region(logits)
+    return logits
+
+
+def _greedy_token(logits, vocab_parallel: bool = False):
+    """fp32 argmax over the (gathered) last axis (first index on ties, as
+    in JAX)."""
+    return torch.argmax(gather_vocab(logits, vocab_parallel).float(),
+                        dim=-1).to(torch.int32)
 
 
 # --- sampling ------------------------------------------------------------------
@@ -349,15 +374,16 @@ def filter_logits(logits, *, temperature: float, top_k: Optional[int] = None,
 
 
 def _sample_token(last_logits, seed, streams, index, *, temperature,
-                  top_k=None, top_p=None):
+                  top_k=None, top_p=None, vocab_parallel: bool = False):
     """One token per row of ``(b, V)`` final-position logits: greedy at
     temperature 0, else ``argmax(filter_logits(...) + noise)`` with the
     Gumbel noise of :func:`sample_noise` (what ``jax.random.categorical``
-    computes, ``argmax(logits + gumbel)``)."""
+    computes, ``argmax(logits + gumbel)``); ``vocab_parallel`` logits are
+    gathered first (:func:`gather_vocab`)."""
     if not temperature:
-        return _greedy_token(last_logits)
-    logits = filter_logits(last_logits, temperature=temperature, top_k=top_k,
-                           top_p=top_p)
+        return _greedy_token(last_logits, vocab_parallel)
+    logits = filter_logits(gather_vocab(last_logits, vocab_parallel),
+                           temperature=temperature, top_k=top_k, top_p=top_p)
     noise = sample_noise(seed, streams, index, logits.shape[-1])
     return torch.argmax(noise.to(logits.device) + logits,
                         dim=-1).to(torch.int32)
@@ -384,9 +410,11 @@ def validate_sampling(temperature, top_k, top_p, rng) -> int:
 
 
 def decode_loop(step_apply, prefill_logits, cache, max_new_tokens: int, *,
-                temperature, top_k, top_p, rng, eos_token_id):
+                temperature, top_k, top_p, rng, eos_token_id,
+                vocab_parallel: bool = False):
     """The shared decode loop of the decoder-only and encoder-decoder
-    models: ``step_apply(tok (b,), cache) -> (logits (b, 1, V), cache)``.
+    models: ``step_apply(tok (b,), cache) -> (logits (b, 1, V), cache)``,
+    its logits vocab-parallel when ``vocab_parallel``.
     Token ``i`` of batch row ``r`` samples with the noise of stream ``r``,
     index ``i``; EOS rows keep emitting EOS. Returns the ``(b,
     max_new_tokens)`` int32 generated tokens."""
@@ -396,7 +424,8 @@ def decode_loop(step_apply, prefill_logits, cache, max_new_tokens: int, *,
 
     def sample(last, i):
         return _sample_token(last, rng, streams, i, temperature=temperature,
-                             top_k=top_k, top_p=top_p)
+                             top_k=top_k, top_p=top_p,
+                             vocab_parallel=vocab_parallel)
 
     tok = sample(prefill_logits[:, -1], 0)
     done = (tok == eos_token_id) if eos_token_id is not None else None
@@ -452,7 +481,8 @@ def generate(model, prompt_ids, max_new_tokens: int, *,
     gen = decode_loop(lambda tok, c: model(tok[:, None], cache=c), logits,
                       cache, max_new_tokens, temperature=temperature,
                       top_k=top_k, top_p=top_p, rng=rng,
-                      eos_token_id=eos_token_id)
+                      eos_token_id=eos_token_id,
+                      vocab_parallel=is_vocab_parallel(model))
     return torch.cat([prompt_ids, gen], dim=1)
 
 
@@ -487,8 +517,9 @@ def _gather_beam_cache(cache, parent, batch: int, num_beams: int):
                                for lc in cache["layers"]])
 
 
-def _gathered_log_softmax(logits):
-    return torch.log_softmax(logits.float(), dim=-1)
+def _gathered_log_softmax(logits, vocab_parallel: bool):
+    return torch.log_softmax(gather_vocab(logits, vocab_parallel).float(),
+                             dim=-1)
 
 
 def _top_k(x, k: int):
@@ -500,7 +531,8 @@ def _top_k(x, k: int):
 
 def beam_search_loop(step_apply, prefill_logits, cache, max_new_tokens: int,
                      *, batch: int, num_beams: int, eos_token_id=None,
-                     length_penalty: float = 1.0, length_offset: int = 0):
+                     length_penalty: float = 1.0, length_offset: int = 0,
+                     vocab_parallel: bool = False):
     """Beam search over a ``(batch * num_beams)``-row cache, the
     reference's: beams fold into the batch, so a step is one batched
     forward and a reorder a gather over the cache's leading dim; the
@@ -510,10 +542,11 @@ def beam_search_loop(step_apply, prefill_logits, cache, max_new_tokens: int,
     generated tokens up to and including the first EOS. Returns
     ``(sequences (batch, num_beams, max_new_tokens), scores (batch,
     num_beams))``, best beam first. ``prefill_logits`` hold the prompt's
-    last logits replicated per beam (rows ``[b0 x W, b1 x W, ...]``)."""
+    last logits replicated per beam (rows ``[b0 x W, b1 x W, ...]``);
+    ``step_apply``'s logits are vocab-parallel when ``vocab_parallel``."""
     b, w = batch, num_beams
     neg = -1e30            # -inf breaks top_k ties; large-negative is safe
-    logp0 = _gathered_log_softmax(prefill_logits[:, -1])
+    logp0 = _gathered_log_softmax(prefill_logits[:, -1], vocab_parallel)
     vocab = logp0.shape[-1]
     dev = logp0.device
     logp0 = logp0.reshape(b, w, vocab)
@@ -530,7 +563,8 @@ def beam_search_loop(step_apply, prefill_logits, cache, max_new_tokens: int,
         eos_only[eos_token_id] = 0.0
     for _ in range(max_new_tokens - 1):
         logits, cache = step_apply(tok.reshape(b * w), cache)
-        logp = _gathered_log_softmax(logits[:, 0]).reshape(b, w, vocab)
+        logp = _gathered_log_softmax(logits[:, 0],
+                                     vocab_parallel).reshape(b, w, vocab)
         if eos_token_id is not None:
             # finished beams: EOS-extension only, at no cost
             logp = torch.where(done[..., None], eos_only[None, None], logp)
@@ -591,7 +625,8 @@ def generate_beam(model, prompt_ids, max_new_tokens: int, *, num_beams: int,
     seqs, scores = beam_search_loop(
         lambda tok, c: model(tok[:, None], cache=c), logits, cache,
         max_new_tokens, batch=b, num_beams=num_beams,
-        eos_token_id=eos_token_id, length_penalty=length_penalty)
+        eos_token_id=eos_token_id, length_penalty=length_penalty,
+        vocab_parallel=is_vocab_parallel(model))
     prompt_rep = prompt_ids[:, None].expand(b, num_beams, s0)
     return torch.cat([prompt_rep, seqs], dim=-1), scores
 
@@ -643,9 +678,10 @@ def speculative_generate(model, draft_model, prompt_ids, max_new_tokens: int,
     logits, t_cache = model(prompt_ids, cache=t_cache)
     _, d_cache = draft_model(prompt_ids, cache=d_cache)
 
+    tp_t, tp_d = is_vocab_parallel(model), is_vocab_parallel(draft_model)
     produced = []
     n_out = 0
-    next_tok = _greedy_token(logits[:, -1])
+    next_tok = _greedy_token(logits[:, -1], tp_t)
     while n_out < max_new_tokens:
         x_t, tok, ins = next_tok, next_tok, []
         # k draft steps from x_t: the k-th only advances the draft cache,
@@ -653,11 +689,11 @@ def speculative_generate(model, draft_model, prompt_ids, max_new_tokens: int,
         for _ in range(k):
             ins.append(tok)
             lg, d_cache = draft_model(tok[:, None], cache=d_cache)
-            tok = _greedy_token(lg[:, 0])
+            tok = _greedy_token(lg[:, 0], tp_d)
         props = torch.stack(ins[1:], dim=1)                 # (b, k - 1)
         chunk = torch.cat([x_t[:, None], props], dim=1)
         lg, t_cache = model(chunk, cache=t_cache)
-        preds = _greedy_token(lg)                           # (b, k)
+        preds = _greedy_token(lg, tp_t)                     # (b, k)
         # leading matches of the proposals against the target's argmax,
         # the minimum over rows
         match = (props == preds[:, :-1]).to(torch.int32)

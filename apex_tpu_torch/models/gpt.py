@@ -1,8 +1,18 @@
-"""GPT (pre-LN decoder) at tensor-parallel size 1.
+"""Megatron-style tensor-parallel GPT (pre-LN decoder), BASELINE config #4.
 
 Counterpart of ``apex_tpu/models/gpt.py`` (``GPTConfig``,
 ``gpt2_small_config``, ``gpt_tiny_config``, ``ParallelDecoderBlock``,
-``GPTModel``, ``lm_token_loss``, ``gpt_loss``) in its four paths:
+``GPTModel``, ``lm_token_loss``, ``gpt_loss``). At ``tensor_parallel_size``
+> 1 the model is one rank's shard (one process per rank, over the
+tensor-parallel group that ``transformer.parallel_state`` installs): the
+QKV and MLP-in projections are column-parallel, each rank computing its
+``num_heads / tp`` heads through the flash, paged and LayerNorm kernels;
+the out and MLP-out projections are row-parallel; the word embedding is
+vocab-parallel, and the tied head returns this rank's vocab shard of the
+logits ``[B, S, vocab / tp]`` (the decode paths gather them before a token
+is chosen, ``models/generation.py``), which ``lm_token_loss`` feeds to
+``vocab_parallel_cross_entropy``. The norms and position table are
+replicated. Every path below runs at any tensor-parallel size:
 
 - no cache: causal flash attention over the whole sequence; the training
   path, differentiable end to end (the LayerNorm and flash kernels have
@@ -56,7 +66,9 @@ from apex_tpu_torch.ops.ring_attention import (context_positions,
                                                ring_attention_zigzag)
 from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.tensor_parallel import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    vocab_parallel_cross_entropy)
+from apex_tpu_torch.transformer.utils import divide
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +128,8 @@ class ParallelDecoderBlock(nn.Module):
         self.config = cfg
         self.input_norm = FusedLayerNorm(e, cfg.layernorm_eps, param_dtype=pd,
                                          device=device)
-        self.qkv = ColumnParallelLinear(e, 3 * e, gather_output=False, **kw)
+        self.qkv = ColumnParallelLinear(e, 3 * e, gather_output=False,
+                                        fused_chunks=3, **kw)
         self.out_proj = RowParallelLinear(e, e, input_is_parallel=True, **kw)
         self.post_norm = FusedLayerNorm(e, cfg.layernorm_eps, param_dtype=pd,
                                         device=device)
@@ -128,11 +141,12 @@ class ParallelDecoderBlock(nn.Module):
     def forward(self, x, cache=None):
         cfg = self.config
         dt = resolve_compute_dtype(cfg.dtype)  # amp O1 seam
-        h_heads, d = cfg.num_heads, cfg.head_dim
+        h_heads = divide(cfg.num_heads, cfg.tensor_parallel_size)
+        d = cfg.head_dim
         b, s, _ = x.shape
 
         h = self.input_norm(x).to(dt)
-        q, k, v = self.qkv(h).chunk(3, dim=-1)       # [q | k | v], each e
+        q, k, v = self.qkv(h).chunk(3, dim=-1)   # the local heads' q, k, v
 
         def to_bhsd(t):
             return t.reshape(b, s, h_heads, d).transpose(1, 2)
@@ -175,8 +189,9 @@ class ParallelDecoderBlock(nn.Module):
 
 class GPTModel(nn.Module):
     """Decoder-only LM with the LM head tied to the word embedding.
-    ``forward(input_ids)`` -> logits ``[B, S, vocab]``;
-    ``forward(input_ids, cache=...)`` -> ``(logits, cache)``."""
+    ``forward(input_ids)`` -> logits ``[B, S, vocab / tp]`` (this rank's
+    vocab shard; all of it at tp = 1); ``forward(input_ids, cache=...)`` ->
+    ``(logits, cache)``."""
 
     def __init__(self, config: GPTConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
@@ -273,17 +288,22 @@ def cp_ring(cfg):
 
 
 def lm_token_loss(logits: torch.Tensor, labels: torch.Tensor,
-                  ring=None) -> torch.Tensor:
-    """Mean next-token loss at tensor-parallel size 1 (the reference's
-    unbound branch): logits cast to fp32, ``log_softmax``, mean NLL of
-    ``labels``. Over a distributed context-parallel ``ring`` its value is
-    the mean over the ring's equal chunks (the reference's CP ``pmean``)
-    and its gradient this rank's own loss's: after every rank's backward,
-    average the gradients over the ring's group, as the reference's
-    example does (``examples/long_context``). The in-process ring holds the
-    whole sequence, so its mean is already the ring's."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    loss = -logp.gather(-1, labels.long()[..., None])[..., 0].mean()
+                  ring=None, vocab_parallel: bool = False) -> torch.Tensor:
+    """Mean next-token loss: ``vocab_parallel_cross_entropy`` of
+    ``vocab_parallel`` logits (a model at ``tensor_parallel_size`` > 1, the
+    reference's bound ``model`` axis), else logits cast to fp32,
+    ``log_softmax``, mean NLL of ``labels``. Over a distributed
+    context-parallel ``ring`` its value is the mean over the ring's equal
+    chunks (the reference's CP ``pmean``) and its gradient this rank's own
+    loss's: after every rank's backward, average the gradients over the
+    ring's group, as the reference's example does
+    (``examples/long_context``). The in-process ring holds the whole
+    sequence, so its mean is already the ring's."""
+    if vocab_parallel:
+        loss = vocab_parallel_cross_entropy(logits, labels).mean()
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -logp.gather(-1, labels.long()[..., None])[..., 0].mean()
     if ring is not None and not ring.local and ring.size > 1:
         mean = loss.detach().clone()
         torch.distributed.all_reduce(mean, group=ring.group)
@@ -294,7 +314,9 @@ def lm_token_loss(logits: torch.Tensor, labels: torch.Tensor,
 def gpt_loss(model: GPTModel, input_ids: torch.Tensor,
              labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token loss of ``model`` on ``input_ids`` (the no-cache
-    forward), as ``apex_tpu.models.gpt.gpt_loss`` at tp=1; under context
-    parallelism the mean over the ring's tokens."""
+    forward), as ``apex_tpu.models.gpt.gpt_loss``: vocab-parallel at
+    tensor-parallel size > 1, and under context parallelism the mean over
+    the ring's tokens."""
     return lm_token_loss(model(input_ids), labels,
-                         ring=cp_ring(model.config))
+                         ring=cp_ring(model.config),
+                         vocab_parallel=model.config.tensor_parallel_size > 1)

@@ -34,8 +34,12 @@ each step then fuses the reference's unscale and overflow skip
 (``apex_tpu/optimizers/common.py:172-205``) on the device: the stats
 kernel's non-finite count over the flat gradients raises the skip flag, the
 grad scale is divided by the loss scale, and the scaler's state updates,
-with no host read. The model-parallel agreement on the skip waits for
-tensor parallelism (ROADMAP queue A item 10).
+with no host read. Under model parallelism the ranks first agree on the
+skip, as the reference's ``_agree_found_inf_across_model_parallel``: the
+found-inf flag is all-reduced with MAX over the tensor-parallel group and
+over a distributed context-parallel ring (:func:`agree_found_inf`), so one
+rank's overflow skips the step on every rank. The flag stays a device
+tensor (under ``gloo`` the library copies it through the host itself).
 """
 
 from __future__ import annotations
@@ -44,12 +48,28 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from apex_tpu_torch import collectives as coll
 from apex_tpu_torch.ops import flat_buffer, optim_kernels
+from apex_tpu_torch.transformer import parallel_state
 
 
 #: the dtypes a parameter may have: fp32 (its own master view) or a half
 #: type (a view into that type's copy of the master)
 MODEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def agree_found_inf(found_inf: torch.Tensor) -> torch.Tensor:
+    """``found_inf`` MAX-reduced over every model-parallel group this rank
+    is in (the tensor-parallel group, a distributed context-parallel
+    ring); the flag itself without model parallelism."""
+    if parallel_state.get_tensor_model_parallel_world_size() > 1:
+        found_inf = coll.all_reduce(
+            found_inf, parallel_state.get_tensor_model_parallel_group(),
+            "max")
+    ring = parallel_state.get_context_parallel_ring()
+    if ring is not None and not ring.local and ring.size > 1:
+        found_inf = coll.all_reduce(found_inf, ring.group, "max")
+    return found_inf
 
 
 class HalfCopy(NamedTuple):
@@ -269,7 +289,7 @@ class FusedOptimizerBase:
         device = self.master.device
         _, finite, _ = optim_kernels.global_grad_norm_and_finite(
             self.grads, self.seg_rows, self.spec.num_tensors)
-        found_inf = 1.0 - finite.float()
+        found_inf = agree_found_inf(1.0 - finite.float())
         state = scaler.state
         f = optim_kernels.fp32_scalar
         gs = f(1.0 if grad_scale is None else grad_scale, device) / state.scale

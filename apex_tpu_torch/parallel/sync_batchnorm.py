@@ -10,10 +10,15 @@ statistics follow torch: momentum 0.1, the unbiased variance
 ``var n / (n - 1)``; eval mode normalizes with them.
 
 The reference sums across the data axis when one is bound and takes local
-statistics otherwise. Here a process group of more than one rank raises
-(ROADMAP queue A item 10: DDP and SyncBatchNorm across ranks); with no
-group, or a group of one rank, the statistics are local, as the
-reference's with no axis bound.
+statistics otherwise. Here the statistics are summed over the module's
+``process_group`` (else the installed data-parallel group, else the
+default world, ``parallel.distributed.data_parallel_group``): the forward
+all-reduces the fp32 ``(sum x, sum x^2, n)`` in one call, and the backward
+all-reduces ``(sum dy, sum dy * (x - mean))``, the cross-rank terms that
+autodiff through the reference's ``psum`` implies, so that ``dx`` is the
+derivative of every rank's loss; the weight and bias gradients stay local,
+for DDP to average. With no ``torch.distributed``, or a group of one rank,
+the statistics are local, as the reference's with no axis bound.
 
 The layout is torch's NCHW (channel axis 1; any memory format). Training
 mode runs through an autograd Function that keeps only x (in its own
@@ -35,18 +40,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-_ACROSS_RANKS = ("SyncBatchNorm across more than one rank is not ported yet "
-                 "(ROADMAP queue A item 10: DDP and SyncBatchNorm over "
-                 "torch.distributed)")
-
-
-def _world_size(process_group) -> int:
-    dist = torch.distributed
-    if process_group is None:
-        if not (dist.is_available() and dist.is_initialized()):
-            return 1
-        return dist.get_world_size()
-    return dist.get_world_size(process_group)
+from apex_tpu_torch import collectives as coll
+from apex_tpu_torch.parallel.distributed import data_parallel_group
 
 
 def channel_sums(x):
@@ -70,12 +65,18 @@ def channel_sums(x):
 
 def sync_batch_norm_stats(x, process_group=None):
     """``(mean, var, n)`` per channel of an NCHW (or NC...) tensor: fp32
-    sums of x and x^2 over every dimension but 1, ``var = E[x^2] -
-    mean^2``."""
-    if _world_size(process_group) > 1:
-        raise NotImplementedError(_ACROSS_RANKS)
+    sums of x and x^2 over every dimension but 1 and over the ranks of
+    ``process_group`` (one all-reduce of ``[s | ss | n]``), ``var = E[x^2]
+    - mean^2``; ``n`` the count, a number on one rank and a ``(1,)`` fp32
+    device tensor (the sum over the ranks, no host read) across ranks."""
     n = x.numel() // x.shape[1]
     s, ss = channel_sums(x)
+    if coll.world_size(process_group) > 1:
+        c = s.shape[0]
+        packed = torch.cat([s, ss, torch.full((1,), float(n),
+                                              device=s.device)])
+        packed = coll.all_reduce(packed, process_group)
+        s, ss, n = packed[:c], packed[c:2 * c], packed[2 * c:]
     mean = s / n
     return mean, ss / n - mean * mean, n
 
@@ -95,7 +96,8 @@ class _SyncBatchNormFunction(torch.autograd.Function):
     output in x's dtype. Saves x, w, mean and rstd."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, mean, var, eps):
+    def forward(ctx, x, weight, bias, mean, var, eps, n, group):
+        ctx.n, ctx.group = n, group
         rstd = torch.rsqrt(var + eps)
         if x.is_cuda:
             y = torch.batch_norm_elemt(x, weight, bias, mean, rstd, eps)
@@ -111,33 +113,49 @@ class _SyncBatchNormFunction(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight, mean, rstd = ctx.saved_tensors
         nd = x.ndim
-        n = x.numel() // x.shape[1]
+        n, group = ctx.n, ctx.group
         affine = weight is not None
+        across = coll.world_size(group) > 1
         if x.is_cuda:
             dy = dy.contiguous(memory_format=_memory_format(x))
             sum_dy, sum_dy_xmu, dw, db = torch.batch_norm_backward_reduce(
                 dy, x, mean, rstd, weight, True, affine, affine)
-            count = torch.full((1,), n, dtype=torch.int32, device=x.device)
+            if across:
+                c = sum_dy.shape[0]
+                both = coll.all_reduce(torch.cat([sum_dy, sum_dy_xmu]),
+                                       group)
+                sum_dy, sum_dy_xmu = both[:c], both[c:]
+            count = (n.to(torch.int32) if torch.is_tensor(n)
+                     else torch.full((1,), n, dtype=torch.int32,
+                                     device=x.device))
             dx = torch.batch_norm_backward_elemt(dy, x, mean, rstd, weight,
                                                  sum_dy, sum_dy_xmu, count)
-            return dx, dw, db, None, None, None
+            return dx, dw, db, None, None, None, None, None
         dims = [d for d in range(nd) if d != 1]
         xhat = (x.float() - _channel(mean, nd)) * _channel(rstd, nd)
         dy32 = dy.float()
         db = dy32.sum(dims)
         dw = (dy32 * xhat).sum(dims)
+        sum_dy, sum_dy_xhat = db, dw
+        if across:
+            c = db.shape[0]
+            both = coll.all_reduce(torch.cat([db, dw]), group)
+            sum_dy, sum_dy_xhat = both[:c], both[c:]
         w = weight if affine else torch.ones_like(mean)
-        # d/dx of (x - mean) rsqrt(E[x^2] - mean^2 + eps) w + b
-        dx = (dy32 - _channel(db / n, nd) - xhat * _channel(dw / n, nd)) \
+        # d/dx of (x - mean) rsqrt(E[x^2] - mean^2 + eps) w + b, the sums
+        # and the count over every rank
+        dx = (dy32 - _channel(sum_dy / n, nd)
+              - xhat * _channel(sum_dy_xhat / n, nd)) \
             * _channel(w * rstd, nd)
         grads_wb = (dw, db) if affine else (None, None)
-        return (dx.to(x.dtype), *grads_wb, None, None, None)
+        return (dx.to(x.dtype), *grads_wb, None, None, None, None, None)
 
 
 class SyncBatchNorm(nn.Module):
     """Drop-in for ``apex.parallel.SyncBatchNorm`` over NCHW tensors:
-    torch's BatchNorm arguments plus ``process_group``; the output in x's
-    dtype."""
+    torch's BatchNorm arguments plus ``process_group`` (None: the installed
+    data-parallel group, else the default world, read at each forward);
+    the output in x's dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
@@ -172,16 +190,19 @@ class SyncBatchNorm(nn.Module):
                              f"{tuple(x.shape)} != num_features "
                              f"{self.num_features}")
         if self.training or self.running_mean is None:
-            mean, var, n = sync_batch_norm_stats(x.detach(),
-                                                 self.process_group)
+            group = data_parallel_group(self.process_group)
+            mean, var, n = sync_batch_norm_stats(x.detach(), group)
             if self.training and self.track_running_stats:
                 with torch.no_grad():
                     m = self.momentum
-                    unbiased = var * (n / max(n - 1.0, 1.0))
+                    unbiased = var * (n / (n - 1.0).clamp(min=1.0)
+                                      if torch.is_tensor(n)
+                                      else n / max(n - 1.0, 1.0))
                     self.running_mean.mul_(1 - m).add_(m * mean)
                     self.running_var.mul_(1 - m).add_(m * unbiased)
             return _SyncBatchNormFunction.apply(x, self.weight, self.bias,
-                                                mean, var, self.eps)
+                                                mean, var, self.eps, n,
+                                                group)
         # eval: the running statistics are constants, plain autograd
         rstd = torch.rsqrt(self.running_var + self.eps)
         y = (x.float() - _channel(self.running_mean, x.ndim)) \
@@ -195,8 +216,11 @@ class SyncBatchNorm(nn.Module):
 def convert_syncbn_model(module: nn.Module, process_group=None) -> nn.Module:
     """Replace every ``nn.BatchNorm{1,2,3}d`` under ``module`` (walking
     ``named_children()``, as the reference) with a ``SyncBatchNorm`` that
-    carries its arguments, parameters and running statistics. Returns the
-    module (a BatchNorm itself comes back replaced)."""
+    carries its arguments, parameters and running statistics, over
+    ``process_group`` (None: the installed data-parallel group, else the
+    default world). Returns the module (a BatchNorm itself comes back
+    replaced)."""
+    process_group = data_parallel_group(process_group)
     if isinstance(module, nn.modules.batchnorm._BatchNorm):
         sbn = SyncBatchNorm(module.num_features, eps=module.eps,
                             momentum=(0.1 if module.momentum is None

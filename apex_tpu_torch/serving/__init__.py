@@ -1,4 +1,5 @@
-"""Paged-KV continuous-batching serving on one GPU: greedy and sampled
+"""Paged-KV continuous-batching serving on one GPU, or over tensor-parallel
+ranks (``TensorParallelPagedEngine``): greedy and sampled
 decode over a full-precision or quantized page pool, the shared-prefix
 cache, in-engine speculative decode and chunked prefill, driven by the
 streaming :class:`ServingFrontend` (priorities, deadlines, preemption,
@@ -21,9 +22,14 @@ from apex_tpu_torch.serving.scheduler import (PagedDecodeEngine, Request,
                                               generate_paged,
                                               make_shared_admit,
                                               prompt_bucket)
+from apex_tpu_torch.serving.tp import (TensorParallelPagedEngine,
+                                       infer_variable_specs,
+                                       shard_model_variables)
 
 __all__ = ["PagedDecodeEngine", "PrefixCache", "PriorityDeadlinePolicy",
            "Request", "ServingError", "ServingFrontend", "StreamHandle",
+           "TensorParallelPagedEngine", "infer_variable_specs",
+           "shard_model_variables",
            "alloc_slot", "alloc_slot_shared", "defrag", "defrag_map",
            "drop_slot_pages", "free_page_count", "free_slot",
            "generate_paged", "init_paged_cache", "make_shared_admit",

@@ -38,8 +38,8 @@ Differences from the reference, all of state the port does not have:
 ``_check_compile_storm`` and ``compile_watch`` (a jit recompile storm:
 eager PyTorch compiles nothing at serve time; ``stats()`` reports
 ``jit.compiles``, ``jit.trace_cache_misses`` and ``compile_storms`` as 0),
-the host tier's ``_demote``/``_try_promote`` (not ported;
-``host_tier_enabled`` is False), and ``tp_world`` (1: one card).
+and the host tier's ``_demote``/``_try_promote`` (not ported;
+``host_tier_enabled`` is False).
 ``fleet.mint_trace_id`` has a local copy (:func:`mint_trace_id`).
 """
 
@@ -1234,7 +1234,8 @@ class ServingFrontend:
         PyTorch on one card does not have state the port's values:
         ``jit.compiles``, ``jit.trace_cache_misses`` and
         ``compile_storms`` are 0 (nothing is traced or compiled at serve
-        time), ``tp_world`` is 1, ``host_tier_enabled`` False (the host
+        time), ``tp_world`` is the engine's tensor-parallel size (1 but
+        for ``serving/tp.py``'s engine), ``host_tier_enabled`` False (the host
         tier is not ported). Records every numeric stat as a
         ``serving.<name>`` raw series: call once per run."""
         eng = self.engine
@@ -1252,7 +1253,7 @@ class ServingFrontend:
                                      1)),
             "deferred_admissions": int(d["deferred_admissions"]),
             "defrag_runs": int(d["defrag_runs"]),
-            "tp_world": 1,
+            "tp_world": getattr(eng, "tp_world", 1),
             "preemptions": int(d["preemptions"]),
             "resumes": int(d["resumes"]),
             "backpressure_spills": int(d["backpressure_spills"]),

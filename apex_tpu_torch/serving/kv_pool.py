@@ -31,6 +31,11 @@ reads (every write lands at or past the slot's length, which is past
 them), and ``page_ref`` counts their readers; the prefix cache frees a
 cached page only at refcount 0.
 
+Under tensor parallelism (``serving/tp.py``) each rank's pool holds its
+``kv / tp`` heads of every page (``local_kv_heads``); the block tables,
+lengths and free-list bookkeeping are replicated and advance alike on every
+rank.
+
 The page pool, block tables and lengths live on the device, where the
 kernels read them; the free-list bookkeeping that only the host scheduler
 reads lives on the host, so admission never waits on the device to learn
@@ -81,6 +86,18 @@ def pages_for(length: int, page_size: int) -> int:
     return cdiv(length, page_size)
 
 
+def local_kv_heads(config) -> int:
+    """The kv heads one rank's pool holds: ``num_kv_heads`` (or
+    ``num_heads``) over ``tensor_parallel_size``, the reference's
+    ``P(None, model)`` shard of every page."""
+    kv = getattr(config, "num_kv_heads", config.num_heads)
+    tp = getattr(config, "tensor_parallel_size", 1)
+    if kv % tp:
+        raise ValueError(f"{kv} kv heads do not divide over "
+                         f"tensor_parallel_size={tp}")
+    return kv // tp
+
+
 def _page_dtype(config, dtype, quant):
     """The pool's page dtype: the quantized one, else ``dtype`` or the
     model's compute dtype."""
@@ -110,7 +127,7 @@ def init_paged_cache(config, num_slots: int, *, num_pages: int,
                          f"{page_size}")
     if num_pages < 2:
         raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
-    kv = getattr(config, "num_kv_heads", config.num_heads)
+    kv = local_kv_heads(config)
     if max_pages_per_seq is None:
         max_pages_per_seq = cdiv(config.max_position_embeddings, page_size)
     shape = (num_pages, kv, page_size, config.head_dim)
@@ -397,13 +414,13 @@ def prefill_into_pages(cache, slot: int, contig_layers, s0: int, *,
 
 def page_bytes(config, page_size: int = 16, *, kv_dtype=None,
                dtype=None) -> int:
-    """Pool bytes one page costs across all layers: the K and V page tiles
-    at the pool dtype plus, in a quantized pool, their two fp32 per-(page,
-    kv head) scales. At page 16, head_dim 64 an int8 page costs ``(16 * 64
+    """Pool bytes one page costs one rank across all layers: the K and V
+    page tiles of its kv heads at the pool dtype plus, in a quantized pool,
+    their two fp32 per-(page, kv head) scales. At page 16, head_dim 64 an int8 page costs ``(16 * 64
     + 4) / (2 * 16 * 64) ~= 0.502`` of a bf16 page."""
     quant = resolve_kv_dtype(kv_dtype)
     dt = _page_dtype(config, dtype, quant)
-    kv = getattr(config, "num_kv_heads", config.num_heads)
+    kv = local_kv_heads(config)
     per_tensor = kv * page_size * config.head_dim * dt.itemsize
     if quant is not None:
         per_tensor += kv * 4

@@ -90,7 +90,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.models.generation import (_greedy_token, _sample_token,
-                                              init_cache,
+                                              init_cache, is_vocab_parallel,
                                               validate_sampling)
 from apex_tpu_torch.obs.events import EventLog
 from apex_tpu_torch.obs.spans import SpanTracer
@@ -350,6 +350,11 @@ class PagedDecodeEngine:
         self.eos_token_id = eos_token_id
         self.sync_every = sync_every
         self.draft_model = draft_model if draft_len > 0 else None
+        # the models' logits are gathered before a token is chosen when
+        # they are vocab-parallel (tensor_parallel_size > 1)
+        self.vocab_parallel = is_vocab_parallel(model)
+        self.draft_vocab_parallel = (is_vocab_parallel(draft_model)
+                                     if draft_len > 0 else False)
         self.draft_len = draft_len
         self.prefill_chunk = prefill_chunk
         if max_pages_per_seq is None:
@@ -392,7 +397,8 @@ class PagedDecodeEngine:
                                device=last.device)
         return int(_sample_token(last, self.rng, streams, samp0,
                                  temperature=self.temperature,
-                                 top_k=self.top_k, top_p=self.top_p)[0])
+                                 top_k=self.top_k, top_p=self.top_p,
+                                 vocab_parallel=self.vocab_parallel)[0])
 
     # --- device programs ----------------------------------------------------
 
@@ -468,7 +474,8 @@ class PagedDecodeEngine:
             self.cache = cache
             nxt = _sample_token(logits[:, 0], self.rng, streams, samp_i,
                                 temperature=self.temperature,
-                                top_k=self.top_k, top_p=self.top_p)
+                                top_k=self.top_k, top_p=self.top_p,
+                                vocab_parallel=self.vocab_parallel)
             nxt = torch.where(done, torch.full_like(nxt, fill), nxt)
             n_left = torch.where(done, n_left, n_left - 1)
             samp_i = samp_i + 1
@@ -503,10 +510,10 @@ class PagedDecodeEngine:
             for _ in range(k):
                 ins.append(t_in)
                 lg, dcache = self.draft_model(t_in[:, None], cache=dcache)
-                t_in = _greedy_token(lg[:, 0])
+                t_in = _greedy_token(lg[:, 0], self.draft_vocab_parallel)
             chunk = torch.stack(ins, dim=1)                  # (slots, k)
             logits, cache = self.model(chunk, cache=self.cache)
-            preds = _greedy_token(logits)                    # (slots, k)
+            preds = _greedy_token(logits, self.vocab_parallel)  # (slots, k)
             match = (chunk[:, 1:] == preds[:, :-1]).to(torch.int32)
             m = torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32)
             e = torch.minimum(m + 1, n_left)

@@ -1,5 +1,31 @@
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy)
+from apex_tpu_torch.transformer.tensor_parallel.data import broadcast_data
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    copy_to_tensor_model_parallel_region,
+    gather_from_sequence_parallel_region,
+    gather_from_tensor_model_parallel_region,
+    reduce_from_tensor_model_parallel_region,
+    reduce_scatter_to_sequence_parallel_region,
+    scatter_to_sequence_parallel_region,
+    scatter_to_tensor_model_parallel_region)
+from apex_tpu_torch.transformer.tensor_parallel.random import (
+    checkpoint, get_cuda_rng_tracker, get_rng_state_tracker,
+    model_parallel_cuda_manual_seed, model_parallel_seed)
+from apex_tpu_torch.transformer.utils import (divide,
+                                              split_tensor_along_last_dim)
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "broadcast_data", "checkpoint",
+           "copy_to_tensor_model_parallel_region", "divide",
+           "gather_from_sequence_parallel_region",
+           "gather_from_tensor_model_parallel_region",
+           "get_cuda_rng_tracker", "get_rng_state_tracker",
+           "model_parallel_cuda_manual_seed", "model_parallel_seed",
+           "reduce_from_tensor_model_parallel_region",
+           "reduce_scatter_to_sequence_parallel_region",
+           "scatter_to_sequence_parallel_region",
+           "scatter_to_tensor_model_parallel_region",
+           "split_tensor_along_last_dim", "vocab_parallel_cross_entropy"]

@@ -190,6 +190,18 @@ BERT-Large (``contrib.sparsity.ASP.prune_trained_model`` with
    the plain model, no window and no dropout, so only the plain flash
    branches launch; the port's ``examples/long_context`` at its
    defaults).
+   Then across ranks (BASELINE config #4; two processes on this card
+   over gloo, started by ``parallel.run_ranks``, the backend and the
+   host-staged collectives printed): ``tp_engine_fp32``/``_bf16``
+   (GPT-2-small at full width over TP = 2 through
+   ``TensorParallelPagedEngine``, 8 requests: fp32 tokens identical to
+   tp = 1 in this process with equal decode steps and half the pool a
+   rank, bf16 tokens/s with any first divergence a near tie),
+   ``tp_train_fp32``/``_bf16`` (2 x 1024, FusedAdam: fp32 losses and the
+   gathered gradients against tp = 1, bf16 step ms; a profiled run each
+   for the collectives' host time) and ``ddp_syncbn`` (ResNet-50 with
+   SyncBatchNorm and DDP, 2 ranks x 32 images against one rank on the 64,
+   O0 and O1 bf16, a forced overflow on one rank skipped on both).
 3. ``engine_fp32``: the 24-request mixed-length workload (prompts and
    outputs uniform in 32..128 tokens, 8 slots, page 16, seed 1) must be
    token-identical, request by request, to per-request lock-step
@@ -8170,6 +8182,318 @@ def beam_fp32(model) -> dict:
     return launches
 
 
+# --- tensor parallelism and data parallelism across ranks (A10) --------------
+
+#: the tensor-parallel phases (BASELINE config #4): GPT-2-small at full
+#: width split over TP ranks, every rank a process on the one card over
+#: gloo (NCCL refuses two ranks on one device): 8 requests (prompts 32-128,
+#: budgets 16-32, seed 1) and 2 x 1024-token training steps
+TP = 2
+TP_CONFIG, TP_CONFIG_KW, TP_VOCAB = "gpt2_small", {}, 50304
+TP_REQUESTS, TP_REQUEST_SEED = 8, 1
+TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_TIMED = 2, 1024, 3
+#: the bf16 engine's profiled run serves the first this many requests (the
+#: profiler's post-processing grows with the run: all 8 took ~24 s a rank
+#: on an H100's host)
+TP_PROFILE_REQUESTS = 4
+#: tp = 2 against tp = 1 in fp32: loss (relative) and the gathered
+#: gradients per entry (the JAX package's TP bar, tests/test_gpt_model.py)
+TP_LOSS_RTOL = 1e-4
+TP_GRAD_TOL = (5e-3, 1e-4)                 # (rtol, atol)
+#: every spawned set of ranks must answer within this many seconds
+RANKS_TIMEOUT = 600
+#: ddp_syncbn: ResNet-50 O1 bf16 with SyncBatchNorm and DDP, 2 ranks x 32
+#: images against one rank on the 64; its bar is the one-rank step's own
+#: rounding floor (every parameter moved by one fp32 rounding, relative
+#: noise 2^-24, as ``perturbed``) times the factor, as in resnet_fp32
+DDP_RANKS, DDP_BATCH, DDP_ARCH = 2, 64, "resnet50"
+DDP_FLOOR_EPS, DDP_FLOOR_FACTOR = 2.0 ** -24, RESNET_FLOOR_FACTOR
+
+
+def print_transport(backend) -> None:
+    """The collectives' backend and what is staged through the host, on
+    lines of their own: the port stages nothing (``collectives``' table);
+    gloo copies CUDA tensors through host memory itself."""
+    how = ("gloo copies CUDA tensors itself" if backend == "gloo"
+           else f"{backend} takes CUDA tensors directly")
+    print(f"tp transport: torch.distributed backend {backend}", flush=True)
+    print(f"tp transport: collectives staged through the host by the port: "
+          f"none staged ({how})", flush=True)
+
+
+def rank_launch_check(phase: str, ranks, kernels) -> None:
+    """Every rank launched every kernel of ``kernels`` in its run."""
+    for r in ranks:
+        missing = [k for k in kernels if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"{phase}: rank {r['rank']} launched no "
+                                 f"{missing} kernel")
+
+
+def tp_phases(smi) -> dict:
+    """``tp_engine_fp32``/``_bf16`` and ``tp_train_fp32``/``_bf16``:
+    GPT-2-small at full width (12 layers, 12 heads, 6 a rank, vocab 50304,
+    25152 a rank) over TP = 2 ranks, both processes on this card, started
+    once for all four (``examples.tensor_parallel.gpt.jobs_rank``), against
+    tp = 1 in this process from the same seed (the layers draw the tp = 1
+    weights and keep their rank's block). fp32 serving: tokens identical
+    to tp = 1, equal decode steps, each rank's pool half of tp = 1's; bf16
+    serving: tokens/s, and any first divergence a bf16 near tie. fp32
+    training: the two FusedAdam steps' losses within ``TP_LOSS_RTOL`` and
+    the first step's gradients, gathered over the ranks
+    (``bridge.unshard_gpt_params``), within ``TP_GRAD_TOL`` per entry; bf16
+    training: losses and step ms. The bf16 runs end with a profiled run
+    (``collective_profile``). Returns each path's rank-0 launches."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch.bridge import unshard_gpt_params
+    from apex_tpu_torch.examples.tensor_parallel import gpt as tpg
+    from apex_tpu_torch.parallel import run_ranks
+
+    f32, b16 = torch.float32, torch.bfloat16
+    reqs = tpg.demo_requests(TP_VOCAB, TP_REQUESTS, seed=TP_REQUEST_SEED)
+    prompts = [r.prompt for r in reqs]
+    engine_kw = dict(num_slots=NUM_SLOTS, page_size=PAGE_SIZE)
+    serve = dict(config=TP_CONFIG, seed=SEED, requests=reqs,
+                 engine_kw=engine_kw, device=DEV)
+    train = dict(config=TP_CONFIG, seed=SEED, batch=TP_TRAIN_BATCH,
+                 seq=TP_TRAIN_SEQ, lr=TRAIN_LR, device=DEV)
+    c32, c16 = (dict(TP_CONFIG_KW, dtype=dt) for dt in (f32, b16))
+    # tp = 1 in this process: the references
+    t0 = time.perf_counter()
+    ref32 = tpg.serve_rank(0, 1, cfg_kw=c32, **serve)
+    ref16 = tpg.serve_rank(0, 1, cfg_kw=c16, runs=2, **serve)
+    tref = tpg.train_rank(0, 1, cfg_kw=c32, steps=2, return_grads=True,
+                          **train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    jobs = [("serve", dict(serve, cfg_kw=c32)),
+            ("serve", dict(serve, cfg_kw=c16, runs=2,
+                           profile=TP_PROFILE_REQUESTS)),
+            ("train", dict(train, cfg_kw=c32, steps=2, return_grads=True)),
+            ("train", dict(train, cfg_kw=c16, steps=1 + TP_TRAIN_TIMED,
+                           timed_from=1, profile=True))]
+    t0 = time.perf_counter()
+    ranks = run_ranks(tpg.jobs_rank, TP, (jobs,), device=DEV,
+                      timeout=RANKS_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    serve32, serve16, train32, train16 = ([r[i] for r in ranks]
+                                          for i in range(4))
+    backend = serve32[0]["backend"]
+    print_transport(backend)
+    common = dict(tp=TP, backend=backend,
+                  ranks_on="cuda:0" if backend == "gloo" else "a card each")
+
+    # tp_engine_fp32
+    rank_launch_check("tp_engine_fp32", serve32, SERVING_KERNELS)
+    for r in serve32:
+        for i, (a, b) in enumerate(zip(r["outputs"], ref32["outputs"])):
+            if a.shape != b.shape or (a != b).any():
+                raise AssertionError(f"tp_engine_fp32: rank {r['rank']} "
+                                     f"request {i} differs from tp = 1")
+        if r["stats"]["decode_steps"] != ref32["stats"]["decode_steps"]:
+            raise AssertionError(
+                f"tp_engine_fp32: decode steps {r['stats']['decode_steps']}"
+                f" against tp = 1's {ref32['stats']['decode_steps']}")
+        if 2 * r["pool_bytes"] != ref32["pool_bytes"]:
+            raise AssertionError(f"tp_engine_fp32: rank pool "
+                                 f"{r['pool_bytes']} bytes, tp = 1 "
+                                 f"{ref32['pool_bytes']}")
+    emit("tp_engine_fp32", **common, requests=len(reqs),
+         token_identical=True,
+         decode_steps=serve32[0]["stats"]["decode_steps"],
+         tp1_decode_steps=ref32["stats"]["decode_steps"],
+         pool_bytes_per_rank=serve32[0]["pool_bytes"],
+         tp1_pool_bytes=ref32["pool_bytes"],
+         seconds=[r["seconds"][-1] for r in serve32],
+         tp1_seconds=ref32["seconds"][-1],
+         launches_rank0=serve32[0]["launches"])
+
+    # tp_engine_bf16
+    rank_launch_check("tp_engine_bf16", serve16, SERVING_KERNELS)
+    for a, b in zip(serve16[0]["outputs"], serve16[1]["outputs"]):
+        if a.shape != b.shape or (a != b).any():
+            raise AssertionError("tp_engine_bf16: the ranks' tokens differ")
+    diverged = {}
+    got = serve16[0]["outputs"]
+    if any(a.shape != b.shape or (a != b).any()
+           for a, b in zip(got, ref16["outputs"])):
+        model = tpg.build_model(TP_CONFIG, c16, SEED, DEV)
+        diverged = near_tie_check("tp_engine_bf16", model.eval(), prompts,
+                                  got, ref16["outputs"])
+        del model
+    tokens = serve16[0]["stats"]["generated_tokens"]
+    emit("tp_engine_bf16", **common, requests=len(reqs),
+         tokens_per_s=tokens / serve16[0]["seconds"][-1],
+         tp1_tokens_per_s=ref16["stats"]["generated_tokens"]
+         / ref16["seconds"][-1],
+         generated_tokens=tokens,
+         decode_steps=serve16[0]["stats"]["decode_steps"],
+         tp1_decode_steps=ref16["stats"]["decode_steps"],
+         same_tokens_as_tp1=len(reqs) - len(diverged),
+         diverged=diverged, tokens=[o.tolist() for o in got],
+         pool_bytes_per_rank=serve16[0]["pool_bytes"],
+         tp1_pool_bytes=ref16["pool_bytes"],
+         profile=[r["profile"] for r in serve16],
+         launches_rank0=serve16[0]["launches"], nvidia_smi=smi,
+         card_after=card_state())
+
+    # tp_train_fp32
+    rank_launch_check("tp_train_fp32", train32, TRAIN_KERNELS)
+    for r in train32:
+        for step, (a, b) in enumerate(zip(r["losses"], tref["losses"])):
+            if abs(a - b) > TP_LOSS_RTOL * abs(b):
+                raise AssertionError(f"tp_train_fp32: rank {r['rank']} "
+                                     f"step {step} loss {a} against tp = 1 "
+                                     f"{b}")
+    gathered = unshard_gpt_params([r["grads"] for r in train32])
+    rtol, atol = TP_GRAD_TOL
+    worst, over = 0.0, []
+    for name, want in tref["grads"].items():
+        err = (gathered[name] - want).abs()
+        ratio = (err / (atol + rtol * want.abs())).max().item()
+        worst = max(worst, ratio)
+        if ratio > 1.0:
+            over.append((name, ratio))
+    if over:
+        raise AssertionError(f"tp_train_fp32: {len(over)} gradients past "
+                             f"rtol {rtol}, atol {atol}: {over[:5]}")
+    emit("tp_train_fp32", **common, batch=TP_TRAIN_BATCH, seq=TP_TRAIN_SEQ,
+         losses=train32[0]["losses"], tp1_losses=tref["losses"],
+         loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                          zip(train32[0]["losses"], tref["losses"])),
+         grads=len(gathered), grad_worst_ratio_to_bar=worst,
+         grad_max_abs_err=max((gathered[n] - g).abs().max().item()
+                              for n, g in tref["grads"].items()),
+         step_ms=train32[0]["step_ms"], tp1_step_ms=tref["step_ms"])
+
+    # tp_train_bf16
+    rank_launch_check("tp_train_bf16", train16, TRAIN_KERNELS)
+    timed = train16[0]["timed_steps"]
+    step_ms = float(np.mean(train16[0]["step_ms"][-timed:]))
+    emit("tp_train_bf16", **common, batch=TP_TRAIN_BATCH, seq=TP_TRAIN_SEQ,
+         losses=[r["losses"] for r in train16],
+         step_ms=[r["step_ms"] for r in train16], timed_steps=timed,
+         mean_step_ms=step_ms,
+         tokens_per_s=TP_TRAIN_BATCH * TP_TRAIN_SEQ / step_ms * 1e3,
+         launches_per_step={k: train16[0]["launches"][k] / timed
+                            for k in TRAIN_KERNELS},
+         profile=[r["profile"] for r in train16],
+         tp1_reference_s=ref_s, ranks_s=ranks_s,
+         job_s=[[job["job_s"] for job in r] for r in ranks], nvidia_smi=smi,
+         card_after=card_state())
+    return {"tp_engine": serve16[0]["launches"],
+            "tp_engine_fp32": serve32[0]["launches"],
+            "tp_train": {k: v / timed
+                         for k, v in train16[0]["launches"].items()},
+            "tp_train_fp32": train32[0]["launches"]}
+
+
+def ddp_check(level: str, one, floor, ranks) -> dict:
+    """``ddp_syncbn``'s bars for one amp level: the ranks' gradients and
+    statistics bit for bit equal; step 0's loss (the ranks' mean), averaged
+    gradients and running statistics against one rank's within
+    ``DDP_FLOOR_FACTOR`` times its own floor (``floor_grad_bars``, which
+    also takes 1e-3 relative, per tensor in norm). Returns the numbers."""
+    import torch
+
+    phase = f"ddp_syncbn {level}"
+    for r in ranks[1:]:
+        for part in ("grads", "buffers"):
+            for k, v in r[part].items():
+                if not torch.equal(v, ranks[0][part][k]):
+                    raise AssertionError(f"{phase}: the ranks' {part} {k} "
+                                         f"differ")
+    loss, want = ranks[0]["losses"][0], one["losses"][0]
+    loss_bar = max(1e-4 * abs(want),
+                   DDP_FLOOR_FACTOR * abs(floor["losses"][0] - want))
+    if abs(loss - want) > loss_bar:
+        raise AssertionError(f"{phase}: loss {loss} against one rank's "
+                             f"{want} (bar {loss_bar})")
+    bars = {part: floor_grad_bars(f"{phase} {part}", ranks[0][part],
+                                  one[part], floor[part],
+                                  factor=DDP_FLOOR_FACTOR)
+            for part in ("grads", "buffers")}
+    out = dict(loss=loss, one_rank_loss=want, floor_loss=floor["losses"][0],
+               loss_bar=loss_bar)
+    for part, b in bars.items():
+        out[part] = dict(
+            max_rel_err=max(v[1] / max(v[0], 1e-30) for v in b.values()),
+            median_rel_floor=sorted(v[2] / max(v[0], 1e-30)
+                                    for v in b.values())[len(b) // 2],
+            max_ratio_to_bar=max(v[1] / max(1e-3 * v[0], DDP_FLOOR_FACTOR
+                                            * v[2], 1e-30)
+                                 for v in b.values()))
+    return out
+
+
+def ddp_syncbn(smi) -> dict:
+    """ResNet-50 at ImageNet width with SyncBatchNorm and DDP
+    (``examples.imagenet.main_amp.rank_steps``) over ``DDP_RANKS`` ranks of
+    32 images on this card, against one rank in this process on the 64
+    (cuDNN deterministic and TF32 off here for the phase; ``run_ranks``
+    gives the ranks these flags), under O0 and under amp O1 bf16
+    with a dynamic loss scale; both levels in one set of rank processes
+    (``rank_runs``). Each level's step 0 is held by ``ddp_check`` to the
+    one-rank step's own floor (that step again with every parameter moved
+    by one fp32 rounding). At O0 that floor is a few percent of a gradient
+    (``resnet_fp32``'s); at O1 one rounding moves ResNet-50's initial
+    gradients by about their own size (the bf16 convolutions round every
+    activation), so the O1 gradient bar is loose and O0's is the one that
+    holds the reduction to account. O1's step 1: rank 1 writes an inf into
+    a gradient before the all-reduce, and both ranks must skip (parameters
+    bit for bit, the loss scale halved, the step count kept). Returns rank
+    0's O1 launches."""
+    import torch
+
+    from apex_tpu_torch.examples.imagenet import main_amp as rn
+    from apex_tpu_torch.parallel import run_ranks
+
+    base = dict(batch_size=DDP_BATCH, image_size=RESNET_IMAGE,
+                arch=DDP_ARCH, num_classes=RESNET_CLASSES, lr=RESNET_LR,
+                seed=SEED, device=DEV)
+    levels = {"O0": dict(base, opt_level="O0"),
+              "O1": dict(base, opt_level="O1", half_dtype=torch.bfloat16,
+                         loss_scale="dynamic")}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        refs = {lv: (rn.rank_steps(0, 1, steps=1, **kw),
+                     rn.rank_steps(0, 1, steps=1,
+                                   perturb=(SEED, DDP_FLOOR_EPS), **kw))
+                for lv, kw in levels.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t0
+        runs = [dict(levels["O0"], steps=1),
+                dict(levels["O1"], steps=2, poison=(1, 1))]
+        t0 = time.perf_counter()
+        ranks = run_ranks(rn.rank_runs, DDP_RANKS, (runs,), device=DEV,
+                          timeout=RANKS_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out = {lv: ddp_check(lv, *refs[lv], [r[i] for r in ranks])
+           for i, lv in enumerate(levels)}
+    o1 = [r[1] for r in ranks]
+    skipped = [r["steps"][1] for r in o1]
+    for r, s in zip(o1, skipped):
+        if not (s["unchanged"] and s["step_count"] == 1
+                and s["loss_scale"] == r["steps"][0]["loss_scale"] / 2):
+            raise AssertionError(f"ddp_syncbn: rank 1's overflow did not "
+                                 f"skip the step everywhere: {skipped}")
+    emit("ddp_syncbn", ranks=DDP_RANKS, images_per_rank=DDP_BATCH // DDP_RANKS,
+         image=RESNET_IMAGE, floor_eps=DDP_FLOOR_EPS,
+         floor_factor=DDP_FLOOR_FACTOR, **out, o1_overflow_step=skipped,
+         one_rank_s=ref_s, ranks_s=ranks_s,
+         launches_rank0=o1[0]["launches"], nvidia_smi=smi,
+         card_after=card_state())
+    return o1[0]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -8229,6 +8553,12 @@ def main() -> int:
     ring_train = ring_train_bf16(smi)
     ring_train_fp32()
     ring_gpt_launches = ring_gpt(smi)
+    torch.cuda.empty_cache()
+    # tensor and data parallelism across ranks (A10): processes of their
+    # own on this card, before the phases that keep models live
+    tp_launches = tp_phases(smi)
+    ddp_launches = ddp_syncbn(smi)
+    gc.collect()
     torch.cuda.empty_cache()
 
     prompts, new_tokens = workload()
@@ -8485,7 +8815,8 @@ def main() -> int:
                "bert_remat_fwd_bwd": remat_launches,
                "resnet_o2_train": resnet_o2_launches,
                "dcgan_fp16": dcgan_launches,
-               "transforms": transforms_launches}
+               "transforms": transforms_launches,
+               **tp_launches, "ddp_syncbn": ddp_launches}
     # the windowed block has no engine path (the reference refuses both
     # modes for windowed models), so its launches read 0
     block_path = {"paged_attention_block": "spec",

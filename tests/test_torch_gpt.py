@@ -147,7 +147,9 @@ def test_sampling_and_tensor_parallel_raise(pair):
     with pytest.raises(ValueError, match="explicit rng"):
         generate(tm, torch.zeros((1, 3), dtype=torch.int32), 2,
                  temperature=1.0)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    # tensor parallelism runs over ranks (tests/test_torch_tp_gpt.py); a
+    # process without its group refuses a tp = 2 model
+    with pytest.raises(RuntimeError, match="start 2 ranks"):
         GPTModel(gpt_tiny_config(tensor_parallel_size=2), device="cpu")
 
 

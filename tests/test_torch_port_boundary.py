@@ -47,7 +47,12 @@ def test_scan_covers_the_port():
                 ("transformer", "parallel_state.py"),
                 ("examples", "long_context", "train_ring_attention.py"),
                 ("optimizers", "transforms.py"),
-                ("examples", "dcgan", "main_amp.py")):
+                ("examples", "dcgan", "main_amp.py"), ("collectives.py",),
+                ("transformer", "tensor_parallel", "mappings.py"),
+                ("transformer", "tensor_parallel", "cross_entropy.py"),
+                ("serving", "tp.py"), ("parallel", "spawn.py"),
+                ("examples", "tensor_parallel", "gpt.py"),
+                ("examples", "simple", "distributed_data_parallel.py")):
         assert ROOT.joinpath("apex_tpu_torch", *new) in files
 
 

@@ -259,16 +259,25 @@ def test_ddp_facade_calls_the_module_and_refuses_many_ranks(monkeypatch):
     grads = {"w": torch.ones(2)}
     assert ddp.allreduce_gradients(grads) is grads
     assert list(ddp.parameters()) == list(net.parameters())
+    # across ranks (no longer refused): a stand-in world of two ranks that
+    # hold the same values, so every sum doubles and every average and
+    # every statistic is the one rank's (the real ranks:
+    # tests/test_torch_parallel_ranks.py)
+    x = torch.randn(3, 2, 4, 4)
+    local = SyncBatchNorm(2).train()(x)
     dist = torch.distributed
     monkeypatch.setattr(dist, "is_available", lambda: True)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ddp.allreduce_gradients(grads)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        DistributedDataParallel(net)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SyncBatchNorm(2).train()(torch.randn(3, 2, 4, 4))
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "gloo")
+    monkeypatch.setattr(dist, "broadcast", lambda t, src, group=None: None)
+    monkeypatch.setattr(dist, "all_reduce",
+                        lambda t, op=None, group=None: t.mul_(2))
+    got = ddp.allreduce_gradients(grads)
+    assert torch.equal(got["w"], torch.ones(2))
+    DistributedDataParallel(net)
+    torch.testing.assert_close(SyncBatchNorm(2).train()(x), local)
 
 
 @pytest.mark.parametrize("level,atol,rtol", [("O0", 0.0, 1e-5),
